@@ -1,0 +1,517 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port's transmit path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
+``build/repro_torch/``), then runs four phases; any failure exits non-zero:
+
+1. card: the device name, its name and power limit from ``nvidia-smi``,
+   and the kernels' build time;
+2. kernel vs plain: every kernel on the card against its plain PyTorch
+   version on the same inputs (integer outputs must be bit-exact) —
+   ``psu_sort`` over ACC / APP k in {2, 4, 8} x direction x width 4/8 x
+   N in {25, 32, 64} at P = 100,003, ``bt_count`` on (400,001, L) streams
+   and their column slices, ``psu_stream`` on the paired and the 16-lane
+   input-only framings in 'lane' and 'row' packing;
+3. main path: the quickstart's ``psu_sort`` / ``psu_reorder`` call, the
+   Table I rows through ``TxPipeline`` (100,000 uniform paired packets;
+   the 24-image conv streams), the Fig. 5 area rows and the Fig. 7 power
+   rows, each printed beside the paper's value; every BT total must equal
+   the pinned reference total below, and the launch counters must show
+   that each row went through its kernel;
+4. scale and times: ``psu_stream`` on 4,194,304 paired packets and
+   ``bt_count`` on a 1 GiB (2**27, 8) stream generated on the card, each
+   checked against the plain version, then CUDA-event medians of the
+   kernels, their plain versions and a library call where one exists, at
+   the main path's shapes and at the scale shapes.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``.  The full record is also
+written to ``build/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from benchmarks.datagen import conv_streams, uniform_pairs  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.core import bitonic_area, bucket_map, csn_area, popcount, psu_area  # noqa: E402
+from repro_torch.kernels import _build, bt_count, psu_reorder, psu_sort, psu_stream  # noqa: E402
+from repro_torch.link import LinkPowerModel, LinkSpec, TxPipeline  # noqa: E402
+
+# --------------------------------------------------------------------------
+# Pinned main-path BT totals: (input side, weight side) integers computed
+# with the JAX package (``repro``, compiled backend, CPU) at exactly these
+# sizes and ``benchmarks/datagen.py`` seeds.  tests/test_torch_link.py
+# holds both packages to them.
+
+TABLE1_UNIFORM = {
+    "packets": 100_000,
+    "elems": 32,
+    "seed": 0,
+    "bt": {
+        "none": (12803695, 12799579),
+        "column_major": (12805903, 12796277),
+        "acc": (11342485, 12798993),
+        "app": (11572722, 12799749),
+    },
+}
+# conv rows: input and weight streams measured separately on a 16-lane
+# input-only link (table1_bt._measure_separate), APP k = 4
+TABLE1_CONV = {
+    "images": 24,
+    "lanes": 16,
+    "k": 4,
+    "bt": {
+        "none": (992965, 1815870),
+        "column_major": (966224, 1867508),
+        "acc": (658854, 1750977),
+        "app": (734012, 1719223),
+    },
+}
+
+# the paper's values, printed beside the port's rows
+PAPER_UNIFORM = {"none": (63.072, 0.0), "column_major": (54.011, 14.366),
+                 "acc": (50.346, 20.177), "app": (50.896, 19.305)}
+PAPER_INPUT = {"none": 31.035, "column_major": 26.004, "acc": 22.333, "app": 22.887}
+PAPER_AREA = {("app", 25): 2193.0, ("app", 49): 6928.0, "reduction_n25": 35.4}
+PAPER_POWER = {"acc": {"bt": 20.42, "link_power": 18.27},
+               "app": {"bt": 19.50, "link_power": 16.48}}
+
+STRATS = ("none", "column_major", "acc", "app")
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate and the CUDA-core rate
+MEM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
+
+KERNELS = {
+    "psu_sort": {
+        "source": "src/repro_torch/kernels/csrc/psu.cu",
+        "replaces": "src/repro/kernels/psu.py:117",
+    },
+    "bt_count": {
+        "source": "src/repro_torch/kernels/csrc/btcount.cu",
+        "replaces": "src/repro/kernels/btcount.py:33",
+    },
+    "psu_stream": {
+        "source": "src/repro_torch/kernels/csrc/axes.cu",
+        "replaces": "src/repro/kernels/axes.py:519",
+    },
+}
+
+SCALE_PACKETS = 4_194_304
+SCALE_BT_ROWS = 2**27
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest absolute difference of two integer tensors (0 = bit-exact);
+    a shape or dtype mismatch fails."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        fail(f"shape/dtype differ: {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}")
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """Least time the card could take: bytes over HBM rate vs integer ops
+    over the CUDA-core rate, in ms, with which one bounds."""
+    t_bytes = bytes_moved / MEM_BYTES_PER_S * 1e3
+    t_ops = ops / CORE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def input_only_spec(strat: str, elems: int, lanes: int = 16, k: int = 4) -> LinkSpec:
+    """One PE's input-side link: all lanes carry one stream's bytes."""
+    return LinkSpec(width_bits=8 * lanes, flits_per_packet=elems // lanes,
+                    input_lanes=lanes, weight_lanes=0, key=strat, k=k)
+
+
+# ------------------------------------------------------------------ phase 1
+
+
+def phase_card() -> dict:
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    log(f"device: {name} (count {torch.cuda.device_count()}), torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    log("nvidia-smi name, power.limit:")
+    log(smi)
+    seconds, build_log = _build.timed_build()
+    log(f"kernels built and loaded in {seconds:.1f} s")
+    for line in build_log.splitlines():  # per kernel: name, registers, spills
+        if any(w in line for w in ("entry function", "registers", "spill")):
+            log("  ptxas:", line.strip())
+    return {"name": name, "smi": smi, "build_s": seconds}
+
+
+# ------------------------------------------------------------------ phase 2
+
+
+def phase_kernels(dev: torch.device, p: int = 100_003, t: int = 400_001) -> dict:
+    """Every kernel against its plain version on the card; returns the
+    largest absolute difference per kernel (must be 0)."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    errs = {"psu_sort": 0, "bt_count": 0, "psu_stream": 0}
+
+    def rand(shape, dtype=torch.uint8, hi=256):
+        return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=dtype)
+
+    cases = 0
+    for n in (25, 32, 64):
+        x8 = rand((p, n))
+        x32 = rand((p, n), torch.int32, 1 << 16)
+        for width in (4, 8):
+            for k in (None, 2, 4, 8):
+                if k is not None and k > width + 1:
+                    continue
+                for desc in (False, True):
+                    for x in (x8, x32) if (width, desc) == (8, False) else (x8,):
+                        got = psu_sort(x, width=width, k=k, descending=desc)
+                        ref = psu_sort(x, width=width, k=k, descending=desc, backend="torch")
+                        e = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+                        errs["psu_sort"] = max(errs["psu_sort"], e)
+                        cases += 1
+                        if e:
+                            fail(f"psu_sort N={n} W={width} k={k} desc={desc} {x.dtype}: err {e}")
+    log(f"psu_sort: {cases} cases at P={p} bit-exact")
+
+    cases = 0
+    for lanes in (8, 16):
+        s8 = rand((t, lanes))
+        s32 = rand((t, lanes), torch.int32, 1 << 16)
+        for width in (4, 8):
+            views = [s8, s8[:, : lanes // 2], s8[:, lanes // 2:], s32]
+            for v in views:
+                got, ref = bt_count(v, width=width), bt_count(v, width=width, backend="torch")
+                e = max_err(got, ref)
+                errs["bt_count"] = max(errs["bt_count"], e)
+                cases += 1
+                if e:
+                    fail(f"bt_count {tuple(v.shape)} stride {v.stride()} W={width}: err {e}")
+    log(f"bt_count: {cases} cases at T={t} bit-exact (incl. column slices)")
+
+    cases = 0
+    for n, il, paired in ((32, 8, True), (64, 16, False)):
+        x, w = rand((p, n)), rand((p, n))
+        for pack in ("lane", "row"):
+            for width, k, desc in ((8, None, False), (8, 4, False), (8, 4, True),
+                                   (8, 2, False), (4, None, True), (4, 4, False)):
+                kw = dict(width=width, k=k, descending=desc, input_lanes=il, pack=pack)
+                ww = w if paired else None
+                got = psu_stream(x, ww, **kw)
+                ref = psu_stream(x, ww, backend="torch", **kw)
+                e = max(max_err(a, b) for a, b in zip(got, ref))
+                errs["psu_stream"] = max(errs["psu_stream"], e)
+                cases += 1
+                if e:
+                    fail(f"psu_stream N={n} il={il} paired={paired} {pack} W={width} "
+                         f"k={k} desc={desc}: err {e}")
+    log(f"psu_stream: {cases} cases at P={p} bit-exact")
+    torch.cuda.synchronize()
+    return errs
+
+
+# ------------------------------------------------------------------ phase 3
+
+
+def phase_main(dev: torch.device) -> dict:
+    """The port's main path through its user entry points; checks every BT
+    total against the pins and returns the rows plus the launch counts."""
+    rows = {}
+    kernels.reset_launch_counts()
+
+    def through(kernel: str, row: str, fn):
+        """Run one main-path row; it must launch ``kernel`` and no other."""
+        before = kernels.launch_counts()
+        out = fn()
+        delta = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        if delta[kernel] < 1 or any(v for k, v in delta.items() if k != kernel):
+            fail(f"{row}: launches {delta}, expected the {kernel} kernel only")
+        return out
+
+    # the quickstart's first call: one 16-byte packet through the PSU
+    rng = np.random.default_rng(0)
+    packet = torch.from_numpy(rng.integers(0, 256, (1, 16), dtype=np.uint8)).to(dev)
+    order, rank = through("psu_sort", "quickstart", lambda: psu_sort(packet, k=4))
+    ordered = through("psu_sort", "quickstart", lambda: psu_reorder(packet, k=4))
+    ref_order, ref_rank = psu_sort(packet, k=4, backend="torch")
+    ref_ordered = psu_reorder(packet, k=4, backend="torch")
+    e = max(max_err(order, ref_order), max_err(rank, ref_rank), max_err(ordered, ref_ordered))
+    pc = [bin(int(v)).count("1") * 4 // 9 for v in ordered[0].tolist()]
+    if e or pc != sorted(pc):
+        fail(f"quickstart psu_sort/psu_reorder: err {e} vs plain, or not bucket-monotone")
+    log(f"quickstart APP order: {order[0].tolist()}")
+    rows["quickstart_order"] = order[0].tolist()
+
+    # Table I, paired uniform framing (the paper's 100k packets)
+    u = TABLE1_UNIFORM
+    inp, wgt = uniform_pairs(u["packets"], u["elems"], seed=u["seed"])
+    inp, wgt = torch.from_numpy(inp).to(dev), torch.from_numpy(wgt).to(dev)
+    path = {"none": "bt_count", "column_major": "bt_count", "acc": "psu_stream",
+            "app": "psu_stream"}
+    reps = {
+        s: through(path[s], f"table1/uniform/{s}",
+                   lambda s=s: TxPipeline(LinkSpec(key=s)).measure(inp, wgt))
+        for s in STRATS
+    }
+    for s, r in reps.items():
+        if (r.input_bt, r.weight_bt) != u["bt"][s]:
+            fail(f"table1/uniform/{s}: BT {(r.input_bt, r.weight_bt)} != pinned {u['bt'][s]}")
+        if r.num_flits != u["packets"] * 4 or r.fused != (s in ("acc", "app")):
+            fail(f"table1/uniform/{s}: {r.num_flits} flits, fused={r.fused}")
+        red = r.reduction_vs(reps["none"]) * 100
+        rows[f"table1/uniform/{s}"] = {"bt_per_flit": r.overall_bt_per_flit, "red_pct": red,
+                                       "input_bt": r.input_bt, "weight_bt": r.weight_bt}
+        log(f"table1/uniform/{s:12s} bt/flit={r.overall_bt_per_flit:.3f} red={red:.2f}% "
+            f"fused={int(r.fused)} | paper bt/flit={PAPER_UNIFORM[s][0]} "
+            f"red={PAPER_UNIFORM[s][1]}%")
+
+    # Table I, conv traffic (24 LeNet-like images), sides measured apart
+    c = TABLE1_CONV
+    streams = conv_streams(n_images=c["images"])
+    streams_cm = conv_streams(n_images=c["images"], column_major=True)
+    per_flit = {}
+    for s in STRATS:
+        src, key = (streams_cm, "none") if s == "column_major" else (streams, s)
+        got = []
+        for side in src:
+            x = torch.from_numpy(side).to(dev)
+            pipe = TxPipeline(input_only_spec(key, x.shape[-1], c["lanes"], c["k"]))
+            got.append(through(path[s], f"table1/conv/{s}", lambda: pipe.measure(x)))
+        bts = tuple(r.input_bt for r in got)
+        if bts != c["bt"][s]:
+            fail(f"table1/conv/{s}: BT {bts} != pinned {c['bt'][s]}")
+        per_flit[s] = tuple(r.overall_bt_per_flit for r in got)
+    base_i, base_w = per_flit["none"]
+    for s in STRATS:
+        bi, bw = per_flit[s]
+        red = 100 * (1 - (bi + bw) / (base_i + base_w))
+        in_red = 100 * (1 - bi / base_i)
+        paper_in_red = 100 * (1 - PAPER_INPUT[s] / PAPER_INPUT["none"])
+        rows[f"table1/conv/{s}"] = {"in": bi, "wt": bw, "overall_red_pct": red,
+                                    "input_red_pct": in_red}
+        log(f"table1/conv/{s:12s} in={bi:.3f} (paper {PAPER_INPUT[s]}) wt={bw:.3f} "
+            f"overall_red={red:.2f}% input_red={in_red:.2f}% "
+            f"(paper input_red={paper_in_red:.2f}%)")
+
+    # Fig. 5: the closed-form area model
+    for n in (25, 49):
+        designs = {"bitonic": bitonic_area(n), "csn": csn_area(n),
+                   "acc_psu": psu_area(n), "app_psu": psu_area(n, k=4)}
+        for name, a in designs.items():
+            log(f"fig5/N{n}/{name:8s} popcount={a.popcount:.0f}um2 sort={a.sort:.0f}um2 "
+                f"total={a.total:.0f}um2")
+        acc, app = designs["acc_psu"], designs["app_psu"]
+        red = 100 * (1 - app.total / acc.total)
+        rows[f"fig5/N{n}"] = {"acc": acc.total, "app": app.total, "red_pct": red}
+        log(f"fig5/N{n}/reduction overall={red:.1f}% | paper app={PAPER_AREA[('app', n)]}um2"
+            + (f" red={PAPER_AREA['reduction_n25']}%" if n == 25 else ""))
+        if abs(app.total - PAPER_AREA[("app", n)]) > 1.0:
+            fail(f"fig5/N{n}: APP area {app.total} off its anchor")
+    if round(rows["fig5/N25"]["red_pct"], 1) != PAPER_AREA["reduction_n25"]:
+        fail("fig5: APP vs ACC reduction at N=25 is not 35.4%")
+
+    # Fig. 7: link power from the measured conv BT reductions
+    model = LinkPowerModel()
+    for s in ("acc", "app"):
+        bt_red = rows[f"table1/conv/{s}"]["overall_red_pct"] / 100
+        link_red = model.power_reduction(bt_red) * 100
+        rows[f"fig7/{s}"] = {"bt_red_pct": bt_red * 100, "link_power_red_pct": link_red}
+        log(f"fig7/{s} bt_red={bt_red * 100:.2f}% (paper {PAPER_POWER[s]['bt']}%) "
+            f"link_power_red={link_red:.2f}% (paper {PAPER_POWER[s]['link_power']}%)")
+
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    # psu_sort: quickstart sort + reorder; bt_count: uniform none and
+    # column_major (2 halves each) + conv none and column_major (2 sides
+    # each); psu_stream: uniform acc/app + conv acc/app (2 sides each)
+    expected = {"psu_sort": 2, "bt_count": 8, "psu_stream": 6}
+    log(f"main-path launches: {counts} (expected {expected})")
+    if counts != expected:
+        fail(f"main-path launch counts {counts} != {expected}")
+    return {"rows": rows, "launches": counts}
+
+
+# ------------------------------------------------------------------ phase 4
+
+
+def _bt_chunked_plain(s: torch.Tensor, rows: int = 1 << 24) -> int:
+    """Plain bt_count over row chunks that overlap by one row, summed with
+    the int32 wrap of the reference."""
+    total = 0
+    for r0 in range(0, s.shape[0] - 1, rows):
+        total += int(bt_count(s[r0: r0 + rows + 1], backend="torch"))
+    return (total + 2**31) % 2**32 - 2**31
+
+
+def phase_scale(dev: torch.device) -> dict:
+    """Scale checks, then the timing table of every kernel."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p, n = SCALE_PACKETS, 32
+    x = torch.randint(0, 256, (p, n), generator=gen, device=dev, dtype=torch.uint8)
+    w = torch.randint(0, 256, (p, n), generator=gen, device=dev, dtype=torch.uint8)
+    big = torch.randint(0, 256, (SCALE_BT_ROWS, 8), generator=gen, device=dev, dtype=torch.uint8)
+
+    res = psu_stream(x, w, k=4)
+    err = 0
+    chunk = 1 << 19
+    for p0 in range(0, p, chunk):
+        ref = psu_stream(x[p0: p0 + chunk], w[p0: p0 + chunk], k=4, backend="torch")
+        err = max(err, max_err(res.order[p0: p0 + chunk], ref.order),
+                  max_err(res.rank[p0: p0 + chunk], ref.rank),
+                  max_err(res.stream[p0 * 4: (p0 + chunk) * 4], ref.stream))
+    bt_in = _bt_chunked_plain(res.stream[:, :8])
+    bt_wt = _bt_chunked_plain(res.stream[:, 8:])
+    if err or (int(res.bt_input), int(res.bt_weight)) != (bt_in, bt_wt):
+        fail(f"psu_stream at {p} packets: err {err}, BT {(int(res.bt_input), int(res.bt_weight))}"
+             f" vs plain {(bt_in, bt_wt)}")
+    log(f"scale psu_stream: {p} paired packets bit-exact, BT=({bt_in}, {bt_wt})")
+    del res
+
+    got = int(bt_count(big))
+    ref = _bt_chunked_plain(big)
+    if got != ref:
+        fail(f"bt_count on the 1 GiB stream: {got} vs plain {ref}")
+    log(f"scale bt_count: (2**27, 8) uint8 = 1 GiB, BT={got} (int32, wraps) matches plain")
+
+    # ---- timings: main path shapes, then scale shapes ----
+    u = TABLE1_UNIFORM
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.integers(0, 256, (1, 16), dtype=np.uint8)).to(dev)
+    ui, uw = (torch.from_numpy(a).to(dev) for a in uniform_pairs(u["packets"], u["elems"]))
+    ustream = TxPipeline(LinkSpec(key="none")).transmit(ui, uw)
+    uslice = ustream[:, :8]  # the staged path's input-half column slice
+
+    def sort_case(pk):
+        pn = pk.numel()
+        keys = bucket_map(popcount(pk, 8), 8, 4).to(torch.uint8)
+        return {
+            "shape": list(pk.shape),
+            "ms": time_ms(lambda: psu_sort(pk, k=4)),
+            "plain_ms": time_ms(lambda: psu_sort(pk, k=4, backend="torch")),
+            "library_ms": time_ms(lambda: torch.argsort(keys, dim=-1, stable=True)),
+            "library": "torch.argsort(keys, dim=-1, stable=True) on precomputed APP keys "
+                       "(the sort alone)",
+            "bytes": pn * (1 + 8), "ops": pn * 4,
+        }
+
+    def bt_case(s):
+        t, lanes = s.shape
+        return {
+            "shape": [t, lanes], "stride": list(s.stride()),
+            "ms": time_ms(lambda: bt_count(s)),
+            "plain_ms": time_ms(lambda: bt_count(s, backend="torch")),
+            "library_ms": None, "library": "none (no single PyTorch call counts BT)",
+            "bytes": t * lanes + 4, "ops": (t - 1) * lanes * 3,
+        }
+
+    def stream_case(a, b):
+        pn = a.numel()
+        return {
+            "shape": list(a.shape) + ["paired"],
+            "ms": time_ms(lambda: psu_stream(a, b, k=4)),
+            "plain_ms": time_ms(lambda: psu_stream(a, b, k=4, backend="torch")),
+            "library_ms": None, "library": "none (no single PyTorch call sorts, packs and counts)",
+            "bytes": pn * (2 + 8 + 2) + 8, "ops": pn * 4 + pn * 2 * 3,
+        }
+
+    cases = {
+        "psu_sort": (sort_case(q), sort_case(x)),
+        "bt_count": (bt_case(uslice), bt_case(big)),
+        "psu_stream": (stream_case(ui, uw), stream_case(x, w)),
+    }
+    for name, pair in cases.items():
+        for tag, case in zip(("main", "scale"), pair):
+            case["bound_ms"], case["bound_by"] = bound(case["bytes"], case["ops"])
+            head = f"time {name} {tag} {case['shape']}:"
+            log(f"{head} kernel_ms={case['ms']}")
+            log(f"{head} bound_ms={case['bound_ms']} ({case['bound_by']}, "
+                f"{case['bytes']} bytes at 3.35 TB/s)")
+            log(f"{head} plain_ms={case['plain_ms']}")
+            log(f"{head} library_ms={case['library_ms']} [{case['library']}]")
+    return cases
+
+
+# ------------------------------------------------------------------ main
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    card = phase_card()
+    errs = phase_kernels(dev)
+    main_path = phase_main(dev)
+    cases = phase_scale(dev)
+    record = []
+    for name, meta in KERNELS.items():
+        m, s = cases[name]
+        record.append({
+            "name": name, "route": "cuda", **meta,
+            "launches": main_path["launches"][name], "max_abs_err": errs[name],
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "shape": m["shape"], "scale_shape": s["shape"], "scale_ms": s["ms"],
+            "scale_plain_ms": s["plain_ms"], "scale_bound_ms": s["bound_ms"],
+            "scale_library_ms": s["library_ms"], "library": m["library"],
+        })
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke.json").write_text(json.dumps({
+        "card": card, "kernels": record, "main_path": main_path, "scale_cases": cases,
+        "seconds": time.perf_counter() - t0,
+    }, indent=1, default=str))
+    log(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": record}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

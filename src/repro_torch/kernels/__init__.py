@@ -1,0 +1,46 @@
+# The hand-written Hopper kernels of the transmit path and their plain
+# PyTorch twins (one module per TPU kernel they replace):
+#   psu.py      - the popcount-sorting unit (repro/kernels/psu.py)
+#   btcount.py  - bit transitions of a flit stream (repro/kernels/btcount.py)
+#   axes.py     - the fused sort -> pack -> BT stream, the emit_stream mode
+#                 of the multi-axis core (repro/kernels/axes.py)
+# csrc/ holds the CUDA sources, _build.py compiles them at first use,
+# backend.py is the device-decides dispatch and ops.py the public wrappers.
+from .axes import CodecVariant, Variant, VARIANT_KEYS
+from .axes import psu_stream_cuda as _psu_stream_cuda
+from .backend import BACKENDS, resolve_device
+from .btcount import bt_count_cuda as _bt_count_cuda
+from .ops import PsuStreamResult, bt_count, psu_reorder, psu_sort, psu_stream
+from .psu import psu_sort_cuda as _psu_sort_cuda
+
+__all__ = [
+    "psu_sort",
+    "psu_reorder",
+    "psu_stream",
+    "PsuStreamResult",
+    "bt_count",
+    "Variant",
+    "CodecVariant",
+    "VARIANT_KEYS",
+    "BACKENDS",
+    "resolve_device",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+_WRAPPERS = {
+    "psu_sort": _psu_sort_cuda,
+    "bt_count": _bt_count_cuda,
+    "psu_stream": _psu_stream_cuda,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """CUDA launches of each kernel wrapper since the last reset."""
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in _WRAPPERS.values():
+        fn.launches = 0

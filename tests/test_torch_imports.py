@@ -1,0 +1,43 @@
+"""The port stands alone: importing every repro_torch module and
+chip_smoke.py loads neither JAX nor anything of the JAX package."""
+
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import repro_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _port_modules() -> list[str]:
+    names = ["repro_torch"]
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(info.name)
+    return sorted(names)
+
+
+def test_every_port_module_is_listed():
+    names = _port_modules()
+    for expected in ("repro_torch.core.popcount", "repro_torch.kernels.psu",
+                     "repro_torch.kernels.axes", "repro_torch.kernels._build",
+                     "repro_torch.link.pipeline", "repro_torch.convert"):
+        assert expected in names
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_reference():
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
+        f"for name in {_port_modules() + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, check=True,
+        timeout=300, cwd=ROOT,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
