@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's transmit path on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's transmit and codec paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
-``build/repro_torch/``), then runs four phases; any failure exits non-zero:
+``build/repro_torch/``), then runs these phases; any failure exits
+non-zero:
 
 1. card: the device name, its name and power limit from ``nvidia-smi``,
    and the kernels' build time;
@@ -13,18 +14,31 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
    ``psu_sort`` over ACC / APP k in {2, 4, 8} x direction x width 4/8 x
    N in {25, 32, 64} at P = 100,003, ``bt_count`` on (400,001, L) streams
    and their column slices, ``psu_stream`` on the paired and the 16-lane
-   input-only framings in 'lane' and 'row' packing;
+   input-only framings in 'lane' and 'row' packing, and ``bt_axes`` (the
+   multi-axis measurement) on jagged (6, 1,001, N) batches over every
+   ordering (none, column_major, ACC, APP k in {2, 4, 8}, both directions)
+   x every codec (bus-invert partitions None / 4 / 2) x width 4/8 x
+   'lane' / 'row' x paired / input-only x ``chunk_packets`` 1 / 7 / none;
 3. main path: the quickstart's ``psu_sort`` / ``psu_reorder`` call, the
    Table I rows through ``TxPipeline`` (100,000 uniform paired packets;
    the 24-image conv streams), the Fig. 5 area rows and the Fig. 7 power
    rows, each printed beside the paper's value; every BT total must equal
    the pinned reference total below, and the launch counters must show
    that each row went through its kernel;
-4. scale and times: ``psu_stream`` on 4,194,304 paired packets and
-   ``bt_count`` on a 1 GiB (2**27, 8) stream generated on the card, each
-   checked against the plain version, then CUDA-event medians of the
-   kernels, their plain versions and a library call where one exists, at
-   the main path's shapes and at the scale shapes.
+3b. codec path: ``compare_streams`` at ``benchmarks/codec_bt.py``'s full
+   defaults (6-image conv input and weight streams, the 4-image decode and
+   all-reduce demo streams, 16 lanes, orderings none / ACC / APP4 x codecs
+   none / bus_invert / bus_invert4 / transition), also in 256-packet
+   chunks, and coded ``TxPipeline`` rows on Table I's 100,000 uniform
+   pairs; every (data, aux) BT total must equal the pins below, the coded
+   rows also the ``bt_count_codecs`` column of their config, and the
+   counters must show one ``bt_axes`` launch per stream and per chunk;
+4. scale and times: ``psu_stream`` on 4,194,304 paired packets,
+   ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
+   (256, 16,384, 64) batch, all generated on the card and checked against
+   the plain versions, then CUDA-event medians of the kernels, their plain
+   versions and a library call where one exists, at the main path's
+   shapes and at the scale shapes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The full record is also
@@ -49,8 +63,20 @@ import torch  # noqa: E402
 
 from benchmarks.datagen import conv_streams, uniform_pairs  # noqa: E402
 from repro_torch import kernels  # noqa: E402
+from repro_torch.codec import compare_streams, demo_workloads, format_table  # noqa: E402
+from repro_torch.codec import kernel_config  # noqa: E402
 from repro_torch.core import bitonic_area, bucket_map, csn_area, popcount, psu_area  # noqa: E402
-from repro_torch.kernels import _build, bt_count, psu_reorder, psu_sort, psu_stream  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    CodecVariant,
+    Variant,
+    _build,
+    bt_count,
+    bt_count_axes,
+    bt_count_codecs,
+    psu_reorder,
+    psu_sort,
+    psu_stream,
+)
 from repro_torch.link import LinkPowerModel, LinkSpec, TxPipeline  # noqa: E402
 
 # --------------------------------------------------------------------------
@@ -84,6 +110,69 @@ TABLE1_CONV = {
     },
 }
 
+# The codec path: (data BT, invert-line BT) of every row of
+# ``compare_streams`` at benchmarks/codec_bt.py's defaults, computed with
+# the JAX package (compiled backend, CPU).
+CODEC_COMPARE = {
+    "lanes": 16,
+    "conv_images": 6,
+    "demo_images": 4,
+    "orderings": (Variant("none"), Variant("acc"), Variant("app", 4)),
+    "codecs": ("none", "bus_invert", "bus_invert4", "transition"),
+    "bt": {
+        "conv": {
+            "none": (702851, 0),
+            "none+bus_invert": (663451, 2973),
+            "none+bus_invert4": (630823, 14422),
+            "none+transition": (632521, 0),
+            "acc": (601882, 0),
+            "acc+bus_invert": (595562, 1183),
+            "acc+bus_invert4": (554050, 11782),
+            "acc+transition": (632519, 0),
+            "app4": (613179, 0),
+            "app4+bus_invert": (602693, 1382),
+            "app4+bus_invert4": (566227, 11008),
+            "app4+transition": (632516, 0),
+        },
+        "decode": {
+            "none": (98560, 0),
+            "none+bus_invert": (90026, 772),
+            "none+bus_invert4": (81810, 3066),
+            "none+transition": (98416, 0),
+            "acc": (70735, 0),
+            "acc+bus_invert": (70719, 2),
+            "acc+bus_invert4": (67343, 787),
+            "acc+transition": (98421, 0),
+            "app4": (74162, 0),
+            "app4+bus_invert": (74136, 8),
+            "app4+bus_invert4": (70234, 891),
+            "app4+transition": (98420, 0),
+        },
+        "allreduce": {
+            "none": (65275, 0),
+            "none+bus_invert": (58395, 500),
+            "none+bus_invert4": (51023, 2014),
+            "none+transition": (64147, 0),
+            "acc": (31549, 0),
+            "acc+bus_invert": (31549, 0),
+            "acc+bus_invert4": (31191, 93),
+            "acc+transition": (64146, 0),
+            "app4": (34055, 0),
+            "app4+bus_invert": (34055, 0),
+            "app4+bus_invert4": (33687, 93),
+            "app4+transition": (64147, 0),
+        },
+    },
+}
+# coded TxPipeline rows on TABLE1_UNIFORM's pairs (paper framing):
+# (input BT, weight BT, invert-line BT), JAX package, compiled backend
+CODED_TX = {
+    ("acc", "bus_invert4"): (10662877, 11010279, 589692),
+    ("acc", "transition"): (12798609, 12796850, 0),
+    ("app", "bus_invert4"): (10759568, 11010251, 618387),
+    ("app", "transition"): (12798608, 12796846, 0),
+}
+
 # the paper's values, printed beside the port's rows
 PAPER_UNIFORM = {"none": (63.072, 0.0), "column_major": (54.011, 14.366),
                  "acc": (50.346, 20.177), "app": (50.896, 19.305)}
@@ -111,10 +200,24 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/axes.cu",
         "replaces": "src/repro/kernels/axes.py:519",
     },
+    "bt_axes": {
+        "source": "src/repro_torch/kernels/csrc/axes.cu",
+        "replaces": "src/repro/kernels/axes.py:519",
+    },
 }
 
 SCALE_PACKETS = 4_194_304
 SCALE_BT_ROWS = 2**27
+# the jagged multi-axis batch: links x packets x bytes (256 MiB of uint8),
+# input-only 16-lane links, and its 14 configs (the 12 of the codec path,
+# column_major + gray, descending ACC + sign-magnitude)
+SCALE_AXES = (256, 16_384, 64)
+SCALE_AXES_CONFIGS = tuple(
+    CodecVariant(*o, c, part)
+    for o in CODEC_COMPARE["orderings"]
+    for c, part in (("none", None), ("bus_invert", None), ("bus_invert", 4), ("transition", None))
+) + (CodecVariant("column_major", None, False, "gray"),
+     CodecVariant("acc", None, True, "sign_magnitude"))
 
 
 def log(*args) -> None:
@@ -160,6 +263,34 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, names: tuple[str, ...], reps: int = 5) -> float | None:
+    """Device time per call of the kernels whose names contain one of
+    ``names``, from ``torch.profiler`` (None when it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages()
+                if any(n in ev.key for n in names))
+    return total / reps / 1e3 if total else None
+
+
+def wall_ms(fn, reps: int = 10) -> float:
+    """Host wall time per call of ``fn`` over ``reps`` back-to-back calls
+    ended by one synchronize: the rate a caller sees."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def input_only_spec(strat: str, elems: int, lanes: int = 16, k: int = 4) -> LinkSpec:
     """One PE's input-side link: all lanes carry one stream's bytes."""
     return LinkSpec(width_bits=8 * lanes, flits_per_packet=elems // lanes,
@@ -190,11 +321,12 @@ def phase_card() -> dict:
 # ------------------------------------------------------------------ phase 2
 
 
-def phase_kernels(dev: torch.device, p: int = 100_003, t: int = 400_001) -> dict:
+def phase_kernels(dev: torch.device, p: int = 100_003, t: int = 400_001,
+                  pa: int = 1001) -> dict:
     """Every kernel against its plain version on the card; returns the
     largest absolute difference per kernel (must be 0)."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    errs = {"psu_sort": 0, "bt_count": 0, "psu_stream": 0}
+    errs = {"psu_sort": 0, "bt_count": 0, "psu_stream": 0, "bt_axes": 0}
 
     def rand(shape, dtype=torch.uint8, hi=256):
         return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=dtype)
@@ -250,6 +382,37 @@ def phase_kernels(dev: torch.device, p: int = 100_003, t: int = 400_001) -> dict
                     fail(f"psu_stream N={n} il={il} paired={paired} {pack} W={width} "
                          f"k={k} desc={desc}: err {e}")
     log(f"psu_stream: {cases} cases at P={p} bit-exact")
+
+    # bt_axes: jagged links (valid 0, P and past P among them) x the whole
+    # ordering x codec grid, each chunking against the unchunked plain version
+    links = 6  # pa is no multiple of the kernel's packets per block
+    valid = torch.tensor([0, pa, 1, 500, pa + 40, 777], device=dev)
+    orderings = [("none", None, False), ("column_major", None, False), ("acc", None, False),
+                 ("acc", None, True), ("app", 2, False), ("app", 2, True), ("app", 4, False),
+                 ("app", 4, True), ("app", 8, False), ("app", 8, True)]
+    codecs = [("none", None), ("gray", None), ("sign_magnitude", None), ("transition", None),
+              ("bus_invert", None), ("bus_invert", 4), ("bus_invert", 2)]
+    cases = 0
+    for n, il, paired, pack in ((32, 8, True, "lane"), (32, 8, True, "row"),
+                                (64, 16, False, "lane"), (64, 16, False, "row")):
+        x, w = rand((links, pa, n)), rand((links, pa, n))
+        for width in (4, 8):
+            configs = tuple(CodecVariant(*o, c, part) for o in orderings for c, part in codecs
+                            if (o[1] or 0) <= width + 1)
+            kw = dict(configs=configs, width=width, input_lanes=il, pack=pack)
+            ww = w if paired else None
+            ref = bt_count_axes(x, ww, valid, backend="torch", **kw)
+            for chunk in (None, 1, 7):
+                got = bt_count_axes(x, ww, valid, chunk_packets=chunk, **kw)
+                e = max_err(got, ref)
+                errs["bt_axes"] = max(errs["bt_axes"], e)
+                cases += 1
+                if e:
+                    bad = (got != ref).nonzero()[:4].tolist()
+                    fail(f"bt_axes N={n} il={il} paired={paired} {pack} W={width} "
+                         f"chunk={chunk}: err {e} at (link, config, column) {bad}")
+    log(f"bt_axes: {cases} cases of {len(orderings)} orderings x {len(codecs)} codecs at "
+        f"({links}, {pa}, N) bit-exact")
     torch.cuda.synchronize()
     return errs
 
@@ -368,10 +531,87 @@ def phase_main(dev: torch.device) -> dict:
     # psu_sort: quickstart sort + reorder; bt_count: uniform none and
     # column_major (2 halves each) + conv none and column_major (2 sides
     # each); psu_stream: uniform acc/app + conv acc/app (2 sides each)
-    expected = {"psu_sort": 2, "bt_count": 8, "psu_stream": 6}
+    expected = {"psu_sort": 2, "bt_count": 8, "psu_stream": 6, "bt_axes": 0}
     log(f"main-path launches: {counts} (expected {expected})")
     if counts != expected:
         fail(f"main-path launch counts {counts} != {expected}")
+    return {"rows": rows, "launches": counts}
+
+
+# ------------------------------------------------------------------ phase 3b
+
+
+def phase_codec(dev: torch.device) -> dict:
+    """The codec path: ordering vs coding vs both through
+    ``compare_streams``, and coded ``TxPipeline`` rows; checks every
+    (data, aux) BT total against the pins and returns the rows plus the
+    launch counts."""
+    cc = CODEC_COMPARE
+    inp, wgt = conv_streams(n_images=cc["conv_images"])
+    demo = demo_workloads(images=cc["demo_images"], device=dev)
+    workloads = {
+        "conv": (torch.from_numpy(inp).to(dev), torch.from_numpy(wgt).to(dev)),
+        "decode": demo["decode"],
+        "allreduce": demo["allreduce"],
+    }
+    rows = {}
+    kernels.reset_launch_counts()
+    expected = {"psu_sort": 0, "bt_count": 0, "psu_stream": 0, "bt_axes": 0}
+
+    def launched(what: str, want: dict) -> None:
+        got = kernels.launch_counts()
+        for k, v in want.items():
+            expected[k] += v
+        if got != expected:
+            fail(f"{what}: launch counts {got} != {expected}")
+
+    for name, streams in workloads.items():
+        for chunk in (None, 256):
+            table = compare_streams(
+                streams, cc["lanes"], orderings=cc["orderings"], codecs=cc["codecs"],
+                workload=name, chunk_packets=chunk,
+            )
+            calls = sum(1 if chunk is None else -(-int(s.shape[0]) // chunk) for s in streams)
+            launched(f"codec/{name} chunk={chunk}", {"bt_axes": calls})
+            got = {r.label: (r.data_bt, r.aux_bt) for r in table}
+            if got != cc["bt"][name]:
+                bad = {k: (v, cc["bt"][name].get(k)) for k, v in got.items()
+                       if v != cc["bt"][name].get(k)}
+                fail(f"codec/{name} chunk={chunk}: rows differ from the pins {bad}")
+        log(format_table(table))
+        for r in table:
+            rows[f"codec/{name}/{r.label}"] = {
+                "data_bt": r.data_bt, "aux_bt": r.aux_bt, "net_red_pct": 100 * r.bt_reduction,
+                "power_red_pct": 100 * r.power_reduction, "energy_pj": r.energy_pj,
+            }
+            log(f"codec/{name}/{r.label:18s} data_bt={r.data_bt} aux_bt={r.aux_bt} "
+                f"| reference {cc['bt'][name][r.label]}")
+        log(f"codec/{name}: {len(table)} rows equal the pins, unchunked and in 256-packet "
+            f"chunks ({len(streams)} stream(s))")
+
+    # coded TxPipeline rows on Table I's uniform pairs (the paper framing)
+    u = TABLE1_UNIFORM
+    ui, uw = (torch.from_numpy(a).to(dev)
+              for a in uniform_pairs(u["packets"], u["elems"], seed=u["seed"]))
+    for (key, codec), pin in CODED_TX.items():
+        spec = LinkSpec(key=key, codec=codec)
+        rep = TxPipeline(spec).measure(ui, uw)
+        launched(f"tx/{key}+{codec}", {"bt_count": 2})
+        col = bt_count_codecs(ui, uw, configs=(kernel_config(spec),), input_lanes=8)[0]
+        launched(f"tx/{key}+{codec} column", {"bt_axes": 1})
+        got = (rep.input_bt, rep.weight_bt, rep.aux_bt)
+        if got != pin or tuple(col.tolist()) != pin or rep.fused:
+            fail(f"tx/{key}+{codec}: TxPipeline {got}, bt_count_codecs {col.tolist()}, "
+                 f"pinned {pin}, fused={rep.fused}")
+        rows[f"tx/uniform/{key}+{codec}"] = {
+            "input_bt": rep.input_bt, "weight_bt": rep.weight_bt, "aux_bt": rep.aux_bt,
+            "extra_wires": rep.extra_wires, "energy_pj": rep.energy_pj,
+        }
+        log(f"tx/uniform/{key}+{codec:11s} (in, wt, aux)={got} extra_wires={rep.extra_wires} "
+            f"energy={rep.energy_pj:.2f} pJ = bt_count_codecs column = reference")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"codec-path launches: {counts}")
     return {"rows": rows, "launches": counts}
 
 
@@ -417,6 +657,25 @@ def phase_scale(dev: torch.device) -> dict:
         fail(f"bt_count on the 1 GiB stream: {got} vs plain {ref}")
     log(f"scale bt_count: (2**27, 8) uint8 = 1 GiB, BT={got} (int32, wraps) matches plain")
 
+    # the jagged multi-axis batch; its plain version runs 32 links at a time
+    la, pa, na = SCALE_AXES
+    xa = torch.randint(0, 256, (la, pa, na), generator=gen, device=dev, dtype=torch.uint8)
+    va = torch.randint(0, pa + 1, (la,), generator=gen, device=dev)
+    akw = dict(configs=SCALE_AXES_CONFIGS, input_lanes=16)
+
+    def axes_plain():
+        return torch.cat([bt_count_axes(xa[i: i + 32], None, va[i: i + 32], backend="torch", **akw)
+                          for i in range(0, la, 32)])
+
+    got = bt_count_axes(xa, None, va, **akw)
+    ref = axes_plain()
+    e = max_err(got, ref)
+    if e:
+        fail(f"bt_axes on the {SCALE_AXES} batch: err {e} vs plain")
+    log(f"scale bt_axes: jagged {SCALE_AXES} uint8 ({xa.numel() >> 20} MiB, "
+        f"{int(va.sum())} valid packets), "
+        f"{len(SCALE_AXES_CONFIGS)} configs bit-exact, largest link total {int(got.max())}")
+
     # ---- timings: main path shapes, then scale shapes ----
     u = TABLE1_UNIFORM
     rng = np.random.default_rng(0)
@@ -458,18 +717,61 @@ def phase_scale(dev: torch.device) -> dict:
             "bytes": pn * (2 + 8 + 2) + 8, "ops": pn * 4 + pn * 2 * 3,
         }
 
+    def axes_case(xb, vb, configs, plain):
+        """Bytes: each valid packet byte read once, valid counts and totals.
+        Operations: per valid byte ~4 per distinct sorted ordering (key,
+        rank, scatter) and ~3 per config (code, XOR-popcount, add)."""
+        nl, npk, nb = xb.shape
+        vbytes = int(vb.clamp(0, npk).sum()) * nb
+        sorted_orderings = {c.ordering for c in configs if c.key in ("acc", "app")}
+        return {
+            "shape": [nl, npk, nb, "input-only 16 lanes", f"{len(configs)} configs"],
+            "ms": time_ms(lambda: bt_count_axes(xb, None, vb, configs=configs, input_lanes=16)),
+            "plain_ms": time_ms(plain, reps=3, warmup=1),
+            "library_ms": None, "library": "none (no single PyTorch call sorts, codes and counts)",
+            "bytes": vbytes + nl * 8 + nl * len(configs) * 12,
+            "ops": vbytes * (4 * len(sorted_orderings) + 3 * len(configs)),
+        }
+
+    conv_in = torch.from_numpy(conv_streams(n_images=CODEC_COMPARE["conv_images"])[0]).to(dev)
+    conv_valid = torch.tensor([conv_in.shape[0]], device=dev)
+    grid = SCALE_AXES_CONFIGS[:12]  # the codec path's grid
     cases = {
         "psu_sort": (sort_case(q), sort_case(x)),
         "bt_count": (bt_case(uslice), bt_case(big)),
         "psu_stream": (stream_case(ui, uw), stream_case(x, w)),
+        "bt_axes": (
+            axes_case(conv_in[None], conv_valid, grid, lambda: bt_count_axes(
+                conv_in[None], None, conv_valid, configs=grid, input_lanes=16,
+                backend="torch")),
+            axes_case(xa, va, SCALE_AXES_CONFIGS, axes_plain),
+        ),
     }
+    # the same calls split into device time (profiler) and host wall time
+    kernel_names = {"psu_sort": ("psu_sort_kernel",), "bt_count": ("bt_rows_kernel",),
+                    "psu_stream": ("psu_stream_kernel",), "bt_axes": ("bt_axes",)}
+    calls = {
+        "psu_sort": (lambda: psu_sort(q, k=4), lambda: psu_sort(x, k=4)),
+        "bt_count": (lambda: bt_count(uslice), lambda: bt_count(big)),
+        "psu_stream": (lambda: psu_stream(ui, uw, k=4), lambda: psu_stream(x, w, k=4)),
+        "bt_axes": (
+            lambda: bt_count_axes(conv_in[None], None, conv_valid, configs=grid, input_lanes=16),
+            lambda: bt_count_axes(xa, None, va, **akw),
+        ),
+    }
+    for name, pair in cases.items():
+        for case, fn in zip(pair, calls[name]):
+            case["device_ms"] = device_ms(fn, kernel_names[name])
+            case["wall_ms"] = wall_ms(fn)
     for name, pair in cases.items():
         for tag, case in zip(("main", "scale"), pair):
             case["bound_ms"], case["bound_by"] = bound(case["bytes"], case["ops"])
             head = f"time {name} {tag} {case['shape']}:"
             log(f"{head} kernel_ms={case['ms']}")
-            log(f"{head} bound_ms={case['bound_ms']} ({case['bound_by']}, "
-                f"{case['bytes']} bytes at 3.35 TB/s)")
+            log(f"{head} device_ms={case['device_ms']} (profiler, kernels only) "
+                f"wall_ms={case['wall_ms']} (host, per call)")
+            log(f"{head} bound_ms={case['bound_ms']} (by {case['bound_by']}: "
+                f"{case['bytes']} bytes at 3.35 TB/s, {case['ops']} ops at 67 T/s)")
             log(f"{head} plain_ms={case['plain_ms']}")
             log(f"{head} library_ms={case['library_ms']} [{case['library']}]")
     return cases
@@ -487,13 +789,17 @@ def main() -> int:
     card = phase_card()
     errs = phase_kernels(dev)
     main_path = phase_main(dev)
+    codec_path = phase_codec(dev)
     cases = phase_scale(dev)
     record = []
     for name, meta in KERNELS.items():
         m, s = cases[name]
+        # each kernel's launches on the path that carries it: the transmit
+        # path (phase 3) for the first three, the codec path for bt_axes
+        path = codec_path if name == "bt_axes" else main_path
         record.append({
             "name": name, "route": "cuda", **meta,
-            "launches": main_path["launches"][name], "max_abs_err": errs[name],
+            "launches": path["launches"][name], "max_abs_err": errs[name],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": m["shape"], "scale_shape": s["shape"], "scale_ms": s["ms"],
@@ -503,7 +809,8 @@ def main() -> int:
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
-        "card": card, "kernels": record, "main_path": main_path, "scale_cases": cases,
+        "card": card, "kernels": record, "main_path": main_path, "codec_path": codec_path,
+        "scale_cases": cases,
         "seconds": time.perf_counter() - t0,
     }, indent=1, default=str))
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -1,16 +1,28 @@
-# The hand-written Hopper kernels of the transmit path and their plain
-# PyTorch twins (one module per TPU kernel they replace):
+# The hand-written Hopper kernels and their plain PyTorch twins (one module
+# per TPU kernel they replace):
 #   psu.py      - the popcount-sorting unit (repro/kernels/psu.py)
 #   btcount.py  - bit transitions of a flit stream (repro/kernels/btcount.py)
-#   axes.py     - the fused sort -> pack -> BT stream, the emit_stream mode
-#                 of the multi-axis core (repro/kernels/axes.py)
+#   axes.py     - the multi-axis BT core (repro/kernels/axes.py): the fused
+#                 sort -> pack -> BT stream, and the jagged link x ordering
+#                 x codec measurement; its activity windows are not ported
 # csrc/ holds the CUDA sources, _build.py compiles them at first use,
 # backend.py is the device-decides dispatch and ops.py the public wrappers.
-from .axes import CodecVariant, Variant, VARIANT_KEYS
+from .axes import CODEC_SCHEMES, CodecVariant, Variant, VARIANT_KEYS
+from .axes import bt_axes_cuda as _bt_axes_cuda
 from .axes import psu_stream_cuda as _psu_stream_cuda
 from .backend import BACKENDS, resolve_device
 from .btcount import bt_count_cuda as _bt_count_cuda
-from .ops import PsuStreamResult, bt_count, psu_reorder, psu_sort, psu_stream
+from .ops import (
+    PsuStreamResult,
+    bt_count,
+    bt_count_axes,
+    bt_count_codecs,
+    bt_count_links,
+    bt_count_variants,
+    psu_reorder,
+    psu_sort,
+    psu_stream,
+)
 from .psu import psu_sort_cuda as _psu_sort_cuda
 
 __all__ = [
@@ -19,9 +31,14 @@ __all__ = [
     "psu_stream",
     "PsuStreamResult",
     "bt_count",
+    "bt_count_axes",
+    "bt_count_links",
+    "bt_count_variants",
+    "bt_count_codecs",
     "Variant",
     "CodecVariant",
     "VARIANT_KEYS",
+    "CODEC_SCHEMES",
     "BACKENDS",
     "resolve_device",
     "launch_counts",
@@ -32,6 +49,7 @@ _WRAPPERS = {
     "psu_sort": _psu_sort_cuda,
     "bt_count": _bt_count_cuda,
     "psu_stream": _psu_stream_cuda,
+    "bt_axes": _bt_axes_cuda,
 }
 
 

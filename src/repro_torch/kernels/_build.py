@@ -42,6 +42,10 @@ SIGNATURES = {
     "repro_bt_count": [_P, _I, _L, _L, _L, _I, _P, _P],
     "repro_psu_sort": [_P, _I, _L, _I, _I, _I, _I, _P, _P, _P],
     "repro_psu_stream": [_P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "repro_bt_axes": [
+        _P, _P, _I, _L, _L, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    ],
 }
 
 

@@ -1,45 +1,79 @@
-"""The fused transmit stream (the multi-axis BT core's ``emit_stream``
-mode): plain PyTorch version and the CUDA kernel's wrapper.
+"""The multi-axis BT core: plain PyTorch versions and the CUDA kernels'
+wrappers.
 
-Replaces ``repro/kernels/axes.py:bt_axes_pallas`` in its ``emit_stream``
-mode only — one link, one uncoded 'acc'/'app' config (body
-``_bt_axes_kernel`` -> ``_axes_block``, with the inter-block fold
-``repro/kernels/ops.py:_fold_axes``).  The jagged link axis, the other
-orderings, the codecs and the activity windows are later slices.
+Replaces ``repro/kernels/axes.py:bt_axes_pallas`` (body
+``_bt_axes_kernel`` -> ``_axes_block``, bus-invert states
+``_bus_invert_bits``) together with the inter-block fold
+``repro/kernels/ops.py:_fold_axes``, in two of its modes:
 
-The CUDA kernel (``csrc/axes.cu``) runs popcount -> bucket -> rank ->
-reorder -> flit-pack -> (input, weight) BT in one launch: one warp ranks a
-run of packets, scatters each byte straight into its flit cell of a
-shared-memory packet image (integer addressing — no float permutation
-product, whose TF32 form would round payloads above 2**11), writes the
-stream rows out contiguously and counts BT over every flit boundary it
-owns, including the one from the previous packet, which the first packet
-of a run gets by re-sorting its predecessor.  Bound by bytes on the H100:
-each side's packets read once, int32 order and rank and the uint8 stream
-written once.
+* **the fused transmit stream** (``emit_stream``): one link, one uncoded
+  'acc'/'app' config.  The CUDA kernel (``csrc/axes.cu``,
+  ``psu_stream_kernel``) runs popcount -> bucket -> rank -> reorder ->
+  flit-pack -> (input, weight) BT in one launch: one warp ranks a run of
+  packets, scatters each byte straight into its flit cell of a
+  shared-memory packet image (integer addressing — no float permutation
+  product, whose TF32 form would round payloads above 2**11), writes the
+  stream rows out contiguously and counts BT over every flit boundary it
+  owns, including the one from the previous packet, which the first packet
+  of a run gets by re-sorting its predecessor.  Bound by bytes on the H100:
+  each side's packets read once, int32 order and rank and the uint8 stream
+  written once.
+* **the jagged link x ordering x codec measurement** (``bt_axes``): an
+  (L, P, N) batch with a real packet count per link, every (ordering,
+  codec) config of a static tuple, bus-invert included, giving (L, C, 3)
+  (input, weight, invert-line) BT totals and the carry that chunked
+  streaming threads from one call to the next.  The CUDA kernel
+  (``csrc/axes.cu``, ``bt_axes_kernel`` then ``bt_axes_fold_kernel``) is
+  described there.  The per-wire activity windows of the reference are a
+  later slice.
+
+The plain version of the measurement, :func:`bt_axes_plain`, is written
+independently of the kernel's block + fold split: per link it orders,
+packs and codes the whole stream and counts every boundary below the
+link's valid rows, with bus-invert's sequential decision in closed form
+(:func:`bus_invert_lines`).  Every count is on the low 8 bits of each
+lane, as in the reference: sort keys read ``width`` bits of the payload,
+wires carry bytes.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
+from ..core.bt import wrap_int32
+from ..core.coding import (
+    bus_invert_partitions,
+    gray_encode_bytes,
+    sign_magnitude_encode_bytes,
+)
 from ._build import DTYPE_CODES, check, library
 from .btcount import bt_count_plain
-from .psu import MAX_N, _rank_block, check_key
+from .psu import MAX_N, _popcount_bits, _rank_block, check_key
 
 __all__ = [
     "Variant",
     "CodecVariant",
     "VARIANT_KEYS",
+    "CODEC_SCHEMES",
     "validate_variants",
+    "validate_codec_variants",
+    "max_partitions",
     "validate_stream_call",
+    "validate_axes_call",
+    "bus_invert_lines",
     "psu_stream_plain",
     "psu_stream_cuda",
+    "axes_carry",
+    "bt_axes_plain",
+    "bt_axes_cuda",
 ]
 
 VARIANT_KEYS = ("none", "column_major", "acc", "app")
+
+CODEC_SCHEMES = ("none", "gray", "sign_magnitude", "transition", "bus_invert")
 
 
 class Variant(NamedTuple):
@@ -52,8 +86,9 @@ class Variant(NamedTuple):
 
 
 class CodecVariant(NamedTuple):
-    """One (ordering, codec) configuration.  This slice measures only the
-    uncoded ('none') codec; the other schemes are a later slice."""
+    """One measured (ordering, codec) configuration: the ordering axes of
+    :class:`Variant`, a scheme of ``CODEC_SCHEMES`` and, for 'bus_invert',
+    the partition width in lanes (None = one invert line per flit)."""
 
     key: str = "acc"
     k: int | None = None
@@ -86,26 +121,48 @@ def validate_variants(variants: tuple[Variant, ...], width: int) -> tuple[Varian
     return tuple(out)
 
 
+def validate_codec_variants(
+    configs: tuple[CodecVariant, ...], width: int, lanes: int
+) -> tuple[CodecVariant, ...]:
+    """Check a config tuple against the measurement's contract."""
+    if not configs:
+        raise ValueError("need at least one codec config")
+    out = []
+    for cfg in configs:
+        cfg = CodecVariant(*cfg)
+        validate_variants((cfg.ordering,), width)
+        if cfg.codec not in CODEC_SCHEMES:
+            raise ValueError(
+                f"config {cfg}: unknown codec scheme {cfg.codec!r}; choose from {CODEC_SCHEMES}"
+            )
+        if cfg.codec == "bus_invert":
+            bus_invert_partitions(lanes, cfg.partition)
+        elif cfg.partition is not None:
+            raise ValueError(f"config {cfg}: partition is only meaningful for 'bus_invert'")
+        out.append(cfg)
+    return tuple(out)
+
+
+def max_partitions(configs: tuple[CodecVariant, ...], lanes: int) -> int:
+    """Invert-line slots the per-config outputs must provide (>= 1)."""
+    return max(
+        [1] + [bus_invert_partitions(lanes, c.partition)[0]
+               for c in configs if c.codec == "bus_invert"]
+    )
+
+
 def validate_stream_call(
     n: int, *, config: CodecVariant, width: int, input_lanes: int,
     weight_lanes: int, pack: str,
 ) -> None:
-    """The emit-stream contract: one uncoded 'acc'/'app' config, packets
-    of whole flits, a symmetric (or absent) weight side, 'lane'/'row'
-    packing."""
-    (v,) = validate_variants((CodecVariant(*config).ordering,), width)
-    if config.codec != "none" or v.key not in ("acc", "app"):
+    """The emit-stream contract: the measurement's (:func:`validate_axes_call`)
+    with one uncoded 'acc'/'app' config."""
+    (cfg,), _ = validate_axes_call(
+        n, configs=(config,), width=width, input_lanes=input_lanes,
+        weight_lanes=weight_lanes, split_lanes=None, pack=pack,
+    )
+    if cfg.codec != "none" or cfg.key not in ("acc", "app"):
         raise ValueError(f"the fused stream needs one uncoded 'acc'/'app' config, got {config}")
-    check_key(width, v.k)
-    if input_lanes < 1 or n % input_lanes != 0:
-        raise ValueError(f"packet size {n} not divisible by input_lanes={input_lanes}")
-    if weight_lanes not in (0, input_lanes):
-        raise ValueError(
-            "the fused stream needs a symmetric (or absent) weight side: "
-            f"weight_lanes={weight_lanes} vs input_lanes={input_lanes}"
-        )
-    if pack not in ("lane", "row"):
-        raise ValueError(f"the fused stream packs 'lane'|'row', got {pack!r}")
 
 
 def _flit(values: torch.Tensor, lanes: int, pack: str) -> torch.Tensor:
@@ -187,3 +244,289 @@ def psu_stream_cuda(
 
 
 psu_stream_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the jagged link x ordering x codec measurement
+
+_KEY_IDS = {name: i for i, name in enumerate(VARIANT_KEYS)}
+_CODEC_IDS = {name: i for i, name in enumerate(CODEC_SCHEMES)}
+# shared-memory flit image of one CUDA block: packets per block are cut to
+# fit it (at most AXES_BLOCK_PACKETS)
+AXES_IMAGE_BYTES = 16384
+AXES_BLOCK_PACKETS = 128
+
+
+@functools.lru_cache(maxsize=64)
+def _config_table(configs, lanes: int, device: torch.device) -> tuple[torch.Tensor, int]:
+    """The kernels' int32 table on ``device`` — each distinct ordering as
+    (key, k, descending), then each config as (ordering index, codec,
+    partitions, lanes per partition) — and the number of orderings.  Kept
+    per (configs, lanes, device): a fresh copy from pageable host memory
+    would wait for the stream on every call."""
+    orderings: list[Variant] = []
+    rows = []
+    for cfg in configs:
+        if cfg.ordering not in orderings:
+            orderings.append(cfg.ordering)
+        npart, pw = (
+            bus_invert_partitions(lanes, cfg.partition) if cfg.codec == "bus_invert" else (1, lanes)
+        )
+        rows += [orderings.index(cfg.ordering), _CODEC_IDS[cfg.codec], npart, pw]
+    head = [f for o in orderings for f in (_KEY_IDS[o.key], o.k or 0, int(o.descending))]
+    return torch.tensor(head + rows, dtype=torch.int32).to(device), len(orderings)
+
+
+def validate_axes_call(
+    n: int, *, configs, width: int, input_lanes: int, weight_lanes: int,
+    split_lanes: int | None, pack: str,
+) -> tuple[tuple[CodecVariant, ...], int]:
+    """The measurement's contract for packets of ``n`` elements; returns
+    the checked configs and the resolved ``split_lanes``."""
+    if input_lanes < 1 or n % input_lanes != 0:
+        raise ValueError(f"packet size {n} not divisible by input_lanes={input_lanes}")
+    if weight_lanes not in (0, input_lanes):
+        raise ValueError(
+            "the multi-axis measurement needs a symmetric (or absent) weight side: "
+            f"weight_lanes={weight_lanes} vs input_lanes={input_lanes}"
+        )
+    if pack not in ("lane", "row"):
+        raise ValueError(f"the multi-axis measurement packs 'lane'|'row', got {pack!r}")
+    lanes = input_lanes + weight_lanes
+    configs = validate_codec_variants(tuple(configs), width, lanes)
+    for cfg in configs:
+        if cfg.key in ("acc", "app"):
+            check_key(width, cfg.k)
+    split_lanes = input_lanes if split_lanes is None else split_lanes
+    if not 0 <= split_lanes <= lanes:
+        raise ValueError(f"split_lanes={split_lanes} outside the {lanes}-lane flit")
+    return configs, split_lanes
+
+
+def bus_invert_lines(hd: torch.Tensor, lbits: int, entry: torch.Tensor) -> torch.Tensor:
+    """Invert-line states of a bus-invert wire, (..., T, P) int32.
+
+    ``hd`` (..., T-1, P) holds the data Hamming distances between
+    consecutive flits of each of P partitions of ``lbits`` wires, ``entry``
+    (..., P) the state of row 0.  The sequential rule — invert iff that
+    lowers the distance to the previous *wire* flit, ties uninverted — is
+    v_t = tie_t ? 0 : h_t ^ v_{t-1} with h_t = [2 HD_t > lbits] and tie_t =
+    [2 HD_t == lbits]: a prefix-XOR that resets at ties, here one cumsum
+    and one cummax (``repro/kernels/axes.py:_bus_invert_bits``).
+    """
+    h = (2 * hd > lbits).to(torch.int64)
+    xpre = torch.cumsum(h, dim=-2) & 1  # h_1 ^ ... ^ h_t
+    tpos = torch.arange(1, hd.shape[-2] + 1, device=hd.device).unsqueeze(-1)
+    packed = torch.where(2 * hd == lbits, 2 * tpos + xpre, 0)  # (t, X_t) at ties
+    cmax = torch.cummax(packed, dim=-2).values  # the most recent tie
+    xr = torch.where(cmax > 0, cmax & 1, 0)
+    entry = entry.to(torch.int64).unsqueeze(-2)
+    # until the first tie the entry state still propagates
+    rest = xpre ^ xr ^ (entry * (cmax == 0))
+    return torch.cat([entry, rest], dim=-2).to(torch.int32)
+
+
+def axes_carry(links: int, configs, lanes: int, device) -> dict[str, torch.Tensor]:
+    """The zero carry between calls: nothing transmitted yet on any link.
+
+    ``started`` (L,) marks links that sent a flit, ``wire`` (C, L, lanes)
+    holds each config's last wire flit (the last data flit for
+    'transition') and ``inv`` (C, L, PMAX) its last invert-line states;
+    all int32.
+    """
+    c, pmax = len(configs), max_partitions(configs, lanes)
+    return {
+        "started": torch.zeros(links, dtype=torch.int32, device=device),
+        "wire": torch.zeros((c, links, lanes), dtype=torch.int32, device=device),
+        "inv": torch.zeros((c, links, pmax), dtype=torch.int32, device=device),
+    }
+
+
+def _ordered_stream(x, w, ordering: Variant, *, width, input_lanes, weight_lanes, pack):
+    """(L, P*F, lanes) int32 low bytes of every link's packed stream."""
+    links, p, n = x.shape
+    flat = x.reshape(links * p, n)
+    if ordering.key in ("acc", "app"):
+        rank = _rank_block(flat, width=width, k=ordering.k, descending=ordering.descending)
+        order = torch.argsort(rank, dim=-1, stable=True)
+    elif ordering.key == "column_major":  # slot l*F + f carries element f*L + l
+        i = torch.arange(n, device=x.device)
+        order = ((i % (n // input_lanes)) * input_lanes + i // (n // input_lanes)).expand(
+            links * p, n
+        )
+    else:
+        order = None
+    halves = []
+    for side, lanes in ((x, input_lanes), (w, weight_lanes)):
+        if lanes:
+            v = side.reshape(links * p, n)
+            halves.append(_flit(v if order is None else torch.gather(v, -1, order), lanes, pack))
+    stream = torch.cat(halves, dim=-1) & 0xFF
+    return stream.reshape(links, p * (n // input_lanes), input_lanes + weight_lanes)
+
+
+def _sides(per_lane: torch.Tensor, split: int) -> torch.Tensor:
+    """(L, lanes) counts -> (L, 2) input-side and weight-side sums."""
+    return torch.stack([per_lane[:, :split].sum(-1), per_lane[:, split:].sum(-1)], dim=-1)
+
+
+_BYTE_MAPS = {
+    "none": lambda s: s,
+    "gray": gray_encode_bytes,
+    "sign_magnitude": sign_magnitude_encode_bytes,
+}
+
+
+def bt_axes_plain(
+    x: torch.Tensor, w: torch.Tensor | None, valid: torch.Tensor, *, configs,
+    width: int, input_lanes: int, weight_lanes: int, split_lanes: int | None, pack: str,
+    carry: dict | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """(totals, carry) of an (L, P, N) batch: int32 (L, C, 3) (input-side,
+    weight-side, invert-line) BT per link and config.
+
+    Each link sends its first ``valid[l]`` packets (clamped to [0, P]);
+    rows past them count nothing.  ``carry`` (see :func:`axes_carry`;
+    default: a cold start) is the state left by the previous call on the
+    same links, and the returned carry continues from this one.  ``w`` is
+    ignored when ``weight_lanes`` is 0.
+    """
+    links, p, n = x.shape
+    configs, split = validate_axes_call(
+        n, configs=configs, width=width, input_lanes=input_lanes,
+        weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack,
+    )
+    flits, lanes = n // input_lanes, input_lanes + weight_lanes
+    dev = x.device
+    carry = axes_carry(links, configs, lanes, dev) if carry is None else carry
+    x = x.to(torch.int32)
+    w = w.to(torch.int32) if weight_lanes else None
+    vr = torch.as_tensor(valid, device=dev).to(torch.int64).clamp(0, p) * flits
+    has = vr > 0
+    was = carry["started"] != 0
+    entered = (was & has).unsqueeze(-1)  # the boundary into row 0 counts
+    bmask = torch.arange(1, p * flits, device=dev)[None, :] < vr[:, None]  # boundary into row r
+    last = (vr - 1).clamp(min=0)
+    streams: dict[Variant, torch.Tensor] = {}
+    totals, wires, invs = [], [], []
+    for ci, cfg in enumerate(configs):
+        if cfg.ordering not in streams:
+            streams[cfg.ordering] = _ordered_stream(
+                x, w, cfg.ordering, width=width, input_lanes=input_lanes,
+                weight_lanes=weight_lanes, pack=pack,
+            )
+        s = streams[cfg.ordering]
+        cw, civ = carry["wire"][ci], carry["inv"][ci]
+        if cfg.codec == "bus_invert":
+            npart, pw = bus_invert_partitions(lanes, cfg.partition)
+            d = s.reshape(links, -1, npart, pw)
+            pc = _popcount_bits(d[:, 1:] ^ d[:, :-1], 8)  # (L, T-1, P, pw)
+            cwp = cw.reshape(links, npart, pw)
+            # row 0 against the carried wire flit; forced 0 on a cold start
+            entry = (2 * _popcount_bits(d[:, 0] ^ cwp, 8).sum(-1) > 8 * pw) & was[:, None]
+            v = bus_invert_lines(pc.sum(-1), 8 * pw, entry)  # (L, T, P)
+            flip = (v[:, 1:] ^ v[:, :-1]).unsqueeze(-1)
+            per_lane = (torch.where(flip == 1, 8 - pc, pc) * bmask[:, :, None, None]).sum(1)
+            wire0 = d[:, 0] ^ (entry.to(torch.int32).unsqueeze(-1) * 0xFF)
+            per_lane = per_lane.reshape(links, lanes) + (
+                _popcount_bits(cwp ^ wire0, 8).reshape(links, lanes) * entered
+            )
+            aux = (flip[..., 0] * bmask[:, :, None]).sum((1, 2)) + (
+                (civ[:, :npart] != entry).sum(-1) * entered[:, 0]
+            )
+            v_last = v[torch.arange(links, device=dev), last]  # (L, P)
+            d_last = d[torch.arange(links, device=dev), last]
+            w_last = ((d_last ^ (v_last.unsqueeze(-1) * 0xFF)) & 0xFF).reshape(links, lanes)
+            inv_out = civ.clone()
+            inv_out[:, :npart] = torch.where(has[:, None], v_last, civ[:, :npart])
+        else:
+            if cfg.codec == "transition":  # wire_t ^ wire_{t-1} = data_t
+                wire = s
+                flips = _popcount_bits(s[:, 1:], 8)
+                first = _popcount_bits(s[:, 0], 8)
+            else:
+                wire = _BYTE_MAPS[cfg.codec](s)
+                flips = _popcount_bits(wire[:, 1:] ^ wire[:, :-1], 8)
+                first = _popcount_bits(wire[:, 0] ^ cw, 8)
+            per_lane = (flips * bmask[:, :, None]).sum(1) + first * entered
+            aux = torch.zeros(links, dtype=torch.int64, device=dev)
+            w_last = wire[torch.arange(links, device=dev), last]
+            inv_out = civ
+        totals.append(torch.cat([_sides(per_lane, split), aux[:, None]], dim=-1))
+        wires.append(torch.where(has[:, None], w_last, cw))
+        invs.append(inv_out)
+    new_carry = {
+        "started": (was | has).to(torch.int32),
+        "wire": torch.stack(wires).to(torch.int32),
+        "inv": torch.stack(invs).to(torch.int32),
+    }
+    return wrap_int32(torch.stack(totals, dim=1)), new_carry
+
+
+def bt_axes_cuda(
+    x: torch.Tensor, w: torch.Tensor | None, valid: torch.Tensor, *, configs,
+    width: int, input_lanes: int, weight_lanes: int, split_lanes: int | None, pack: str,
+    carry: dict | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """The same (totals, carry) from the CUDA kernels, one launch entry.
+
+    ``x`` and ``w`` are contiguous uint8 or int32 (L, P, N) packets of one
+    dtype on a CUDA device (``w`` may be None when ``weight_lanes`` is 0),
+    1 <= N <= MAX_N; ``valid`` is (L,) on the same device.
+    """
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"bt_axes_cuda needs contiguous (L, P, N) packets, got {tuple(x.shape)}")
+    if weight_lanes:
+        if w is None or w.shape != x.shape or w.dtype != x.dtype:
+            raise ValueError("bt_axes_cuda needs weights shaped and typed like the inputs")
+        if w.device != x.device or not w.is_contiguous():
+            raise ValueError("bt_axes_cuda needs contiguous weights on the inputs' device")
+    links, p, n = x.shape
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"bt_axes_cuda takes 1 <= N <= {MAX_N}, got N={n}")
+    configs, split = validate_axes_call(
+        n, configs=configs, width=width, input_lanes=input_lanes,
+        weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack,
+    )
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"bt_axes_cuda takes uint8 or int32 packets, got {x.dtype}")
+    if x.device.type != "cuda":
+        raise ValueError(f"bt_axes_cuda needs CUDA tensors, got {x.device}")
+    lanes = input_lanes + weight_lanes
+    dev = x.device
+    if carry is None:  # fresh zeros, updated in place by the fold
+        carry = axes_carry(links, configs, lanes, dev)
+        wire, inv_c = carry["wire"], carry["inv"]
+    else:
+        wire = carry["wire"].to(device=dev, dtype=torch.int32).clone()
+        inv_c = carry["inv"].to(device=dev, dtype=torch.int32).clone()
+    started = carry["started"].to(device=dev, dtype=torch.int32).contiguous()
+    v = torch.as_tensor(valid, device=dev).to(torch.int32).clamp(0, p).contiguous()
+    tab, n_orderings = _config_table(configs, lanes, dev)
+    nc, pmax = len(configs), max_partitions(configs, lanes)
+    bpk = max(1, min(AXES_BLOCK_PACKETS, AXES_IMAGE_BYTES // (n * lanes // input_lanes)))
+    g = -(-p // bpk)
+    cells = links * g * nc
+    part = torch.empty(cells * 2 * pmax * 3, dtype=torch.int32, device=dev)
+    edge = torch.empty(cells * 4 * lanes, dtype=torch.uint8, device=dev)
+    inv = torch.empty(cells * 4 * pmax, dtype=torch.uint8, device=dev)
+    started_out = torch.empty_like(started)
+    totals = torch.zeros((links, nc, 3), dtype=torch.int32, device=dev)
+    if links and p:
+        with torch.cuda.device(dev):
+            err = library().repro_bt_axes(
+                x.data_ptr(), w.data_ptr() if weight_lanes else None, DTYPE_CODES[x.dtype],
+                links, p, n, v.data_ptr(), width, input_lanes, weight_lanes, split,
+                int(pack == "row"), bpk, g, tab.data_ptr(), n_orderings, nc, pmax,
+                part.data_ptr(), edge.data_ptr(), inv.data_ptr(), started.data_ptr(),
+                started_out.data_ptr(), wire.data_ptr(), inv_c.data_ptr(),
+                totals.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            )
+        check(err, "repro_bt_axes")
+        bt_axes_cuda.launches += 1
+    else:
+        started_out.copy_(started)
+    return totals, {"started": started_out, "wire": wire, "inv": inv_c}
+
+
+bt_axes_cuda.launches = 0

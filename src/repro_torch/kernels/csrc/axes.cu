@@ -1,4 +1,6 @@
-// psu_stream: the fused transmit path — sort, reorder, flit-pack and
+// The multi-axis BT core, in two modes.
+//
+// 1. psu_stream: the fused transmit path — sort, reorder, flit-pack and
 // (input, weight) BT count of P paired packets in one launch.
 //
 // Replaces the TPU kernel repro/kernels/axes.py:bt_axes_pallas in its
@@ -23,6 +25,40 @@
 // Bound on this card: bytes.  Inputs are read once per side, order and
 // rank are written as int32, the stream once as bytes:
 // P*N*(2*itemsize + 8 + 2) bytes for paired packets, over 3.35 TB/s.
+//
+// 2. bt_axes: the jagged link x ordering x codec measurement — per link of
+// an (L, P, N) batch with a real packet count per link, and per config of
+// a static (ordering, codec) list, the (input, weight, invert-line) BT
+// totals, plus the carry that chunked streaming threads across calls.
+//
+// Replaces the same TPU kernel in its measurement modes (b) and (c): the
+// (link, packet-block) grid of _axes_block with every config unrolled,
+// bus-invert's two entry branches from _bus_invert_bits, and the
+// inter-block fold of repro/kernels/ops.py:_fold_axes.  Two kernels, one
+// launch entry (repro_bt_axes):
+//   * bt_axes_kernel, one block per (link, packet block).  For each
+//     distinct ordering the block lays its valid packets out as a
+//     shared-memory flit image (the warp counting sort and byte scatter of
+//     psu_stream; integer addressing only, so no TF32 hazard), then for
+//     every config of that ordering it counts BT over the block's internal
+//     boundaries on the low byte of each lane: the byte maps (gray,
+//     sign-magnitude) inline, transition signaling as the data popcount,
+//     and bus-invert one warp per partition, 32 rows at a time, its
+//     sequential decision as a warp scan over per-row state maps (a tie
+//     forces 0, otherwise HD > half flips the previous state) for both
+//     entry branches at once.  It writes per-(block, config, branch)
+//     partials, first/last wire flits and first/last invert states.
+//   * bt_axes_fold_kernel, one thread per (link, config, partition), walks
+//     that link's valid blocks in order as _fold_axes does: the boundary
+//     into each block from the carried last wire flit (none on a cold
+//     start), bus-invert's entry branch from the previous *wire* flit, and
+//     blocks past the link's valid rows leave the carry as it was.
+//
+// Bound on this card: integer operations at the scale shapes (each byte is
+// read once from device memory, then touched once per distinct ordering
+// to lay out and a few times per config to count), bytes for few configs.
+// The block partials and edge flits are the only intermediates in device
+// memory; the fold re-reads them once.
 #include "common.cuh"
 
 namespace repro {
@@ -119,7 +155,356 @@ psu_stream_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+enum { CODEC_NONE = 0, CODEC_GRAY = 1, CODEC_SM = 2, CODEC_TRANSITION = 3, CODEC_BI = 4 };
+enum { KEY_NONE = 0, KEY_COLUMN_MAJOR = 1, KEY_ACC = 2, KEY_APP = 3 };
+
+// The stateless byte maps of repro/core/coding.py on one wire byte (the
+// other schemes drive the data byte itself).
+__device__ __forceinline__ unsigned code_byte(unsigned v, int codec) {
+  if (codec == CODEC_GRAY) return (v ^ (v >> 1)) & 0xFFu;
+  if (codec == CODEC_SM && v >= 0x80u) return 0x80u | (((0x100u - v) & 0xFFu) & 0x7Fu);
+  return v;
+}
+
+// Sum two counters over the block; thread 0 holds the totals.
+__device__ __forceinline__ void block_sum2(unsigned& a, unsigned& b, unsigned (*red)[2]) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[warp][0] = a;
+    red[warp][1] = b;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    a = b = 0;
+    for (int i = 0; i < WARPS; ++i) {
+      a += red[i][0];
+      b += red[i][1];
+    }
+  }
+  __syncthreads();
+}
+
+// Layout of the per-(block, config) outputs; `cell` = block * C + config.
+__device__ __forceinline__ long long part_at(long long cell, int b, int q, int pmax) {
+  return ((cell * 2 + b) * pmax + q) * 3;
+}
+__device__ __forceinline__ long long edge_at(long long cell, int b, int last, int lanes) {
+  return ((cell * 2 + b) * 2 + last) * lanes;
+}
+__device__ __forceinline__ long long inv_at(long long cell, int b, int last, int pmax) {
+  return ((cell * 2 + b) * 2 + last) * pmax;
+}
+
+// One warp walks partition q of a bus-invert config over the block's `vr`
+// image rows, for both entry states of row 0 at once.  Row t's state is
+// v_t = tie_t ? 0 : (h_t ? !v_{t-1} : v_{t-1}) with h_t = [2 HD_t > 8 pw],
+// tie_t = [2 HD_t == 8 pw] and HD_t the data Hamming distance of the
+// partition's lanes between rows t-1 and t: a map of v_{t-1}, encoded as
+// bit x = state after entry x (0b00 tie, 0b01 flip, 0b10 keep).  Each lane
+// takes one row of a 32-row step; an inclusive warp scan composes the maps.
+__device__ void bus_invert_walk(const unsigned char* img, int vr, int lanes, int split,
+                                int pw, int q, int pmax, long long cell, int* part,
+                                uint8_t* edge, uint8_t* inv) {
+  const int lane = threadIdx.x & 31;
+  const int j0 = q * pw;
+  const int n_in = split - j0 < 0 ? 0 : (split - j0 > pw ? pw : split - j0);
+  const unsigned lbits = 8u * pw;
+  unsigned vin[2] = {0u, 1u};
+  unsigned acc[2][3] = {{0u, 0u, 0u}, {0u, 0u, 0u}};
+  for (int base = 1; base < vr; base += 32) {
+    const int t = base + lane;
+    const bool active = t < vr;
+    unsigned s_in = 0, s_wg = 0, m = 2u;  // rows past vr keep the state
+    if (active) {
+      const unsigned char* cur = img + t * lanes + j0;
+      const unsigned char* prev = cur - lanes;
+      for (int jj = 0; jj < pw; ++jj) {
+        const unsigned f = __popc((unsigned)(cur[jj] ^ prev[jj]));
+        if (jj < n_in) s_in += f; else s_wg += f;
+      }
+      const unsigned hd2 = 2u * (s_in + s_wg);
+      m = hd2 == lbits ? 0u : (hd2 > lbits ? 1u : 2u);
+    }
+    for (int o = 1; o < 32; o <<= 1) {  // m := m o (maps of earlier rows)
+      const unsigned e = __shfl_up_sync(FULL, m, o);
+      if (lane >= o) m = ((m >> (e & 1u)) & 1u) | (((m >> ((e >> 1) & 1u)) & 1u) << 1);
+    }
+    for (int b = 0; b < 2; ++b) {
+      const unsigned vt = (m >> vin[b]) & 1u;
+      unsigned vp = __shfl_up_sync(FULL, vt, 1);
+      if (lane == 0) vp = vin[b];
+      if (active) {
+        const unsigned flip = vt ^ vp;
+        acc[b][0] += flip ? 8u * n_in - s_in : s_in;
+        acc[b][1] += flip ? 8u * (pw - n_in) - s_wg : s_wg;
+        acc[b][2] += flip;
+      }
+      vin[b] = __shfl_sync(FULL, vt, 31);
+    }
+  }
+  for (int b = 0; b < 2; ++b)
+    for (int k = 0; k < 3; ++k) acc[b][k] = warp_sum(acc[b][k]);
+  if (lane == 0) {
+    for (int b = 0; b < 2; ++b) {
+      int* pp = part + part_at(cell, b, q, pmax);
+      pp[0] = (int)acc[b][0];
+      pp[1] = (int)acc[b][1];
+      pp[2] = (int)acc[b][2];
+      inv[inv_at(cell, b, 0, pmax) + q] = (uint8_t)b;
+      inv[inv_at(cell, b, 1, pmax) + q] = (uint8_t)vin[b];
+    }
+  }
+  for (int jj = lane; jj < pw; jj += 32) {
+    const int j = j0 + jj;
+    const unsigned first = img[j], last = img[(vr - 1) * lanes + j];
+    for (int b = 0; b < 2; ++b) {
+      edge[edge_at(cell, b, 0, lanes) + j] = (uint8_t)(first ^ (b ? 0xFFu : 0u));
+      edge[edge_at(cell, b, 1, lanes) + j] = (uint8_t)(last ^ (vin[b] ? 0xFFu : 0u));
+    }
+  }
+}
+
+// tab: O orderings as (key, k, descending), then C configs as (ordering,
+// codec, partitions, lanes per partition).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+bt_axes_kernel(const T* __restrict__ x, const T* __restrict__ w,
+               const int* __restrict__ valid, long long P, int n, int width, int il,
+               int wl, int split, int pack_row, int bpk, int G,
+               const int* __restrict__ tab, int O, int C, int pmax,
+               int* __restrict__ part, uint8_t* __restrict__ edge,
+               uint8_t* __restrict__ inv) {
+  extern __shared__ unsigned char img[];
+  __shared__ int hist[WARPS][32];
+  __shared__ unsigned red[WARPS][2];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long l = blockIdx.x / G;
+  const int g = (int)(blockIdx.x - l * G);
+  const int lanes = il + wl;
+  const int flits = n / il;
+  const long long p_lo = (long long)g * bpk;
+  const long long left = (long long)valid[l] - p_lo;
+  // a block holding none of the link's valid packets is never read by the fold
+  if (left <= 0) return;
+  const int vp = left < bpk ? (int)left : bpk;
+  const int vr = vp * flits;
+  const int* cfgs = tab + 3 * O;
+
+  for (int o = 0; o < O; ++o) {
+    const int key = tab[3 * o];
+    const KeySpec s = make_key_spec(width, key == KEY_APP ? tab[3 * o + 1] : 0, tab[3 * o + 2]);
+    for (int pk = warp; pk < vp; pk += WARPS) {
+      const long long off = ((long long)l * P + p_lo + pk) * n;
+      const T* xr = x + off;
+      const T* wr = wl ? w + off : nullptr;
+      unsigned char* pimg = img + pk * flits * lanes;
+      auto place = [&](int i, int r) {
+        int f, c;
+        if (pack_row) {
+          f = r / il;
+          c = r - f * il;
+        } else {
+          c = r / flits;
+          f = r - c * flits;
+        }
+        unsigned char* cell = pimg + f * lanes + c;
+        cell[0] = (unsigned char)xr[i];
+        if (wl) cell[il] = (unsigned char)wr[i];
+      };
+      if (key >= KEY_ACC) {
+        warp_rank(xr, n, s, hist[warp], place);
+      } else {
+        for (int i = lane; i < n; i += 32) {
+          const int f0 = i / il;  // column-major: slot l*F + f carries element f*L + l
+          place(i, key == KEY_COLUMN_MAJOR ? (i - f0 * il) * flits + f0 : i);
+        }
+      }
+    }
+    __syncthreads();
+
+    // stateless codecs and transition signaling: every thread, block sums
+    for (int c = 0; c < C; ++c) {
+      const int codec = cfgs[4 * c + 1];
+      if (cfgs[4 * c] != o || codec == CODEC_BI) continue;
+      const long long cell = blockIdx.x * (long long)C + c;
+      // thread -> (first row, lane), THREADS / lanes rows per pass; a flit
+      // wider than the block gives each thread whole lane columns
+      const bool wide = lanes > THREADS;
+      const int rstep = wide ? 1 : THREADS / lanes;
+      const int t0 = wide ? 0 : threadIdx.x / lanes;
+      unsigned a_in = 0, a_wg = 0;
+      if (t0 < rstep) {
+        for (int j = wide ? threadIdx.x : threadIdx.x - t0 * lanes; j < lanes; j += THREADS) {
+          unsigned a = 0;
+          for (int t = 1 + t0; t < vr; t += rstep) {
+            const unsigned cur = img[t * lanes + j];
+            a += codec == CODEC_TRANSITION
+                     ? __popc(cur)
+                     : __popc(code_byte(cur, codec) ^ code_byte(img[(t - 1) * lanes + j], codec));
+          }
+          if (j < split) a_in += a; else a_wg += a;
+        }
+      }
+      block_sum2(a_in, a_wg, red);
+      if (threadIdx.x == 0) {
+        int* pp = part + part_at(cell, 0, 0, pmax);
+        pp[0] = (int)a_in;
+        pp[1] = (int)a_wg;
+        pp[2] = 0;
+      }
+      for (int j = threadIdx.x; j < lanes; j += THREADS) {
+        edge[edge_at(cell, 0, 0, lanes) + j] = (uint8_t)code_byte(img[j], codec);
+        edge[edge_at(cell, 0, 1, lanes) + j] =
+            (uint8_t)code_byte(img[(vr - 1) * lanes + j], codec);
+      }
+    }
+
+    // bus-invert: one warp per (config, partition)
+    int item = 0;
+    for (int c = 0; c < C; ++c) {
+      if (cfgs[4 * c] != o || cfgs[4 * c + 1] != CODEC_BI) continue;
+      const long long cell = blockIdx.x * (long long)C + c;
+      for (int q = 0; q < cfgs[4 * c + 2]; ++q, ++item) {
+        if (item % WARPS == warp)
+          bus_invert_walk(img, vr, lanes, split, cfgs[4 * c + 3], q, pmax, cell, part, edge, inv);
+      }
+    }
+    __syncthreads();  // the next ordering lays out over this image
+  }
+}
+
+// One thread per (link, config, partition): the in-order walk over the
+// link's valid blocks.  wire / invc hold the carry (last wire flit per
+// lane, last invert state per partition) and are updated in place; the
+// totals are added with atomics (unsigned: wraps like the int32 sums).
+__global__ void bt_axes_fold_kernel(const int* __restrict__ valid, long long L, int bpk,
+                                    int G, int lanes, int split,
+                                    const int* __restrict__ tab, int O, int C, int pmax,
+                                    const int* __restrict__ part,
+                                    const uint8_t* __restrict__ edge,
+                                    const uint8_t* __restrict__ inv,
+                                    const int* __restrict__ started_in,
+                                    int* __restrict__ started_out, int* wire, int* invc,
+                                    unsigned* totals) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= L * C * pmax) return;
+  const int q = (int)(idx % pmax);
+  const int c = (int)((idx / pmax) % C);
+  const long long l = idx / ((long long)pmax * C);
+  const int* cf = tab + 3 * O + 4 * c;
+  const int codec = cf[1], npart = cf[2], pw = cf[3];
+  const int v = valid[l];
+  if (c == 0 && q == 0) started_out[l] = (started_in[l] != 0 || v > 0) ? 1 : 0;
+  if (codec == CODEC_BI ? q >= npart : q > 0) return;
+  const int nblk = v > 0 ? (v + bpk - 1) / bpk : 0;
+  int st = started_in[l] != 0;
+  int* cw = wire + ((long long)c * L + l) * lanes;
+  unsigned t_in = 0, t_wg = 0, t_aux = 0;
+  if (codec != CODEC_BI) {
+    for (int g = 0; g < nblk; ++g) {
+      const long long cell = (l * G + g) * C + c;
+      const int* pp = part + part_at(cell, 0, 0, pmax);
+      t_in += (unsigned)pp[0];
+      t_wg += (unsigned)pp[1];
+      if (g == 0 && !st) continue;  // no boundary into the first flit ever sent
+      const uint8_t* first = edge + edge_at(cell, 0, 0, lanes);
+      const uint8_t* prev = g > 0 ? edge + edge_at(cell - C, 0, 1, lanes) : nullptr;
+      for (int j = 0; j < lanes; ++j) {
+        const unsigned before = prev ? prev[j] : (unsigned)cw[j];
+        const unsigned f = codec == CODEC_TRANSITION ? __popc((unsigned)first[j])
+                                                     : __popc((first[j] ^ before) & 0xFFu);
+        if (j < split) t_in += f; else t_wg += f;
+      }
+    }
+    if (nblk > 0) {
+      const uint8_t* last = edge + edge_at((l * G + nblk - 1) * C + c, 0, 1, lanes);
+      for (int j = 0; j < lanes; ++j) cw[j] = last[j];
+    }
+  } else {
+    const int j0 = q * pw;
+    int* civ = invc + ((long long)c * L + l) * pmax + q;
+    int iv = *civ;
+    const uint8_t* lastw = nullptr;  // null: the carried wire flit
+    for (int g = 0; g < nblk; ++g) {
+      const long long cell = (l * G + g) * C + c;
+      const uint8_t* first = edge + edge_at(cell, 0, 0, lanes) + j0;  // = the data flit
+      unsigned hd = 0;
+      for (int jj = 0; jj < pw; ++jj)
+        hd += __popc((first[jj] ^ (lastw ? lastw[jj] : (unsigned)cw[j0 + jj])) & 0xFFu);
+      // entry branch from the previous wire flit; forced 0 on a cold start
+      const int b = st && 2u * hd > 8u * pw;
+      if (st) {
+        for (int jj = 0; jj < pw; ++jj) {
+          const unsigned before = lastw ? lastw[jj] : (unsigned)cw[j0 + jj];
+          const unsigned f = __popc((before ^ first[jj] ^ (b ? 0xFFu : 0u)) & 0xFFu);
+          if (j0 + jj < split) t_in += f; else t_wg += f;
+        }
+        t_aux += iv != b;
+      }
+      const int* pp = part + part_at(cell, b, q, pmax);
+      t_in += (unsigned)pp[0];
+      t_wg += (unsigned)pp[1];
+      t_aux += (unsigned)pp[2];
+      lastw = edge + edge_at(cell, b, 1, lanes) + j0;
+      iv = inv[inv_at(cell, b, 1, pmax) + q];
+      st = 1;
+    }
+    if (lastw) {
+      for (int jj = 0; jj < pw; ++jj) cw[j0 + jj] = lastw[jj];
+      *civ = iv;
+    }
+  }
+  unsigned* tot = totals + (l * C + c) * 3;
+  atomicAdd(tot, t_in);
+  atomicAdd(tot + 1, t_wg);
+  atomicAdd(tot + 2, t_aux);
+}
+
 }  // namespace repro
+
+// The measurement's launch entry: the block kernel, then the fold.  dtype:
+// 0 = uint8, 1 = int32; w may be null when wl == 0; valid holds L packet
+// counts clamped to [0, P]; part / edge / inv are the block outputs
+// (L*G*C*2*pmax*3 int32, L*G*C*4*lanes and L*G*C*4*pmax bytes);
+// the carry is started_in / started_out (L int32 each), wire (C*L*lanes
+// int32) and invc (C*L*pmax int32), and totals the zeroed (L, C, 3) int32
+// result.
+extern "C" int repro_bt_axes(const void* x, const void* w, int dtype, long long L,
+                             long long P, int n, const void* valid, int width, int il,
+                             int wl, int split, int pack_row, int bpk, int G,
+                             const void* tab, int O, int C, int pmax, void* part,
+                             void* edge, void* inv, const void* started_in,
+                             void* started_out, void* wire, void* invc, void* totals,
+                             void* stream) {
+  using namespace repro;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int lanes = il + wl;
+  const size_t smem = (size_t)bpk * (n / il) * lanes;
+  const unsigned blocks = (unsigned)(L * G);
+  if (dtype == 0) {
+    bt_axes_kernel<uint8_t><<<blocks, THREADS, smem, st>>>(
+        (const uint8_t*)x, (const uint8_t*)w, (const int*)valid, P, n, width, il, wl, split,
+        pack_row, bpk, G, (const int*)tab, O, C, pmax, (int*)part, (uint8_t*)edge,
+        (uint8_t*)inv);
+  } else {
+    bt_axes_kernel<int32_t><<<blocks, THREADS, smem, st>>>(
+        (const int32_t*)x, (const int32_t*)w, (const int*)valid, P, n, width, il, wl, split,
+        pack_row, bpk, G, (const int*)tab, O, C, pmax, (int*)part, (uint8_t*)edge,
+        (uint8_t*)inv);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long threads = L * C * pmax;
+  const unsigned fold_blocks = (unsigned)((threads + THREADS - 1) / THREADS);
+  bt_axes_fold_kernel<<<fold_blocks, THREADS, 0, st>>>(
+      (const int*)valid, L, bpk, G, lanes, split, (const int*)tab, O, C, pmax,
+      (const int*)part, (const uint8_t*)edge, (const uint8_t*)inv, (const int*)started_in,
+      (int*)started_out, (int*)wire, (int*)invc, (unsigned*)totals);
+  return (int)cudaGetLastError();
+}
 
 // dtype: 0 = uint8, 1 = int32; k == 0 selects ACC; wl is 0 or il (w may be
 // null when wl == 0).  `bt` is two zeroed int32 on the device.

@@ -23,7 +23,7 @@ struct KeySpec {
   int desc;
 };
 
-inline KeySpec make_key_spec(int width, int k, int desc) {
+__host__ __device__ inline KeySpec make_key_spec(int width, int k, int desc) {
   KeySpec s;
   s.mask = (width >= 32) ? 0xffffffffu : ((1u << width) - 1u);
   s.width = width;

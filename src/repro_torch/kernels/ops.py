@@ -1,11 +1,15 @@
 """Public kernel entry points, dispatched by the tensor's device.
 
-Counterpart of the main-path subset of ``repro/kernels/ops.py``:
-``psu_sort`` / ``psu_reorder`` (``ops.py:165-238``), ``psu_stream`` and
-``PsuStreamResult`` (``ops.py:684-804``) and ``bt_count``
-(``ops.py:807-835``).  A CUDA tensor launches the hand-written kernel, a
-CPU tensor takes the plain version, ``backend="torch"`` forces the plain
-version (``backend.py``).
+Counterpart of ``repro/kernels/ops.py`` without its activity windows and
+its sharded link axis: ``psu_sort`` / ``psu_reorder`` (``ops.py:165-238``),
+``psu_stream`` and ``PsuStreamResult`` (``ops.py:684-804``), ``bt_count``
+(``ops.py:807-835``), and the multi-axis measurement ``bt_count_axes``
+(``ops.py:853-983``) with its thin configurations ``bt_count_links``,
+``bt_count_variants`` and ``bt_count_codecs`` (``ops.py:1098-1308``).  A
+CUDA tensor launches the hand-written kernel, a CPU tensor takes the plain
+version, ``backend="torch"`` forces the plain version (``backend.py``).
+The reference's ``block_packets`` / ``block_rows`` / ``interpret``
+keywords have no meaning here and are not taken.
 
 The reference pads P to a kernel block multiple and trims on return; its
 padded packets never reach an output.  Neither version here needs the
@@ -17,17 +21,43 @@ reference does.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
-from .axes import CodecVariant, psu_stream_cuda, psu_stream_plain, validate_stream_call
+from ..core.bt import wrap_int32
+from .axes import (
+    CodecVariant,
+    Variant,
+    bt_axes_cuda,
+    bt_axes_plain,
+    psu_stream_cuda,
+    psu_stream_plain,
+    validate_axes_call,
+    validate_stream_call,
+    validate_variants,
+)
 from ._build import DTYPE_CODES
 from .backend import use_kernel
 from .btcount import bt_count_cuda, bt_count_plain
 from .psu import check_key, psu_sort_cuda, psu_sort_plain
 
-__all__ = ["psu_sort", "psu_reorder", "psu_stream", "PsuStreamResult", "bt_count"]
+__all__ = [
+    "psu_sort",
+    "psu_reorder",
+    "psu_stream",
+    "PsuStreamResult",
+    "bt_count",
+    "bt_count_axes",
+    "bt_count_links",
+    "bt_count_variants",
+    "bt_count_codecs",
+]
+
+_NO_ACTIVITY = (
+    "activity_windows: the per-wire activity mode of the multi-axis kernel is "
+    "not ported yet (ROADMAP queue 2 item 3, mode (d))"
+)
 
 
 def _kernel_dtype(x: torch.Tensor) -> torch.Tensor:
@@ -57,6 +87,21 @@ def psu_reorder(
     return torch.gather(packets, -1, order.to(torch.int64))
 
 
+def _paired(inputs, weights, weight_lanes, input_lanes):
+    """The reference's (weights, weight_lanes) defaulting: no weights frame
+    the inputs alone unless ``weight_lanes`` is given (then zero weights
+    fill those lanes); given weights default to the symmetric framing."""
+    if weights is None:
+        weight_lanes = 0 if weight_lanes is None else weight_lanes
+        if weight_lanes:
+            weights = torch.zeros_like(inputs)
+    elif weight_lanes is None:
+        weight_lanes = input_lanes
+    if weights is not None and weights.shape != inputs.shape:
+        raise ValueError(f"paired shapes differ: {tuple(inputs.shape)} vs {tuple(weights.shape)}")
+    return weights, weight_lanes
+
+
 class PsuStreamResult(NamedTuple):
     """Everything the fused TX pipeline produces in one kernel launch."""
 
@@ -84,14 +129,7 @@ def psu_stream(
     ``weight_lanes`` is given, in which case zero weights fill those lanes,
     as in the reference.
     """
-    if weights is None:
-        weight_lanes = 0 if weight_lanes is None else weight_lanes
-        if weight_lanes:
-            weights = torch.zeros_like(inputs)
-    elif weight_lanes is None:
-        weight_lanes = input_lanes
-    if weights is not None and weights.shape != inputs.shape:
-        raise ValueError(f"paired shapes differ: {tuple(inputs.shape)} vs {tuple(weights.shape)}")
+    weights, weight_lanes = _paired(inputs, weights, weight_lanes, input_lanes)
     if inputs.dim() != 2:
         raise ValueError(f"psu_stream needs (P, N) packets, got {tuple(inputs.shape)}")
     validate_stream_call(
@@ -120,3 +158,155 @@ def bt_count(
             stream = stream.contiguous()
         return bt_count_cuda(stream, width=width)
     return bt_count_plain(stream, width=width)
+
+
+def bt_count_axes(
+    inputs: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    valid: torch.Tensor | Sequence[int] | None = None,
+    configs: tuple[CodecVariant, ...] = (CodecVariant(),),
+    width: int = 8,
+    input_lanes: int = 8,
+    weight_lanes: int | None = None,
+    split_lanes: int | None = None,
+    pack: str = "lane",
+    backend: str | None = None,
+    chunk_packets: int | None = None,
+    activity_windows: int | None = None,
+) -> torch.Tensor:
+    """The multi-axis measurement: per-link, per-(ordering, codec) config
+    BT of an (L, P, N) packet batch.
+
+    ``valid`` gives each link's real packet count (default all P; clamped
+    to [0, P]); rows past it count nothing, data or invert line.
+    ``split_lanes`` is the lane where the input side ends (default
+    ``input_lanes``).  ``chunk_packets`` measures the packet axis in chunks
+    of that many packets, one launch each, threading the carry (started,
+    last wire flit, last invert states) from chunk to chunk; the result is
+    the same for any chunk size.  On a CUDA tensor each chunk is one
+    launch of the ``bt_axes`` kernels.
+
+    Returns int32 (L, C, 3): input-side, weight-side and invert-line BT.
+    """
+    if activity_windows is not None:
+        raise NotImplementedError(_NO_ACTIVITY)
+    if inputs.dim() != 3:
+        raise ValueError(f"expected (L, P, N) packets, got {tuple(inputs.shape)}")
+    if chunk_packets is not None and chunk_packets < 1:
+        raise ValueError(f"chunk_packets must be >= 1, got {chunk_packets}")
+    weights, weight_lanes = _paired(inputs, weights, weight_lanes, input_lanes)
+    links, p, n = inputs.shape
+    configs, split_lanes = validate_axes_call(
+        n, configs=configs, width=width, input_lanes=input_lanes,
+        weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack,
+    )
+    if links == 0 or p == 0:
+        return torch.zeros((links, len(configs), 3), dtype=torch.int32, device=inputs.device)
+    if valid is None:
+        valid = torch.full((links,), p, dtype=torch.int32, device=inputs.device)
+    else:
+        valid = torch.as_tensor(valid, device=inputs.device).to(torch.int32).clamp(0, p)
+    if valid.shape != (links,):
+        raise ValueError(f"valid must be ({links},), got {tuple(valid.shape)}")
+    kw = dict(
+        configs=configs, width=width, input_lanes=input_lanes,
+        weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack,
+    )
+    cuda = use_kernel(inputs, backend)
+    if cuda:
+        inputs = _kernel_dtype(inputs)
+        weights = weights.to(inputs.dtype).contiguous() if weight_lanes else None
+    step = p if chunk_packets is None else min(chunk_packets, p)
+    total, carry = None, None
+    for p0 in range(0, p, step):
+        x = inputs[:, p0: p0 + step]
+        w = weights[:, p0: p0 + step] if weight_lanes else None
+        vc = valid if step == p else (valid - p0).clamp(0, x.shape[1])
+        if cuda:
+            w = w.contiguous() if w is not None else None
+            bt, carry = bt_axes_cuda(x.contiguous(), w, vc, carry=carry, **kw)
+        else:
+            bt, carry = bt_axes_plain(x, w, vc, carry=carry, **kw)
+        # int32 totals wrap like the reference's
+        total = bt if total is None else wrap_int32(total.to(torch.int64) + bt)
+    return total
+
+
+def bt_count_links(
+    streams: torch.Tensor,
+    input_lanes: int | None = None,
+    lengths: torch.Tensor | Sequence[int] | None = None,
+    width: int = 8,
+    backend: str | None = None,
+    chunk_rows: int | None = None,
+    activity_windows: int | None = None,
+) -> torch.Tensor:
+    """Per-link (input-side, weight-side) BT of an (L, T, lanes) batch of
+    flit streams, int32 (L, 2): each flit row is one packet of the
+    multi-axis measurement with the identity ordering.  ``lengths`` gives
+    each link's real flit count (rows past it count nothing, whatever they
+    hold); ``input_lanes`` (default all) is where the input side ends."""
+    if activity_windows is not None:
+        raise NotImplementedError(_NO_ACTIVITY)
+    links, t, lanes = streams.shape
+    if input_lanes is None:
+        input_lanes = lanes
+    if not 0 <= input_lanes <= lanes:
+        raise ValueError(f"input_lanes={input_lanes} outside the {lanes}-lane flit")
+    if links == 0 or t < 2:
+        return torch.zeros((links, 2), dtype=torch.int32, device=streams.device)
+    out = bt_count_axes(
+        streams, None, lengths, configs=(CodecVariant("none"),), width=width,
+        input_lanes=lanes, weight_lanes=0, split_lanes=input_lanes, pack="row",
+        backend=backend, chunk_packets=chunk_rows,
+    )
+    return out[:, 0, :2]
+
+
+def bt_count_variants(
+    inputs: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    variants: tuple[Variant, ...] = (Variant("acc"),),
+    width: int = 8,
+    input_lanes: int = 8,
+    weight_lanes: int | None = None,
+    pack: str = "lane",
+    backend: str | None = None,
+    chunk_packets: int | None = None,
+) -> torch.Tensor:
+    """Ordered BT of (P, N) packets under many uncoded orderings: int32
+    (V, 2) (input-side, weight-side), one measurement for all of them."""
+    variants = validate_variants(tuple(variants), width)
+    weights, weight_lanes = _paired(inputs, weights, weight_lanes, input_lanes)
+    out = bt_count_axes(
+        inputs[None], None if weights is None else weights[None], None,
+        configs=tuple(CodecVariant(v.key, v.k, v.descending) for v in variants),
+        width=width, input_lanes=input_lanes, weight_lanes=weight_lanes, pack=pack,
+        backend=backend, chunk_packets=chunk_packets,
+    )
+    return out[0, :, :2]
+
+
+def bt_count_codecs(
+    inputs: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    configs: tuple[CodecVariant, ...] = (CodecVariant(),),
+    width: int = 8,
+    input_lanes: int = 8,
+    weight_lanes: int | None = None,
+    pack: str = "lane",
+    backend: str | None = None,
+    chunk_packets: int | None = None,
+    activity_windows: int | None = None,
+) -> torch.Tensor:
+    """Coded and ordered BT of (P, N) packets under many (ordering, codec)
+    configs: int32 (C, 3) (input-side, weight-side, invert-line), one
+    measurement for all of them."""
+    weights, weight_lanes = _paired(inputs, weights, weight_lanes, input_lanes)
+    out = bt_count_axes(
+        inputs[None], None if weights is None else weights[None], None,
+        configs=tuple(configs), width=width, input_lanes=input_lanes,
+        weight_lanes=weight_lanes, pack=pack, backend=backend,
+        chunk_packets=chunk_packets, activity_windows=activity_windows,
+    )
+    return out[0]

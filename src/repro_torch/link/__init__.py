@@ -14,7 +14,7 @@ from .framing import (
 )
 from .pipeline import LinkReport, TxPipeline, TxResult
 from .power import LinkPowerModel
-from .spec import CODEC_NAMES, LinkSpec
+from .spec import LinkSpec
 from .stages import (
     ENCODE_STAGES,
     KEY_STAGES,
@@ -34,7 +34,6 @@ from .stages import (
 
 __all__ = [
     "LinkSpec",
-    "CODEC_NAMES",
     "TxPipeline",
     "TxResult",
     "LinkReport",

@@ -8,13 +8,14 @@ measure), configured by a ``LinkSpec``, with the reference's two paths:
     symmetric (or absent) weight side: one ``psu_stream`` launch sorts,
     reorders, packs and counts BT (``kernels/axes.py``);
   * **staged**, for everything else ('none', 'column_major', 'col',
-    asymmetric framings, row streams): the registered stages, then one
-    ``bt_count`` launch per lane half (``kernels/btcount.py``).
+    asymmetric framings, row streams, and every spec with a wire codec):
+    the registered stages, the wire codec on the assembled stream
+    (``repro_torch.codec``), then one ``bt_count`` launch per lane half
+    (``kernels/btcount.py``).  Coded specs also report their invert-line
+    transitions and added wires, and the energy model charges both.
 
 Tensors stay on the device they arrive on; numpy arrays are moved to the
-pipeline's ``device`` (``cuda`` unless the caller names another).  Specs
-with a wire codec raise ``NotImplementedError``: codecs are a later slice
-of the port.
+pipeline's ``device`` (``cuda`` unless the caller names another).
 """
 
 from __future__ import annotations
@@ -42,10 +43,12 @@ class TxResult:
 
     order: torch.Tensor  # (P, N) int32 (or (R,) for row streams)
     rank: Optional[torch.Tensor]  # (P, N) int32; None on the staged path
-    stream: torch.Tensor  # (T, lanes) uint8 wire rows
+    stream: torch.Tensor  # (T, lanes) uint8 wire rows (codec-coded if any)
     bt_input: torch.Tensor  # int32: input-side bit transitions
     bt_weight: torch.Tensor  # int32: weight-side bit transitions
     fused: bool  # produced by the single-launch kernel?
+    invert: Optional[torch.Tensor] = None  # (T, partitions) uint8 bus-invert lines
+    bt_aux: torch.Tensor | int = 0  # int32: invert-line transitions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,12 +104,12 @@ class TxPipeline:
     """Transmit pipeline over one link, configured by a ``LinkSpec``.
 
     Args:
-      spec: framing + stage selection (uncoded specs only in this port).
+      spec: framing + stage selection.
       power: energy model for ``LinkReport.energy_pj`` (default paper model).
       fused: force (True) or forbid (False) the fused kernel; None = use it
-        whenever the spec allows.
-      backend: kernel backend override (``"torch"`` runs the plain versions
-        on any device, ``"cuda"`` insists on the kernels).
+        whenever the spec allows (never for a coded spec).
+      backend: ``"torch"`` runs the plain versions on any device; None
+        lets the tensor's device decide (``kernels/backend.py``).
       device: where numpy inputs are put (``cuda`` unless named).
     """
 
@@ -119,11 +122,6 @@ class TxPipeline:
         backend: str | None = None,
         device: str | torch.device | None = None,
     ) -> None:
-        if spec.codec != "none":
-            raise NotImplementedError(
-                f"wire codec {spec.codec!r}: coded specs are not ported yet "
-                "(ROADMAP queue 1 item 5, repro.codec)"
-            )
         self.spec = spec
         self.power = power if power is not None else LinkPowerModel()
         self._fused = fused
@@ -150,11 +148,21 @@ class TxPipeline:
 
     def _fusable(self, weights: torch.Tensor | None) -> bool:
         s = self.spec
+        # a wire codec recodes the assembled stream after packing, so its
+        # BT cannot come out of the fused sort + pack + count kernel
         return (
             s.key in ("acc", "app")
             and s.pack in ("lane", "row")
+            and s.codec == "none"
             and (weights is None or s.symmetric)
         )
+
+    def _code_wire(self, stream: torch.Tensor):
+        """Apply the spec's wire codec: (wire, invert lines, aux BT)."""
+        from ..codec.schemes import codec_by_name, invert_line_transitions
+
+        coded = codec_by_name(self.spec.codec).encode(stream)
+        return coded.wire, coded.invert, invert_line_transitions(coded.invert)
 
     # ------------------------------------------------------------- packet TX
     def run(self, inputs, weights=None) -> TxResult:
@@ -177,7 +185,7 @@ class TxPipeline:
         fused = self._fused if self._fused is not None else self._fusable(weights)
         if fused and not self._fusable(weights):
             raise ValueError(
-                f"spec (key={s.key!r}, pack={s.pack!r}, "
+                f"spec (key={s.key!r}, pack={s.pack!r}, codec={s.codec!r}, "
                 f"symmetric={s.symmetric}) cannot run fused"
             )
         xi = self.encode(inputs)
@@ -195,28 +203,47 @@ class TxPipeline:
             descending=s.descending,
         )
         stream = assemble_stream(xi, wi, s, order, s.pack)
+        invert, bt_aux = None, torch.zeros((), dtype=torch.int32, device=stream.device)
+        if s.codec != "none":
+            stream, invert, bt_aux = self._code_wire(stream)
         bt_i = bt_count(stream[:, : s.input_lanes], backend=self._backend)
         if wi is not None and s.weight_lanes:
             bt_w = bt_count(stream[:, s.input_lanes :], backend=self._backend)
         else:
             bt_w = torch.zeros((), dtype=torch.int32, device=stream.device)
-        return TxResult(order, None, stream, bt_i, bt_w, False)
+        return TxResult(order, None, stream, bt_i, bt_w, False, invert, bt_aux)
 
     def transmit(self, inputs, weights=None) -> torch.Tensor:
         """The (T, lanes) uint8 wire image of the packets."""
         return self.run(inputs, weights).stream
 
-    def _report(self, name, num_flits, lanes, bt_i, bt_w, fused) -> LinkReport:
-        energy = self.power.coded_link_energy_pj(bt_i + bt_w, 0, num_flits, 8 * lanes, 0)
-        return LinkReport(name, num_flits, bt_i, bt_w, fused=fused, energy_pj=energy)
+    def _report(self, name, stream, bt_i, bt_w, aux, fused) -> LinkReport:
+        """The report of one measured wire stream: coded specs charge the
+        invert-line transitions and the added wires."""
+        num_flits, lanes = (int(d) for d in stream.shape)
+        wires = self._extra_wires(lanes)
+        energy = self.power.coded_link_energy_pj(bt_i + bt_w, aux, num_flits, 8 * lanes, wires)
+        return LinkReport(
+            name, num_flits, bt_i, bt_w, fused=fused, energy_pj=energy, aux_bt=aux,
+            extra_wires=wires,
+        )
 
     def measure(self, inputs, weights=None, name: str = "stream") -> LinkReport:
         """BT / energy report for transmitting the packets under this spec."""
         res = self.run(inputs, weights)
-        num_flits, lanes = (int(d) for d in res.stream.shape)
         return self._report(
-            name, num_flits, lanes, int(res.bt_input), int(res.bt_weight), res.fused
+            name, res.stream, int(res.bt_input), int(res.bt_weight), int(res.bt_aux), res.fused
         )
+
+    def _extra_wires(self, lanes: int) -> int:
+        """Invert lines the spec's codec adds beside ``lanes`` byte lanes:
+        the actual width of the stream (an input-only run of a paired spec
+        codes only the input half)."""
+        if self.spec.codec == "none":
+            return 0
+        from ..codec.schemes import codec_by_name
+
+        return codec_by_name(self.spec.codec).extra_wires(lanes)
 
     # --------------------------------------------------------------- row TX
     def row_order(self, rows: torch.Tensor) -> torch.Tensor:
@@ -230,17 +257,25 @@ class TxPipeline:
             raise ValueError(f"row streams use key 'none' or 'row_bucket', got {s.key!r}")
         return row_bucket_order(rows, s.k, width=s.width, descending=s.descending)
 
-    def transmit_rows(self, rows) -> torch.Tensor:
-        """Wire image of an (R, B) byte-row stream: encode, order whole rows
-        by popcount bucket, lay out with the pack stage."""
+    def _row_wire(self, rows):
+        """(wire stream, aux BT) of an (R, B) byte-row stream."""
         enc = self.encode(self._tensor(rows))
         ordered = enc.index_select(0, self.row_order(enc).to(torch.int64))
         stream = PACK_STAGES[self.spec.pack].stream(ordered, self.spec.bytes_per_flit)
-        return stream.to(torch.uint8)
+        stream = stream.to(torch.uint8)
+        if self.spec.codec == "none":
+            return stream, 0
+        wire, _, bt_aux = self._code_wire(stream)
+        return wire, bt_aux
+
+    def transmit_rows(self, rows) -> torch.Tensor:
+        """Wire image of an (R, B) byte-row stream: encode, order whole rows
+        by popcount bucket, lay out with the pack stage, then apply the
+        wire codec (if any)."""
+        return self._row_wire(rows)[0]
 
     def measure_rows(self, rows, name: str = "rows") -> LinkReport:
         """BT / energy report for streaming ``rows`` under this spec."""
-        stream = self.transmit_rows(rows)
+        stream, bt_aux = self._row_wire(rows)
         bt = int(bt_count(stream, backend=self._backend))
-        num_flits, lanes = (int(d) for d in stream.shape)
-        return self._report(name, num_flits, lanes, bt, 0, False)
+        return self._report(name, stream, bt, 0, int(bt_aux), False)

@@ -11,12 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["LinkSpec", "CODEC_NAMES"]
-
-# The reference's registered wire codecs (repro.codec.schemes.CODECS).  A
-# spec may name any of them; the transmit path itself runs uncoded specs
-# only until the codec slice is ported (ROADMAP queue 1 item 5).
-CODEC_NAMES = ("none", "gray", "sign_magnitude", "transition", "bus_invert", "bus_invert4")
+__all__ = ["LinkSpec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +31,7 @@ class LinkSpec:
     key: str = "acc"  # repro_torch.link.stages.KEY_STAGES
     encode: str = "identity"  # repro_torch.link.stages.ENCODE_STAGES
     pack: str = "lane"  # repro_torch.link.stages.PACK_STAGES
-    codec: str = "none"  # CODEC_NAMES
+    codec: str = "none"  # repro_torch.codec.CODECS (wire coding of the stream)
 
     # --- key-stage parameters ---
     width: int = 8  # element bit width W of the sort keys
@@ -74,6 +69,12 @@ class LinkSpec:
             ("key", stages.KEY_STAGES),
             ("encode", stages.ENCODE_STAGES),
             ("pack", stages.PACK_STAGES),
-            ("codec", dict.fromkeys(CODEC_NAMES)),
         ):
             stages.lookup_stage(field, getattr(self, field), registry)
+        if self.codec != "none":
+            # deferred: repro_torch.codec builds on this package, so it is
+            # imported only when a spec names a codec, never while
+            # repro_torch.link itself initializes
+            from ..codec.schemes import CODECS
+
+            stages.lookup_stage("codec", self.codec, CODECS)

@@ -62,3 +62,49 @@ def test_bt_count_kernel_matches_plain(dev, shape):
         for v in (s8, s8[:, :half], s8[:, half:], s32, s32[:, half:]):
             ref = tk.bt_count(v, width=width, backend="torch")
             assert torch.equal(tk.bt_count(v, width=width), ref)
+
+
+def _axes_configs(lanes, width=8):
+    """Every ordering (ACC / APP k in {2, 4, 8} x direction, none,
+    column_major) crossed with every codec, bus-invert partitions None / 4 / 2
+    (APP k past width + 1 left out)."""
+    orderings = [("none", None, False), ("column_major", None, False), ("acc", None, False),
+                 ("acc", None, True), ("app", 2, False), ("app", 4, True), ("app", 8, False)]
+    codecs = [("none", None), ("gray", None), ("sign_magnitude", None), ("transition", None),
+              ("bus_invert", None), ("bus_invert", 4), ("bus_invert", 2)]
+    return tuple(tk.CodecVariant(*o, c, part) for o in orderings for c, part in codecs
+                 if (part is None or lanes % part == 0) and (o[1] or 0) <= width + 1)
+
+
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("n,lanes,paired,pack", [(32, 8, True, "lane"), (64, 16, False, "row"),
+                                                 (32, 8, False, "lane"), (32, 4, True, "row")])
+def test_bt_axes_kernel_matches_plain(dev, width, n, lanes, paired, pack):
+    links, p = 5, 301  # P is no multiple of the kernel's packets per block
+    x = _packets(dev, (links, p, n), n + width)
+    w = _packets(dev, (links, p, n), n + width + 1) if paired else None
+    valid = torch.tensor([0, p, 1, 150, p + 40], device=dev)
+    configs = _axes_configs(2 * lanes if paired else lanes, width)
+    for chunk in (None, 1, 7):
+        kw = dict(configs=configs, width=width, input_lanes=lanes, pack=pack, chunk_packets=chunk)
+        tk.reset_launch_counts()
+        got = tk.bt_count_axes(x, w, valid, **kw)
+        assert tk.launch_counts()["bt_axes"] == (1 if chunk is None else -(-p // chunk))
+        ref = tk.bt_count_axes(x, w, valid, backend="torch", **kw)
+        assert torch.equal(got, ref), (chunk, (got != ref).nonzero()[:5].tolist())
+
+
+def test_bt_axes_entry_points_and_int32_payloads(dev):
+    streams = _packets(dev, (6, 999, 16), 3)
+    lengths = torch.tensor([999, 0, 2, 500, 1, 2000], device=dev)
+    got = tk.bt_count_links(streams, 10, lengths)
+    assert torch.equal(got, tk.bt_count_links(streams, 10, lengths, backend="torch"))
+    x32 = _packets(dev, (700, 32), 4, np.int32, 1 << 16)
+    w32 = _packets(dev, (700, 32), 5, np.int32, 1 << 16)
+    for width in (8, 12, 16):
+        kw = dict(configs=_axes_configs(16, width), width=width)
+        got = tk.bt_count_codecs(x32, w32, **kw)
+        assert torch.equal(got, tk.bt_count_codecs(x32, w32, backend="torch", **kw))
+    variants = (tk.Variant("acc"), tk.Variant("app", 4, True), tk.Variant("none"))
+    got = tk.bt_count_variants(x32, w32, variants, chunk_packets=64)
+    assert torch.equal(got, tk.bt_count_variants(x32, w32, variants, backend="torch"))

@@ -23,7 +23,10 @@ def test_every_port_module_is_listed():
     names = _port_modules()
     for expected in ("repro_torch.core.popcount", "repro_torch.kernels.psu",
                      "repro_torch.kernels.axes", "repro_torch.kernels._build",
-                     "repro_torch.link.pipeline", "repro_torch.convert"):
+                     "repro_torch.link.pipeline", "repro_torch.convert",
+                     "repro_torch.codec.schemes", "repro_torch.codec.stage",
+                     "repro_torch.codec.overhead", "repro_torch.codec.compare",
+                     "repro_torch.traffic.ordering"):
         assert expected in names
 
 

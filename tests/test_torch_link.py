@@ -77,15 +77,23 @@ def test_spec_validation_and_registries():
     assert set(tl.ENCODE_STAGES) == set(rl.ENCODE_STAGES)
     assert set(tl.PACK_STAGES) == set(rl.PACK_STAGES)
     assert set(tl.ORDER_STRATEGIES) == set(rl.ORDER_STRATEGIES)
-    assert set(tl.CODEC_NAMES) == set(CODECS)
+    from repro_torch.codec import CODECS as PORT_CODECS
+
+    assert set(PORT_CODECS) == set(CODECS)
     with pytest.raises(ValueError, match="registered pack stages"):
         tl.lookup_stage("pack", "bogus", tl.PACK_STAGES)
 
 
 def test_coded_spec_is_not_ported_yet():
-    spec = tl.LinkSpec(key="acc", codec="bus_invert")  # a valid spec
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tl.TxPipeline(spec, device="cpu")
+    """Coded specs run in the port now, on the staged path only, as in the
+    reference: forcing the fused kernel on one raises in both packages."""
+    x = np.zeros((4, 32), dtype=np.uint8)
+    rep = tl.TxPipeline(tl.LinkSpec(key="acc", codec="bus_invert"), device="cpu").measure(x)
+    assert not rep.fused and rep.extra_wires == 1
+    with pytest.raises(ValueError, match="cannot run fused"):
+        tl.TxPipeline(tl.LinkSpec(key="acc", codec="bus_invert"), fused=True, device="cpu").run(x)
+    with pytest.raises(ValueError, match="cannot run fused"):
+        rl.TxPipeline(rl.LinkSpec(key="acc", codec="bus_invert"), fused=True).run(jnp.asarray(x))
 
 
 def test_power_model_crosses_over_exactly():
