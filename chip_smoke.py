@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's transmit and codec paths on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's transmit, codec and activity paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -18,7 +18,9 @@ non-zero:
    multi-axis measurement) on jagged (6, 1,001, N) batches over every
    ordering (none, column_major, ACC, APP k in {2, 4, 8}, both directions)
    x every codec (bus-invert partitions None / 4 / 2) x width 4/8 x
-   'lane' / 'row' x paired / input-only x ``chunk_packets`` 1 / 7 / none;
+   'lane' / 'row' x paired / input-only x ``chunk_packets`` 1 / 7 / none,
+   and ``bt_axes_activity`` (its per-wire activity windows) over the same
+   matrix with windows of 7 rows, and of 1 and 5,000 rows unchunked;
 3. main path: the quickstart's ``psu_sort`` / ``psu_reorder`` call, the
    Table I rows through ``TxPipeline`` (100,000 uniform paired packets;
    the 24-image conv streams), the Fig. 5 area rows and the Fig. 7 power
@@ -33,12 +35,24 @@ non-zero:
    pairs; every (data, aux) BT total must equal the pins below, the coded
    rows also the ``bt_count_codecs`` column of their config, and the
    counters must show one ``bt_axes`` launch per stream and per chunk;
+3c. activity path: ``benchmarks/codec_bt.py --activity`` at its defaults
+   (the 6-image conv input stream under the 12 configs, windows of 32 flit
+   rows) through ``bt_count_codecs(..., activity_windows=32)``, whole and in
+   256-packet chunks, equal to the plain version and to the per-config
+   toggle / level pins below; each config's ``repro_torch.obs`` profile
+   must pass its per-wire-sum == gross-BT check and the SAIF text written
+   into ``build/`` must equal the pinned digest; then phase 3b's
+   ``compare_streams`` again under ``obs.collect()`` / ``obs.tracing()``:
+   the ``codec.stream.bt`` series must equal the pins, the dispatch
+   counters the launch counters, and the launches those of a run without
+   observability (trace in ``build/TRACE_chip_smoke.json``);
 4. scale and times: ``psu_stream`` on 4,194,304 paired packets,
    ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
-   (256, 16,384, 64) batch, all generated on the card and checked against
-   the plain versions, then CUDA-event medians of the kernels, their plain
-   versions and a library call where one exists, at the main path's
-   shapes and at the scale shapes.
+   (256, 16,384, 64) batch, the same batch through ``bt_axes_activity``
+   with windows of 512 rows (also in 4,096-packet chunks), all generated
+   on the card and checked against the plain versions, then CUDA-event
+   medians of the kernels, their plain versions and a library call where
+   one exists, at the main path's shapes and at the scale shapes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The full record is also
@@ -47,6 +61,7 @@ written to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -62,9 +77,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from benchmarks.datagen import conv_streams, uniform_pairs  # noqa: E402
-from repro_torch import kernels  # noqa: E402
+from repro_torch import kernels, obs  # noqa: E402
 from repro_torch.codec import compare_streams, demo_workloads, format_table  # noqa: E402
-from repro_torch.codec import kernel_config  # noqa: E402
+from repro_torch.codec import codec_by_name, kernel_config  # noqa: E402
 from repro_torch.core import bitonic_area, bucket_map, csn_area, popcount, psu_area  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     CodecVariant,
@@ -77,6 +92,7 @@ from repro_torch.kernels import (  # noqa: E402
     psu_sort,
     psu_stream,
 )
+from repro_torch.kernels.axes import max_partitions  # noqa: E402
 from repro_torch.link import LinkPowerModel, LinkSpec, TxPipeline  # noqa: E402
 
 # --------------------------------------------------------------------------
@@ -164,6 +180,47 @@ CODEC_COMPARE = {
         },
     },
 }
+# The activity path: benchmarks/codec_bt.py --activity at its defaults —
+# the conv input stream of CODEC_COMPARE under its 12 configs, windows of
+# 32 flit rows — computed with the JAX package (compiled backend, CPU).
+# Per config label (ordering key + codec + partition, as the bench names
+# its profiles): sha256 of the int32 toggles (windows, wires) bytes, sha256
+# of the int32 ones (wires,) bytes, the toggle sum and the ones sum.  The
+# SAIF digest is of repro.obs.write_saif(..., design="codec_bt") over the
+# 12 profiles; stream_bt the codec.stream.bt series of phase 3b's streams.
+CODEC_ACTIVITY = {
+    "window": 32,
+    "windows": 230,
+    "wires": 132,
+    "configs": {
+        "none+none": ("e7bd2632666a97415c8553ecf37c6bc23cac526d8a2801a9953e581015a109c6",
+                "a139041650fdc45def3843af810fa4aebc24b56976fca396b918468f3596abdb", 248792, 173803),
+        "none+bus_invert": ("f136a1a47f855ee04fa9adb4f2d686894c9fae5c2a51b7ccd87741d1ff2788d1",
+                "b9214fc6bff64354e53192d95ae7f97027802ee29a5aeebf8d9cdf9cbeec1523", 247322, 443229),
+        "none+bus_invert4": ("48c805d243c1ca218b2f65bbb2e479308736a15176285e491cccadc7e5809752",
+                "e3246018bd779c1e8d89955aaca15b3a73edcad66b7bd6c8903d1f72a5020946", 244765, 376016),
+        "none+transition": ("669b6afe5fe47f672d6736fc0a60eebf1b007bf8b3565a4a459a52d8b9c79442",
+                "c2dabfab3ac3640aa70af916f0b46a009a170f3f6c456d82af18fc53203ca7c3", 173793, 469192),
+        "acc+none": ("dcb37b46cd3ab8b1604fb1d6e059c731b1d5aef0b83a3128fbacbbf430d872df",
+                "8291385f1497c4cec8a49f8671902fb42d42c82aa194dbde389d3a0dcbb59f8d", 164058, 173803),
+        "acc+bus_invert": ("d1266be4af796315fe9b21ef29ec139e7f9f79355dcef6c56ed04547cf730de0",
+                "9ffc0bbe6e441788b27f4fcb16d68d7c494faecf2a1af75f04801726b8678232", 164051, 418198),
+        "acc+bus_invert4": ("412af450b815a62fe78571a933ece3b3d5113e72a0071b5827e07d7d2c175b15",
+                "8215dbf8cbf2cf7cdb2dd2d2e2c3b614c0ef1d7132efcd633af2958535c7881b", 159706, 321448),
+        "acc+transition": ("77bb04654db083909f63e48e2bf9336fca5324461bd452b6552d001f33465b1b",
+                "14aeba8a9a2fbf2453eb449107bced024b47e12e2a7af3ecf828eb893ab547d9", 173793, 445215),
+        "app+none": ("b8713c76cae7ef2961d1bcf9645ec87a43c0c68103a96368540c6ffbad844f2d",
+                "ff519b8fa9f6e3e977ad683c7cc40b8ed477ebc965b121375ab6972734f1de0f", 183276, 173803),
+        "app+bus_invert": ("3c6dd47a6d94bf91e6fffa171f0e59ee39de05fd1d69e5c316f1cf6767cf84e1",
+                "5510e072bdf51e50eee117abe74a1d8d5f71284755f3eb982df254f840ef3136", 183246, 231603),
+        "app+bus_invert4": ("7e388cea83bf3eb673a109f42c0254fbea98787550d63d0c7473e2b86bd2025e",
+                "76a9eac4b3024fffd062b84bab9a6d67061692280b935f9bd374d4057c5ef388", 178413, 293459),
+        "app+transition": ("d996c7df753eaeffbcf2ea248fe26bf340afb31e75768b953f3538c300033716",
+                "5225bcac9c598426419e06dfec0a75286be906acffa082abb4cf5c84123eb271", 173791, 472362),
+    },
+    "saif_sha256": "204eaf549461e38afa419cf33e6321d65244159e498856a0305980589799338a",
+    "stream_bt": {"conv[0]": 248792, "conv[1]": 454059, "decode[0]": 98560, "allreduce[0]": 65275},
+}
 # coded TxPipeline rows on TABLE1_UNIFORM's pairs (paper framing):
 # (input BT, weight BT, invert-line BT), JAX package, compiled backend
 CODED_TX = {
@@ -204,6 +261,10 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/axes.cu",
         "replaces": "src/repro/kernels/axes.py:519",
     },
+    "bt_axes_activity": {
+        "source": "src/repro_torch/kernels/csrc/axes.cu",
+        "replaces": "src/repro/kernels/axes.py:519 (mode d)",
+    },
 }
 
 SCALE_PACKETS = 4_194_304
@@ -212,6 +273,7 @@ SCALE_BT_ROWS = 2**27
 # input-only 16-lane links, and its 14 configs (the 12 of the codec path,
 # column_major + gray, descending ACC + sign-magnitude)
 SCALE_AXES = (256, 16_384, 64)
+SCALE_WINDOW = 512  # flit rows per activity window at scale: 128 windows
 SCALE_AXES_CONFIGS = tuple(
     CodecVariant(*o, c, part)
     for o in CODEC_COMPARE["orderings"]
@@ -326,7 +388,7 @@ def phase_kernels(dev: torch.device, p: int = 100_003, t: int = 400_001,
     """Every kernel against its plain version on the card; returns the
     largest absolute difference per kernel (must be 0)."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    errs = {"psu_sort": 0, "bt_count": 0, "psu_stream": 0, "bt_axes": 0}
+    errs = {"psu_sort": 0, "bt_count": 0, "psu_stream": 0, "bt_axes": 0, "bt_axes_activity": 0}
 
     def rand(shape, dtype=torch.uint8, hi=256):
         return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=dtype)
@@ -392,7 +454,7 @@ def phase_kernels(dev: torch.device, p: int = 100_003, t: int = 400_001,
                  ("app", 4, True), ("app", 8, False), ("app", 8, True)]
     codecs = [("none", None), ("gray", None), ("sign_magnitude", None), ("transition", None),
               ("bus_invert", None), ("bus_invert", 4), ("bus_invert", 2)]
-    cases = 0
+    cases = acases = 0
     for n, il, paired, pack in ((32, 8, True, "lane"), (32, 8, True, "row"),
                                 (64, 16, False, "lane"), (64, 16, False, "row")):
         x, w = rand((links, pa, n)), rand((links, pa, n))
@@ -411,8 +473,25 @@ def phase_kernels(dev: torch.device, p: int = 100_003, t: int = 400_001,
                     bad = (got != ref).nonzero()[:4].tolist()
                     fail(f"bt_axes N={n} il={il} paired={paired} {pack} W={width} "
                          f"chunk={chunk}: err {e} at (link, config, column) {bad}")
+            # the activity mode: windows of 7 rows in every chunking, and
+            # one-row and longer-than-the-stream windows unchunked
+            for window, chunks in ((7, (None, 1, 7)), (1, (None,)), (5000, (None,))):
+                aref = bt_count_axes(x, ww, valid, backend="torch", activity_windows=window, **kw)
+                for chunk in chunks:
+                    got = bt_count_axes(x, ww, valid, chunk_packets=chunk,
+                                        activity_windows=window, **kw)
+                    for field, a, b in zip(aref._fields, got, aref):
+                        e = max_err(a, b)
+                        errs["bt_axes_activity"] = max(errs["bt_axes_activity"], e)
+                        if e:
+                            bad = (a != b).nonzero()[:4].tolist()
+                            fail(f"bt_axes_activity {field} N={n} il={il} paired={paired} "
+                                 f"{pack} W={width} window={window} chunk={chunk}: err {e} "
+                                 f"at {bad}")
+                    acases += 1
     log(f"bt_axes: {cases} cases of {len(orderings)} orderings x {len(codecs)} codecs at "
         f"({links}, {pa}, N) bit-exact")
+    log(f"bt_axes_activity: {acases} cases of the same grid (bt, toggles, ones) bit-exact")
     torch.cuda.synchronize()
     return errs
 
@@ -531,7 +610,8 @@ def phase_main(dev: torch.device) -> dict:
     # psu_sort: quickstart sort + reorder; bt_count: uniform none and
     # column_major (2 halves each) + conv none and column_major (2 sides
     # each); psu_stream: uniform acc/app + conv acc/app (2 sides each)
-    expected = {"psu_sort": 2, "bt_count": 8, "psu_stream": 6, "bt_axes": 0}
+    expected = {"psu_sort": 2, "bt_count": 8, "psu_stream": 6, "bt_axes": 0,
+                "bt_axes_activity": 0}
     log(f"main-path launches: {counts} (expected {expected})")
     if counts != expected:
         fail(f"main-path launch counts {counts} != {expected}")
@@ -556,7 +636,8 @@ def phase_codec(dev: torch.device) -> dict:
     }
     rows = {}
     kernels.reset_launch_counts()
-    expected = {"psu_sort": 0, "bt_count": 0, "psu_stream": 0, "bt_axes": 0}
+    expected = {"psu_sort": 0, "bt_count": 0, "psu_stream": 0, "bt_axes": 0,
+                "bt_axes_activity": 0}
 
     def launched(what: str, want: dict) -> None:
         got = kernels.launch_counts()
@@ -613,6 +694,125 @@ def phase_codec(dev: torch.device) -> dict:
     counts = kernels.launch_counts()
     log(f"codec-path launches: {counts}")
     return {"rows": rows, "launches": counts}
+
+
+# ------------------------------------------------------------------ phase 3c
+
+
+def _codec_configs() -> tuple[CodecVariant, ...]:
+    """The codec path's 12 (ordering, codec) configs in grid order."""
+    cc = CODEC_COMPARE
+    return tuple(
+        CodecVariant(o.key, o.k, o.descending, codec_by_name(c).scheme,
+                     codec_by_name(c).partition)
+        for o in cc["orderings"] for c in cc["codecs"]
+    )
+
+
+def _sha256(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.cpu().to(torch.int32).contiguous().numpy().tobytes()).hexdigest()
+
+
+def phase_activity(dev: torch.device) -> dict:
+    """The activity path: per-wire windows of the conv stream under the
+    codec grid, into profiles and SAIF; then the codec path under
+    observability.  Checks everything against the pins and returns the
+    rows, the launch counts and the largest kernel-vs-plain difference."""
+    ca, cc = CODEC_ACTIVITY, CODEC_COMPARE
+    inp, wgt = conv_streams(n_images=cc["conv_images"])
+    x = torch.from_numpy(inp).to(dev)
+    configs = _codec_configs()
+    kw = dict(configs=configs, input_lanes=cc["lanes"], activity_windows=ca["window"])
+    kernels.reset_launch_counts()
+    whole = bt_count_codecs(x, None, **kw)
+    chunked = bt_count_codecs(x, None, chunk_packets=256, **kw)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    chunks = -(-x.shape[0] // 256)
+    want = {k: 0 for k in counts} | {"bt_axes_activity": 1 + chunks}
+    log(f"activity-path launches: {counts} (expected {want})")
+    if counts != want:
+        fail(f"activity path: launch counts {counts} != {want}")
+    plain = bt_count_codecs(x, None, backend="torch", **kw)
+    err = 0
+    for field, a, b, c in zip(plain._fields, whole, chunked, plain):
+        e = max(max_err(a, c), max_err(b, c))
+        err = max(err, e)
+        if e:
+            fail(f"activity path {field}: kernel (whole / 256-packet chunks) vs plain err {e}")
+    nwires = ca["wires"]
+    if tuple(whole.toggles.shape) != (len(configs), ca["windows"], nwires):
+        fail(f"activity path: toggles {tuple(whole.toggles.shape)}")
+    p, n = x.shape
+    duration = p * (n // cc["lanes"])
+    profiles, rows = [], {}
+    bt = whole.bt.sum(-1).tolist()
+    for ci, cfg in enumerate(configs):
+        label = f"{cfg.key}+{cfg.codec}" + (f"{cfg.partition}" if cfg.partition else "")
+        got = (_sha256(whole.toggles[ci]), _sha256(whole.ones[ci]),
+               int(whole.toggles[ci].sum()), int(whole.ones[ci].sum()))
+        if got != ca["configs"][label]:
+            fail(f"activity/{label}: {got} != pinned {ca['configs'][label]}")
+        prof = obs.profile_from_arrays(label, whole.toggles[ci], whole.ones[ci],
+                                       window_flits=ca["window"], duration_flits=duration,
+                                       data_lanes=cc["lanes"])
+        prof.check(bt[ci])  # per-wire sum == gross BT
+        profiles.append(prof)
+        hot = prof.hottest_wires(1)[0]
+        rows[f"activity/{label}"] = {"toggles": got[2], "ones": got[3], "hot_wire": hot[0],
+                                     "hot_wire_toggles": hot[1]}
+        log(f"activity/{label:18s} toggles={got[2]} (= gross BT) ones={got[3]} "
+            f"hot wire {hot[0]} x{hot[1]} | equals the reference's digests")
+    out = ROOT / "build"
+    text = obs.write_saif(str(out / "ACTIVITY_codec_bt.saif"), profiles, design="codec_bt")
+    obs.write_wires_csv(str(out / "ACTIVITY_codec_bt_wires.csv"), profiles)
+    saif = hashlib.sha256(text.encode()).hexdigest()
+    if saif != ca["saif_sha256"]:
+        fail(f"activity SAIF digest {saif} != the reference's {ca['saif_sha256']}")
+    log(f"activity SAIF ({len(profiles)} profiles x {nwires} wires, {ca['windows']} windows of "
+        f"{ca['window']} flits) equals the reference's text: sha256 {saif}")
+
+    # phase 3b's comparison under observability, against one without it
+    demo = demo_workloads(images=cc["demo_images"], device=dev)
+    workloads = {"conv": (x, torch.from_numpy(wgt).to(dev)), "decode": demo["decode"],
+                 "allreduce": demo["allreduce"]}
+
+    def compare_all():
+        for name, streams in workloads.items():
+            compare_streams(streams, cc["lanes"], orderings=cc["orderings"],
+                            codecs=cc["codecs"], workload=name)
+        torch.cuda.synchronize()
+
+    compare_all()  # warm: the timed runs below start from the same state
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    compare_all()
+    wall_off = (time.perf_counter() - t0) * 1e3
+    off = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with obs.collect() as reg, obs.tracing() as tracer:
+        compare_all()
+    wall_on = (time.perf_counter() - t0) * 1e3
+    on = kernels.launch_counts()
+    if on != off:
+        fail(f"launches with observability {on} != without {off}")
+    series = {s.labels["stream"]: int(s.value) for s in reg.series("codec.stream.bt")}
+    if series != ca["stream_bt"]:
+        fail(f"codec.stream.bt series {series} != pinned {ca['stream_bt']}")
+    calls = reg.value("kernel.dispatch.calls", entry="bt_count_axes", backend="cuda")
+    obs_launches = sum(s.value for s in reg.series("kernel.launches"))
+    if calls != on["bt_axes"] or obs_launches != sum(on.values()):
+        fail(f"kernel.dispatch calls {calls} / launches {obs_launches} != launch counters {on}")
+    tracer.write(str(out / "TRACE_chip_smoke.json"), metadata={"phase": "3c"})
+    log(f"obs: codec.stream.bt {series} = pins; kernel.dispatch calls {calls}, launches "
+        f"{obs_launches} = launch counters {on} = without observability; "
+        f"{len(tracer.events)} trace events -> build/TRACE_chip_smoke.json")
+    log(f"obs: the 4 streams' comparison took {wall_off:.3f} ms of host wall without "
+        f"observability and {wall_on:.3f} ms collecting and tracing (one run each)")
+    return {"rows": rows, "launches": counts, "max_abs_err": err, "saif_sha256": saif,
+            "stream_bt": series, "obs_launches": on, "wall_ms_obs_off": wall_off,
+            "wall_ms_obs_on": wall_on}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -676,6 +876,37 @@ def phase_scale(dev: torch.device) -> dict:
         f"{int(va.sum())} valid packets), "
         f"{len(SCALE_AXES_CONFIGS)} configs bit-exact, largest link total {int(got.max())}")
 
+    # the same batch with per-wire activity windows; the plain version
+    # 32 links at a time (each link is measured on its own)
+    wkw = dict(akw, activity_windows=SCALE_WINDOW)
+
+    def act_plain():
+        parts = [bt_count_axes(xa[i: i + 32], None, va[i: i + 32], backend="torch", **wkw)
+                 for i in range(0, la, 32)]
+        return type(parts[0])(*(torch.cat(f) for f in zip(*parts)))
+
+    act = bt_count_axes(xa, None, va, **wkw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = act_plain()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    e = max(max_err(a, b) for a, b in zip(act, ref))
+    del ref
+    chunked = bt_count_axes(xa, None, va, chunk_packets=4096, **wkw)
+    e_chunk = max(max_err(a, b) for a, b in zip(act, chunked))
+    del chunked
+    if e or e_chunk or max_err(act.bt, got):
+        fail(f"bt_axes_activity on the {SCALE_AXES} batch: err {e} vs plain, {e_chunk} vs "
+             f"4096-packet chunks, or its BT differs from bt_axes")
+    if max_err(act.toggles.sum(2).sum(-1), act.bt.sum(-1)):
+        fail("bt_axes_activity at scale: per-wire toggles do not sum to the gross BT")
+    log(f"scale bt_axes_activity: jagged {SCALE_AXES}, {len(SCALE_AXES_CONFIGS)} configs, "
+        f"windows of {SCALE_WINDOW} rows -> toggles {tuple(act.toggles.shape)} int32 "
+        f"({act.toggles.numel() * 4} bytes) bit-exact vs plain (all {la} links, "
+        f"{plain_s:.1f} s) and vs 4096-packet chunks; per-wire sums = gross BT")
+    del act
+
     # ---- timings: main path shapes, then scale shapes ----
     u = TABLE1_UNIFORM
     rng = np.random.default_rng(0)
@@ -717,7 +948,7 @@ def phase_scale(dev: torch.device) -> dict:
             "bytes": pn * (2 + 8 + 2) + 8, "ops": pn * 4 + pn * 2 * 3,
         }
 
-    def axes_case(xb, vb, configs, plain):
+    def axes_work(xb, vb, configs):
         """Bytes: each valid packet byte read once, valid counts and totals.
         Operations: per valid byte ~4 per distinct sorted ordering (key,
         rank, scatter) and ~3 per config (code, XOR-popcount, add)."""
@@ -726,11 +957,37 @@ def phase_scale(dev: torch.device) -> dict:
         sorted_orderings = {c.ordering for c in configs if c.key in ("acc", "app")}
         return {
             "shape": [nl, npk, nb, "input-only 16 lanes", f"{len(configs)} configs"],
+            "bytes": vbytes + nl * 8 + nl * len(configs) * 12,
+            "ops": vbytes * (4 * len(sorted_orderings) + 3 * len(configs)),
+        }
+
+    def axes_case(xb, vb, configs, plain):
+        return {
+            **axes_work(xb, vb, configs),
             "ms": time_ms(lambda: bt_count_axes(xb, None, vb, configs=configs, input_lanes=16)),
             "plain_ms": time_ms(plain, reps=3, warmup=1),
             "library_ms": None, "library": "none (no single PyTorch call sorts, codes and counts)",
-            "bytes": vbytes + nl * 8 + nl * len(configs) * 12,
-            "ops": vbytes * (4 * len(sorted_orderings) + 3 * len(configs)),
+        }
+
+    def act_case(xb, vb, configs, window, plain, plain_reps=3):
+        """axes_work plus per-wire activity: ~3 operations per valid row x
+        wire x config (ballot, popcount, add), and the (L, C, NW, WIRES)
+        toggles and (L, C, WIRES) ones written once."""
+        work = axes_work(xb, vb, configs)
+        nl, npk, nb = xb.shape
+        lanes = 16
+        nwires = lanes * 8 + max_partitions(configs, lanes)
+        nw = -(-npk * (nb // lanes) // window)
+        vrows = int(vb.clamp(0, npk).sum()) * (nb // lanes)
+        return {
+            "shape": work["shape"] + [f"windows of {window} rows"],
+            "ms": time_ms(lambda: bt_count_axes(xb, None, vb, configs=configs, input_lanes=16,
+                                                activity_windows=window)),
+            "plain_ms": time_ms(plain, reps=plain_reps, warmup=min(plain_reps - 1, 1)),
+            "library_ms": None,
+            "library": "none (no single PyTorch call computes windowed per-wire toggles)",
+            "bytes": work["bytes"] + nl * len(configs) * (nw + 1) * nwires * 4,
+            "ops": work["ops"] + vrows * nwires * len(configs) * 3,
         }
 
     conv_in = torch.from_numpy(conv_streams(n_images=CODEC_COMPARE["conv_images"])[0]).to(dev)
@@ -746,10 +1003,18 @@ def phase_scale(dev: torch.device) -> dict:
                 backend="torch")),
             axes_case(xa, va, SCALE_AXES_CONFIGS, axes_plain),
         ),
+        "bt_axes_activity": (
+            act_case(conv_in[None], conv_valid, grid, CODEC_ACTIVITY["window"], lambda: (
+                bt_count_axes(conv_in[None], None, conv_valid, configs=grid, input_lanes=16,
+                              backend="torch", activity_windows=CODEC_ACTIVITY["window"]))),
+            act_case(xa, va, SCALE_AXES_CONFIGS, SCALE_WINDOW, act_plain, plain_reps=1),
+        ),
     }
     # the same calls split into device time (profiler) and host wall time
     kernel_names = {"psu_sort": ("psu_sort_kernel",), "bt_count": ("bt_rows_kernel",),
-                    "psu_stream": ("psu_stream_kernel",), "bt_axes": ("bt_axes",)}
+                    "psu_stream": ("psu_stream_kernel",), "bt_axes": ("bt_axes",),
+                    # the activity entry's three kernels and its result's zero fill
+                    "bt_axes_activity": ("bt_axes", "FillFunctor")}
     calls = {
         "psu_sort": (lambda: psu_sort(q, k=4), lambda: psu_sort(x, k=4)),
         "bt_count": (lambda: bt_count(uslice), lambda: bt_count(big)),
@@ -757,6 +1022,11 @@ def phase_scale(dev: torch.device) -> dict:
         "bt_axes": (
             lambda: bt_count_axes(conv_in[None], None, conv_valid, configs=grid, input_lanes=16),
             lambda: bt_count_axes(xa, None, va, **akw),
+        ),
+        "bt_axes_activity": (
+            lambda: bt_count_axes(conv_in[None], None, conv_valid, configs=grid, input_lanes=16,
+                                  activity_windows=CODEC_ACTIVITY["window"]),
+            lambda: bt_count_axes(xa, None, va, **wkw),
         ),
     }
     for name, pair in cases.items():
@@ -790,16 +1060,19 @@ def main() -> int:
     errs = phase_kernels(dev)
     main_path = phase_main(dev)
     codec_path = phase_codec(dev)
+    activity_path = phase_activity(dev)
     cases = phase_scale(dev)
     record = []
     for name, meta in KERNELS.items():
         m, s = cases[name]
         # each kernel's launches on the path that carries it: the transmit
-        # path (phase 3) for the first three, the codec path for bt_axes
-        path = codec_path if name == "bt_axes" else main_path
+        # path (phase 3) for the first three, the codec path for bt_axes,
+        # the activity path for bt_axes_activity
+        path = {"bt_axes": codec_path, "bt_axes_activity": activity_path}.get(name, main_path)
         record.append({
             "name": name, "route": "cuda", **meta,
-            "launches": path["launches"][name], "max_abs_err": errs[name],
+            "launches": path["launches"][name],
+            "max_abs_err": max(errs[name], path.get("max_abs_err", 0)),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": m["shape"], "scale_shape": s["shape"], "scale_ms": s["ms"],
@@ -810,6 +1083,7 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
         "card": card, "kernels": record, "main_path": main_path, "codec_path": codec_path,
+        "activity_path": activity_path,
         "scale_cases": cases,
         "seconds": time.perf_counter() - t0,
     }, indent=1, default=str))

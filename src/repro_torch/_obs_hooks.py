@@ -1,0 +1,81 @@
+"""Zero-cost observability hook slots.
+
+Counterpart of ``repro._obs_hooks``.  This module is the only thing the
+port's production code imports for telemetry.  It holds one mutable slot,
+``SINK`` — ``None`` by default — that ``repro_torch.obs`` installs a
+collector into while a ``collect()`` / ``tracing()`` context is active.
+With the slot empty every probe is one attribute test against ``None``,
+so an entry point does the same tensor work, launches the same kernels
+and returns the same outputs whether ``repro_torch.obs`` is imported,
+active, or absent (``tests/test_torch_obs.py``).  A probe reads Python
+scalars the call already has on the host: it never syncs the device.
+
+Dependency-free: the module imports nothing, so the hot path carries no
+observability code until a collector turns it on.
+"""
+
+from __future__ import annotations
+
+__all__ = ["SINK", "TAP", "active", "capturing", "event", "span", "tap"]
+
+# The installed sink (repro_torch.obs.probes._Sink) or None.  Probes read
+# this once per call; repro_torch.obs flips it when the first collector
+# activates.
+SINK = None
+
+# The traffic-tap slot, kept beside SINK for the model-zoo capture that a
+# later part of the port adds; no tap site fires yet.  Tap payloads carry
+# tensors, not the JSON-safe scalars the probe sink expects, hence a slot
+# of its own with the same zero-cost contract.
+TAP = None
+
+
+class _NullSpan:
+    """No-op context manager returned while no sink is installed."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+def active() -> bool:
+    """True while at least one collector (registry or tracer) is active."""
+    return SINK is not None
+
+
+def span(kind: str, **data):
+    """A context manager timing one probe span (no-op when inactive).
+
+    ``kind`` names the probe point (e.g. ``"kernel.dispatch"``); ``data``
+    carries JSON-safe scalars only — never a tensor, whose conversion
+    would wait for the device.
+    """
+    s = SINK
+    return _NULL_SPAN if s is None else s.span(kind, data)
+
+
+def event(kind: str, **data) -> None:
+    """Fire one instant probe event (no-op when inactive)."""
+    s = SINK
+    if s is not None:
+        s.event(kind, data)
+
+
+def capturing() -> bool:
+    """True while at least one traffic-capture session is active."""
+    return TAP is not None
+
+
+def tap(kind: str, **payload) -> None:
+    """Offer tensors at a traffic-tap site (no-op when no capture is
+    active)."""
+    t = TAP
+    if t is not None:
+        t.tap(kind, payload)

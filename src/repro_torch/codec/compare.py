@@ -6,7 +6,9 @@ Counterpart of ``repro.codec.compare``.  ``compare_streams`` scores every
 of the ``bt_axes`` kernels per stream, or per chunk with
 ``chunk_packets``); every reduction is net of overhead — invert-line
 transitions count against a codec, and the baseline is the unordered,
-uncoded wire.  :func:`demo_workloads` gives the repo's three traffic
+uncoded wire.  Each stream fires a ``codec.stream`` probe event with its
+baseline BT (``repro_torch.obs``; read from the totals already on the
+host).  :func:`demo_workloads` gives the repo's three traffic
 families (conv patches, a decode weight image, an all-reduce gradient
 image) from a numpy seed.
 """
@@ -19,6 +21,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from .. import _obs_hooks as _obs
 from ..kernels import CodecVariant, Variant, bt_count_codecs
 from ..kernels.backend import resolve_device
 from ..link import LinkPowerModel, tensor_flit_stream
@@ -104,7 +107,7 @@ def compare_streams(
     )
     totals = np.zeros((len(configs), 3), dtype=np.int64)
     num_flits = 0
-    for s in streams:
+    for si, s in enumerate(streams):
         if not isinstance(s, torch.Tensor):
             s = torch.from_numpy(np.ascontiguousarray(s)).to(resolve_device(device))
         if s.dim() != 2 or s.shape[-1] % lanes != 0:
@@ -116,7 +119,15 @@ def compare_streams(
             s, None, configs=configs, width=width, input_lanes=lanes, backend=backend,
             chunk_packets=chunk_packets,
         )
-        totals += per_stream.cpu().numpy().astype(np.int64)
+        per_stream = per_stream.cpu().numpy().astype(np.int64)
+        totals += per_stream
+        if _obs.active():
+            # baseline (unordered, uncoded) data BT of this one stream
+            _obs.event(
+                "codec.stream", workload=workload, stream=f"{workload}[{si}]",
+                bt=int(per_stream[pairs.index((_BASELINE, "none"))][:2].sum()),
+                packets=int(s.shape[0]),
+            )
         num_flits += int(s.shape[0]) * (int(s.shape[-1]) // lanes)
 
     base = int(totals[pairs.index((_BASELINE, "none"))][:2].sum())

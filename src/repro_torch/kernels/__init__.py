@@ -4,15 +4,18 @@
 #   btcount.py  - bit transitions of a flit stream (repro/kernels/btcount.py)
 #   axes.py     - the multi-axis BT core (repro/kernels/axes.py): the fused
 #                 sort -> pack -> BT stream, and the jagged link x ordering
-#                 x codec measurement; its activity windows are not ported
+#                 x codec measurement with its per-wire activity windows
 # csrc/ holds the CUDA sources, _build.py compiles them at first use,
 # backend.py is the device-decides dispatch and ops.py the public wrappers.
 from .axes import CODEC_SCHEMES, CodecVariant, Variant, VARIANT_KEYS
+from .axes import bt_axes_activity_cuda as _bt_axes_activity_cuda
 from .axes import bt_axes_cuda as _bt_axes_cuda
 from .axes import psu_stream_cuda as _psu_stream_cuda
 from .backend import BACKENDS, resolve_device
 from .btcount import bt_count_cuda as _bt_count_cuda
 from .ops import (
+    AxesActivity,
+    LinkActivity,
     PsuStreamResult,
     bt_count,
     bt_count_axes,
@@ -30,6 +33,8 @@ __all__ = [
     "psu_reorder",
     "psu_stream",
     "PsuStreamResult",
+    "AxesActivity",
+    "LinkActivity",
     "bt_count",
     "bt_count_axes",
     "bt_count_links",
@@ -50,6 +55,8 @@ _WRAPPERS = {
     "bt_count": _bt_count_cuda,
     "psu_stream": _psu_stream_cuda,
     "bt_axes": _bt_axes_cuda,
+    # the activity mode (its own launch entry, so the BT-only counts stay apart)
+    "bt_axes_activity": _bt_axes_activity_cuda,
 }
 
 

@@ -46,6 +46,10 @@ SIGNATURES = {
         _P, _P, _I, _L, _L, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I,
         _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ],
+    "repro_bt_axes_activity": [
+        _P, _P, _I, _L, _L, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _L, _I, _I, _P, _P, _P,
+    ],
 }
 
 

@@ -4,7 +4,7 @@ wrappers.
 Replaces ``repro/kernels/axes.py:bt_axes_pallas`` (body
 ``_bt_axes_kernel`` -> ``_axes_block``, bus-invert states
 ``_bus_invert_bits``) together with the inter-block fold
-``repro/kernels/ops.py:_fold_axes``, in two of its modes:
+``repro/kernels/ops.py:_fold_axes``, in all of its modes:
 
 * **the fused transmit stream** (``emit_stream``): one link, one uncoded
   'acc'/'app' config.  The CUDA kernel (``csrc/axes.cu``,
@@ -22,16 +22,23 @@ Replaces ``repro/kernels/axes.py:bt_axes_pallas`` (body
   (L, P, N) batch with a real packet count per link, every (ordering,
   codec) config of a static tuple, bus-invert included, giving (L, C, 3)
   (input, weight, invert-line) BT totals and the carry that chunked
-  streaming threads from one call to the next.  The CUDA kernel
-  (``csrc/axes.cu``, ``bt_axes_kernel`` then ``bt_axes_fold_kernel``) is
-  described there.  The per-wire activity windows of the reference are a
-  later slice.
+  streaming threads from one call to the next.  The CUDA kernels
+  (``csrc/axes.cu``, ``bt_axes_kernel`` then ``bt_axes_fold_kernel``) are
+  described there.
+* **its per-wire activity windows** (``bt_axes_activity``): the same
+  measurement that also adds every wire's toggles per window of flit rows
+  and its rows at level 1 into (L, C, NW, WIRES) / (L, C, WIRES) sums
+  (:class:`ActivityOut`).  The CUDA entry runs the two kernels above, the
+  fold recording each block's entry state, then ``bt_axes_activity_kernel``
+  reruns each block from that state (``csrc/axes.cu``); it has its own
+  launch counter.
 
 The plain version of the measurement, :func:`bt_axes_plain`, is written
 independently of the kernel's block + fold split: per link it orders,
 packs and codes the whole stream and counts every boundary below the
 link's valid rows, with bus-invert's sequential decision in closed form
-(:func:`bus_invert_lines`).  Every count is on the low 8 bits of each
+(:func:`bus_invert_lines`); its activity is the per-row wire bits of that
+whole stream summed per window.  Every count is on the low 8 bits of each
 lane, as in the reference: sort keys read ``width`` bits of the payload,
 wires carry bytes.
 """
@@ -67,8 +74,10 @@ __all__ = [
     "psu_stream_plain",
     "psu_stream_cuda",
     "axes_carry",
+    "ActivityOut",
     "bt_axes_plain",
     "bt_axes_cuda",
+    "bt_axes_activity_cuda",
 ]
 
 VARIANT_KEYS = ("none", "column_major", "acc", "app")
@@ -326,20 +335,61 @@ def bus_invert_lines(hd: torch.Tensor, lbits: int, entry: torch.Tensor) -> torch
     return torch.cat([entry, rest], dim=-2).to(torch.int32)
 
 
-def axes_carry(links: int, configs, lanes: int, device) -> dict[str, torch.Tensor]:
+def axes_carry(
+    links: int, configs, lanes: int, device, activity: bool = False
+) -> dict[str, torch.Tensor]:
     """The zero carry between calls: nothing transmitted yet on any link.
 
     ``started`` (L,) marks links that sent a flit, ``wire`` (C, L, lanes)
     holds each config's last wire flit (the last data flit for
     'transition') and ``inv`` (C, L, PMAX) its last invert-line states;
-    all int32.
+    with ``activity`` also ``parity`` (C, L, lanes*8), each wire's level
+    under 'transition' signaling (the running parity of its data bit).
+    All int32.
     """
     c, pmax = len(configs), max_partitions(configs, lanes)
-    return {
+    carry = {
         "started": torch.zeros(links, dtype=torch.int32, device=device),
         "wire": torch.zeros((c, links, lanes), dtype=torch.int32, device=device),
         "inv": torch.zeros((c, links, pmax), dtype=torch.int32, device=device),
     }
+    if activity:
+        carry["parity"] = torch.zeros((c, links, lanes * 8), dtype=torch.int32, device=device)
+    return carry
+
+
+class ActivityOut(NamedTuple):
+    """Where one call of the measurement adds its per-wire activity.
+
+    ``toggles`` (L, C, NW, WIRES) and ``ones`` (L, C, WIRES) are int32
+    sums the call adds into in place; WIRES is lanes*8 data wires (wire =
+    lane*8 + bit, LSB first) then PMAX invert lines.  The toggle at the
+    boundary into global flit row r counts in window r // ``window_rows``;
+    ``base_row`` is the global row of this call's first row (chunked calls
+    land every toggle in the window of its global row).
+    """
+
+    toggles: torch.Tensor
+    ones: torch.Tensor
+    window_rows: int
+    base_row: int = 0
+
+
+def _bits8(b: torch.Tensor) -> torch.Tensor:
+    """(..., K) bytes -> (..., K*8) 0/1 int32 wire bits, LSB first."""
+    bits = (b.to(torch.int32).unsqueeze(-1) >> torch.arange(8, device=b.device)) & 1
+    return bits.reshape(*b.shape[:-1], b.shape[-1] * 8)
+
+
+def _add_windows(out: torch.Tensor, rows: torch.Tensor, base: int, w: int) -> None:
+    """Add (L, T, K) per-row counts of global rows base .. base+T-1 into
+    their windows of ``out`` (L, NW, K)."""
+    links, t, k = rows.shape
+    off = base % w
+    nwin = -(-(off + t) // w)
+    padded = torch.zeros((links, nwin * w, k), dtype=torch.int32, device=rows.device)
+    padded[:, off: off + t] = rows
+    out[:, base // w: base // w + nwin] += padded.reshape(links, nwin, w, k).sum(2, dtype=torch.int32)
 
 
 def _ordered_stream(x, w, ordering: Variant, *, width, input_lanes, weight_lanes, pack):
@@ -380,7 +430,7 @@ _BYTE_MAPS = {
 def bt_axes_plain(
     x: torch.Tensor, w: torch.Tensor | None, valid: torch.Tensor, *, configs,
     width: int, input_lanes: int, weight_lanes: int, split_lanes: int | None, pack: str,
-    carry: dict | None = None,
+    carry: dict | None = None, activity: ActivityOut | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """(totals, carry) of an (L, P, N) batch: int32 (L, C, 3) (input-side,
     weight-side, invert-line) BT per link and config.
@@ -389,7 +439,9 @@ def bt_axes_plain(
     rows past them count nothing.  ``carry`` (see :func:`axes_carry`;
     default: a cold start) is the state left by the previous call on the
     same links, and the returned carry continues from this one.  ``w`` is
-    ignored when ``weight_lanes`` is 0.
+    ignored when ``weight_lanes`` is 0.  With ``activity`` the call also
+    adds every wire's toggles per window and its rows at level 1 into
+    ``activity``'s tensors (the carry then needs ``parity``).
     """
     links, p, n = x.shape
     configs, split = validate_axes_call(
@@ -397,8 +449,10 @@ def bt_axes_plain(
         weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack,
     )
     flits, lanes = n // input_lanes, input_lanes + weight_lanes
+    pmax = max_partitions(configs, lanes)
     dev = x.device
-    carry = axes_carry(links, configs, lanes, dev) if carry is None else carry
+    if carry is None:
+        carry = axes_carry(links, configs, lanes, dev, activity=activity is not None)
     x = x.to(torch.int32)
     w = w.to(torch.int32) if weight_lanes else None
     vr = torch.as_tensor(valid, device=dev).to(torch.int64).clamp(0, p) * flits
@@ -406,9 +460,10 @@ def bt_axes_plain(
     was = carry["started"] != 0
     entered = (was & has).unsqueeze(-1)  # the boundary into row 0 counts
     bmask = torch.arange(1, p * flits, device=dev)[None, :] < vr[:, None]  # boundary into row r
+    rmask = torch.arange(p * flits, device=dev)[None, :, None] < vr[:, None, None]  # row r
     last = (vr - 1).clamp(min=0)
     streams: dict[Variant, torch.Tensor] = {}
-    totals, wires, invs = [], [], []
+    totals, wires, invs, parities = [], [], [], []
     for ci, cfg in enumerate(configs):
         if cfg.ordering not in streams:
             streams[cfg.ordering] = _ordered_stream(
@@ -417,6 +472,7 @@ def bt_axes_plain(
             )
         s = streams[cfg.ordering]
         cw, civ = carry["wire"][ci], carry["inv"][ci]
+        aux_rows = None  # (L, T, npart) invert-line (toggles, levels) for activity
         if cfg.codec == "bus_invert":
             npart, pw = bus_invert_partitions(lanes, cfg.partition)
             d = s.reshape(links, -1, npart, pw)
@@ -439,6 +495,13 @@ def bt_axes_plain(
             w_last = ((d_last ^ (v_last.unsqueeze(-1) * 0xFF)) & 0xFF).reshape(links, lanes)
             inv_out = civ.clone()
             inv_out[:, :npart] = torch.where(has[:, None], v_last, civ[:, :npart])
+            if activity is not None:
+                wire = ((d ^ (v.unsqueeze(-1) * 0xFF)) & 0xFF).reshape(links, -1, lanes)
+                aux_rows = (
+                    torch.cat([(civ[:, None, :npart] != entry[:, None]) * entered[:, :, None],
+                               flip[..., 0] * bmask[:, :, None]], dim=1),
+                    v * rmask,
+                )
         else:
             if cfg.codec == "transition":  # wire_t ^ wire_{t-1} = data_t
                 wire = s
@@ -455,25 +518,44 @@ def bt_axes_plain(
         totals.append(torch.cat([_sides(per_lane, split), aux[:, None]], dim=-1))
         wires.append(torch.where(has[:, None], w_last, cw))
         invs.append(inv_out)
+        if activity is None:
+            continue
+        par = carry["parity"][ci]
+        if cfg.codec == "transition":
+            # the wire toggles where its data bit is 1; its level is the
+            # running parity of the data bit, entered at the carried parity
+            tog = torch.cat([s[:, :1] * entered[:, :, None], s[:, 1:] * bmask[:, :, None]], dim=1)
+            data = _bits8(s) * rmask
+            lvl = ((par[:, None] + torch.cumsum(data, dim=1)) & 1) * rmask
+            par = ((par + data.sum(1)) & 1).to(torch.int32)
+        else:
+            tog = torch.cat([(wire[:, :1] ^ cw[:, None]) * entered[:, :, None],
+                             (wire[:, 1:] ^ wire[:, :-1]) * bmask[:, :, None]], dim=1)
+            lvl = _bits8(wire) * rmask
+        tog, ones = _bits8(tog), lvl.sum(1)
+        pad = torch.zeros((links, tog.shape[1], pmax), dtype=torch.int32, device=dev)
+        ones_aux = torch.zeros((links, pmax), dtype=torch.int64, device=dev)
+        if aux_rows is not None:
+            pad[..., : aux_rows[0].shape[-1]] = aux_rows[0]
+            ones_aux[:, : aux_rows[1].shape[-1]] = aux_rows[1].sum(1)
+        _add_windows(activity.toggles[:, ci], torch.cat([tog, pad], dim=-1),
+                     activity.base_row, activity.window_rows)
+        activity.ones[:, ci] += torch.cat([ones, ones_aux], dim=-1).to(torch.int32)
+        parities.append(par)
     new_carry = {
         "started": (was | has).to(torch.int32),
         "wire": torch.stack(wires).to(torch.int32),
         "inv": torch.stack(invs).to(torch.int32),
     }
+    if activity is not None:
+        new_carry["parity"] = torch.stack(parities).to(torch.int32)
     return wrap_int32(torch.stack(totals, dim=1)), new_carry
 
 
-def bt_axes_cuda(
-    x: torch.Tensor, w: torch.Tensor | None, valid: torch.Tensor, *, configs,
-    width: int, input_lanes: int, weight_lanes: int, split_lanes: int | None, pack: str,
-    carry: dict | None = None,
-) -> tuple[torch.Tensor, dict]:
-    """The same (totals, carry) from the CUDA kernels, one launch entry.
-
-    ``x`` and ``w`` are contiguous uint8 or int32 (L, P, N) packets of one
-    dtype on a CUDA device (``w`` may be None when ``weight_lanes`` is 0),
-    1 <= N <= MAX_N; ``valid`` is (L,) on the same device.
-    """
+def _axes_launch(x, w, valid, *, configs, width, input_lanes, weight_lanes, split_lanes,
+                 pack, carry, activity):
+    """Check the arguments, launch the measurement (with ``activity``,
+    its activity mode) and return (totals, carry, launched)."""
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"bt_axes_cuda needs contiguous (L, P, N) packets, got {tuple(x.shape)}")
     if weight_lanes:
@@ -488,22 +570,42 @@ def bt_axes_cuda(
         n, configs=configs, width=width, input_lanes=input_lanes,
         weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack,
     )
+    lanes = input_lanes + weight_lanes
+    nc, pmax = len(configs), max_partitions(configs, lanes)
+    dev = x.device
+    if activity is not None:
+        nwires = lanes * 8 + pmax
+        tog = activity.toggles
+        if (tog.dtype != torch.int32 or tog.device != dev or tog.dim() != 4
+                or tog.shape[:2] != (links, nc) or tog.shape[3] != nwires
+                or not tog.is_contiguous()):
+            raise ValueError(f"activity toggles must be contiguous int32 ({links}, {nc}, NW, "
+                             f"{nwires}) on {dev}")
+        if activity.window_rows < 1 or activity.base_row < 0 or (
+                -(-(activity.base_row + p * (n // input_lanes)) // activity.window_rows)
+                > tog.shape[2]):
+            raise ValueError(f"{tog.shape[2]} windows of {activity.window_rows} rows do not "
+                             f"hold rows {activity.base_row}..+{p * (n // input_lanes)}")
+        if (activity.ones.dtype != torch.int32 or activity.ones.shape != (links, nc, nwires)
+                or activity.ones.device != dev or not activity.ones.is_contiguous()):
+            raise ValueError(f"activity ones must be contiguous int32 ({links}, {nc}, {nwires})")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"bt_axes_cuda takes uint8 or int32 packets, got {x.dtype}")
     if x.device.type != "cuda":
         raise ValueError(f"bt_axes_cuda needs CUDA tensors, got {x.device}")
-    lanes = input_lanes + weight_lanes
-    dev = x.device
     if carry is None:  # fresh zeros, updated in place by the fold
-        carry = axes_carry(links, configs, lanes, dev)
+        carry = axes_carry(links, configs, lanes, dev, activity=activity is not None)
         wire, inv_c = carry["wire"], carry["inv"]
+        parity = carry.get("parity")
     else:
         wire = carry["wire"].to(device=dev, dtype=torch.int32).clone()
         inv_c = carry["inv"].to(device=dev, dtype=torch.int32).clone()
+        parity = None if activity is None else (
+            carry["parity"].to(device=dev, dtype=torch.int32).clone()
+        )
     started = carry["started"].to(device=dev, dtype=torch.int32).contiguous()
     v = torch.as_tensor(valid, device=dev).to(torch.int32).clamp(0, p).contiguous()
     tab, n_orderings = _config_table(configs, lanes, dev)
-    nc, pmax = len(configs), max_partitions(configs, lanes)
     bpk = max(1, min(AXES_BLOCK_PACKETS, AXES_IMAGE_BYTES // (n * lanes // input_lanes)))
     g = -(-p // bpk)
     cells = links * g * nc
@@ -512,21 +614,76 @@ def bt_axes_cuda(
     inv = torch.empty(cells * 4 * pmax, dtype=torch.uint8, device=dev)
     started_out = torch.empty_like(started)
     totals = torch.zeros((links, nc, 3), dtype=torch.int32, device=dev)
-    if links and p:
-        with torch.cuda.device(dev):
-            err = library().repro_bt_axes(
-                x.data_ptr(), w.data_ptr() if weight_lanes else None, DTYPE_CODES[x.dtype],
-                links, p, n, v.data_ptr(), width, input_lanes, weight_lanes, split,
-                int(pack == "row"), bpk, g, tab.data_ptr(), n_orderings, nc, pmax,
-                part.data_ptr(), edge.data_ptr(), inv.data_ptr(), started.data_ptr(),
-                started_out.data_ptr(), wire.data_ptr(), inv_c.data_ptr(),
-                totals.data_ptr(), torch.cuda.current_stream().cuda_stream,
-            )
-        check(err, "repro_bt_axes")
-        bt_axes_cuda.launches += 1
-    else:
+    out_carry = {"started": started_out, "wire": wire, "inv": inv_c}
+    if parity is not None:
+        out_carry["parity"] = parity
+    if not (links and p):
         started_out.copy_(started)
-    return totals, {"started": started_out, "wire": wire, "inv": inv_c}
+        return totals, out_carry, False
+    args = (
+        x.data_ptr(), w.data_ptr() if weight_lanes else None, DTYPE_CODES[x.dtype],
+        links, p, n, v.data_ptr(), width, input_lanes, weight_lanes, split,
+        int(pack == "row"), bpk, g, tab.data_ptr(), n_orderings, nc, pmax,
+        part.data_ptr(), edge.data_ptr(), inv.data_ptr(), started.data_ptr(),
+        started_out.data_ptr(), wire.data_ptr(), inv_c.data_ptr(), totals.data_ptr(),
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if activity is None:
+            err = library().repro_bt_axes(*args, stream)
+        else:
+            es = lanes + 2 * pmax + 1  # entry state per (link, block, config)
+            bpar = torch.empty(cells * lanes, dtype=torch.uint8, device=dev)
+            ent = torch.empty(cells * es, dtype=torch.uint8, device=dev)
+            err = library().repro_bt_axes_activity(
+                *args, bpar.data_ptr(), ent.data_ptr(), es, parity.data_ptr(),
+                activity.base_row, activity.window_rows, activity.toggles.shape[2],
+                activity.toggles.data_ptr(), activity.ones.data_ptr(), stream,
+            )
+    check(err, "repro_bt_axes_activity" if activity is not None else "repro_bt_axes")
+    return totals, out_carry, True
+
+
+def bt_axes_cuda(
+    x: torch.Tensor, w: torch.Tensor | None, valid: torch.Tensor, *, configs,
+    width: int, input_lanes: int, weight_lanes: int, split_lanes: int | None, pack: str,
+    carry: dict | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """The same (totals, carry) as :func:`bt_axes_plain` from the CUDA
+    kernels, one launch entry.
+
+    ``x`` and ``w`` are contiguous uint8 or int32 (L, P, N) packets of one
+    dtype on a CUDA device (``w`` may be None when ``weight_lanes`` is 0),
+    1 <= N <= MAX_N; ``valid`` is (L,) on the same device.
+    """
+    totals, carry, launched = _axes_launch(
+        x, w, valid, configs=configs, width=width, input_lanes=input_lanes,
+        weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack, carry=carry,
+        activity=None,
+    )
+    bt_axes_cuda.launches += launched
+    return totals, carry
 
 
 bt_axes_cuda.launches = 0
+
+
+def bt_axes_activity_cuda(
+    x: torch.Tensor, w: torch.Tensor | None, valid: torch.Tensor, *, configs,
+    width: int, input_lanes: int, weight_lanes: int, split_lanes: int | None, pack: str,
+    activity: ActivityOut, carry: dict | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """:func:`bt_axes_cuda` in the activity mode, one launch entry: the
+    same (totals, carry) — the carry with ``parity`` — and every wire's
+    window toggles and level-1 rows added into ``activity``'s contiguous
+    int32 tensors on the packets' device."""
+    totals, carry, launched = _axes_launch(
+        x, w, valid, configs=configs, width=width, input_lanes=input_lanes,
+        weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack, carry=carry,
+        activity=activity,
+    )
+    bt_axes_activity_cuda.launches += launched
+    return totals, carry
+
+
+bt_axes_activity_cuda.launches = 0

@@ -59,6 +59,45 @@
 // to lay out and a few times per config to count), bytes for few configs.
 // The block partials and edge flits are the only intermediates in device
 // memory; the fold re-reads them once.
+//
+// 3. bt_axes_activity: the same measurement with per-wire activity windows
+// — per (link, config) the toggles of every wire (lane*8 + bit, LSB first,
+// then the PMAX invert lines) in each window of W global flit rows, and
+// each wire's valid rows at level 1.
+//
+// Replaces the TPU kernel's mode (d) (num_windows > 0: _axes_block's
+// per-block (NW, WIRES) slabs for both bus-invert branches, a float32
+// one-hot product per window scatter) and its fold (_fold_axes: the window
+// scatter of block-boundary toggles, the per-partition branch select, the
+// transition parity against the carried entry parity).  Here the slabs
+// would be quadratic in the stream (every block a full NW x WIRES slab),
+// so the design is a rerun instead (launch entry repro_bt_axes_activity):
+//   * bt_axes_kernel as above, which also writes each transition config's
+//     block data parity per lane (XOR of its valid rows);
+//   * bt_axes_fold_kernel as above, which also records per (link, block,
+//     config) the state the block is entered in: the previous wire flit
+//     (for transition: the entry parity of every wire, the carried parity
+//     prefix-XORed with the earlier blocks' parities), each partition's
+//     bus-invert entry branch and previous invert state, and whether the
+//     boundary into the block's first row counts; it carries the parity;
+//   * bt_axes_activity_kernel, one block per (link, packet block,
+//     ordering) — the orderings on the grid's y axis, as a short stream
+//     has few packet blocks — lays the block out again with the same
+//     device code, rebuilds bus-invert's per-row invert states for the
+//     known entry branch (one warp per partition, the same warp scan of
+//     state maps), then walks the rows
+//     with one warp per (config, lane) item (and per invert line): per 32
+//     rows one __ballot_sync per bit of the toggle and level bytes, and
+//     per wire a __popc of the mask over each window span, summed in a
+//     register while the window stays the same (the walk tracks the
+//     window's end row, no division per step) and added to the
+//     (L, C, NW, WIRES) result with one atomicAdd per (wire, window) run.
+//     Integer adds commute, so the result is exact in any block order; no
+//     float arithmetic touches a count.
+// Memory: the result plus O(L * G * C * (lanes + 2 PMAX)) bytes of entry
+// state.  Bound on this card: integer operations (a few per valid row x
+// wire x config) at the scale shapes; the result's bytes (written once by
+// the zero fill, then by atomics) for short windows.
 #include "common.cuh"
 
 namespace repro {
@@ -266,6 +305,46 @@ __device__ void bus_invert_walk(const unsigned char* img, int vr, int lanes, int
   }
 }
 
+// Lay the block's vp valid packets (from packet p_lo of link l) out under
+// one ordering as the (vp * flits, lanes) flit image in shared memory: per
+// packet one warp, the counting-sort rank of psu_stream ('acc' / 'app') or
+// the fixed 'none' / 'column_major' slots, each byte scattered to its cell.
+template <typename T>
+__device__ void lay_out(const T* __restrict__ x, const T* __restrict__ w, long long l,
+                        long long P, long long p_lo, int vp, int n, int il, int wl, int flits,
+                        int lanes, int pack_row, int key, const KeySpec& s, int (*hist)[32],
+                        unsigned char* img) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int pk = warp; pk < vp; pk += WARPS) {
+    const long long off = ((long long)l * P + p_lo + pk) * n;
+    const T* xr = x + off;
+    const T* wr = wl ? w + off : nullptr;
+    unsigned char* pimg = img + pk * flits * lanes;
+    auto place = [&](int i, int r) {
+      int f, c;
+      if (pack_row) {
+        f = r / il;
+        c = r - f * il;
+      } else {
+        c = r / flits;
+        f = r - c * flits;
+      }
+      unsigned char* cell = pimg + f * lanes + c;
+      cell[0] = (unsigned char)xr[i];
+      if (wl) cell[il] = (unsigned char)wr[i];
+    };
+    if (key >= KEY_ACC) {
+      warp_rank(xr, n, s, hist[warp], place);
+    } else {
+      for (int i = lane; i < n; i += 32) {
+        const int f0 = i / il;  // column-major: slot l*F + f carries element f*L + l
+        place(i, key == KEY_COLUMN_MAJOR ? (i - f0 * il) * flits + f0 : i);
+      }
+    }
+  }
+}
+
 // tab: O orderings as (key, k, descending), then C configs as (ordering,
 // codec, partitions, lanes per partition).
 template <typename T>
@@ -275,12 +354,11 @@ bt_axes_kernel(const T* __restrict__ x, const T* __restrict__ w,
                int wl, int split, int pack_row, int bpk, int G,
                const int* __restrict__ tab, int O, int C, int pmax,
                int* __restrict__ part, uint8_t* __restrict__ edge,
-               uint8_t* __restrict__ inv) {
+               uint8_t* __restrict__ inv, uint8_t* __restrict__ bpar) {
   extern __shared__ unsigned char img[];
   __shared__ int hist[WARPS][32];
   __shared__ unsigned red[WARPS][2];
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const long long l = blockIdx.x / G;
   const int g = (int)(blockIdx.x - l * G);
   const int lanes = il + wl;
@@ -296,33 +374,7 @@ bt_axes_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int o = 0; o < O; ++o) {
     const int key = tab[3 * o];
     const KeySpec s = make_key_spec(width, key == KEY_APP ? tab[3 * o + 1] : 0, tab[3 * o + 2]);
-    for (int pk = warp; pk < vp; pk += WARPS) {
-      const long long off = ((long long)l * P + p_lo + pk) * n;
-      const T* xr = x + off;
-      const T* wr = wl ? w + off : nullptr;
-      unsigned char* pimg = img + pk * flits * lanes;
-      auto place = [&](int i, int r) {
-        int f, c;
-        if (pack_row) {
-          f = r / il;
-          c = r - f * il;
-        } else {
-          c = r / flits;
-          f = r - c * flits;
-        }
-        unsigned char* cell = pimg + f * lanes + c;
-        cell[0] = (unsigned char)xr[i];
-        if (wl) cell[il] = (unsigned char)wr[i];
-      };
-      if (key >= KEY_ACC) {
-        warp_rank(xr, n, s, hist[warp], place);
-      } else {
-        for (int i = lane; i < n; i += 32) {
-          const int f0 = i / il;  // column-major: slot l*F + f carries element f*L + l
-          place(i, key == KEY_COLUMN_MAJOR ? (i - f0 * il) * flits + f0 : i);
-        }
-      }
-    }
+    lay_out(x, w, l, P, p_lo, vp, n, il, wl, flits, lanes, pack_row, key, s, hist, img);
     __syncthreads();
 
     // stateless codecs and transition signaling: every thread, block sums
@@ -360,6 +412,15 @@ bt_axes_kernel(const T* __restrict__ x, const T* __restrict__ w,
         edge[edge_at(cell, 0, 1, lanes) + j] =
             (uint8_t)code_byte(img[(vr - 1) * lanes + j], codec);
       }
+      // activity mode: the block's data parity per lane (transition's wire
+      // levels are the running parity, prefix-XORed by the fold)
+      if (bpar && codec == CODEC_TRANSITION) {
+        for (int j = threadIdx.x; j < lanes; j += THREADS) {
+          unsigned px = 0;
+          for (int t = 0; t < vr; ++t) px ^= img[t * lanes + j];
+          bpar[cell * lanes + j] = (uint8_t)px;
+        }
+      }
     }
 
     // bus-invert: one warp per (config, partition)
@@ -380,6 +441,9 @@ bt_axes_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // link's valid blocks.  wire / invc hold the carry (last wire flit per
 // lane, last invert state per partition) and are updated in place; the
 // totals are added with atomics (unsigned: wraps like the int32 sums).
+// With `ent` (activity mode) it also records each block's entry state
+// (see the entry-state layout below) and threads `parity`, each wire's transition level as 0/1
+// per wire (C, L, lanes*8), through the block parities `bpar`.
 __global__ void bt_axes_fold_kernel(const int* __restrict__ valid, long long L, int bpk,
                                     int G, int lanes, int split,
                                     const int* __restrict__ tab, int O, int C, int pmax,
@@ -388,7 +452,8 @@ __global__ void bt_axes_fold_kernel(const int* __restrict__ valid, long long L, 
                                     const uint8_t* __restrict__ inv,
                                     const int* __restrict__ started_in,
                                     int* __restrict__ started_out, int* wire, int* invc,
-                                    unsigned* totals) {
+                                    unsigned* totals, const uint8_t* __restrict__ bpar,
+                                    uint8_t* ent, int es, int* parity) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= L * C * pmax) return;
   const int q = (int)(idx % pmax);
@@ -404,14 +469,31 @@ __global__ void bt_axes_fold_kernel(const int* __restrict__ valid, long long L, 
   int* cw = wire + ((long long)c * L + l) * lanes;
   unsigned t_in = 0, t_wg = 0, t_aux = 0;
   if (codec != CODEC_BI) {
+    int* par = parity ? parity + ((long long)c * L + l) * lanes * 8 : nullptr;
     for (int g = 0; g < nblk; ++g) {
       const long long cell = (l * G + g) * C + c;
       const int* pp = part + part_at(cell, 0, 0, pmax);
       t_in += (unsigned)pp[0];
       t_wg += (unsigned)pp[1];
-      if (g == 0 && !st) continue;  // no boundary into the first flit ever sent
       const uint8_t* first = edge + edge_at(cell, 0, 0, lanes);
       const uint8_t* prev = g > 0 ? edge + edge_at(cell - C, 0, 1, lanes) : nullptr;
+      if (ent) {
+        uint8_t* e = ent + cell * es;
+        for (int j = 0; j < lanes; ++j) {
+          unsigned b;
+          if (codec != CODEC_TRANSITION) {
+            b = prev ? prev[j] : (unsigned)cw[j];  // the wire flit before the block
+          } else if (g > 0) {  // entry parity: the previous block's, XOR its data
+            b = ent[(cell - C) * es + j] ^ bpar[(cell - C) * lanes + j];
+          } else {
+            b = 0;
+            for (int k = 0; k < 8; ++k) b |= (unsigned)(par[j * 8 + k] & 1) << k;
+          }
+          e[j] = (uint8_t)b;
+        }
+        e[lanes + 2 * pmax] = (uint8_t)(g > 0 || st);
+      }
+      if (g == 0 && !st) continue;  // no boundary into the first flit ever sent
       for (int j = 0; j < lanes; ++j) {
         const unsigned before = prev ? prev[j] : (unsigned)cw[j];
         const unsigned f = codec == CODEC_TRANSITION ? __popc((unsigned)first[j])
@@ -420,8 +502,15 @@ __global__ void bt_axes_fold_kernel(const int* __restrict__ valid, long long L, 
       }
     }
     if (nblk > 0) {
-      const uint8_t* last = edge + edge_at((l * G + nblk - 1) * C + c, 0, 1, lanes);
+      const long long cl = (l * G + nblk - 1) * C + c;
+      const uint8_t* last = edge + edge_at(cl, 0, 1, lanes);
       for (int j = 0; j < lanes; ++j) cw[j] = last[j];
+      if (ent && codec == CODEC_TRANSITION) {
+        for (int j = 0; j < lanes; ++j) {
+          const unsigned b = ent[cl * es + j] ^ bpar[cl * lanes + j];
+          for (int k = 0; k < 8; ++k) par[j * 8 + k] = (b >> k) & 1u;
+        }
+      }
     }
   } else {
     const int j0 = q * pw;
@@ -436,6 +525,14 @@ __global__ void bt_axes_fold_kernel(const int* __restrict__ valid, long long L, 
         hd += __popc((first[jj] ^ (lastw ? lastw[jj] : (unsigned)cw[j0 + jj])) & 0xFFu);
       // entry branch from the previous wire flit; forced 0 on a cold start
       const int b = st && 2u * hd > 8u * pw;
+      if (ent) {
+        uint8_t* e = ent + cell * es;
+        for (int jj = 0; jj < pw; ++jj)
+          e[j0 + jj] = lastw ? lastw[jj] : (uint8_t)cw[j0 + jj];
+        e[lanes + q] = (uint8_t)b;
+        e[lanes + pmax + q] = (uint8_t)iv;
+        if (q == 0) e[lanes + 2 * pmax] = (uint8_t)st;
+      }
       if (st) {
         for (int jj = 0; jj < pw; ++jj) {
           const unsigned before = lastw ? lastw[jj] : (unsigned)cw[j0 + jj];
@@ -463,7 +560,241 @@ __global__ void bt_axes_fold_kernel(const int* __restrict__ valid, long long L, 
   atomicAdd(tot + 2, t_aux);
 }
 
+// ---- activity mode ----
+//
+// Entry state of one (link, block, config) cell, `es` = lanes + 2 PMAX + 1
+// bytes at ent + cell * es: [0, lanes) the wire flit before the block's
+// first row (for 'transition': each lane's entry parity byte, bit b = the
+// level of wire lane*8 + b), [lanes, lanes + PMAX) each bus-invert
+// partition's entry branch, [lanes + PMAX, lanes + 2 PMAX) its previous
+// invert state, and [lanes + 2 PMAX] whether the boundary into the first
+// row counts (something was sent before it).
+
+// One warp: the invert states v_t of partition q over the block's vr image
+// rows for the known entry branch b, into vst[t * pmax + q].  Row 0 is b;
+// row t > 0 applies the map of bus_invert_walk (tie -> 0, HD > half ->
+// flip, else keep), composed across the warp by the same scan.
+__device__ void invert_states(const unsigned char* img, int vr, int lanes, int pw, int q,
+                              int pmax, unsigned b, unsigned char* vst) {
+  const int lane = threadIdx.x & 31;
+  const int j0 = q * pw;
+  const unsigned lbits = 8u * pw;
+  unsigned vin = 0;  // state before the step's first row
+  for (int base = 0; base < vr; base += 32) {
+    const int t = base + lane;
+    unsigned m = 2u;  // rows past vr keep the state
+    if (t == 0) {
+      m = b ? 3u : 0u;
+    } else if (t < vr) {
+      unsigned hd = 0;
+      for (int jj = 0; jj < pw; ++jj)
+        hd += __popc((unsigned)(img[t * lanes + j0 + jj] ^ img[(t - 1) * lanes + j0 + jj]));
+      m = 2u * hd == lbits ? 0u : (2u * hd > lbits ? 1u : 2u);
+    }
+    for (int o = 1; o < 32; o <<= 1) {  // m := m o (maps of earlier rows)
+      const unsigned e = __shfl_up_sync(FULL, m, o);
+      if (lane >= o) m = ((m >> (e & 1u)) & 1u) | (((m >> ((e >> 1) & 1u)) & 1u) << 1);
+    }
+    const unsigned vt = (m >> vin) & 1u;
+    if (t < vr) vst[t * pmax + q] = (unsigned char)vt;
+    vin = __shfl_sync(FULL, vt, 31);
+  }
+}
+
+// One warp walks one activity item over the block's rows, 32 at a time:
+// data lane j (item < lanes; wires j*8 .. j*8+7) or, for bus-invert, the
+// invert line of partition item - lanes.  Per row it forms the byte of
+// toggles at the boundary into the row and the byte of wire levels; one
+// ballot per bit gives lane b the masks of wire b, which counts its levels
+// and, per window span of the 32 rows, its toggles — summed in a register
+// while the window stays the same, added with one atomicAdd per run.
+__device__ void activity_walk(const unsigned char* img, const unsigned char* vst, int vr,
+                              int lanes, int pmax, int codec, int pw, int item,
+                              const uint8_t* e, long long row0, int W, int nwires,
+                              unsigned* tog_out, unsigned* ones_out) {
+  const int lane = threadIdx.x & 31;
+  const bool aux = item >= lanes;
+  const int j = aux ? 0 : item;
+  const int q = aux ? item - lanes : (codec == CODEC_BI ? item / pw : 0);
+  const int nb = aux ? 1 : 8;
+  const int wire0 = aux ? lanes * 8 + q : item * 8;
+  const bool st = e[lanes + 2 * pmax] != 0;
+  unsigned par = codec == CODEC_TRANSITION ? e[j] : 0u;  // parity before the step
+  // the current run: its window, the first global row past that window
+  // (advanced by adding W, so the walk divides once) and its count
+  long long run_w = row0 / W;
+  long long w_end = (run_w + 1) * W;
+  unsigned ones = 0, run = 0;
+  for (int base = 0; base < vr; base += 32) {
+    const int t = base + lane;
+    const bool active = t < vr;
+    unsigned tog = 0, lvl = 0;
+    if (codec == CODEC_TRANSITION) {
+      // toggle = the data bit; level = entry parity ^ XOR of data up to t
+      const unsigned d = active ? img[t * lanes + j] : 0u;
+      unsigned px = d;
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned v = __shfl_up_sync(FULL, px, o);
+        if (lane >= o) px ^= v;
+      }
+      tog = d;
+      lvl = active ? (par ^ px) & 0xFFu : 0u;
+      par ^= __shfl_sync(FULL, px, 31);
+    } else if (active && aux) {
+      const unsigned vt = vst[t * pmax + q];
+      tog = vt ^ (t > 0 ? (unsigned)vst[(t - 1) * pmax + q] : (unsigned)e[lanes + pmax + q]);
+      lvl = vt;
+    } else if (active) {
+      unsigned cur, prev;
+      if (codec == CODEC_BI) {
+        cur = img[t * lanes + j] ^ (vst[t * pmax + q] ? 0xFFu : 0u);
+        prev = t > 0 ? img[(t - 1) * lanes + j] ^ (vst[(t - 1) * pmax + q] ? 0xFFu : 0u)
+                     : (unsigned)e[j];
+      } else {
+        cur = code_byte(img[t * lanes + j], codec);
+        prev = t > 0 ? code_byte(img[(t - 1) * lanes + j], codec) : (unsigned)e[j];
+      }
+      tog = (cur ^ prev) & 0xFFu;
+      lvl = cur & 0xFFu;
+    }
+    if (t == 0 && !st) tog = 0;  // no boundary into the first row ever sent
+    unsigned tm = 0, lm = 0;
+    for (int b = 0; b < nb; ++b) {
+      const unsigned mt = __ballot_sync(FULL, (tog >> b) & 1u);
+      const unsigned ml = __ballot_sync(FULL, (lvl >> b) & 1u);
+      if (lane == b) {
+        tm = mt;
+        lm = ml;
+      }
+    }
+    if (lane < nb) {
+      ones += __popc(lm);
+      const long long r0 = row0 + base;  // global row of this step's first row
+      const int nrow = vr - base < 32 ? vr - base : 32;
+      for (int i = 0; i < nrow;) {
+        if (r0 + i == w_end) {  // row i opens the next window
+          if (run) atomicAdd(tog_out + run_w * nwires + wire0 + lane, run);
+          run = 0;
+          ++run_w;
+          w_end += W;
+        }
+        const long long stop = w_end - r0;
+        const int iend = stop < nrow ? (int)stop : nrow;
+        const unsigned span = (iend >= 32 ? FULL : ((1u << iend) - 1u)) & ~((1u << i) - 1u);
+        run += __popc(tm & span);
+        i = iend;
+      }
+    }
+  }
+  if (lane < nb) {
+    if (run) atomicAdd(tog_out + run_w * nwires + wire0 + lane, run);
+    if (ones) atomicAdd(ones_out + wire0 + lane, ones);
+  }
+}
+
+// One block per (link, packet block) and ordering (blockIdx.y), after the
+// fold has filled `ent`: the image of that ordering again, then per config
+// of it its bus-invert states and its items, one warp each.  toggles (L, C, NW, nwires) and ones
+// (L, C, nwires) are zeroed or hold earlier chunks' counts; base_row is the
+// global row of this call's first flit row.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+bt_axes_activity_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                        const int* __restrict__ valid, long long P, int n, int width, int il,
+                        int wl, int pack_row, int bpk, int G, const int* __restrict__ tab,
+                        int O, int C, int pmax, const uint8_t* __restrict__ ent, int es,
+                        long long base_row, int W, int NW, unsigned* __restrict__ toggles,
+                        unsigned* __restrict__ ones) {
+  extern __shared__ unsigned char img[];
+  __shared__ int hist[WARPS][32];
+  const int warp = threadIdx.x >> 5;
+  const long long l = blockIdx.x / G;
+  const int g = (int)(blockIdx.x - l * G);
+  const int lanes = il + wl;
+  const int flits = n / il;
+  const long long p_lo = (long long)g * bpk;
+  const long long left = (long long)valid[l] - p_lo;
+  if (left <= 0) return;
+  const int vp = left < bpk ? (int)left : bpk;
+  const int vr = vp * flits;
+  unsigned char* vst = img + (size_t)bpk * flits * lanes;  // (rows, pmax) invert states
+  const int* cfgs = tab + 3 * O;
+  const int nwires = lanes * 8 + pmax;
+  const long long row0 = base_row + p_lo * flits;
+
+  const int o = blockIdx.y;
+  const int key = tab[3 * o];
+  const KeySpec s = make_key_spec(width, key == KEY_APP ? tab[3 * o + 1] : 0, tab[3 * o + 2]);
+  lay_out(x, w, l, P, p_lo, vp, n, il, wl, flits, lanes, pack_row, key, s, hist, img);
+  __syncthreads();
+  for (int c = 0; c < C; ++c) {
+    if (cfgs[4 * c] != o) continue;
+    const int codec = cfgs[4 * c + 1], npart = cfgs[4 * c + 2], pw = cfgs[4 * c + 3];
+    const uint8_t* e = ent + (blockIdx.x * (long long)C + c) * es;
+    if (codec == CODEC_BI) {
+      for (int q = warp; q < npart; q += WARPS) invert_states(img, vr, lanes, pw, q, pmax, e[lanes + q], vst);
+      __syncthreads();
+    }
+    unsigned* tog = toggles + ((long long)l * C + c) * NW * nwires;
+    unsigned* one = ones + ((long long)l * C + c) * nwires;
+    const int items = lanes + (codec == CODEC_BI ? npart : 0);
+    for (int it = warp; it < items; it += WARPS)
+      activity_walk(img, vst, vr, lanes, pmax, codec, pw, it, e, row0, W, nwires, tog, one);
+    __syncthreads();  // the next config rebuilds vst
+  }
+}
+
 }  // namespace repro
+
+namespace {
+
+// The activity mode's extra buffers (null `ent` = the BT measurement only).
+struct ActivityArgs {
+  void* bpar;     // L*G*C*lanes bytes: each transition block's data parity
+  void* ent;      // L*G*C*es bytes: entry states, written by the fold
+  int es;
+  void* parity;   // C*L*lanes*8 int32: the carried transition levels
+  long long base_row;
+  int W, NW;
+  void* toggles;  // (L, C, NW, lanes*8 + pmax) int32, accumulated
+  void* ones;     // (L, C, lanes*8 + pmax) int32, accumulated
+};
+
+template <typename T>
+int launch_axes(const void* x, const void* w, long long L, long long P, int n,
+                const void* valid, int width, int il, int wl, int split, int pack_row, int bpk,
+                int G, const void* tab, int O, int C, int pmax, void* part, void* edge,
+                void* inv, const void* started_in, void* started_out, void* wire, void* invc,
+                void* totals, const ActivityArgs* act, cudaStream_t st) {
+  using namespace repro;
+  const int lanes = il + wl;
+  const size_t img = (size_t)bpk * (n / il) * lanes;
+  const unsigned blocks = (unsigned)(L * G);
+  bt_axes_kernel<T><<<blocks, THREADS, img, st>>>(
+      (const T*)x, (const T*)w, (const int*)valid, P, n, width, il, wl, split, pack_row, bpk,
+      G, (const int*)tab, O, C, pmax, (int*)part, (uint8_t*)edge, (uint8_t*)inv,
+      act ? (uint8_t*)act->bpar : nullptr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long threads = L * C * pmax;
+  const unsigned fold_blocks = (unsigned)((threads + THREADS - 1) / THREADS);
+  bt_axes_fold_kernel<<<fold_blocks, THREADS, 0, st>>>(
+      (const int*)valid, L, bpk, G, lanes, split, (const int*)tab, O, C, pmax,
+      (const int*)part, (const uint8_t*)edge, (const uint8_t*)inv, (const int*)started_in,
+      (int*)started_out, (int*)wire, (int*)invc, (unsigned*)totals,
+      act ? (const uint8_t*)act->bpar : nullptr, act ? (uint8_t*)act->ent : nullptr,
+      act ? act->es : 0, act ? (int*)act->parity : nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !act) return (int)err;
+  const size_t smem = img + (size_t)bpk * (n / il) * pmax;
+  bt_axes_activity_kernel<T><<<dim3(blocks, O), THREADS, smem, st>>>(
+      (const T*)x, (const T*)w, (const int*)valid, P, n, width, il, wl, pack_row, bpk, G,
+      (const int*)tab, O, C, pmax, (const uint8_t*)act->ent, act->es, act->base_row, act->W,
+      act->NW, (unsigned*)act->toggles, (unsigned*)act->ones);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // The measurement's launch entry: the block kernel, then the fold.  dtype:
 // 0 = uint8, 1 = int32; w may be null when wl == 0; valid holds L packet
@@ -479,31 +810,32 @@ extern "C" int repro_bt_axes(const void* x, const void* w, int dtype, long long 
                              void* edge, void* inv, const void* started_in,
                              void* started_out, void* wire, void* invc, void* totals,
                              void* stream) {
-  using namespace repro;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int lanes = il + wl;
-  const size_t smem = (size_t)bpk * (n / il) * lanes;
-  const unsigned blocks = (unsigned)(L * G);
-  if (dtype == 0) {
-    bt_axes_kernel<uint8_t><<<blocks, THREADS, smem, st>>>(
-        (const uint8_t*)x, (const uint8_t*)w, (const int*)valid, P, n, width, il, wl, split,
-        pack_row, bpk, G, (const int*)tab, O, C, pmax, (int*)part, (uint8_t*)edge,
-        (uint8_t*)inv);
-  } else {
-    bt_axes_kernel<int32_t><<<blocks, THREADS, smem, st>>>(
-        (const int32_t*)x, (const int32_t*)w, (const int*)valid, P, n, width, il, wl, split,
-        pack_row, bpk, G, (const int*)tab, O, C, pmax, (int*)part, (uint8_t*)edge,
-        (uint8_t*)inv);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long threads = L * C * pmax;
-  const unsigned fold_blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-  bt_axes_fold_kernel<<<fold_blocks, THREADS, 0, st>>>(
-      (const int*)valid, L, bpk, G, lanes, split, (const int*)tab, O, C, pmax,
-      (const int*)part, (const uint8_t*)edge, (const uint8_t*)inv, (const int*)started_in,
-      (int*)started_out, (int*)wire, (int*)invc, (unsigned*)totals);
-  return (int)cudaGetLastError();
+  auto fn = dtype == 0 ? &launch_axes<uint8_t> : &launch_axes<int32_t>;
+  return fn(x, w, L, P, n, valid, width, il, wl, split, pack_row, bpk, G, tab, O, C, pmax,
+            part, edge, inv, started_in, started_out, wire, invc, totals, nullptr,
+            (cudaStream_t)stream);
+}
+
+// The activity mode: the same two kernels with the extra outputs, then the
+// activity kernel.  bpar: L*G*C*lanes bytes; ent: L*G*C*es bytes (es =
+// lanes + 2*pmax + 1); parity: the (C, L, lanes*8) int32 carry, updated in
+// place; toggles / ones: the (L, C, NW, lanes*8 + pmax) and
+// (L, C, lanes*8 + pmax) int32 sums, added into; base_row: the global flit
+// row of this call's first row; W: flit rows per window.
+extern "C" int repro_bt_axes_activity(const void* x, const void* w, int dtype, long long L,
+                                      long long P, int n, const void* valid, int width,
+                                      int il, int wl, int split, int pack_row, int bpk, int G,
+                                      const void* tab, int O, int C, int pmax, void* part,
+                                      void* edge, void* inv, const void* started_in,
+                                      void* started_out, void* wire, void* invc,
+                                      void* totals, void* bpar, void* ent, int es,
+                                      void* parity, long long base_row, int W, int NW,
+                                      void* toggles, void* ones, void* stream) {
+  const ActivityArgs act{bpar, ent, es, parity, base_row, W, NW, toggles, ones};
+  auto fn = dtype == 0 ? &launch_axes<uint8_t> : &launch_axes<int32_t>;
+  return fn(x, w, L, P, n, valid, width, il, wl, split, pack_row, bpk, G, tab, O, C, pmax,
+            part, edge, inv, started_in, started_out, wire, invc, totals, &act,
+            (cudaStream_t)stream);
 }
 
 // dtype: 0 = uint8, 1 = int32; k == 0 selects ACC; wl is 0 or il (w may be

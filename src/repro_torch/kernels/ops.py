@@ -1,15 +1,21 @@
 """Public kernel entry points, dispatched by the tensor's device.
 
-Counterpart of ``repro/kernels/ops.py`` without its activity windows and
-its sharded link axis: ``psu_sort`` / ``psu_reorder`` (``ops.py:165-238``),
-``psu_stream`` and ``PsuStreamResult`` (``ops.py:684-804``), ``bt_count``
-(``ops.py:807-835``), and the multi-axis measurement ``bt_count_axes``
-(``ops.py:853-983``) with its thin configurations ``bt_count_links``,
-``bt_count_variants`` and ``bt_count_codecs`` (``ops.py:1098-1308``).  A
-CUDA tensor launches the hand-written kernel, a CPU tensor takes the plain
-version, ``backend="torch"`` forces the plain version (``backend.py``).
-The reference's ``block_packets`` / ``block_rows`` / ``interpret``
-keywords have no meaning here and are not taken.
+Counterpart of ``repro/kernels/ops.py`` without its sharded link axis:
+``psu_sort`` / ``psu_reorder`` (``ops.py:165-238``), ``psu_stream`` and
+``PsuStreamResult`` (``ops.py:684-804``), ``bt_count`` (``ops.py:807-835``),
+and the multi-axis measurement ``bt_count_axes`` (``ops.py:853-983``) with
+its thin configurations ``bt_count_links``, ``bt_count_variants`` and
+``bt_count_codecs`` (``ops.py:1098-1308``), per-wire activity windows
+(``AxesActivity`` / ``LinkActivity``) included.  A CUDA tensor launches
+the hand-written kernel, a CPU tensor takes the plain version,
+``backend="torch"`` forces the plain version (``backend.py``).  The
+reference's ``block_packets`` / ``block_rows`` / ``interpret`` keywords
+have no meaning here and are not taken.
+
+Every public entry point fires one ``kernel.dispatch`` probe span
+(``repro_torch._obs_hooks``; a ``None`` test while nothing collects) with
+labels ``entry`` and ``backend`` ("cuda" / "torch") and the call's CUDA
+launches as ``kernel_launches``.
 
 The reference pads P to a kernel block multiple and trims on return; its
 padded packets never reach an output.  Neither version here needs the
@@ -25,12 +31,16 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from .. import _obs_hooks as _obs
 from ..core.bt import wrap_int32
 from .axes import (
+    ActivityOut,
     CodecVariant,
     Variant,
+    bt_axes_activity_cuda,
     bt_axes_cuda,
     bt_axes_plain,
+    max_partitions,
     psu_stream_cuda,
     psu_stream_plain,
     validate_axes_call,
@@ -47,6 +57,8 @@ __all__ = [
     "psu_reorder",
     "psu_stream",
     "PsuStreamResult",
+    "AxesActivity",
+    "LinkActivity",
     "bt_count",
     "bt_count_axes",
     "bt_count_links",
@@ -54,10 +66,16 @@ __all__ = [
     "bt_count_codecs",
 ]
 
-_NO_ACTIVITY = (
-    "activity_windows: the per-wire activity mode of the multi-axis kernel is "
-    "not ported yet (ROADMAP queue 2 item 3, mode (d))"
-)
+
+def _probe(entry: str, cuda: bool, launches: int, shape, **data):
+    """The ``kernel.dispatch`` span of one public entry point call; the
+    payload is built only while something collects."""
+    if not _obs.active():
+        return _obs.span("kernel.dispatch")
+    return _obs.span(
+        "kernel.dispatch", entry=entry, backend="cuda" if cuda else "torch",
+        kernel_launches=launches if cuda else 0, shape=tuple(int(d) for d in shape), **data,
+    )
 
 
 def _kernel_dtype(x: torch.Tensor) -> torch.Tensor:
@@ -73,9 +91,11 @@ def psu_sort(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(order, rank) of each (P, N) packet by (approximate) popcount."""
     check_key(width, k)
-    if use_kernel(packets, backend):
-        return psu_sort_cuda(_kernel_dtype(packets), width=width, k=k, descending=descending)
-    return psu_sort_plain(packets, width=width, k=k, descending=descending)
+    cuda = use_kernel(packets, backend)
+    with _probe("psu_sort", cuda, int(packets.numel() > 0), packets.shape, width=width, k=k):
+        if cuda:
+            return psu_sort_cuda(_kernel_dtype(packets), width=width, k=k, descending=descending)
+        return psu_sort_plain(packets, width=width, k=k, descending=descending)
 
 
 def psu_reorder(
@@ -140,24 +160,118 @@ def psu_stream(
         width=width, k=k, descending=descending, input_lanes=input_lanes,
         weight_lanes=weight_lanes, pack=pack,
     )
-    if use_kernel(inputs, backend):
-        x = _kernel_dtype(inputs)
-        w = weights.to(x.dtype).contiguous() if weight_lanes else None
-        return PsuStreamResult(*psu_stream_cuda(x, w, **kw))
-    return PsuStreamResult(*psu_stream_plain(inputs, weights, **kw))
+    cuda = use_kernel(inputs, backend)
+    with _probe("psu_stream", cuda, int(inputs.numel() > 0), inputs.shape, width=width, k=k,
+                pack=pack):
+        if cuda:
+            x = _kernel_dtype(inputs)
+            w = weights.to(x.dtype).contiguous() if weight_lanes else None
+            return PsuStreamResult(*psu_stream_cuda(x, w, **kw))
+        return PsuStreamResult(*psu_stream_plain(inputs, weights, **kw))
 
 
 def bt_count(
     stream: torch.Tensor, width: int = 8, backend: str | None = None
 ) -> torch.Tensor:
     """Total bit transitions of a (T, L) flit stream (int32 scalar)."""
-    if use_kernel(stream, backend):
-        if stream.dtype not in DTYPE_CODES:
-            stream = stream.to(torch.int32)
-        if stream.shape[1] > 1 and stream.stride(1) != 1:
-            stream = stream.contiguous()
-        return bt_count_cuda(stream, width=width)
-    return bt_count_plain(stream, width=width)
+    cuda = use_kernel(stream, backend)
+    launches = int(stream.dim() == 2 and stream.shape[0] >= 2 and stream.shape[1] > 0)
+    with _probe("bt_count", cuda, launches, stream.shape, width=width):
+        if cuda:
+            if stream.dtype not in DTYPE_CODES:
+                stream = stream.to(torch.int32)
+            if stream.shape[1] > 1 and stream.stride(1) != 1:
+                stream = stream.contiguous()
+            return bt_count_cuda(stream, width=width)
+        return bt_count_plain(stream, width=width)
+
+
+
+
+class AxesActivity(NamedTuple):
+    """:func:`bt_count_axes` result with per-wire switching activity.
+
+    Wires: ``lanes * 8`` data wires first (wire = lane * 8 + bit, LSB
+    first), then ``PMAX`` invert-line wires (only the first ``partitions``
+    of a bus-invert config ever toggle).
+    """
+
+    bt: torch.Tensor  # (L, C, 3) per-link, per-config BT totals
+    toggles: torch.Tensor  # (L, C, NW, WIRES) toggle counts per time window
+    ones: torch.Tensor  # (L, C, WIRES) flit rows each wire spent at level 1
+
+
+class LinkActivity(NamedTuple):
+    """:func:`bt_count_links` result with per-wire switching activity."""
+
+    bt: torch.Tensor  # (L, 2) per-link (input, weight) BT totals
+    toggles: torch.Tensor  # (L, NW, lanes*8)
+    ones: torch.Tensor  # (L, lanes*8)
+
+
+def _measure_axes(inputs, weights, valid, *, configs, width, input_lanes, weight_lanes,
+                  split_lanes, pack, cuda, chunk_packets, activity_windows):
+    """The checked multi-axis measurement behind every BT entry point:
+    one call of the plain version or of the CUDA kernels per chunk,
+    threading the carry; (L, C, 3) totals or :class:`AxesActivity`."""
+    links, p, n = inputs.shape
+    configs, split_lanes = validate_axes_call(
+        n, configs=configs, width=width, input_lanes=input_lanes,
+        weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack,
+    )
+    dev = inputs.device
+    flits, lanes, nc = n // input_lanes, input_lanes + weight_lanes, len(configs)
+    toggles = ones = None  # the activity sums every chunk adds into
+    if activity_windows is not None:
+        nwires = lanes * 8 + max_partitions(configs, lanes)
+        nw = -(-(p * flits) // activity_windows)
+        toggles = torch.zeros((links, nc, nw, nwires), dtype=torch.int32, device=dev)
+        ones = torch.zeros((links, nc, nwires), dtype=torch.int32, device=dev)
+    if links == 0 or p == 0:
+        bt = torch.zeros((links, nc, 3), dtype=torch.int32, device=dev)
+        return bt if toggles is None else AxesActivity(bt, toggles, ones)
+    if valid is None:
+        valid = torch.full((links,), p, dtype=torch.int32, device=dev)
+    else:
+        valid = torch.as_tensor(valid, device=dev).to(torch.int32).clamp(0, p)
+    if valid.shape != (links,):
+        raise ValueError(f"valid must be ({links},), got {tuple(valid.shape)}")
+    kw = dict(
+        configs=configs, width=width, input_lanes=input_lanes,
+        weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack,
+    )
+    if cuda:
+        inputs = _kernel_dtype(inputs)
+        weights = weights.to(inputs.dtype).contiguous() if weight_lanes else None
+    step = p if chunk_packets is None else min(chunk_packets, p)
+    total, carry = None, None
+    for p0 in range(0, p, step):
+        x = inputs[:, p0: p0 + step]
+        w = weights[:, p0: p0 + step] if weight_lanes else None
+        vc = valid if step == p else (valid - p0).clamp(0, x.shape[1])
+        into = None if toggles is None else ActivityOut(
+            toggles, ones, activity_windows, p0 * flits
+        )
+        if cuda:
+            w = w.contiguous() if w is not None else None
+            if into is None:
+                bt, carry = bt_axes_cuda(x.contiguous(), w, vc, carry=carry, **kw)
+            else:
+                bt, carry = bt_axes_activity_cuda(
+                    x.contiguous(), w, vc, carry=carry, activity=into, **kw
+                )
+        else:
+            bt, carry = bt_axes_plain(x, w, vc, carry=carry, activity=into, **kw)
+        # int32 totals wrap like the reference's
+        total = bt if total is None else wrap_int32(total.to(torch.int64) + bt)
+    return total if toggles is None else AxesActivity(total, toggles, ones)
+
+
+def _launches(cuda: bool, links: int, p: int, chunk: int | None) -> int:
+    """CUDA launches of one measurement: one per chunk of a non-empty batch."""
+    if not cuda or links == 0 or p == 0:
+        return 0
+    return 1 if chunk is None else -(-p // min(chunk, p))
 
 
 def bt_count_axes(
@@ -173,7 +287,7 @@ def bt_count_axes(
     backend: str | None = None,
     chunk_packets: int | None = None,
     activity_windows: int | None = None,
-) -> torch.Tensor:
+) -> torch.Tensor | AxesActivity:
     """The multi-axis measurement: per-link, per-(ordering, codec) config
     BT of an (L, P, N) packet batch.
 
@@ -182,54 +296,38 @@ def bt_count_axes(
     ``split_lanes`` is the lane where the input side ends (default
     ``input_lanes``).  ``chunk_packets`` measures the packet axis in chunks
     of that many packets, one launch each, threading the carry (started,
-    last wire flit, last invert states) from chunk to chunk; the result is
-    the same for any chunk size.  On a CUDA tensor each chunk is one
-    launch of the ``bt_axes`` kernels.
+    last wire flit, last invert states, wire parities) from chunk to
+    chunk; the result is the same for any chunk size.  On a CUDA tensor
+    each chunk is one launch of the ``bt_axes`` kernels, or of the
+    ``bt_axes_activity`` kernels with ``activity_windows``.
+
+    ``activity_windows`` (flit rows per window, >= 1) also measures every
+    wire: the result is then :class:`AxesActivity` with ``toggles`` of
+    shape (L, C, ceil(P*F / activity_windows), lanes*8 + PMAX) — the
+    toggle at the boundary into global flit row r counts in window
+    r // activity_windows — and ``ones``, each wire's valid rows at level
+    1, of shape (L, C, lanes*8 + PMAX).
 
     Returns int32 (L, C, 3): input-side, weight-side and invert-line BT.
     """
-    if activity_windows is not None:
-        raise NotImplementedError(_NO_ACTIVITY)
     if inputs.dim() != 3:
         raise ValueError(f"expected (L, P, N) packets, got {tuple(inputs.shape)}")
     if chunk_packets is not None and chunk_packets < 1:
         raise ValueError(f"chunk_packets must be >= 1, got {chunk_packets}")
+    if activity_windows is not None and activity_windows < 1:
+        raise ValueError(f"activity_windows must be >= 1, got {activity_windows}")
     weights, weight_lanes = _paired(inputs, weights, weight_lanes, input_lanes)
-    links, p, n = inputs.shape
-    configs, split_lanes = validate_axes_call(
-        n, configs=configs, width=width, input_lanes=input_lanes,
-        weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack,
-    )
-    if links == 0 or p == 0:
-        return torch.zeros((links, len(configs), 3), dtype=torch.int32, device=inputs.device)
-    if valid is None:
-        valid = torch.full((links,), p, dtype=torch.int32, device=inputs.device)
-    else:
-        valid = torch.as_tensor(valid, device=inputs.device).to(torch.int32).clamp(0, p)
-    if valid.shape != (links,):
-        raise ValueError(f"valid must be ({links},), got {tuple(valid.shape)}")
-    kw = dict(
-        configs=configs, width=width, input_lanes=input_lanes,
-        weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack,
-    )
+    links, p, _ = inputs.shape
     cuda = use_kernel(inputs, backend)
-    if cuda:
-        inputs = _kernel_dtype(inputs)
-        weights = weights.to(inputs.dtype).contiguous() if weight_lanes else None
-    step = p if chunk_packets is None else min(chunk_packets, p)
-    total, carry = None, None
-    for p0 in range(0, p, step):
-        x = inputs[:, p0: p0 + step]
-        w = weights[:, p0: p0 + step] if weight_lanes else None
-        vc = valid if step == p else (valid - p0).clamp(0, x.shape[1])
-        if cuda:
-            w = w.contiguous() if w is not None else None
-            bt, carry = bt_axes_cuda(x.contiguous(), w, vc, carry=carry, **kw)
-        else:
-            bt, carry = bt_axes_plain(x, w, vc, carry=carry, **kw)
-        # int32 totals wrap like the reference's
-        total = bt if total is None else wrap_int32(total.to(torch.int64) + bt)
-    return total
+    configs = tuple(configs)
+    with _probe("bt_count_axes", cuda, _launches(cuda, links, p, chunk_packets), inputs.shape,
+                configs=len(configs), width=width, chunked=chunk_packets is not None,
+                activity=activity_windows is not None):
+        return _measure_axes(
+            inputs, weights, valid, configs=configs, width=width, input_lanes=input_lanes,
+            weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack, cuda=cuda,
+            chunk_packets=chunk_packets, activity_windows=activity_windows,
+        )
 
 
 def bt_count_links(
@@ -240,27 +338,49 @@ def bt_count_links(
     backend: str | None = None,
     chunk_rows: int | None = None,
     activity_windows: int | None = None,
-) -> torch.Tensor:
+) -> torch.Tensor | LinkActivity:
     """Per-link (input-side, weight-side) BT of an (L, T, lanes) batch of
     flit streams, int32 (L, 2): each flit row is one packet of the
     multi-axis measurement with the identity ordering.  ``lengths`` gives
     each link's real flit count (rows past it count nothing, whatever they
-    hold); ``input_lanes`` (default all) is where the input side ends."""
-    if activity_windows is not None:
-        raise NotImplementedError(_NO_ACTIVITY)
+    hold); ``input_lanes`` (default all) is where the input side ends.
+    ``activity_windows`` also measures every data wire: the result is then
+    :class:`LinkActivity` with ``toggles`` (L, ceil(T / activity_windows),
+    lanes*8) and ``ones`` (L, lanes*8)."""
+    if activity_windows is not None and activity_windows < 1:
+        raise ValueError(f"activity_windows must be >= 1, got {activity_windows}")
+    if chunk_rows is not None and chunk_rows < 1:
+        raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
     links, t, lanes = streams.shape
     if input_lanes is None:
         input_lanes = lanes
     if not 0 <= input_lanes <= lanes:
         raise ValueError(f"input_lanes={input_lanes} outside the {lanes}-lane flit")
-    if links == 0 or t < 2:
-        return torch.zeros((links, 2), dtype=torch.int32, device=streams.device)
-    out = bt_count_axes(
-        streams, None, lengths, configs=(CodecVariant("none"),), width=width,
-        input_lanes=lanes, weight_lanes=0, split_lanes=input_lanes, pack="row",
-        backend=backend, chunk_packets=chunk_rows,
+    dev = streams.device
+    if links == 0 or t == 0 or (t < 2 and activity_windows is None):
+        bt = torch.zeros((links, 2), dtype=torch.int32, device=dev)
+        if activity_windows is None:
+            return bt
+        nw = -(-t // activity_windows)
+        return LinkActivity(
+            bt, torch.zeros((links, nw, lanes * 8), dtype=torch.int32, device=dev),
+            torch.zeros((links, lanes * 8), dtype=torch.int32, device=dev),
+        )
+    cuda = use_kernel(streams, backend)
+    with _probe("bt_count_links", cuda, _launches(cuda, links, t, chunk_rows), streams.shape,
+                width=width, chunked=chunk_rows is not None,
+                activity=activity_windows is not None):
+        out = _measure_axes(
+            streams, None, lengths, configs=(CodecVariant("none"),), width=width,
+            input_lanes=lanes, weight_lanes=0, split_lanes=input_lanes, pack="row",
+            cuda=cuda, chunk_packets=chunk_rows, activity_windows=activity_windows,
+        )
+    if activity_windows is None:
+        return out[:, 0, :2]
+    # one uncoded config: drop the config axis and the (zero) invert-line wire
+    return LinkActivity(
+        out.bt[:, 0, :2], out.toggles[:, 0, :, : lanes * 8], out.ones[:, 0, : lanes * 8]
     )
-    return out[:, 0, :2]
 
 
 def bt_count_variants(
@@ -298,10 +418,12 @@ def bt_count_codecs(
     backend: str | None = None,
     chunk_packets: int | None = None,
     activity_windows: int | None = None,
-) -> torch.Tensor:
+) -> torch.Tensor | AxesActivity:
     """Coded and ordered BT of (P, N) packets under many (ordering, codec)
     configs: int32 (C, 3) (input-side, weight-side, invert-line), one
-    measurement for all of them."""
+    measurement for all of them.  With ``activity_windows`` the result is
+    :class:`AxesActivity` without the link axis: bt (C, 3), toggles
+    (C, NW, WIRES), ones (C, WIRES)."""
     weights, weight_lanes = _paired(inputs, weights, weight_lanes, input_lanes)
     out = bt_count_axes(
         inputs[None], None if weights is None else weights[None], None,
@@ -309,4 +431,6 @@ def bt_count_codecs(
         weight_lanes=weight_lanes, pack=pack, backend=backend,
         chunk_packets=chunk_packets, activity_windows=activity_windows,
     )
-    return out[0]
+    if activity_windows is None:
+        return out[0]
+    return AxesActivity(out.bt[0], out.toggles[0], out.ones[0])

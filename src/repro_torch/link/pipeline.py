@@ -16,6 +16,11 @@ measure), configured by a ``LinkSpec``, with the reference's two paths:
 
 Tensors stay on the device they arrive on; numpy arrays are moved to the
 pipeline's ``device`` (``cuda`` unless the caller names another).
+
+Probes (``repro_torch.obs``, off by default): ``run`` is a ``link.tx``
+span, each staged-path stage a ``link.stage`` span, and ``measure`` /
+``measure_rows`` fire a ``link.report`` event with the report's totals,
+the Python ints the report reads from the device anyway.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import _obs_hooks as _obs
 from ..core.bt import BTReport
 from ..kernels import bt_count, psu_stream
 from ..kernels.backend import check_backend, resolve_device
@@ -188,30 +194,41 @@ class TxPipeline:
                 f"spec (key={s.key!r}, pack={s.pack!r}, codec={s.codec!r}, "
                 f"symmetric={s.symmetric}) cannot run fused"
             )
-        xi = self.encode(inputs)
-        wi = self.encode(weights) if weights is not None else None
-        if fused:
-            res = psu_stream(
-                xi, wi, width=s.width, k=None if s.key == "acc" else s.k,
-                descending=s.descending, input_lanes=s.input_lanes,
-                weight_lanes=s.weight_lanes if wi is not None else None,
-                pack=s.pack, backend=self._backend,
-            )
-            return TxResult(res.order, res.rank, res.stream, res.bt_input, res.bt_weight, True)
-        order = make_order(
-            s.key, xi, lanes=s.input_lanes, width=s.width, k=s.k,
-            descending=s.descending,
-        )
-        stream = assemble_stream(xi, wi, s, order, s.pack)
-        invert, bt_aux = None, torch.zeros((), dtype=torch.int32, device=stream.device)
-        if s.codec != "none":
-            stream, invert, bt_aux = self._code_wire(stream)
-        bt_i = bt_count(stream[:, : s.input_lanes], backend=self._backend)
-        if wi is not None and s.weight_lanes:
-            bt_w = bt_count(stream[:, s.input_lanes :], backend=self._backend)
-        else:
-            bt_w = torch.zeros((), dtype=torch.int32, device=stream.device)
-        return TxResult(order, None, stream, bt_i, bt_w, False, invert, bt_aux)
+        with _obs.span(
+            "link.tx", path="fused" if fused else "staged", key=s.key, codec=s.codec,
+            packets=int(inputs.shape[0]),
+        ):
+            xi = self.encode(inputs)
+            wi = self.encode(weights) if weights is not None else None
+            if fused:
+                res = psu_stream(
+                    xi, wi, width=s.width, k=None if s.key == "acc" else s.k,
+                    descending=s.descending, input_lanes=s.input_lanes,
+                    weight_lanes=s.weight_lanes if wi is not None else None,
+                    pack=s.pack, backend=self._backend,
+                )
+                return TxResult(
+                    res.order, res.rank, res.stream, res.bt_input, res.bt_weight, True
+                )
+            with _obs.span("link.stage", stage="order"):
+                order = make_order(
+                    s.key, xi, lanes=s.input_lanes, width=s.width, k=s.k,
+                    descending=s.descending,
+                )
+            with _obs.span("link.stage", stage="assemble"):
+                stream = assemble_stream(xi, wi, s, order, s.pack)
+            invert = None
+            bt_aux = torch.zeros((), dtype=torch.int32, device=stream.device)
+            if s.codec != "none":
+                with _obs.span("link.stage", stage="codec"):
+                    stream, invert, bt_aux = self._code_wire(stream)
+            with _obs.span("link.stage", stage="bt"):
+                bt_i = bt_count(stream[:, : s.input_lanes], backend=self._backend)
+                if wi is not None and s.weight_lanes:
+                    bt_w = bt_count(stream[:, s.input_lanes :], backend=self._backend)
+                else:
+                    bt_w = torch.zeros((), dtype=torch.int32, device=stream.device)
+            return TxResult(order, None, stream, bt_i, bt_w, False, invert, bt_aux)
 
     def transmit(self, inputs, weights=None) -> torch.Tensor:
         """The (T, lanes) uint8 wire image of the packets."""
@@ -223,6 +240,10 @@ class TxPipeline:
         num_flits, lanes = (int(d) for d in stream.shape)
         wires = self._extra_wires(lanes)
         energy = self.power.coded_link_energy_pj(bt_i + bt_w, aux, num_flits, 8 * lanes, wires)
+        _obs.event(
+            "link.report", name=name, bt_input=bt_i, bt_weight=bt_w, aux_bt=aux,
+            num_flits=num_flits, energy_pj=energy,
+        )
         return LinkReport(
             name, num_flits, bt_i, bt_w, fused=fused, energy_pj=energy, aux_bt=aux,
             extra_wires=wires,

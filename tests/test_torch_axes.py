@@ -175,8 +175,9 @@ def test_validation_errors():
         tk.bt_count_links(x, input_lanes=17)
     for fn, args in ((tk.bt_count_axes, (x,)), (tk.bt_count_links, (x,)),
                      (tk.bt_count_codecs, (x[0],))):
-        with pytest.raises(NotImplementedError, match="mode \\(d\\)"):
-            fn(*args, activity_windows=4)
+        with pytest.raises(ValueError, match="activity_windows must be >= 1"):
+            fn(*args, activity_windows=0)
+        assert type(fn(*args, activity_windows=4)).__name__ in ("AxesActivity", "LinkActivity")
 
 
 def test_cpu_tensors_never_launch_and_the_cuda_wrapper_checks_first():

@@ -108,3 +108,44 @@ def test_bt_axes_entry_points_and_int32_payloads(dev):
     variants = (tk.Variant("acc"), tk.Variant("app", 4, True), tk.Variant("none"))
     got = tk.bt_count_variants(x32, w32, variants, chunk_packets=64)
     assert torch.equal(got, tk.bt_count_variants(x32, w32, variants, backend="torch"))
+
+
+@pytest.mark.parametrize("window", [1, 7, 64])
+@pytest.mark.parametrize("width,n,lanes,paired,pack", [(8, 32, 8, True, "lane"),
+                                                       (4, 64, 16, False, "row"),
+                                                       (8, 32, 4, True, "row")])
+def test_bt_axes_activity_kernel_matches_plain(dev, window, width, n, lanes, paired, pack):
+    links, p = 5, 301  # P is no multiple of the kernel's packets per block
+    x = _packets(dev, (links, p, n), n + width + window)
+    w = _packets(dev, (links, p, n), n + width + 1) if paired else None
+    valid = torch.tensor([0, p, 1, 150, p + 40], device=dev)
+    configs = _axes_configs(2 * lanes if paired else lanes, width)
+    kw = dict(configs=configs, width=width, input_lanes=lanes, pack=pack,
+              activity_windows=window)
+    ref = tk.bt_count_axes(x, w, valid, backend="torch", **kw)
+    for chunk in (None, 1, 7):
+        tk.reset_launch_counts()
+        got = tk.bt_count_axes(x, w, valid, chunk_packets=chunk, **kw)
+        counts = tk.launch_counts()
+        assert counts["bt_axes_activity"] == (1 if chunk is None else -(-p // chunk))
+        assert counts["bt_axes"] == 0
+        for field, a, b in zip(ref._fields, ref, got):
+            assert torch.equal(a, b), (chunk, field, (a != b).nonzero()[:5].tolist())
+
+
+def test_bt_axes_activity_entry_points_and_int32_payloads(dev):
+    streams = _packets(dev, (6, 999, 16), 3)
+    lengths = torch.tensor([999, 0, 2, 500, 1, 2000], device=dev)
+    for chunk in (None, 100):
+        got = tk.bt_count_links(streams, 10, lengths, chunk_rows=chunk, activity_windows=32)
+        ref = tk.bt_count_links(streams, 10, lengths, backend="torch", activity_windows=32)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    x32 = _packets(dev, (700, 32), 4, np.int32, 1 << 16)
+    w32 = _packets(dev, (700, 32), 5, np.int32, 1 << 16)
+    for width in (8, 12):
+        kw = dict(configs=_axes_configs(16, width), width=width, activity_windows=50)
+        got = tk.bt_count_codecs(x32, w32, **kw)
+        ref = tk.bt_count_codecs(x32, w32, backend="torch", **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        # every wire's toggles sum to the config's gross BT
+        assert torch.equal(got.toggles.sum((1, 2)), got.bt.sum(-1))

@@ -26,7 +26,10 @@ def test_every_port_module_is_listed():
                      "repro_torch.link.pipeline", "repro_torch.convert",
                      "repro_torch.codec.schemes", "repro_torch.codec.stage",
                      "repro_torch.codec.overhead", "repro_torch.codec.compare",
-                     "repro_torch.traffic.ordering"):
+                     "repro_torch.traffic.ordering", "repro_torch._obs_hooks",
+                     "repro_torch.obs", "repro_torch.obs.activity", "repro_torch.obs.metrics",
+                     "repro_torch.obs.probes", "repro_torch.obs.report", "repro_torch.obs.saif",
+                     "repro_torch.obs.trace"):
         assert expected in names
 
 
@@ -36,6 +39,26 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
         f"for name in {_port_modules() + ['chip_smoke']!r}:\n"
         "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, check=True,
+        timeout=300, cwd=ROOT,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_obs_and_its_hooks_import_without_jax():
+    code = (
+        "import json, sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
+        "import repro_torch._obs_hooks as hooks\n"
+        "assert hooks.SINK is None and not hooks.active()\n"
+        "from repro_torch import obs\n"
+        "with obs.collect() as reg:\n"
+        "    hooks.event('codec.stream', workload='w', stream='w[0]', bt=3, packets=1)\n"
+        "assert reg.value('codec.stream.bt', workload='w', stream='w[0]') == 3\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(json.dumps(bad))\n"
     )

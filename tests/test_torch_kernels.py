@@ -181,7 +181,8 @@ def test_device_decides_dispatch():
     assert o.device.type == "cpu"
     o2, _ = tk.psu_sort(x, backend="torch")
     assert torch.equal(o, o2)
-    assert tk.launch_counts() == {"psu_sort": 0, "bt_count": 0, "psu_stream": 0, "bt_axes": 0}
+    assert tk.launch_counts() == {"psu_sort": 0, "bt_count": 0, "psu_stream": 0, "bt_axes": 0,
+                                  "bt_axes_activity": 0}
     for bad in ("pallas", "cuda"):
         with pytest.raises(ValueError, match="unknown kernel backend"):
             tk.psu_sort(x, backend=bad)
