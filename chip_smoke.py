@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's transmit, codec and activity paths on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's transmit, codec, activity and egress paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -20,7 +20,10 @@ non-zero:
    x every codec (bus-invert partitions None / 4 / 2) x width 4/8 x
    'lane' / 'row' x paired / input-only x ``chunk_packets`` 1 / 7 / none,
    and ``bt_axes_activity`` (its per-wire activity windows) over the same
-   matrix with windows of 7 rows, and of 1 and 5,000 rows unchunked;
+   matrix with windows of 7 rows, and of 1 and 5,000 rows unchunked, and
+   ``quantize_egress`` on m in {1, 255, 256, 300, 100,003} x blocks of
+   256 / 64 / 100, aligned and unaligned, and on zero, subnormal, tie and
+   clamp blocks (codes and scale bits equal);
 3. main path: the quickstart's ``psu_sort`` / ``psu_reorder`` call, the
    Table I rows through ``TxPipeline`` (100,000 uniform paired packets;
    the 24-image conv streams), the Fig. 5 area rows and the Fig. 7 power
@@ -46,13 +49,23 @@ non-zero:
    the ``codec.stream.bt`` series must equal the pins, the dispatch
    counters the launch counters, and the launches those of a run without
    observability (trace in ``build/TRACE_chip_smoke.json``);
+3d. egress path: a 2**20-element gradient through ``quantize_egress``,
+   its int8 wire permuted by ``egress_permutation`` of a weight vector's
+   int8 view (APP k = 4 and ACC, packets of 64) and measured by
+   ``bt_count``, equal to the JAX pins (code and scale digests, BT before
+   and after), and ``benchmarks/arch_bt.py`` rows 1, 3 and 4 equal to
+   theirs; then the same path at the full width of internlm2-1.8b's
+   gradient (1,889,107,968 elements, made on the card), each kernel
+   against its plain version in chunks, the permutation a bijection, and
+   the launch counters showing every kernel of the path;
 4. scale and times: ``psu_stream`` on 4,194,304 paired packets,
    ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
    (256, 16,384, 64) batch, the same batch through ``bt_axes_activity``
    with windows of 512 rows (also in 4,096-packet chunks), all generated
    on the card and checked against the plain versions, then CUDA-event
    medians of the kernels, their plain versions and a library call where
-   one exists, at the main path's shapes and at the scale shapes.
+   one exists, at the main path's shapes and at the scale shapes (for
+   ``quantize_egress``: 2**20 elements and the full-width gradient).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The full record is also
@@ -61,6 +74,7 @@ written to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import statistics
@@ -92,8 +106,16 @@ from repro_torch.kernels import (  # noqa: E402
     psu_sort,
     psu_stream,
 )
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import quantize_egress  # noqa: E402
 from repro_torch.kernels.axes import max_partitions  # noqa: E402
 from repro_torch.link import LinkPowerModel, LinkSpec, TxPipeline  # noqa: E402
+from repro_torch.traffic import (  # noqa: E402
+    egress_permutation,
+    int8_view,
+    stream_bt_report,
+    tensor_flit_stream,
+)
 
 # --------------------------------------------------------------------------
 # Pinned main-path BT totals: (input side, weight side) integers computed
@@ -230,6 +252,72 @@ CODED_TX = {
     ("app", "transition"): (12798608, 12796846, 0),
 }
 
+# The egress path (phase 3d), pinned case: a 2**20-element gradient
+# quantized to int8 by blocks of 256, its wire image permuted by the static
+# popcount order of a 2**20-element weight vector's int8 view (packets of
+# 64; APP k = 4 and ACC), and the BT of both wires on 16 byte lanes;
+# inputs from egress_inputs().  sha256 of the int8 code bytes and of the
+# float32 scale bytes, and (unpermuted, permuted) BT per strategy, computed
+# with the JAX package (compiled backend, CPU).  tests/test_torch_traffic.py
+# holds both packages to them.
+EGRESS = {
+    "elems": 1 << 20,
+    "block": 256,
+    "packet": 64,
+    "seed": 0,
+    "codes_sha256": "749165d5a9e5d4e407fa1e87092e8a4691c1f16055b5da3da57b904d968d35e3",
+    "scales_sha256": "ac7338009796faa7bfbdb4785b1ed24a96e4b3812359497ac5439ac7e8f7b1fb",
+    "bt": {"app": (4195461, 4193940), "acc": (4195461, 4195292)},
+}
+# benchmarks/arch_bt.py rows 1, 3 and 4 (row 2 needs the model zoo), on
+# arch_bt_inputs(), JAX package: the weight-stream reports (flits, BT
+# unordered, BT ordered) per sign-magnitude / layout / strategy, the MoE
+# dispatch rows (BT unordered, BT ordered) and the grad-egress row (BT
+# unpermuted, BT permuted).
+ARCH_BT = {
+    "weights": {
+        "sm=0/row/none": (16384, 906573, 906573),
+        "sm=0/row/acc": (16384, 906573, 902684),
+        "sm=0/row/app": (16384, 906573, 903432),
+        "sm=0/col/none": (16384, 969492, 969492),
+        "sm=0/col/acc": (16384, 969492, 910345),
+        "sm=0/col/app": (16384, 969492, 926674),
+        "sm=1/row/none": (16384, 388058, 388058),
+        "sm=1/row/acc": (16384, 388058, 385688),
+        "sm=1/row/app": (16384, 388058, 387109),
+        "sm=1/col/none": (16384, 436161, 436161),
+        "sm=1/col/acc": (16384, 436161, 402746),
+        "sm=1/col/app": (16384, 436161, 422296),
+    },
+    "moe_dispatch": (50281, 50185),
+    "grad_egress": (262549, 262204),
+}
+# the full-width egress gradient: the flat parameter vector of this config
+EGRESS_ARCH = "internlm2-1.8b"
+
+
+def egress_inputs(m: int = EGRESS["elems"], seed: int = EGRESS["seed"]):
+    """(gradient, weights), float32 numpy: g = N(0, 1) scaled per block of
+    256 by a lognormal(0, 2) factor, w = N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=m).reshape(-1, 256) * rng.lognormal(0, 2, size=(m // 256, 1))
+    w = rng.normal(size=m)
+    return g.reshape(-1).astype(np.float32), w.astype(np.float32)
+
+
+def arch_bt_inputs() -> dict:
+    """benchmarks/arch_bt.py's float inputs of rows 1, 3 and 4, drawn in its
+    order from np.random.default_rng(0) (row 2 draws nothing from it), as
+    float32 — what its jnp.asarray makes of them."""
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(1024, 256)) * rng.lognormal(0, 1.0, (1024, 1))
+    toks = rng.normal(size=(256, 128)) * rng.lognormal(0, 0.8, (256, 1))
+    wflat = rng.normal(size=(64 * 1024,))
+    g = rng.normal(size=(64 * 1024,))
+    return {k: v.astype(np.float32) for k, v in
+            (("weights", w), ("tokens", toks), ("wflat", wflat), ("grad", g))}
+
+
 # the paper's values, printed beside the port's rows
 PAPER_UNIFORM = {"none": (63.072, 0.0), "column_major": (54.011, 14.366),
                  "acc": (50.346, 20.177), "app": (50.896, 19.305)}
@@ -264,6 +352,10 @@ KERNELS = {
     "bt_axes_activity": {
         "source": "src/repro_torch/kernels/csrc/axes.cu",
         "replaces": "src/repro/kernels/axes.py:519 (mode d)",
+    },
+    "quantize_egress": {
+        "source": "src/repro_torch/kernels/csrc/quantize.cu",
+        "replaces": "src/repro/kernels/quantize.py:31",
     },
 }
 
@@ -388,7 +480,8 @@ def phase_kernels(dev: torch.device, p: int = 100_003, t: int = 400_001,
     """Every kernel against its plain version on the card; returns the
     largest absolute difference per kernel (must be 0)."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    errs = {"psu_sort": 0, "bt_count": 0, "psu_stream": 0, "bt_axes": 0, "bt_axes_activity": 0}
+    errs = {"psu_sort": 0, "bt_count": 0, "psu_stream": 0, "bt_axes": 0, "bt_axes_activity": 0,
+            "quantize_egress": 0}
 
     def rand(shape, dtype=torch.uint8, hi=256):
         return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=dtype)
@@ -492,8 +585,49 @@ def phase_kernels(dev: torch.device, p: int = 100_003, t: int = 400_001,
     log(f"bt_axes: {cases} cases of {len(orderings)} orderings x {len(codecs)} codecs at "
         f"({links}, {pa}, N) bit-exact")
     log(f"bt_axes_activity: {acases} cases of the same grid (bt, toggles, ones) bit-exact")
+
+    # quantize_egress: lognormal-scaled blocks over ragged lengths and block
+    # sizes (float4 and scalar paths), then the edge blocks, also unaligned
+    special = torch.from_numpy(quantizer_edge_cases()).to(dev)
+    cases = 0
+    for m in (1, 255, 256, 300, 100_003):
+        x = torch.randn(m + 1, generator=gen, device=dev)
+        x *= torch.exp(2 * torch.randn(m + 1, generator=gen, device=dev))
+        for block in (256, 64, 100):
+            for v in (x[:m], x[1:], special):  # x[1:] is not 16-byte aligned
+                got = quantize_egress(v, block=block)
+                ref = quantize_egress(v, block=block, backend="torch")
+                e = max(max_err(got[0], ref[0]),
+                        max_err(got[1].view(torch.int32), ref[1].view(torch.int32)))
+                errs["quantize_egress"] = max(errs["quantize_egress"], e)
+                cases += 1
+                if e or got[2] != ref[2]:
+                    fail(f"quantize_egress m={v.shape[0]} block={block}: err {e} "
+                         f"(codes, scale bits) or padded size {got[2]} vs {ref[2]}")
+    log(f"quantize_egress: {cases} cases (m up to 100,003, blocks 256 / 64 / 100, zero, "
+        f"subnormal, tie and clamp blocks) bit-exact, scales by their bits")
     torch.cuda.synchronize()
     return errs
+
+
+def quantizer_edge_cases() -> np.ndarray:
+    """Blocks of 256 float32 that pin the quantizer's edges: all zero
+    (with -0.0), amax 1e-37 and +-1e-40 (scale flushed to 0, codes 0), a
+    subnormal beside a scale just above the smallest normal, amax 127 (scale
+    exactly 1) with half-way ties and +-127 clamps, and N(0, 1) with its
+    +-amax pair."""
+    rng = np.random.default_rng(3)
+    b = np.zeros((7, 256), np.float32)
+    b[0, ::2] = -0.0
+    b[1] = np.where(rng.random(256) < 0.5, -1e-37, 1e-37)
+    b[2] = np.where(rng.random(256) < 0.5, np.float32(-1e-40), np.float32(1e-40))
+    b[3, 0], b[3, 1], b[3, 2] = 1.5e-36, 1e-38, -1e-36
+    b[4, :254] = np.arange(254) - 126.5  # x.5 ties under scale 1
+    b[4, 254], b[4, 255] = -127.0, 127.0
+    b[5] = rng.normal(size=256)
+    b[5, 7] = -np.abs(b[5]).max()
+    b[6] = rng.normal(size=256) * 1e30
+    return b.reshape(-1)
 
 
 # ------------------------------------------------------------------ phase 3
@@ -610,8 +744,7 @@ def phase_main(dev: torch.device) -> dict:
     # psu_sort: quickstart sort + reorder; bt_count: uniform none and
     # column_major (2 halves each) + conv none and column_major (2 sides
     # each); psu_stream: uniform acc/app + conv acc/app (2 sides each)
-    expected = {"psu_sort": 2, "bt_count": 8, "psu_stream": 6, "bt_axes": 0,
-                "bt_axes_activity": 0}
+    expected = {k: 0 for k in counts} | {"psu_sort": 2, "bt_count": 8, "psu_stream": 6}
     log(f"main-path launches: {counts} (expected {expected})")
     if counts != expected:
         fail(f"main-path launch counts {counts} != {expected}")
@@ -636,8 +769,7 @@ def phase_codec(dev: torch.device) -> dict:
     }
     rows = {}
     kernels.reset_launch_counts()
-    expected = {"psu_sort": 0, "bt_count": 0, "psu_stream": 0, "bt_axes": 0,
-                "bt_axes_activity": 0}
+    expected = {k: 0 for k in kernels.launch_counts()}
 
     def launched(what: str, want: dict) -> None:
         got = kernels.launch_counts()
@@ -815,6 +947,163 @@ def phase_activity(dev: torch.device) -> dict:
             "wall_ms_obs_on": wall_on}
 
 
+# ------------------------------------------------------------------ phase 3d
+
+
+def _bt_sum(s: torch.Tensor, backend: str | None = None, rows: int = 1 << 23) -> int:
+    """Exact BT of a (T, L) stream as a Python int: the int32 counts of row
+    chunks of at most ``rows`` rows (2**23 rows x 16 lanes cannot pass
+    2**31 flips), overlapping by one row."""
+    return sum(int(bt_count(s[r0: r0 + rows + 1], backend=backend))
+               for r0 in range(0, max(s.shape[0] - 1, 0), rows))
+
+
+def _wire(codes: torch.Tensor) -> torch.Tensor:
+    """The int8 wire image as (T, 16) uint8 flits (a view)."""
+    return tensor_flit_stream(codes.view(torch.uint8))
+
+
+def _permute(codes: torch.Tensor, perm: torch.Tensor, step: int = 1 << 27) -> torch.Tensor:
+    """codes[perm], gathered in chunks: an int64 index of the whole
+    permutation would take 8 bytes per element."""
+    out = torch.empty_like(codes)
+    for a in range(0, perm.shape[0], step):
+        out[a: a + step] = codes[perm[a: a + step].to(torch.int64)]
+    return out
+
+
+def phase_egress(dev: torch.device, full: bool = True) -> dict:
+    """The gradient-egress path: quantize -> static popcount permutation ->
+    BT, at the pinned size against the JAX pins (and benchmarks/arch_bt.py
+    rows 1, 3 and 4), then at the full width of EGRESS_ARCH's gradient
+    against the plain versions.  Returns the rows and the launch counts."""
+    e = EGRESS
+    rows = {}
+    kernels.reset_launch_counts()
+
+    # (i) the pinned case
+    g, w = (torch.from_numpy(a).to(dev) for a in egress_inputs())
+    codes, scales, mp = quantize_egress(g, block=e["block"])
+    digests = (hashlib.sha256(codes.cpu().numpy().tobytes()).hexdigest(),
+               hashlib.sha256(scales.cpu().numpy().astype("<f4").tobytes()).hexdigest())
+    if mp != e["elems"] or digests != (e["codes_sha256"], e["scales_sha256"]):
+        fail(f"egress quantizer: padded size {mp}, digests {digests} != the JAX pins")
+    w8 = int8_view(w)
+    for strat, pin in e["bt"].items():
+        perm, inv = egress_permutation(w8, packet=e["packet"], strategy=strat, k=4)
+        got = (int(bt_count(_wire(codes))), int(bt_count(_wire(_permute(codes, perm)))))
+        if got != pin:
+            fail(f"egress/{strat}: BT {got} != pinned {pin}")
+        red = 100 * (1 - got[1] / got[0])
+        rows[f"egress/{strat}"] = {"bt": got[0], "bt_perm": got[1], "red_pct": red}
+        log(f"egress/{strat} 2**20 grads: codes and scales = JAX digests, bt={got[0]} "
+            f"bt_perm={got[1]} red={red:.3f}% = reference")
+
+    # benchmarks/arch_bt.py rows 1, 3 and 4 on its own inputs
+    a = {k: torch.from_numpy(v).to(dev) for k, v in arch_bt_inputs().items()}
+    for key, pin in ARCH_BT["weights"].items():
+        sm, layout, strat = key.split("/")
+        rep = stream_bt_report("w", a["weights"], strat, sign_magnitude=sm == "sm=1",
+                               layout=layout)
+        got = (rep.num_flits, int(rep.bt_none), int(rep.bt_ordered))
+        if got != pin:
+            fail(f"arch_bt/weights/{key}: {got} != pinned {pin}")
+        rows[f"arch_bt/weights/{key}"] = {"bt_per_flit": got[2] / got[0],
+                                          "red_pct": 100 * rep.reduction}
+    t8 = int8_view(a["tokens"])
+    spec = LinkSpec(flits_per_packet=1, input_lanes=16, weight_lanes=0, key="row_bucket",
+                    encode="sign_magnitude", pack="row", k=4)
+    got = tuple(TxPipeline(sp).measure_rows(t8, "moe_dispatch").total_bt
+                for sp in (dataclasses.replace(spec, key="none"), spec))
+    if got != ARCH_BT["moe_dispatch"]:
+        fail(f"arch_bt/moe_dispatch: {got} != pinned {ARCH_BT['moe_dispatch']}")
+    rows["arch_bt/moe_dispatch/app"] = {"bt": got[0], "bt_ordered": got[1]}
+    perm, _ = egress_permutation(int8_view(a["wflat"]), packet=64)
+    gg = int8_view(a["grad"])
+    got = (int(bt_count(_wire(gg))), int(bt_count(_wire(_permute(gg, perm)))))
+    if got != ARCH_BT["grad_egress"]:
+        fail(f"arch_bt/grad_egress: {got} != pinned {ARCH_BT['grad_egress']}")
+    rows["arch_bt/grad_egress/static_perm"] = {"bt": got[0], "bt_perm": got[1]}
+    log(f"arch_bt rows 1, 3, 4: {len(ARCH_BT['weights'])} weight-stream reports, the MoE "
+        f"dispatch pair {ARCH_BT['moe_dispatch']} and the grad-egress pair "
+        f"{ARCH_BT['grad_egress']} = reference")
+    del g, w, w8, codes, scales, a
+
+    # (ii) full width: the flat gradient of EGRESS_ARCH, made on the card
+    m = get_config(EGRESS_ARCH).param_count() if full else 64 * 1000 + 3
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    t0 = time.perf_counter()
+    g = torch.randn(m, generator=gen, device=dev)
+    nb = m // e["block"]
+    g[: nb * e["block"]].view(nb, e["block"]).mul_(
+        torch.empty((nb, 1), device=dev).log_normal_(0, 2, generator=gen))
+    codes, scales, mp = quantize_egress(g, block=e["block"])
+    step = 1 << 26  # plain check in row chunks of 2**18 blocks
+    err = 0
+    for a0 in range(0, m, step):
+        qc, sc, _ = quantize_egress(g[a0: a0 + step], block=e["block"], backend="torch")
+        b0 = a0 // e["block"]
+        err = max(err, max_err(codes[a0: a0 + qc.shape[0]], qc),
+                  max_err(scales[b0: b0 + sc.shape[0]].view(torch.int32), sc.view(torch.int32)))
+    if err or mp != m + (-m) % e["block"]:
+        fail(f"egress full width: quantizer err {err} vs plain, padded size {mp}")
+    del g
+    w = torch.randn(m, generator=gen, device=dev)
+    w8 = int8_view(w)
+    del w
+    perm, inv = egress_permutation(w8, packet=e["packet"])
+    pstep = (1 << 19) * e["packet"]  # plain check in chunks of 2**19 packets
+    for a0 in range(0, m, pstep):
+        rp, ri = egress_permutation(w8[a0: a0 + pstep], packet=e["packet"], backend="torch")
+        err = max(err, max_err(perm[a0: a0 + pstep] - a0, rp),
+                  max_err(inv[a0: a0 + pstep] - a0, ri))
+        # a bijection: every inv[perm[i]] == i, with perm inside [0, m)
+        pc = perm[a0: a0 + pstep]
+        ok = bool(((pc >= 0) & (pc < m)).all()) and torch.equal(
+            inv[pc.to(torch.int64)], torch.arange(a0, a0 + pc.shape[0], dtype=torch.int32,
+                                                  device=dev))
+        if not ok:
+            fail(f"egress full width: perm is no bijection in [{a0}, {a0 + pstep})")
+    if err:
+        fail(f"egress full width: permutation err {err} vs plain")
+    del w8, inv
+    wire = codes[:m]
+    permuted = _permute(wire, perm)
+    del perm
+    bt = (_bt_sum(_wire(wire)), _bt_sum(_wire(permuted)))
+    plain = (_bt_sum(_wire(wire), "torch"), _bt_sum(_wire(permuted), "torch"))
+    if bt != plain:
+        fail(f"egress full width: BT {bt} vs plain {plain}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    red = 100 * (1 - bt[1] / bt[0])
+    flits = m // 16
+    rows["egress/full"] = {"arch": EGRESS_ARCH, "elems": m, "blocks": nb, "packets": m // 64,
+                           "flits": flits, "bt": bt[0], "bt_perm": bt[1], "red_pct": red,
+                           "peak_bytes": peak, "seconds": seconds}
+    log(f"egress/full {EGRESS_ARCH}: {m} grads, {mp // e['block']} quantizer blocks, "
+        f"{m // 64} packets, {flits} flits: codes, scales, perm (a bijection) and BT equal the "
+        f"plain versions; bt={bt[0]} bt_perm={bt[1]} red={red:.4f}% (uncorrelated grads: "
+        f"expected ~0); peak {peak} bytes allocated; {seconds:.1f} s")
+    del codes, scales, wire, permuted
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    chunks = -(-(flits - 1) // (1 << 23))
+    # quantizer: pinned + full; psu_sort: the two pinned strategies, arch_bt
+    # row 4, full; bt_count: 2 per pinned strategy, 2 per weight report, 2
+    # for the MoE dispatch, 2 for row 4, and the full width's chunks x 2
+    expected = {k: 0 for k in counts} | {
+        "quantize_egress": 2, "psu_sort": 4,
+        "bt_count": 2 * len(e["bt"]) + 2 * len(ARCH_BT["weights"]) + 4 + 2 * chunks,
+    }
+    log(f"egress-path launches: {counts} (expected {expected})")
+    if counts != expected:
+        fail(f"egress-path launch counts {counts} != {expected}")
+    return {"rows": rows, "launches": counts, "max_abs_err": err}
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -827,8 +1116,11 @@ def _bt_chunked_plain(s: torch.Tensor, rows: int = 1 << 24) -> int:
     return (total + 2**31) % 2**32 - 2**31
 
 
-def phase_scale(dev: torch.device) -> dict:
-    """Scale checks, then the timing table of every kernel."""
+def phase_scale(dev: torch.device, full_m: int | None = None) -> dict:
+    """Scale checks, then the timing table of every kernel (the quantizer
+    at the pinned 2**20 elements and at ``full_m``, by default the full
+    width of EGRESS_ARCH's gradient)."""
+    full_m = get_config(EGRESS_ARCH).param_count() if full_m is None else full_m
     gen = torch.Generator(device=dev).manual_seed(7)
     p, n = SCALE_PACKETS, 32
     x = torch.randint(0, 256, (p, n), generator=gen, device=dev, dtype=torch.uint8)
@@ -915,13 +1207,14 @@ def phase_scale(dev: torch.device) -> dict:
     ustream = TxPipeline(LinkSpec(key="none")).transmit(ui, uw)
     uslice = ustream[:, :8]  # the staged path's input-half column slice
 
-    def sort_case(pk):
+    def sort_case(pk, plain=None, plain_reps=10):
         pn = pk.numel()
         keys = bucket_map(popcount(pk, 8), 8, 4).to(torch.uint8)
+        plain = plain or (lambda: psu_sort(pk, k=4, backend="torch"))
         return {
             "shape": list(pk.shape),
             "ms": time_ms(lambda: psu_sort(pk, k=4)),
-            "plain_ms": time_ms(lambda: psu_sort(pk, k=4, backend="torch")),
+            "plain_ms": time_ms(plain, reps=plain_reps, warmup=1),
             "library_ms": time_ms(lambda: torch.argsort(keys, dim=-1, stable=True)),
             "library": "torch.argsort(keys, dim=-1, stable=True) on precomputed APP keys "
                        "(the sort alone)",
@@ -990,12 +1283,47 @@ def phase_scale(dev: torch.device) -> dict:
             "ops": work["ops"] + vrows * nwires * len(configs) * 3,
         }
 
+    def quant_case(v, plain_reps=10):
+        """Each float read once (4 bytes), each code written once (1 byte)
+        and one float32 scale per block; ~8 float ops per element (abs,
+        flush test, max, division, rint, two clamps, convert)."""
+        n = v.shape[0]
+        padded = n + (-n) % 256
+        return {
+            "shape": [n, "float32", "block 256"],
+            "ms": time_ms(lambda: quantize_egress(v)),
+            "plain_ms": time_ms(lambda: quantize_egress(v, backend="torch"), reps=plain_reps,
+                                warmup=1),
+            "library_ms": None,
+            "library": "none (no single PyTorch call finds per-block scales and rounds to int8)",
+            "bytes": 4 * n + padded + 4 * (padded // 256), "ops": 8 * n,
+        }
+
+    # the egress path's full-width shapes (phase 3d (ii)): psu_sort on the
+    # weights' int8 view as (M / 64, 64) packets, its plain version in
+    # 2**19-packet chunks as phase 3d checks it, and bt_count on one
+    # 2**23-row chunk of the (M / 16, 16) wire
+    w8e = int8_view(torch.randn(full_m, generator=gen, device=dev))
+    pk_e = w8e[: full_m // 64 * 64].view(torch.uint8).view(-1, 64)
+
+    def egress_sort_plain(step=1 << 19):
+        for p0 in range(0, pk_e.shape[0], step):
+            psu_sort(pk_e[p0: p0 + step], k=4, backend="torch")
+
+    egress_sort = sort_case(pk_e, egress_sort_plain, plain_reps=3)
+    egress_sort["shape"] += ["egress, plain in 2**19-packet chunks"]
+    stream_e = tensor_flit_stream(w8e.view(torch.uint8))[: (1 << 23) + 1]
+    egress_bt = bt_case(stream_e)
+    egress_bt["shape"] += ["egress chunk"]
+
+    gq = torch.from_numpy(egress_inputs()[0]).to(dev)
+    gfull = torch.randn(full_m, generator=gen, device=dev)
     conv_in = torch.from_numpy(conv_streams(n_images=CODEC_COMPARE["conv_images"])[0]).to(dev)
     conv_valid = torch.tensor([conv_in.shape[0]], device=dev)
     grid = SCALE_AXES_CONFIGS[:12]  # the codec path's grid
     cases = {
-        "psu_sort": (sort_case(q), sort_case(x)),
-        "bt_count": (bt_case(uslice), bt_case(big)),
+        "psu_sort": (sort_case(q), sort_case(x), egress_sort),
+        "bt_count": (bt_case(uslice), bt_case(big), egress_bt),
         "psu_stream": (stream_case(ui, uw), stream_case(x, w)),
         "bt_axes": (
             axes_case(conv_in[None], conv_valid, grid, lambda: bt_count_axes(
@@ -1009,15 +1337,19 @@ def phase_scale(dev: torch.device) -> dict:
                               backend="torch", activity_windows=CODEC_ACTIVITY["window"]))),
             act_case(xa, va, SCALE_AXES_CONFIGS, SCALE_WINDOW, act_plain, plain_reps=1),
         ),
+        "quantize_egress": (quant_case(gq), quant_case(gfull, plain_reps=3)),
     }
     # the same calls split into device time (profiler) and host wall time
     kernel_names = {"psu_sort": ("psu_sort_kernel",), "bt_count": ("bt_rows_kernel",),
                     "psu_stream": ("psu_stream_kernel",), "bt_axes": ("bt_axes",),
                     # the activity entry's three kernels and its result's zero fill
-                    "bt_axes_activity": ("bt_axes", "FillFunctor")}
+                    "bt_axes_activity": ("bt_axes", "FillFunctor"),
+                    "quantize_egress": ("quantize_egress_kernel",)}
     calls = {
-        "psu_sort": (lambda: psu_sort(q, k=4), lambda: psu_sort(x, k=4)),
-        "bt_count": (lambda: bt_count(uslice), lambda: bt_count(big)),
+        "psu_sort": (lambda: psu_sort(q, k=4), lambda: psu_sort(x, k=4),
+                     lambda: psu_sort(pk_e, k=4)),
+        "bt_count": (lambda: bt_count(uslice), lambda: bt_count(big),
+                     lambda: bt_count(stream_e)),
         "psu_stream": (lambda: psu_stream(ui, uw, k=4), lambda: psu_stream(x, w, k=4)),
         "bt_axes": (
             lambda: bt_count_axes(conv_in[None], None, conv_valid, configs=grid, input_lanes=16),
@@ -1028,13 +1360,14 @@ def phase_scale(dev: torch.device) -> dict:
                                   activity_windows=CODEC_ACTIVITY["window"]),
             lambda: bt_count_axes(xa, None, va, **wkw),
         ),
+        "quantize_egress": (lambda: quantize_egress(gq), lambda: quantize_egress(gfull)),
     }
     for name, pair in cases.items():
         for case, fn in zip(pair, calls[name]):
             case["device_ms"] = device_ms(fn, kernel_names[name])
             case["wall_ms"] = wall_ms(fn)
     for name, pair in cases.items():
-        for tag, case in zip(("main", "scale"), pair):
+        for tag, case in zip(("main", "scale", "egress"), pair):
             case["bound_ms"], case["bound_by"] = bound(case["bytes"], case["ops"])
             head = f"time {name} {tag} {case['shape']}:"
             log(f"{head} kernel_ms={case['ms']}")
@@ -1061,29 +1394,42 @@ def main() -> int:
     main_path = phase_main(dev)
     codec_path = phase_codec(dev)
     activity_path = phase_activity(dev)
+    egress_path = phase_egress(dev)
     cases = phase_scale(dev)
     record = []
     for name, meta in KERNELS.items():
-        m, s = cases[name]
-        # each kernel's launches on the path that carries it: the transmit
-        # path (phase 3) for the first three, the codec path for bt_axes,
-        # the activity path for bt_axes_activity
-        path = {"bt_axes": codec_path, "bt_axes_activity": activity_path}.get(name, main_path)
+        m, s, *egress = cases[name]
+        # each kernel's launches on the paths that carry it: the transmit
+        # path (phase 3) and the egress path (3d) for psu_sort and
+        # bt_count, the transmit path for psu_stream, the codec path for
+        # bt_axes, the activity path for bt_axes_activity and the egress
+        # path for quantize_egress
+        paths = {"psu_sort": ("transmit", "egress"), "bt_count": ("transmit", "egress"),
+                 "psu_stream": ("transmit",), "bt_axes": ("codec",),
+                 "bt_axes_activity": ("activity",), "quantize_egress": ("egress",)}[name]
+        runs = {"transmit": main_path, "codec": codec_path, "activity": activity_path,
+                "egress": egress_path}
+        by_path = {p: runs[p]["launches"][name] for p in paths}
         record.append({
             "name": name, "route": "cuda", **meta,
-            "launches": path["launches"][name],
-            "max_abs_err": max(errs[name], path.get("max_abs_err", 0)),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max([errs[name]] + [runs[p].get("max_abs_err", 0) for p in paths]),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": m["shape"], "scale_shape": s["shape"], "scale_ms": s["ms"],
             "scale_plain_ms": s["plain_ms"], "scale_bound_ms": s["bound_ms"],
             "scale_library_ms": s["library_ms"], "library": m["library"],
         })
+        for e in egress:  # the egress path's full-width shape
+            record[-1].update({"egress_shape": e["shape"], "egress_ms": e["ms"],
+                               "egress_plain_ms": e["plain_ms"],
+                               "egress_bound_ms": e["bound_ms"],
+                               "egress_library_ms": e["library_ms"]})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
         "card": card, "kernels": record, "main_path": main_path, "codec_path": codec_path,
-        "activity_path": activity_path,
+        "activity_path": activity_path, "egress_path": egress_path,
         "scale_cases": cases,
         "seconds": time.perf_counter() - t0,
     }, indent=1, default=str))

@@ -5,6 +5,7 @@
 #   axes.py     - the multi-axis BT core (repro/kernels/axes.py): the fused
 #                 sort -> pack -> BT stream, and the jagged link x ordering
 #                 x codec measurement with its per-wire activity windows
+#   quantize.py - the blockwise int8 egress quantizer (repro/kernels/quantize.py)
 # csrc/ holds the CUDA sources, _build.py compiles them at first use,
 # backend.py is the device-decides dispatch and ops.py the public wrappers.
 from .axes import CODEC_SCHEMES, CodecVariant, Variant, VARIANT_KEYS
@@ -25,8 +26,10 @@ from .ops import (
     psu_reorder,
     psu_sort,
     psu_stream,
+    quantize_egress,
 )
 from .psu import psu_sort_cuda as _psu_sort_cuda
+from .quantize import quantize_egress_cuda as _quantize_egress_cuda
 
 __all__ = [
     "psu_sort",
@@ -40,6 +43,7 @@ __all__ = [
     "bt_count_links",
     "bt_count_variants",
     "bt_count_codecs",
+    "quantize_egress",
     "Variant",
     "CodecVariant",
     "VARIANT_KEYS",
@@ -57,6 +61,7 @@ _WRAPPERS = {
     "bt_axes": _bt_axes_cuda,
     # the activity mode (its own launch entry, so the BT-only counts stay apart)
     "bt_axes_activity": _bt_axes_activity_cuda,
+    "quantize_egress": _quantize_egress_cuda,
 }
 
 

@@ -50,6 +50,7 @@ SIGNATURES = {
         _P, _P, _I, _L, _L, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _L, _I, _I, _P, _P, _P,
     ],
+    "repro_quantize_egress": [_P, _L, _L, _I, _P, _P, _P],
 }
 
 

@@ -6,7 +6,8 @@ Counterpart of ``repro/kernels/ops.py`` without its sharded link axis:
 and the multi-axis measurement ``bt_count_axes`` (``ops.py:853-983``) with
 its thin configurations ``bt_count_links``, ``bt_count_variants`` and
 ``bt_count_codecs`` (``ops.py:1098-1308``), per-wire activity windows
-(``AxesActivity`` / ``LinkActivity``) included.  A CUDA tensor launches
+(``AxesActivity`` / ``LinkActivity``) included, and the int8 egress
+quantizer ``quantize_egress`` (``ops.py:1312-1343``).  A CUDA tensor launches
 the hand-written kernel, a CPU tensor takes the plain version,
 ``backend="torch"`` forces the plain version (``backend.py``).  The
 reference's ``block_packets`` / ``block_rows`` / ``interpret`` keywords
@@ -48,9 +49,10 @@ from .axes import (
     validate_variants,
 )
 from ._build import DTYPE_CODES
-from .backend import use_kernel
+from .backend import resolve_device, use_kernel
 from .btcount import bt_count_cuda, bt_count_plain
 from .psu import check_key, psu_sort_cuda, psu_sort_plain
+from .quantize import check_block, quantize_egress_cuda, quantize_egress_plain
 
 __all__ = [
     "psu_sort",
@@ -64,6 +66,7 @@ __all__ = [
     "bt_count_links",
     "bt_count_variants",
     "bt_count_codecs",
+    "quantize_egress",
 ]
 
 
@@ -434,3 +437,31 @@ def bt_count_codecs(
     if activity_windows is None:
         return out[0]
     return AxesActivity(out.bt[0], out.toggles[0], out.ones[0])
+
+
+def quantize_egress(
+    x, block: int = 256, backend: str | None = None
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Blockwise int8 quantization of a flat vector (pads internally).
+
+    Returns (q, scales, padded_size): int8 codes and float32 scales of the
+    vector zero-padded to ``padded_size``, the next multiple of ``block``;
+    callers keep ``padded_size`` to dequantize and trim.  Unlike the
+    reference's 0-d int32 array, ``padded_size`` is a Python int.  A
+    non-tensor ``x`` is put on ``cuda`` first (``resolve_device``).
+    """
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(x, device=resolve_device())
+    if x.dim() != 1:
+        raise ValueError(f"quantize_egress needs a flat (M,) vector, got {tuple(x.shape)}")
+    check_block(block)
+    m = int(x.shape[0])
+    padded = m + (-m) % block
+    cuda = use_kernel(x, backend)
+    with _probe("quantize_egress", cuda, int(padded > 0), x.shape, elems=m, block=block):
+        x = x.to(torch.float32)
+        if cuda:
+            q, scales = quantize_egress_cuda(x.contiguous(), block=block)
+        else:
+            q, scales = quantize_egress_plain(x, block=block)
+    return q, scales, padded

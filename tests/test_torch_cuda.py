@@ -149,3 +149,39 @@ def test_bt_axes_activity_entry_points_and_int32_payloads(dev):
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
         # every wire's toggles sum to the config's gross BT
         assert torch.equal(got.toggles.sum((1, 2)), got.bt.sum(-1))
+
+
+@pytest.mark.parametrize("block", [256, 64, 100])
+@pytest.mark.parametrize("m", [1, 255, 256, 300, 100_003])
+def test_quantize_egress_kernel_matches_plain(dev, m, block):
+    from chip_smoke import quantizer_edge_cases
+
+    rng = np.random.default_rng(m + block)
+    x = (rng.normal(size=m + 1) * rng.lognormal(0, 2, size=m + 1)).astype(np.float32)
+    xt = torch.from_numpy(x).to(dev)
+    edges = torch.from_numpy(quantizer_edge_cases()).to(dev)
+    tk.reset_launch_counts()
+    for v in (xt[:m], xt[1:], edges):  # xt[1:] is not 16-byte aligned
+        q, s, mp = tk.quantize_egress(v, block=block)
+        rq, rs, rmp = tk.quantize_egress(v, block=block, backend="torch")
+        assert mp == rmp == -(-v.shape[0] // block) * block
+        assert torch.equal(q, rq)
+        assert torch.equal(s.view(torch.int32), rs.view(torch.int32))
+    assert tk.launch_counts()["quantize_egress"] == 3
+
+
+def test_egress_permutation_on_cuda_matches_plain(dev):
+    from repro_torch.traffic import egress_permutation
+
+    w = _packets(dev, (64 * 1000 + 37,), 9).view(torch.int8)
+    for strategy, k in (("app", 4), ("acc", 4), ("none", 2), ("app", 9)):
+        for packet in (64, 48, 1024):
+            tk.reset_launch_counts()
+            perm, inv = egress_permutation(w, packet=packet, strategy=strategy, k=k)
+            assert tk.launch_counts()["psu_sort"] == 1
+            rp, ri = egress_permutation(w, packet=packet, strategy=strategy, k=k,
+                                        backend="torch")
+            assert perm.device.type == "cuda" and perm.dtype == torch.int32
+            assert torch.equal(perm, rp) and torch.equal(inv, ri)
+    with pytest.raises(ValueError, match="packet"):
+        egress_permutation(w, packet=1025)

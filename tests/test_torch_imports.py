@@ -29,7 +29,10 @@ def test_every_port_module_is_listed():
                      "repro_torch.traffic.ordering", "repro_torch._obs_hooks",
                      "repro_torch.obs", "repro_torch.obs.activity", "repro_torch.obs.metrics",
                      "repro_torch.obs.probes", "repro_torch.obs.report", "repro_torch.obs.saif",
-                     "repro_torch.obs.trace"):
+                     "repro_torch.obs.trace", "repro_torch.kernels.quantize",
+                     "repro_torch.models", "repro_torch.models.config", "repro_torch.configs",
+                     "repro_torch.configs.shapes", "repro_torch.configs.internlm2_1_8b",
+                     "repro_torch.traffic"):
         assert expected in names
 
 

@@ -182,7 +182,7 @@ def test_device_decides_dispatch():
     o2, _ = tk.psu_sort(x, backend="torch")
     assert torch.equal(o, o2)
     assert tk.launch_counts() == {"psu_sort": 0, "bt_count": 0, "psu_stream": 0, "bt_axes": 0,
-                                  "bt_axes_activity": 0}
+                                  "bt_axes_activity": 0, "quantize_egress": 0}
     for bad in ("pallas", "cuda"):
         with pytest.raises(ValueError, match="unknown kernel backend"):
             tk.psu_sort(x, backend=bad)
@@ -213,5 +213,5 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "axes.cu", "btcount.cu", "psu.cu",
+        "axes.cu", "btcount.cu", "psu.cu", "quantize.cu",
     ]
