@@ -65,7 +65,12 @@ non-zero:
    on the card and checked against the plain versions, then CUDA-event
    medians of the kernels, their plain versions and a library call where
    one exists, at the main path's shapes and at the scale shapes (for
-   ``quantize_egress``: 2**20 elements and the full-width gradient).
+   ``quantize_egress``: 2**20 elements and the full-width gradient), and
+   each call's device time from the profiler, split by CUDA kernel (for
+   ``bt_axes``: the block kernel and the fold; at scale also under subsets
+   of its configs, to show where its time goes) and printed beside the
+   time recorded before the ``psu_sort`` / ``bt_axes`` redesign
+   (``BEFORE_DEVICE_MS``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The full record is also
@@ -77,6 +82,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -342,7 +348,7 @@ KERNELS = {
         "replaces": "src/repro/kernels/btcount.py:33",
     },
     "psu_stream": {
-        "source": "src/repro_torch/kernels/csrc/axes.cu",
+        "source": "src/repro_torch/kernels/csrc/stream.cu",
         "replaces": "src/repro/kernels/axes.py:519",
     },
     "bt_axes": {
@@ -357,6 +363,19 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:31",
     },
+}
+
+# Each kernel's device time (ms, torch.profiler) at its phase-4 shapes —
+# main, scale and, where there is one, egress — on an NVIDIA H100 80GB
+# HBM3 at 700 W with the first versions of psu_sort and bt_axes, before
+# their redesign (PERF.md's kernel table); phase 4 prints them beside its own
+BEFORE_DEVICE_MS = {
+    "psu_sort": (0.0019584, 1.145806, 12.1694994),
+    "bt_count": (0.0054908, 0.5816984, 0.137486),
+    "psu_stream": (0.0630354, 2.4865984),
+    "bt_axes": (0.130239, 5.9027808),
+    "bt_axes_activity": (0.3039514, 25.4583768),
+    "quantize_egress": (0.0033098, 4.0300034),
 }
 
 SCALE_PACKETS = 4_194_304
@@ -417,9 +436,10 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, names: tuple[str, ...], reps: int = 5) -> float | None:
+def device_ms(fn, names: tuple[str, ...], reps: int = 5) -> tuple[float | None, dict]:
     """Device time per call of the kernels whose names contain one of
-    ``names``, from ``torch.profiler`` (None when it records none)."""
+    ``names``, from ``torch.profiler`` (None when it records none), and
+    the same split by kernel (``repro::<kernel>`` or the matched name)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -428,9 +448,16 @@ def device_ms(fn, names: tuple[str, ...], reps: int = 5) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages()
-                if any(n in ev.key for n in names))
-    return total / reps / 1e3 if total else None
+    split: dict[str, float] = {}
+    for ev in prof.key_averages():
+        hit = [n for n in names if n in ev.key]
+        t = getattr(ev, "self_device_time_total", 0)
+        if hit and t:
+            own = re.search(r"repro::(\w+)", ev.key)
+            key = own.group(1) if own else hit[0]
+            split[key] = split.get(key, 0.0) + t / reps / 1e3
+    total = sum(split.values())
+    return (total if total else None), split
 
 
 def wall_ms(fn, reps: int = 10) -> float:
@@ -1364,15 +1391,36 @@ def phase_scale(dev: torch.device, full_m: int | None = None) -> dict:
     }
     for name, pair in cases.items():
         for case, fn in zip(pair, calls[name]):
-            case["device_ms"] = device_ms(fn, kernel_names[name])
+            case["device_ms"], case["device_split"] = device_ms(fn, kernel_names[name])
             case["wall_ms"] = wall_ms(fn)
+    # where bt_axes spends its time at scale: the same batch under subsets
+    # of its configs (one ordering with one codec, then more), kernel and
+    # fold device time each
+    subsets = {
+        "none/none": (CodecVariant("none", None, False, "none"),),
+        "acc/none": (CodecVariant("acc", None, False, "none"),),
+        "app4/none": (CodecVariant("app", 4, False, "none"),),
+        "none/bus_invert": (CodecVariant("none", None, False, "bus_invert"),),
+        "none/bus_invert4": (CodecVariant("none", None, False, "bus_invert", 4),),
+        "codec none x 3 orderings": tuple(c for c in SCALE_AXES_CONFIGS if c.codec == "none"),
+        "all but bus_invert": tuple(c for c in SCALE_AXES_CONFIGS if c.codec != "bus_invert"),
+    }
+    breakdown = {}
+    for tag, cfgs in subsets.items():
+        total, split = device_ms(lambda: bt_count_axes(xa, None, va, configs=cfgs, input_lanes=16),
+                                 ("bt_axes",))
+        breakdown[tag] = {"configs": len(cfgs), "device_ms": total, "device_split": split}
+        log(f"time bt_axes scale subset {tag} ({len(cfgs)} configs): device_ms={total} "
+            f"device_split={split}")
+    cases["bt_axes"][1]["subsets"] = breakdown
     for name, pair in cases.items():
-        for tag, case in zip(("main", "scale", "egress"), pair):
+        for tag, case, before in zip(("main", "scale", "egress"), pair, BEFORE_DEVICE_MS[name]):
             case["bound_ms"], case["bound_by"] = bound(case["bytes"], case["ops"])
             head = f"time {name} {tag} {case['shape']}:"
             log(f"{head} kernel_ms={case['ms']}")
-            log(f"{head} device_ms={case['device_ms']} (profiler, kernels only) "
-                f"wall_ms={case['wall_ms']} (host, per call)")
+            log(f"{head} device_ms={case['device_ms']} (before: {before}) (profiler, kernels "
+                f"only) wall_ms={case['wall_ms']} (host, per call)")
+            log(f"{head} device_split={case['device_split']}")
             log(f"{head} bound_ms={case['bound_ms']} (by {case['bound_by']}: "
                 f"{case['bytes']} bytes at 3.35 TB/s, {case['ops']} ops at 67 T/s)")
             log(f"{head} plain_ms={case['plain_ms']}")

@@ -7,7 +7,7 @@ Replaces ``repro/kernels/axes.py:bt_axes_pallas`` (body
 ``repro/kernels/ops.py:_fold_axes``, in all of its modes:
 
 * **the fused transmit stream** (``emit_stream``): one link, one uncoded
-  'acc'/'app' config.  The CUDA kernel (``csrc/axes.cu``,
+  'acc'/'app' config.  The CUDA kernel (``csrc/stream.cu``,
   ``psu_stream_kernel``) runs popcount -> bucket -> rank -> reorder ->
   flit-pack -> (input, weight) BT in one launch: one warp ranks a run of
   packets, scatters each byte straight into its flit cell of a
@@ -74,6 +74,7 @@ __all__ = [
     "psu_stream_plain",
     "psu_stream_cuda",
     "axes_carry",
+    "axes_blocking",
     "ActivityOut",
     "bt_axes_plain",
     "bt_axes_cuda",
@@ -266,13 +267,38 @@ AXES_IMAGE_BYTES = 16384
 AXES_BLOCK_PACKETS = 128
 
 
+def axes_blocking(links: int, p: int, flits: int, lanes: int, orderings: int,
+                  sms: int) -> tuple[int, int]:
+    """(packets per block, blocks per link) of the measurement kernels.
+
+    A block's image holds its packets' ``flits`` rows of ``lanes`` bytes,
+    each row padded to an odd number of 32-bit words, in
+    ``AXES_IMAGE_BYTES``, and at most ``AXES_BLOCK_PACKETS`` packets; a
+    small batch then halves the packets per block until its (links x
+    blocks, orderings) grid gives the card's ``sms`` SMs at least two blocks
+    each (or one packet per block).
+    """
+    row = 4 * (-(-lanes // 4) | 1)
+    bpk = max(1, min(AXES_BLOCK_PACKETS, AXES_IMAGE_BYTES // (flits * row)))
+    while bpk > 1 and links * -(-p // bpk) * orderings < 2 * sms:
+        bpk = -(-bpk // 2)
+    return bpk, -(-p // bpk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=64)
 def _config_table(configs, lanes: int, device: torch.device) -> tuple[torch.Tensor, int]:
     """The kernels' int32 table on ``device`` — each distinct ordering as
     (key, k, descending), then each config as (ordering index, codec,
-    partitions, lanes per partition) — and the number of orderings.  Kept
-    per (configs, lanes, device): a fresh copy from pageable host memory
-    would wait for the stream on every call."""
+    partitions, lanes per partition), then per ordering (stateless codec
+    bits, offset and count of its stateless configs, offset and count of
+    its bus-invert (config, partition) items) and those two lists — and the
+    number of orderings.  Kept per (configs, lanes, device): a fresh copy
+    from pageable host memory would wait for the stream on every call."""
     orderings: list[Variant] = []
     rows = []
     for cfg in configs:
@@ -283,7 +309,20 @@ def _config_table(configs, lanes: int, device: torch.device) -> tuple[torch.Tens
         )
         rows += [orderings.index(cfg.ordering), _CODEC_IDS[cfg.codec], npart, pw]
     head = [f for o in orderings for f in (_KEY_IDS[o.key], o.k or 0, int(o.descending))]
-    return torch.tensor(head + rows, dtype=torch.int32).to(device), len(orderings)
+    stateless = [[c for c, cfg in enumerate(configs)
+                  if cfg.ordering == o and cfg.codec != "bus_invert"] for o in orderings]
+    items = [[(c, q) for c, cfg in enumerate(configs) if cfg.ordering == o
+              and cfg.codec == "bus_invert" for q in range(rows[4 * c + 2])] for o in orderings]
+    base = len(head) + len(rows) + 5 * len(orderings)
+    recs, lists = [], []
+    for sl, it in zip(stateless, items):
+        need = sum({1 << _CODEC_IDS[configs[c].codec] for c in sl})
+        recs += [need, base + len(lists), len(sl)]
+        lists += sl
+        recs += [base + len(lists), len(it)]
+        lists += [v for pair in it for v in pair]
+    table = head + rows + recs + lists
+    return torch.tensor(table, dtype=torch.int32).to(device), len(orderings)
 
 
 def validate_axes_call(
@@ -606,8 +645,8 @@ def _axes_launch(x, w, valid, *, configs, width, input_lanes, weight_lanes, spli
     started = carry["started"].to(device=dev, dtype=torch.int32).contiguous()
     v = torch.as_tensor(valid, device=dev).to(torch.int32).clamp(0, p).contiguous()
     tab, n_orderings = _config_table(configs, lanes, dev)
-    bpk = max(1, min(AXES_BLOCK_PACKETS, AXES_IMAGE_BYTES // (n * lanes // input_lanes)))
-    g = -(-p // bpk)
+    sms = _sm_count(torch.cuda.current_device() if dev.index is None else dev.index)
+    bpk, g = axes_blocking(links, p, n // input_lanes, lanes, n_orderings, sms)
     cells = links * g * nc
     part = torch.empty(cells * 2 * pmax * 3, dtype=torch.int32, device=dev)
     edge = torch.empty(cells * 4 * lanes, dtype=torch.uint8, device=dev)

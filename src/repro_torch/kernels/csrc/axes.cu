@@ -1,66 +1,60 @@
-// The multi-axis BT core, in two modes.
+// The multi-axis BT core in its measurement modes (the fused transmit
+// stream is csrc/stream.cu).
 //
-// 1. psu_stream: the fused transmit path — sort, reorder, flit-pack and
-// (input, weight) BT count of P paired packets in one launch.
-//
-// Replaces the TPU kernel repro/kernels/axes.py:bt_axes_pallas in its
-// emit_stream mode (body _bt_axes_kernel -> _axes_block: one link, one
-// uncoded 'acc'/'app' config), whose per-block BT partials and edge flits
-// were folded across blocks by repro/kernels/ops.py:_fold_axes.  The TPU
-// kernel reordered by a float32 permutation-matrix product; this kernel
-// does no float arithmetic at all (a TF32 product would round payloads
-// above 2**11).  One warp handles a run of PPW consecutive packets:
-//   * it ranks each packet with the shared one-warp counting sort,
-//   * scatters every input byte (and its paired weight byte) straight to
-//     its flit cell in a shared-memory image of the packet — sorted slot
-//     r sits at flit r % F, lane r / F ('lane' pack) or flit r / L,
-//     lane r % L ('row' pack) — and scatters order[rank[i]] = i,
-//   * writes the packet's F*lanes stream bytes out contiguously and
-//     counts BT over every flit boundary it owns, including the boundary
-//     from the previous packet's last flit (the first packet of a run
-//     re-sorts its predecessor in shared memory to get that flit; no
-//     cross-block fold is needed),
-// and each block adds its two BT partials with one atomicAdd pair.
-//
-// Bound on this card: bytes.  Inputs are read once per side, order and
-// rank are written as int32, the stream once as bytes:
-// P*N*(2*itemsize + 8 + 2) bytes for paired packets, over 3.35 TB/s.
-//
-// 2. bt_axes: the jagged link x ordering x codec measurement — per link of
+// 1. bt_axes: the jagged link x ordering x codec measurement — per link of
 // an (L, P, N) batch with a real packet count per link, and per config of
 // a static (ordering, codec) list, the (input, weight, invert-line) BT
 // totals, plus the carry that chunked streaming threads across calls.
 //
-// Replaces the same TPU kernel in its measurement modes (b) and (c): the
-// (link, packet-block) grid of _axes_block with every config unrolled,
-// bus-invert's two entry branches from _bus_invert_bits, and the
-// inter-block fold of repro/kernels/ops.py:_fold_axes.  Two kernels, one
-// launch entry (repro_bt_axes):
-//   * bt_axes_kernel, one block per (link, packet block).  For each
-//     distinct ordering the block lays its valid packets out as a
-//     shared-memory flit image (the warp counting sort and byte scatter of
-//     psu_stream; integer addressing only, so no TF32 hazard), then for
-//     every config of that ordering it counts BT over the block's internal
-//     boundaries on the low byte of each lane: the byte maps (gray,
-//     sign-magnitude) inline, transition signaling as the data popcount,
-//     and bus-invert one warp per partition, 32 rows at a time, its
-//     sequential decision as a warp scan over per-row state maps (a tie
-//     forces 0, otherwise HD > half flips the previous state) for both
-//     entry branches at once.  It writes per-(block, config, branch)
-//     partials, first/last wire flits and first/last invert states.
-//   * bt_axes_fold_kernel, one thread per (link, config, partition), walks
-//     that link's valid blocks in order as _fold_axes does: the boundary
-//     into each block from the carried last wire flit (none on a cold
-//     start), bus-invert's entry branch from the previous *wire* flit, and
-//     blocks past the link's valid rows leave the carry as it was.
+// Replaces the TPU kernel repro/kernels/axes.py:bt_axes_pallas in its
+// measurement modes (b) and (c): the (link, packet-block) grid of
+// _axes_block with every config unrolled, bus-invert's two entry branches
+// from _bus_invert_bits, and the inter-block fold of
+// repro/kernels/ops.py:_fold_axes.  Two kernels, one launch entry
+// (repro_bt_axes):
+//   * bt_axes_kernel, one block per (link, packet block) and ordering —
+//     the orderings on the grid, and the wrapper cuts the packets per block
+//     until a small batch gives at least two blocks per SM.  The block
+//     stages its byte packets in shared memory with 16-byte loads and lays
+//     them out under its ordering as a flit image whose rows are padded to
+//     an odd number of 32-bit words (the ballot counting sort of
+//     common.cuh, each key computed once, and a byte scatter; integer
+//     addressing only, so no TF32 hazard).  One pass over the image's
+//     words then counts every stateless config of the ordering at once,
+//     four lanes per word, in registers: the data XOR for 'none', gray as
+//     d ^ ((d >> 1) & 0x7f7f7f7f) of it, sign-magnitude by byte masks,
+//     transition as the data popcount; one block reduction at the end.  Bus-invert runs on
+//     all warps, each on its own segment of rows, one row a lane (the odd
+//     row stride keeps that free of bank conflicts): from a 32-row step's
+//     ballots of "HD > half" and "HD == half" (HD from word XOR-popcounts)
+//     a row's invert state is the parity of the first since the step's
+//     last tie, or the entering state XOR that parity — for both states
+//     entering the segment; one thread per (config, partition) item then
+//     composes the eight segment maps for both entry branches.  The
+//     ordering's configs and items come from its record in the config
+//     table.  It writes per-(block, config, branch) partials, first/last
+//     wire flits and first/last invert states.
+//   * bt_axes_fold_kernel, one warp per (link, config, partition), folds
+//     that link's valid blocks as _fold_axes does, one block per lane: the
+//     boundary into each block from the previous block's last wire flit
+//     (the carried one for block 0, none on a cold start), partials summed
+//     by a warp reduction, and bus-invert's entry branch per block as an
+//     inclusive warp scan of the maps "branch of block g given the branch
+//     of block g-1"; blocks past the link's valid rows leave the carry as
+//     it was.
 //
 // Bound on this card: integer operations at the scale shapes (each byte is
 // read once from device memory, then touched once per distinct ordering
-// to lay out and a few times per config to count), bytes for few configs.
+// to lay out and a few times per config to count: ~4 operations per valid
+// byte per sorted ordering and ~3 per config, 0.105 ms for the 256 x 16,384
+// x 64 batch under 14 configs), bytes for few configs.  What the kernel
+// spends is instruction issue: the stable ranking (some 50-130
+// instructions a warp per 64-byte packet, by key width), the byte scatter
+// and the per-row bus-invert steps, across five blocks per packet block.
 // The block partials and edge flits are the only intermediates in device
 // memory; the fold re-reads them once.
 //
-// 3. bt_axes_activity: the same measurement with per-wire activity windows
+// 2. bt_axes_activity: the same measurement with per-wire activity windows
 // — per (link, config) the toggles of every wire (lane*8 + bit, LSB first,
 // then the PMAX invert lines) in each window of W global flit rows, and
 // each wire's valid rows at level 1.
@@ -102,97 +96,8 @@
 
 namespace repro {
 
-constexpr int PPW = 8;  // consecutive packets per warp
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-psu_stream_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  long long P, int n, KeySpec s, int il, int wl, int pack_row,
-                  int* __restrict__ order, int* __restrict__ rank,
-                  uint8_t* __restrict__ out, unsigned* bt) {
-  extern __shared__ unsigned char smem[];
-  __shared__ int hist[WARPS][32];
-  __shared__ unsigned part[WARPS][2];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int lanes = il + wl;
-  const int flits = n / il;
-  const int img_bytes = flits * lanes;
-  unsigned char* img = smem + warp * ((img_bytes + lanes + 15) & ~15);
-  unsigned char* last = img + img_bytes;  // previous packet's last flit
-
-  // rank packet p and lay its bytes out as the (F, lanes) flit image
-  auto place = [&](long long p, bool emit) {
-    const T* xr = x + p * n;
-    const T* wr = wl ? w + p * n : nullptr;
-    int* orow = order + p * n;
-    int* rrow = rank + p * n;
-    warp_rank(xr, n, s, hist[warp], [&](int i, int r) {
-      int f, l;
-      if (pack_row) {
-        f = r / il;
-        l = r - f * il;
-      } else {
-        l = r / flits;
-        f = r - l * flits;
-      }
-      unsigned char* cell = img + f * lanes + l;
-      cell[0] = (unsigned char)xr[i];
-      if (wl) cell[il] = (unsigned char)wr[i];
-      if (emit) {
-        rrow[i] = r;
-        orow[r] = i;
-      }
-    });
-    __syncwarp();
-  };
-  auto keep_last = [&]() {
-    for (int c = lane; c < lanes; c += 32) last[c] = img[(flits - 1) * lanes + c];
-    __syncwarp();
-  };
-
-  unsigned bt_in = 0, bt_wt = 0;
-  const long long p0 = ((long long)blockIdx.x * WARPS + warp) * PPW;
-  const long long p1 = p0 + PPW < P ? p0 + PPW : P;
-  if (p0 < p1 && p0 > 0) {
-    place(p0 - 1, false);
-    keep_last();
-  }
-  for (long long p = p0; p < p1; ++p) {
-    place(p, true);
-    uint8_t* dst = out + p * img_bytes;
-    for (int idx = lane; idx < img_bytes; idx += 32) {
-      const int f = idx / lanes;
-      const int c = idx - f * lanes;
-      const unsigned char cur = img[idx];
-      if (f > 0 || p > 0) {
-        const unsigned char prev = f > 0 ? img[idx - lanes] : last[c];
-        const unsigned flips = __popc((unsigned)(cur ^ prev));
-        if (c < il) bt_in += flips; else bt_wt += flips;
-      }
-      dst[idx] = cur;
-    }
-    __syncwarp();
-    keep_last();
-  }
-
-  bt_in = warp_sum(bt_in);
-  bt_wt = warp_sum(bt_wt);
-  if (lane == 0) {
-    part[warp][0] = bt_in;
-    part[warp][1] = bt_wt;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned a = 0, b = 0;
-    for (int i = 0; i < WARPS; ++i) {
-      a += part[i][0];
-      b += part[i][1];
-    }
-    atomicAdd(bt, a);
-    atomicAdd(bt + 1, b);
-  }
-}
+constexpr int MAX_ROW_WORDS = 512;  // 32-bit words of a flit row (lanes <= 2 * MAX_N)
+constexpr int BI_BATCH = 24;  // bus-invert (config, partition) items walked between barriers
 
 enum { CODEC_NONE = 0, CODEC_GRAY = 1, CODEC_SM = 2, CODEC_TRANSITION = 3, CODEC_BI = 4 };
 enum { KEY_NONE = 0, KEY_COLUMN_MAJOR = 1, KEY_ACC = 2, KEY_APP = 3 };
@@ -205,24 +110,20 @@ __device__ __forceinline__ unsigned code_byte(unsigned v, int codec) {
   return v;
 }
 
-// Sum two counters over the block; thread 0 holds the totals.
-__device__ __forceinline__ void block_sum2(unsigned& a, unsigned& b, unsigned (*red)[2]) {
-  a = warp_sum(a);
-  b = warp_sum(b);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    red[warp][0] = a;
-    red[warp][1] = b;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    a = b = 0;
-    for (int i = 0; i < WARPS; ++i) {
-      a += red[i][0];
-      b += red[i][1];
-    }
-  }
-  __syncthreads();
+// Bytes [lo, hi) of a 32-bit word as a bit mask (bounds clamped to [0, 4]).
+__device__ __forceinline__ unsigned byte_span(int lo, int hi) {
+  lo = lo < 0 ? 0 : lo;
+  hi = hi > 4 ? 4 : hi;
+  if (hi <= lo) return 0u;
+  const unsigned up = hi == 4 ? FULL : ((1u << (8 * hi)) - 1u);
+  return up & ~((1u << (8 * lo)) - 1u);
+}
+
+// code_byte's sign-magnitude map on the four bytes of a word at once.
+__device__ __forceinline__ unsigned sm_word(unsigned v) {
+  const unsigned sel = ((v & 0x80808080u) >> 7) * 0xFFu;  // bytes >= 0x80
+  const unsigned mag = ((~v & 0x7F7F7F7Fu) + 0x01010101u) & 0x7F7F7F7Fu;
+  return (v & ~sel) | ((mag | 0x80808080u) & sel);
 }
 
 // Layout of the per-(block, config) outputs; `cell` = block * C + config.
@@ -236,132 +137,215 @@ __device__ __forceinline__ long long inv_at(long long cell, int b, int last, int
   return ((cell * 2 + b) * 2 + last) * pmax;
 }
 
-// One warp walks partition q of a bus-invert config over the block's `vr`
-// image rows, for both entry states of row 0 at once.  Row t's state is
-// v_t = tie_t ? 0 : (h_t ? !v_{t-1} : v_{t-1}) with h_t = [2 HD_t > 8 pw],
-// tie_t = [2 HD_t == 8 pw] and HD_t the data Hamming distance of the
-// partition's lanes between rows t-1 and t: a map of v_{t-1}, encoded as
-// bit x = state after entry x (0b00 tie, 0b01 flip, 0b10 keep).  Each lane
-// takes one row of a 32-row step; an inclusive warp scan composes the maps.
-__device__ void bus_invert_walk(const unsigned char* img, int vr, int lanes, int split,
-                                int pw, int q, int pmax, long long cell, int* part,
-                                uint8_t* edge, uint8_t* inv) {
+// Compose two bus-invert state maps, `m` after `e`.  A map is encoded as
+// bit x = the state after entry state x: 0b00 tie (forced 0), 0b01 flip,
+// 0b10 keep, 0b11 forced 1.
+__device__ __forceinline__ unsigned compose(unsigned m, unsigned e) {
+  return ((m >> (e & 1u)) & 1u) | (((m >> ((e >> 1) & 1u)) & 1u) << 1);
+}
+
+// This warp's segment of the block's boundary rows for partition q of a
+// bus-invert config (lanes [q*pw, (q+1)*pw) of the (vr, lw)-word image).
+// Row t's invert state is v_t = tie_t ? 0 : (h_t ? !v_{t-1} : v_{t-1}) with
+// h_t = [2 HD_t > 8 pw], tie_t = [2 HD_t == 8 pw] and HD_t the data Hamming
+// distance of the partition between rows t-1 and t (word XOR-popcounts).
+// The rows 1 .. vr-1 are cut into WARPS segments of whole 32-row steps;
+// each lane takes one row of a step, and with H and T the step's ballots of
+// h and tie, the state before a lane's row is the parity of H since the
+// step's last tie before it, or (no tie yet) the state entering the step
+// XOR that parity — no shuffle chain; the row flips the state iff
+// tie ? v_{t-1} : h.  Entered in state 1 instead of 0 the segment's states
+// are complements up to its first tie and equal from there, so the two
+// entries' flips differ only at that row: the walk follows entry 0 and
+// keeps that row's difference.  It writes out[0] bit x = the state after
+// the segment entered in state x, and out[1 + 3x + k] the segment's
+// (input, weight, invert-line) flips.
+__device__ void bus_invert_segment(const unsigned* img32, int lw, int vr, int split, int pw,
+                                   int q, unsigned* out) {
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int seg = ((vr - 1 + WARPS - 1) / WARPS + 31) & ~31;
+  const int r0 = 1 + warp * seg;
+  const int r1 = r0 + seg < vr ? r0 + seg : vr;
   const int j0 = q * pw;
   const int n_in = split - j0 < 0 ? 0 : (split - j0 > pw ? pw : split - j0);
   const unsigned lbits = 8u * pw;
-  unsigned vin[2] = {0u, 1u};
-  unsigned acc[2][3] = {{0u, 0u, 0u}, {0u, 0u, 0u}};
-  for (int base = 1; base < vr; base += 32) {
+  const int wa = j0 >> 2, wb = (j0 + pw + 3) >> 2;  // the words the partition touches
+  // the input-side and weight-side bytes of the partition in its first
+  // NEAR words, once (a partition of up to 13 lanes touches at most 4)
+  constexpr int NEAR = 4;
+  unsigned m_in[NEAR], m_wg[NEAR];
+#pragma unroll
+  for (int k = 0; k < NEAR; ++k) {
+    const int wi = wa + k;
+    const unsigned pm = byte_span(j0 - 4 * wi, j0 + pw - 4 * wi);
+    const unsigned im = byte_span(0, split - 4 * wi);
+    m_in[k] = pm & im;
+    m_wg[k] = pm & ~im;
+  }
+  const unsigned before = (1u << lane) - 1u;  // the step's rows before this lane's
+  unsigned v = 0u;      // entry 0: the state before the step
+  int tied = -1;        // the lane of the segment's first tie, once met
+  unsigned acc[3] = {0u, 0u, 0u}, diff[3] = {0u, 0u, 0u};  // entry 0; entry 1 - entry 0
+  for (int base = r0; base < r1; base += 32) {
     const int t = base + lane;
-    const bool active = t < vr;
-    unsigned s_in = 0, s_wg = 0, m = 2u;  // rows past vr keep the state
+    const bool active = t < r1;
+    unsigned s_in = 0, s_wg = 0;
     if (active) {
-      const unsigned char* cur = img + t * lanes + j0;
-      const unsigned char* prev = cur - lanes;
-      for (int jj = 0; jj < pw; ++jj) {
-        const unsigned f = __popc((unsigned)(cur[jj] ^ prev[jj]));
-        if (jj < n_in) s_in += f; else s_wg += f;
+      const unsigned* cur = img32 + t * lw;
+#pragma unroll
+      for (int k = 0; k < NEAR; ++k) {
+        if (wa + k < wb) {
+          const unsigned d = cur[wa + k] ^ cur[wa + k - lw];
+          s_in += __popc(d & m_in[k]);
+          s_wg += __popc(d & m_wg[k]);
+        }
       }
-      const unsigned hd2 = 2u * (s_in + s_wg);
-      m = hd2 == lbits ? 0u : (hd2 > lbits ? 1u : 2u);
-    }
-    for (int o = 1; o < 32; o <<= 1) {  // m := m o (maps of earlier rows)
-      const unsigned e = __shfl_up_sync(FULL, m, o);
-      if (lane >= o) m = ((m >> (e & 1u)) & 1u) | (((m >> ((e >> 1) & 1u)) & 1u) << 1);
-    }
-    for (int b = 0; b < 2; ++b) {
-      const unsigned vt = (m >> vin[b]) & 1u;
-      unsigned vp = __shfl_up_sync(FULL, vt, 1);
-      if (lane == 0) vp = vin[b];
-      if (active) {
-        const unsigned flip = vt ^ vp;
-        acc[b][0] += flip ? 8u * n_in - s_in : s_in;
-        acc[b][1] += flip ? 8u * (pw - n_in) - s_wg : s_wg;
-        acc[b][2] += flip;
+      for (int wi = wa + NEAR; wi < wb; ++wi) {
+        const unsigned d = (cur[wi] ^ cur[wi - lw]) & byte_span(j0 - 4 * wi, j0 + pw - 4 * wi);
+        const unsigned im = byte_span(0, split - 4 * wi);
+        s_in += __popc(d & im);
+        s_wg += __popc(d & ~im);
       }
-      vin[b] = __shfl_sync(FULL, vt, 31);
     }
+    const unsigned hd2 = 2u * (s_in + s_wg);
+    const bool h = active && hd2 > lbits, tie = active && hd2 == lbits;
+    // rows past the segment are neither: they keep the state
+    const unsigned H = __ballot_sync(FULL, h);
+    const unsigned T = __ballot_sync(FULL, tie);
+    // the state after the rows of `mask` (a prefix of the step), from the
+    // state entering the step
+    auto state = [&](unsigned mask) {
+      const unsigned tm = T & mask;
+      const unsigned since = tm ? mask & ~(FULL >> __clz(tm)) : mask;  // rows after the last tie
+      return (__popc(H & since) & 1u) ^ (tm ? 0u : v);
+    };
+    const unsigned flip = tie ? state(before) : (unsigned)h;  // v_t ^ v_{t-1}
+    const unsigned c_in = flip ? 8u * n_in - s_in : s_in;
+    const unsigned c_wg = flip ? 8u * (pw - n_in) - s_wg : s_wg;
+    if (active) {
+      acc[0] += c_in;
+      acc[1] += c_wg;
+      acc[2] += flip;
+    }
+    if (tied < 0 && T) {  // the segment's first tie: entry 1 flips the other way there
+      tied = __ffs(T) - 1;
+      if (lane == tied) {
+        diff[0] = (flip ? s_in : 8u * n_in - s_in) - c_in;
+        diff[1] = (flip ? s_wg : 8u * (pw - n_in) - s_wg) - c_wg;
+        diff[2] = (flip ? 0u : 1u) - flip;
+      }
+    }
+    v = state(FULL);
   }
-  for (int b = 0; b < 2; ++b)
-    for (int k = 0; k < 3; ++k) acc[b][k] = warp_sum(acc[b][k]);
+  for (int k = 0; k < 3; ++k) {
+    acc[k] = warp_sum(acc[k]);
+    diff[k] = __shfl_sync(FULL, diff[k], tied < 0 ? 0 : tied);  // zero without a tie
+  }
   if (lane == 0) {
-    for (int b = 0; b < 2; ++b) {
-      int* pp = part + part_at(cell, b, q, pmax);
-      pp[0] = (int)acc[b][0];
-      pp[1] = (int)acc[b][1];
-      pp[2] = (int)acc[b][2];
-      inv[inv_at(cell, b, 0, pmax) + q] = (uint8_t)b;
-      inv[inv_at(cell, b, 1, pmax) + q] = (uint8_t)vin[b];
-    }
-  }
-  for (int jj = lane; jj < pw; jj += 32) {
-    const int j = j0 + jj;
-    const unsigned first = img[j], last = img[(vr - 1) * lanes + j];
-    for (int b = 0; b < 2; ++b) {
-      edge[edge_at(cell, b, 0, lanes) + j] = (uint8_t)(first ^ (b ? 0xFFu : 0u));
-      edge[edge_at(cell, b, 1, lanes) + j] = (uint8_t)(last ^ (vin[b] ? 0xFFu : 0u));
+    out[0] = v | ((tied >= 0 ? v : v ^ 1u) << 1);
+    for (int k = 0; k < 3; ++k) {
+      out[1 + k] = acc[k];
+      out[4 + k] = acc[k] + diff[k];
     }
   }
 }
 
-// Lay the block's vp valid packets (from packet p_lo of link l) out under
-// one ordering as the (vp * flits, lanes) flit image in shared memory: per
-// packet one warp, the counting-sort rank of psu_stream ('acc' / 'app') or
-// the fixed 'none' / 'column_major' slots, each byte scattered to its cell.
+// Copy `len` bytes from device memory into 16-byte aligned shared memory
+// with the whole block: 16-byte loads when the source is aligned.
+__device__ __forceinline__ void stage_bytes(unsigned char* dst, const unsigned char* src,
+                                            int len) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    done = len & ~15;
+    for (int i = threadIdx.x; i < (len >> 4); i += THREADS)
+      reinterpret_cast<uint4*>(dst)[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+  }
+  for (int i = done + threadIdx.x; i < len; i += THREADS) dst[i] = src[i];
+}
+
+// Lay the block's vp valid packets (rows of n elements from x and, paired,
+// w) out under one ordering as the (vp * flits, stride) flit image in
+// shared memory: per packet one warp, the counting-sort rank of psu_stream
+// ('acc' / 'app') or the fixed 'none' / 'column_major' slots, each byte
+// scattered to its cell.
 template <typename T>
-__device__ void lay_out(const T* __restrict__ x, const T* __restrict__ w, long long l,
-                        long long P, long long p_lo, int vp, int n, int il, int wl, int flits,
-                        int lanes, int pack_row, int key, const KeySpec& s, int (*hist)[32],
-                        unsigned char* img) {
+__device__ void lay_out(const T* x, const T* w, int vp, int n, int il, int wl, int flits,
+                        int stride, int pack_row, int key, const KeySpec& s,
+                        unsigned (*bal)[BAL_WORDS], unsigned char* img) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const FastDiv div = make_fast_div(pack_row ? il : flits);
+  const FastDiv div_il = make_fast_div(il);
+  with_key_bits(key >= KEY_ACC ? s.bits : 0, [&](auto kb) {
+  constexpr int BITS = decltype(kb)::value;
   for (int pk = warp; pk < vp; pk += WARPS) {
-    const long long off = ((long long)l * P + p_lo + pk) * n;
-    const T* xr = x + off;
-    const T* wr = wl ? w + off : nullptr;
-    unsigned char* pimg = img + pk * flits * lanes;
+    const T* xr = x + pk * n;
+    const T* wr = wl ? w + pk * n : nullptr;
+    unsigned char* pimg = img + pk * flits * stride;
     auto place = [&](int i, int r) {
       int f, c;
       if (pack_row) {
-        f = r / il;
+        f = (int)fast_div(r, div);
         c = r - f * il;
       } else {
-        c = r / flits;
+        c = (int)fast_div(r, div);
         f = r - c * flits;
       }
-      unsigned char* cell = pimg + f * lanes + c;
+      unsigned char* cell = pimg + f * stride + c;
       cell[0] = (unsigned char)xr[i];
       if (wl) cell[il] = (unsigned char)wr[i];
     };
     if (key >= KEY_ACC) {
-      warp_rank(xr, n, s, hist[warp], place);
+      warp_rank_row<BITS>(n, s.nb, bal[warp], [&](int i) { return psu_key((unsigned)xr[i], s); },
+                          place);
     } else {
       for (int i = lane; i < n; i += 32) {
-        const int f0 = i / il;  // column-major: slot l*F + f carries element f*L + l
+        // column-major: slot l*F + f carries element f*L + l
+        const int f0 = (int)fast_div(i, div_il);
         place(i, key == KEY_COLUMN_MAJOR ? (i - f0 * il) * flits + f0 : i);
       }
     }
   }
+  });
 }
 
 // tab: O orderings as (key, k, descending), then C configs as (ordering,
-// codec, partitions, lanes per partition).
+// codec, partitions, lanes per partition), then per ordering a record
+// (stateless codec bits, offset and count of its stateless configs, offset
+// and count of its bus-invert items) and the lists the records point to:
+// config indices, and (config, partition) pairs.  One block per (link, packet
+// block) and ordering, the ordering varying fastest along the grid so that
+// the blocks that read the same packets run side by side (the second and
+// later reads come from L2).  The image rows are padded with zero bytes
+// (which code to 0) to an odd number lw of 32-bit words, ls = 4 lw bytes,
+// so the bus-invert walk's one row a lane reads without bank conflicts.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 bt_axes_kernel(const T* __restrict__ x, const T* __restrict__ w,
                const int* __restrict__ valid, long long P, int n, int width, int il,
                int wl, int split, int pack_row, int bpk, int G,
                const int* __restrict__ tab, int O, int C, int pmax,
                int* __restrict__ part, uint8_t* __restrict__ edge,
                uint8_t* __restrict__ inv, uint8_t* __restrict__ bpar) {
-  extern __shared__ unsigned char img[];
-  __shared__ int hist[WARPS][32];
-  __shared__ unsigned red[WARPS][2];
+  extern __shared__ uint4 smem_axes[];
+  unsigned char* img = reinterpret_cast<unsigned char*>(smem_axes);
+  __shared__ unsigned bal[WARPS][BAL_WORDS];
+  __shared__ unsigned red[WARPS][8];
+  __shared__ unsigned tot[8];
+  __shared__ unsigned segs[BI_BATCH][WARPS][7];
+  __shared__ unsigned fins[BI_BATCH];
+  __shared__ unsigned parw[MAX_ROW_WORDS];
   const int warp = threadIdx.x >> 5;
-  const long long l = blockIdx.x / G;
-  const int g = (int)(blockIdx.x - l * G);
+  const int lane = threadIdx.x & 31;
+  const unsigned bk = blockIdx.x / (unsigned)O;  // (link, packet block)
+  const int o = (int)(blockIdx.x - bk * O);
+  const long long blk = bk;
+  const long long l = bk / (unsigned)G;
+  const int g = (int)(bk - (unsigned)l * G);
   const int lanes = il + wl;
+  const int lw = ((lanes + 3) >> 2) | 1;  // an odd word count: a lane per row is conflict-free
+  const int ls = lw * 4;
   const int flits = n / il;
   const long long p_lo = (long long)g * bpk;
   const long long left = (long long)valid[l] - p_lo;
@@ -370,107 +354,208 @@ bt_axes_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int vp = left < bpk ? (int)left : bpk;
   const int vr = vp * flits;
   const int* cfgs = tab + 3 * O;
+  // this ordering's record: its stateless codecs (one bit each), its
+  // stateless configs and its bus-invert (config, partition) items
+  const int* rec = cfgs + 4 * C + 5 * o;
+  const unsigned need = (unsigned)rec[0];
+  const int* stateless = tab + rec[1];
+  const int n_stateless = rec[2];
+  const int* items = tab + rec[3];
+  const int n_items = rec[4];
+  const bool par = bpar && (need & (1u << CODEC_TRANSITION));
 
-  for (int o = 0; o < O; ++o) {
-    const int key = tab[3 * o];
-    const KeySpec s = make_key_spec(width, key == KEY_APP ? tab[3 * o + 1] : 0, tab[3 * o + 2]);
-    lay_out(x, w, l, P, p_lo, vp, n, il, wl, flits, lanes, pack_row, key, s, hist, img);
-    __syncthreads();
+  const int key = tab[3 * o];
+  const KeySpec s = make_key_spec(width, key == KEY_APP ? tab[3 * o + 1] : 0, tab[3 * o + 2]);
+  // the pad words of every row are zeroed first (the layout then writes
+  // the lanes' bytes over them), and byte packets are staged in shared
+  // memory with 16-byte loads: the layout's scattered reads then wait on
+  // one load instead of one a packet
+  unsigned* img_w = reinterpret_cast<unsigned*>(img);
+  for (int t = threadIdx.x; t < vr; t += THREADS)
+    for (int wi = lanes >> 2; wi < lw; ++wi) img_w[t * lw + wi] = 0u;
+  if (par)
+    for (int i = threadIdx.x; i < lw; i += THREADS) parw[i] = 0;
+  const long long off = ((long long)l * P + p_lo) * n;
+  const T* xb = x + off;
+  const T* wb = wl ? w + off : nullptr;
+  if (sizeof(T) == 1) {
+    unsigned char* raw = img + ((bpk * flits * ls + 15) & ~15);
+    stage_bytes(raw, reinterpret_cast<const unsigned char*>(xb), vp * n);
+    xb = reinterpret_cast<const T*>(raw);
+    if (wl) {
+      stage_bytes(raw + vp * n, reinterpret_cast<const unsigned char*>(wb), vp * n);
+      wb = reinterpret_cast<const T*>(raw + vp * n);
+    }
+  }
+  __syncthreads();
+  lay_out(xb, wb, vp, n, il, wl, flits, ls, pack_row, key, s, bal, img);
+  __syncthreads();
+  const unsigned* img32 = reinterpret_cast<const unsigned*>(img);
 
-    // stateless codecs and transition signaling: every thread, block sums
-    for (int c = 0; c < C; ++c) {
-      const int codec = cfgs[4 * c + 1];
-      if (cfgs[4 * c] != o || codec == CODEC_BI) continue;
-      const long long cell = blockIdx.x * (long long)C + c;
-      // thread -> (first row, lane), THREADS / lanes rows per pass; a flit
-      // wider than the block gives each thread whole lane columns
-      const bool wide = lanes > THREADS;
-      const int rstep = wide ? 1 : THREADS / lanes;
-      const int t0 = wide ? 0 : threadIdx.x / lanes;
-      unsigned a_in = 0, a_wg = 0;
-      if (t0 < rstep) {
-        for (int j = wide ? threadIdx.x : threadIdx.x - t0 * lanes; j < lanes; j += THREADS) {
-          unsigned a = 0;
-          for (int t = 1 + t0; t < vr; t += rstep) {
-            const unsigned cur = img[t * lanes + j];
-            a += codec == CODEC_TRANSITION
-                     ? __popc(cur)
-                     : __popc(code_byte(cur, codec) ^ code_byte(img[(t - 1) * lanes + j], codec));
+  // every stateless codec of the ordering in one pass over the words:
+  // thread -> (first row, word column), THREADS / lw rows per step; a row
+  // wider than the block gives each thread whole word columns
+  if (need) {
+    unsigned acc[4][2] = {{0u, 0u}, {0u, 0u}, {0u, 0u}, {0u, 0u}};
+    const bool wide = lw > THREADS;
+    const int rstep = wide ? 1 : THREADS / lw;
+    const int t0 = wide ? 0 : threadIdx.x / lw;
+    if (t0 < rstep) {
+      for (int wc = wide ? threadIdx.x : threadIdx.x - t0 * lw; wc < lw; wc += THREADS) {
+        const unsigned im = byte_span(0, split - 4 * wc);  // input-side bytes
+        unsigned px = 0;
+        for (int t = t0; t < vr; t += rstep) {
+          const unsigned cur = img32[t * lw + wc];
+          px ^= cur;
+          if (t == 0) continue;
+          const unsigned prev = img32[(t - 1) * lw + wc];
+          const unsigned d = cur ^ prev;
+          if (need & (1u << CODEC_NONE)) {
+            acc[CODEC_NONE][0] += __popc(d & im);
+            acc[CODEC_NONE][1] += __popc(d & ~im);
           }
-          if (j < split) a_in += a; else a_wg += a;
+          if (need & (1u << CODEC_GRAY)) {  // gray(a) ^ gray(b) = gray(a ^ b)
+            const unsigned e = d ^ ((d >> 1) & 0x7F7F7F7Fu);
+            acc[CODEC_GRAY][0] += __popc(e & im);
+            acc[CODEC_GRAY][1] += __popc(e & ~im);
+          }
+          if (need & (1u << CODEC_SM)) {
+            const unsigned e = sm_word(cur) ^ sm_word(prev);
+            acc[CODEC_SM][0] += __popc(e & im);
+            acc[CODEC_SM][1] += __popc(e & ~im);
+          }
+          if (need & (1u << CODEC_TRANSITION)) {  // the wire toggles where the data is 1
+            acc[CODEC_TRANSITION][0] += __popc(cur & im);
+            acc[CODEC_TRANSITION][1] += __popc(cur & ~im);
+          }
         }
+        // activity mode: the block's data parity per lane (transition's wire
+        // levels are the running parity, prefix-XORed by the fold)
+        if (par) atomicXor(&parw[wc], px);
       }
-      block_sum2(a_in, a_wg, red);
+    }
+    for (int k = 0; k < 8; ++k) {
+      if (!((need >> (k >> 1)) & 1u)) continue;  // a codec the ordering does not use
+      const unsigned v = warp_sum(acc[k >> 1][k & 1]);
+      if (lane == 0) red[warp][k] = v;
+    }
+    __syncthreads();
+    if (threadIdx.x < 8) {
+      unsigned v = 0;
+      for (int i = 0; i < WARPS; ++i) v += red[i][threadIdx.x];
+      tot[threadIdx.x] = v;
+    }
+    __syncthreads();
+    for (int k = 0; k < n_stateless; ++k) {
+      const int c = stateless[k];
+      const int codec = cfgs[4 * c + 1];
+      const long long cell = blk * C + c;
       if (threadIdx.x == 0) {
         int* pp = part + part_at(cell, 0, 0, pmax);
-        pp[0] = (int)a_in;
-        pp[1] = (int)a_wg;
+        pp[0] = (int)tot[2 * codec];
+        pp[1] = (int)tot[2 * codec + 1];
         pp[2] = 0;
       }
       for (int j = threadIdx.x; j < lanes; j += THREADS) {
         edge[edge_at(cell, 0, 0, lanes) + j] = (uint8_t)code_byte(img[j], codec);
-        edge[edge_at(cell, 0, 1, lanes) + j] =
-            (uint8_t)code_byte(img[(vr - 1) * lanes + j], codec);
+        edge[edge_at(cell, 0, 1, lanes) + j] = (uint8_t)code_byte(img[(vr - 1) * ls + j], codec);
+        if (par && codec == CODEC_TRANSITION)
+          bpar[cell * lanes + j] = (uint8_t)(parw[j >> 2] >> (8 * (j & 3)));
       }
-      // activity mode: the block's data parity per lane (transition's wire
-      // levels are the running parity, prefix-XORed by the fold)
-      if (bpar && codec == CODEC_TRANSITION) {
-        for (int j = threadIdx.x; j < lanes; j += THREADS) {
-          unsigned px = 0;
-          for (int t = 0; t < vr; ++t) px ^= img[t * lanes + j];
-          bpar[cell * lanes + j] = (uint8_t)px;
+    }
+  }
+
+  // bus-invert: every warp walks its row segment of each (config,
+  // partition) item of the ordering, BI_BATCH items between barriers; then
+  // one thread per item composes the eight segment maps for both entry
+  // branches, and the block writes the items' edge flits
+  for (int first = 0; first < n_items; first += BI_BATCH) {
+    const int batch = n_items - first < BI_BATCH ? n_items - first : BI_BATCH;
+    for (int k = 0; k < batch; ++k) {
+      const int c = items[2 * (first + k)], q = items[2 * (first + k) + 1];
+      bus_invert_segment(img32, lw, vr, split, cfgs[4 * c + 3], q, segs[k][warp]);
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < batch) {
+      const int c = items[2 * (first + threadIdx.x)], q = items[2 * (first + threadIdx.x) + 1];
+      const unsigned (*sg)[7] = segs[threadIdx.x];
+      const long long cell = blk * C + c;
+      unsigned fin = 0;  // bit b: the state of the block's last row under entry branch b
+      for (int b = 0; b < 2; ++b) {
+        unsigned a[3] = {0u, 0u, 0u}, e = (unsigned)b;
+        for (int k = 0; k < WARPS; ++k) {
+          for (int i = 0; i < 3; ++i) a[i] += sg[k][1 + 3 * e + i];
+          e = (sg[k][0] >> e) & 1u;
+        }
+        int* pp = part + part_at(cell, b, q, pmax);
+        pp[0] = (int)a[0];
+        pp[1] = (int)a[1];
+        pp[2] = (int)a[2];
+        inv[inv_at(cell, b, 0, pmax) + q] = (uint8_t)b;
+        inv[inv_at(cell, b, 1, pmax) + q] = (uint8_t)e;
+        fin |= e << b;
+      }
+      fins[threadIdx.x] = fin;
+    }
+    __syncthreads();
+    for (int k = 0; k < batch; ++k) {
+      const int c = items[2 * (first + k)], q = items[2 * (first + k) + 1];
+      const int pw = cfgs[4 * c + 3];
+      const long long cell = blk * C + c;
+      const unsigned fin = fins[k];
+      for (int jj = threadIdx.x; jj < pw; jj += THREADS) {
+        const int j = q * pw + jj;
+        const unsigned v0 = img[j], v1 = img[(vr - 1) * ls + j];
+        for (int b = 0; b < 2; ++b) {
+          edge[edge_at(cell, b, 0, lanes) + j] = (uint8_t)(v0 ^ (b ? 0xFFu : 0u));
+          edge[edge_at(cell, b, 1, lanes) + j] = (uint8_t)(v1 ^ ((fin >> b) & 1u ? 0xFFu : 0u));
         }
       }
     }
-
-    // bus-invert: one warp per (config, partition)
-    int item = 0;
-    for (int c = 0; c < C; ++c) {
-      if (cfgs[4 * c] != o || cfgs[4 * c + 1] != CODEC_BI) continue;
-      const long long cell = blockIdx.x * (long long)C + c;
-      for (int q = 0; q < cfgs[4 * c + 2]; ++q, ++item) {
-        if (item % WARPS == warp)
-          bus_invert_walk(img, vr, lanes, split, cfgs[4 * c + 3], q, pmax, cell, part, edge, inv);
-      }
-    }
-    __syncthreads();  // the next ordering lays out over this image
   }
 }
 
-// One thread per (link, config, partition): the in-order walk over the
-// link's valid blocks.  wire / invc hold the carry (last wire flit per
-// lane, last invert state per partition) and are updated in place; the
-// totals are added with atomics (unsigned: wraps like the int32 sums).
+// One warp per (link, config, partition): the fold over the link's valid
+// blocks that _fold_axes does in order, here across the warp's lanes, one
+// block per lane, 32 blocks per step.  wire / invc hold the carry (last
+// wire flit per lane, last invert state per partition) and are updated in
+// place; the totals are added with atomics (unsigned: wraps like the int32
+// sums).  Stateless codecs: each lane adds its blocks' partials and the
+// boundary flips into them from the previous block's last wire flit (the
+// carried flit for block 0; none on a cold start).  Bus-invert: block g's
+// entry branch is a map of block g-1's — bit x = [2 HD > 8 pw] between g's
+// first data flit and g-1's last wire flit under branch x; block 0's is a
+// constant from the carried flit, 0 on a cold start — so an inclusive warp
+// scan of those maps gives every block's branch, and each lane then adds
+// the partials of its block's branch and the boundary into it.
 // With `ent` (activity mode) it also records each block's entry state
-// (see the entry-state layout below) and threads `parity`, each wire's transition level as 0/1
-// per wire (C, L, lanes*8), through the block parities `bpar`.
-__global__ void bt_axes_fold_kernel(const int* __restrict__ valid, long long L, int bpk,
-                                    int G, int lanes, int split,
-                                    const int* __restrict__ tab, int O, int C, int pmax,
-                                    const int* __restrict__ part,
-                                    const uint8_t* __restrict__ edge,
-                                    const uint8_t* __restrict__ inv,
-                                    const int* __restrict__ started_in,
-                                    int* __restrict__ started_out, int* wire, int* invc,
-                                    unsigned* totals, const uint8_t* __restrict__ bpar,
-                                    uint8_t* ent, int es, int* parity) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= L * C * pmax) return;
+// (see the entry-state layout below) and threads `parity`, each wire's
+// transition level as 0/1 per wire (C, L, lanes*8), through the block
+// parities `bpar` by a warp XOR scan.
+__global__ void __launch_bounds__(THREADS)
+bt_axes_fold_kernel(const int* __restrict__ valid, long long L, int bpk, int G, int lanes,
+                    int split, const int* __restrict__ tab, int O, int C, int pmax,
+                    const int* __restrict__ part, const uint8_t* __restrict__ edge,
+                    const uint8_t* __restrict__ inv, const int* __restrict__ started_in,
+                    int* __restrict__ started_out, int* wire, int* invc, unsigned* totals,
+                    const uint8_t* __restrict__ bpar, uint8_t* ent, int es, int* parity) {
+  const int lane = threadIdx.x & 31;
+  const long long idx = ((long long)blockIdx.x * THREADS + threadIdx.x) >> 5;
+  if (idx >= L * C * pmax) return;  // whole warps
   const int q = (int)(idx % pmax);
   const int c = (int)((idx / pmax) % C);
   const long long l = idx / ((long long)pmax * C);
   const int* cf = tab + 3 * O + 4 * c;
   const int codec = cf[1], npart = cf[2], pw = cf[3];
   const int v = valid[l];
-  if (c == 0 && q == 0) started_out[l] = (started_in[l] != 0 || v > 0) ? 1 : 0;
+  const int st0 = started_in[l] != 0;
+  if (c == 0 && q == 0 && lane == 0) started_out[l] = (st0 || v > 0) ? 1 : 0;
   if (codec == CODEC_BI ? q >= npart : q > 0) return;
   const int nblk = v > 0 ? (v + bpk - 1) / bpk : 0;
-  int st = started_in[l] != 0;
   int* cw = wire + ((long long)c * L + l) * lanes;
   unsigned t_in = 0, t_wg = 0, t_aux = 0;
   if (codec != CODEC_BI) {
-    int* par = parity ? parity + ((long long)c * L + l) * lanes * 8 : nullptr;
-    for (int g = 0; g < nblk; ++g) {
+    for (int g = lane; g < nblk; g += 32) {
       const long long cell = (l * G + g) * C + c;
       const int* pp = part + part_at(cell, 0, 0, pmax);
       t_in += (unsigned)pp[0];
@@ -479,21 +564,11 @@ __global__ void bt_axes_fold_kernel(const int* __restrict__ valid, long long L, 
       const uint8_t* prev = g > 0 ? edge + edge_at(cell - C, 0, 1, lanes) : nullptr;
       if (ent) {
         uint8_t* e = ent + cell * es;
-        for (int j = 0; j < lanes; ++j) {
-          unsigned b;
-          if (codec != CODEC_TRANSITION) {
-            b = prev ? prev[j] : (unsigned)cw[j];  // the wire flit before the block
-          } else if (g > 0) {  // entry parity: the previous block's, XOR its data
-            b = ent[(cell - C) * es + j] ^ bpar[(cell - C) * lanes + j];
-          } else {
-            b = 0;
-            for (int k = 0; k < 8; ++k) b |= (unsigned)(par[j * 8 + k] & 1) << k;
-          }
-          e[j] = (uint8_t)b;
-        }
-        e[lanes + 2 * pmax] = (uint8_t)(g > 0 || st);
+        if (codec != CODEC_TRANSITION)  // the wire flit before the block
+          for (int j = 0; j < lanes; ++j) e[j] = prev ? prev[j] : (uint8_t)cw[j];
+        e[lanes + 2 * pmax] = (uint8_t)(g > 0 || st0);
       }
-      if (g == 0 && !st) continue;  // no boundary into the first flit ever sent
+      if (g == 0 && !st0) continue;  // no boundary into the first flit ever sent
       for (int j = 0; j < lanes; ++j) {
         const unsigned before = prev ? prev[j] : (unsigned)cw[j];
         const unsigned f = codec == CODEC_TRANSITION ? __popc((unsigned)first[j])
@@ -501,63 +576,110 @@ __global__ void bt_axes_fold_kernel(const int* __restrict__ valid, long long L, 
         if (j < split) t_in += f; else t_wg += f;
       }
     }
-    if (nblk > 0) {
-      const long long cl = (l * G + nblk - 1) * C + c;
-      const uint8_t* last = edge + edge_at(cl, 0, 1, lanes);
-      for (int j = 0; j < lanes; ++j) cw[j] = last[j];
-      if (ent && codec == CODEC_TRANSITION) {
-        for (int j = 0; j < lanes; ++j) {
-          const unsigned b = ent[cl * es + j] ^ bpar[cl * lanes + j];
-          for (int k = 0; k < 8; ++k) par[j * 8 + k] = (b >> k) & 1u;
+    if (ent && codec == CODEC_TRANSITION) {
+      // each block's entry parity: the carried parity XOR the earlier
+      // blocks' data parities (an exclusive XOR scan per lane byte)
+      int* par = parity + ((long long)c * L + l) * lanes * 8;
+      for (int j = 0; j < lanes; ++j) {
+        unsigned carry = 0;
+        for (int k = 0; k < 8; ++k) carry |= (unsigned)(par[j * 8 + k] & 1) << k;
+        for (int g0 = 0; g0 < nblk; g0 += 32) {
+          const int g = g0 + lane;
+          const long long cell = (l * G + g) * C + c;
+          const unsigned b = g < nblk ? bpar[cell * lanes + j] : 0u;
+          unsigned incl = b;
+          for (int o = 1; o < 32; o <<= 1) {
+            const unsigned u = __shfl_up_sync(FULL, incl, o);
+            if (lane >= o) incl ^= u;
+          }
+          if (g < nblk) ent[cell * es + j] = (uint8_t)(carry ^ incl ^ b);
+          carry ^= __shfl_sync(FULL, incl, 31);
         }
+        __syncwarp();
+        if (lane < 8) par[j * 8 + lane] = (carry >> lane) & 1u;
       }
+    }
+    __syncwarp();  // every lane has read the carried flit
+    if (nblk > 0) {
+      const uint8_t* last = edge + edge_at((l * G + nblk - 1) * C + c, 0, 1, lanes);
+      for (int j = lane; j < lanes; j += 32) cw[j] = last[j];
     }
   } else {
     const int j0 = q * pw;
     int* civ = invc + ((long long)c * L + l) * pmax + q;
-    int iv = *civ;
-    const uint8_t* lastw = nullptr;  // null: the carried wire flit
-    for (int g = 0; g < nblk; ++g) {
+    const int iv0 = *civ;
+    const unsigned lbits = 8u * pw;
+    unsigned bcar = 0;  // the branch of the block before this step
+    for (int g0 = 0; g0 < nblk; g0 += 32) {
+      const int g = g0 + lane;
+      const bool in = g < nblk;
       const long long cell = (l * G + g) * C + c;
       const uint8_t* first = edge + edge_at(cell, 0, 0, lanes) + j0;  // = the data flit
-      unsigned hd = 0;
-      for (int jj = 0; jj < pw; ++jj)
-        hd += __popc((first[jj] ^ (lastw ? lastw[jj] : (unsigned)cw[j0 + jj])) & 0xFFu);
-      // entry branch from the previous wire flit; forced 0 on a cold start
-      const int b = st && 2u * hd > 8u * pw;
-      if (ent) {
-        uint8_t* e = ent + cell * es;
-        for (int jj = 0; jj < pw; ++jj)
-          e[j0 + jj] = lastw ? lastw[jj] : (uint8_t)cw[j0 + jj];
-        e[lanes + q] = (uint8_t)b;
-        e[lanes + pmax + q] = (uint8_t)iv;
-        if (q == 0) e[lanes + 2 * pmax] = (uint8_t)st;
-      }
-      if (st) {
-        for (int jj = 0; jj < pw; ++jj) {
-          const unsigned before = lastw ? lastw[jj] : (unsigned)cw[j0 + jj];
-          const unsigned f = __popc((before ^ first[jj] ^ (b ? 0xFFu : 0u)) & 0xFFu);
-          if (j0 + jj < split) t_in += f; else t_wg += f;
+      unsigned m = 2u;  // lanes past the last block keep the branch
+      if (in && g == 0) {
+        unsigned hd = 0;
+        for (int jj = 0; jj < pw; ++jj) hd += __popc((first[jj] ^ (unsigned)cw[j0 + jj]) & 0xFFu);
+        m = (st0 && 2u * hd > lbits) ? 3u : 0u;  // forced 0 on a cold start
+      } else if (in) {
+        m = 0u;
+        for (int x = 0; x < 2; ++x) {
+          const uint8_t* lw = edge + edge_at(cell - C, x, 1, lanes) + j0;
+          unsigned hd = 0;
+          for (int jj = 0; jj < pw; ++jj) hd += __popc((first[jj] ^ lw[jj]) & 0xFFu);
+          m |= (2u * hd > lbits ? 1u : 0u) << x;
         }
-        t_aux += iv != b;
       }
-      const int* pp = part + part_at(cell, b, q, pmax);
-      t_in += (unsigned)pp[0];
-      t_wg += (unsigned)pp[1];
-      t_aux += (unsigned)pp[2];
-      lastw = edge + edge_at(cell, b, 1, lanes) + j0;
-      iv = inv[inv_at(cell, b, 1, pmax) + q];
-      st = 1;
+      for (int o = 1; o < 32; o <<= 1) {  // m := m o (maps of earlier blocks)
+        const unsigned e = __shfl_up_sync(FULL, m, o);
+        if (lane >= o) m = compose(m, e);
+      }
+      const unsigned b = (m >> bcar) & 1u;
+      unsigned bp = __shfl_up_sync(FULL, b, 1);
+      if (lane == 0) bp = bcar;
+      if (in) {
+        const uint8_t* lastw = g > 0 ? edge + edge_at(cell - C, bp, 1, lanes) + j0 : nullptr;
+        const int ivp = g > 0 ? inv[inv_at(cell - C, bp, 1, pmax) + q] : iv0;
+        const int st = g > 0 || st0;
+        if (ent) {
+          uint8_t* e = ent + cell * es;
+          for (int jj = 0; jj < pw; ++jj)
+            e[j0 + jj] = lastw ? lastw[jj] : (uint8_t)cw[j0 + jj];
+          e[lanes + q] = (uint8_t)b;
+          e[lanes + pmax + q] = (uint8_t)ivp;
+          if (q == 0) e[lanes + 2 * pmax] = (uint8_t)st;
+        }
+        if (st) {
+          for (int jj = 0; jj < pw; ++jj) {
+            const unsigned before = lastw ? lastw[jj] : (unsigned)cw[j0 + jj];
+            const unsigned f = __popc((before ^ first[jj] ^ (b ? 0xFFu : 0u)) & 0xFFu);
+            if (j0 + jj < split) t_in += f; else t_wg += f;
+          }
+          t_aux += (unsigned)ivp != b;
+        }
+        const int* pp = part + part_at(cell, b, q, pmax);
+        t_in += (unsigned)pp[0];
+        t_wg += (unsigned)pp[1];
+        t_aux += (unsigned)pp[2];
+      }
+      bcar = __shfl_sync(FULL, b, 31);
     }
-    if (lastw) {
-      for (int jj = 0; jj < pw; ++jj) cw[j0 + jj] = lastw[jj];
-      *civ = iv;
+    __syncwarp();  // every lane has read the carried flit and state
+    if (nblk > 0) {
+      const long long cl = (l * G + nblk - 1) * C + c;
+      const uint8_t* lastw = edge + edge_at(cl, bcar, 1, lanes) + j0;
+      for (int jj = lane; jj < pw; jj += 32) cw[j0 + jj] = lastw[jj];
+      if (lane == 0) *civ = inv[inv_at(cl, bcar, 1, pmax) + q];
     }
   }
-  unsigned* tot = totals + (l * C + c) * 3;
-  atomicAdd(tot, t_in);
-  atomicAdd(tot + 1, t_wg);
-  atomicAdd(tot + 2, t_aux);
+  t_in = warp_sum(t_in);
+  t_wg = warp_sum(t_wg);
+  t_aux = warp_sum(t_aux);
+  if (lane == 0) {
+    unsigned* tot = totals + (l * C + c) * 3;
+    atomicAdd(tot, t_in);
+    atomicAdd(tot + 1, t_wg);
+    atomicAdd(tot + 2, t_aux);
+  }
 }
 
 // ---- activity mode ----
@@ -572,8 +694,8 @@ __global__ void bt_axes_fold_kernel(const int* __restrict__ valid, long long L, 
 
 // One warp: the invert states v_t of partition q over the block's vr image
 // rows for the known entry branch b, into vst[t * pmax + q].  Row 0 is b;
-// row t > 0 applies the map of bus_invert_walk (tie -> 0, HD > half ->
-// flip, else keep), composed across the warp by the same scan.
+// row t > 0 applies the rule of bus_invert_segment (tie -> 0, HD > half ->
+// flip, else keep) as a state map, composed across the warp by a scan.
 __device__ void invert_states(const unsigned char* img, int vr, int lanes, int pw, int q,
                               int pmax, unsigned b, unsigned char* vst) {
   const int lane = threadIdx.x & 31;
@@ -593,7 +715,7 @@ __device__ void invert_states(const unsigned char* img, int vr, int lanes, int p
     }
     for (int o = 1; o < 32; o <<= 1) {  // m := m o (maps of earlier rows)
       const unsigned e = __shfl_up_sync(FULL, m, o);
-      if (lane >= o) m = ((m >> (e & 1u)) & 1u) | (((m >> ((e >> 1) & 1u)) & 1u) << 1);
+      if (lane >= o) m = compose(m, e);
     }
     const unsigned vt = (m >> vin) & 1u;
     if (t < vr) vst[t * pmax + q] = (unsigned char)vt;
@@ -698,7 +820,7 @@ __device__ void activity_walk(const unsigned char* img, const unsigned char* vst
 // (L, C, nwires) are zeroed or hold earlier chunks' counts; base_row is the
 // global row of this call's first flit row.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 bt_axes_activity_kernel(const T* __restrict__ x, const T* __restrict__ w,
                         const int* __restrict__ valid, long long P, int n, int width, int il,
                         int wl, int pack_row, int bpk, int G, const int* __restrict__ tab,
@@ -706,7 +828,7 @@ bt_axes_activity_kernel(const T* __restrict__ x, const T* __restrict__ w,
                         long long base_row, int W, int NW, unsigned* __restrict__ toggles,
                         unsigned* __restrict__ ones) {
   extern __shared__ unsigned char img[];
-  __shared__ int hist[WARPS][32];
+  __shared__ unsigned bal[WARPS][BAL_WORDS];
   const int warp = threadIdx.x >> 5;
   const long long l = blockIdx.x / G;
   const int g = (int)(blockIdx.x - l * G);
@@ -725,7 +847,9 @@ bt_axes_activity_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int o = blockIdx.y;
   const int key = tab[3 * o];
   const KeySpec s = make_key_spec(width, key == KEY_APP ? tab[3 * o + 1] : 0, tab[3 * o + 2]);
-  lay_out(x, w, l, P, p_lo, vp, n, il, wl, flits, lanes, pack_row, key, s, hist, img);
+  const long long off = ((long long)l * P + p_lo) * n;
+  lay_out(x + off, wl ? w + off : nullptr, vp, n, il, wl, flits, lanes, pack_row, key, s, bal,
+          img);
   __syncthreads();
   for (int c = 0; c < C; ++c) {
     if (cfgs[4 * c] != o) continue;
@@ -769,15 +893,20 @@ int launch_axes(const void* x, const void* w, long long L, long long P, int n,
   using namespace repro;
   const int lanes = il + wl;
   const size_t img = (size_t)bpk * (n / il) * lanes;
+  // the image, rows padded to an odd word count, then (byte packets) the
+  // staged packets
+  const size_t img_words =
+      ((size_t)bpk * (n / il) * 4 * (((lanes + 3) >> 2) | 1) + 15) & ~(size_t)15;
+  const size_t staged = sizeof(T) == 1 ? (size_t)bpk * n * (wl ? 2 : 1) : 0;
   const unsigned blocks = (unsigned)(L * G);
-  bt_axes_kernel<T><<<blocks, THREADS, img, st>>>(
+  bt_axes_kernel<T><<<blocks * O, THREADS, img_words + staged, st>>>(
       (const T*)x, (const T*)w, (const int*)valid, P, n, width, il, wl, split, pack_row, bpk,
       G, (const int*)tab, O, C, pmax, (int*)part, (uint8_t*)edge, (uint8_t*)inv,
       act ? (uint8_t*)act->bpar : nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long threads = L * C * pmax;
-  const unsigned fold_blocks = (unsigned)((threads + THREADS - 1) / THREADS);
+  const long long warps = L * C * pmax;  // one warp per (link, config, partition)
+  const unsigned fold_blocks = (unsigned)((warps + WARPS - 1) / WARPS);
   bt_axes_fold_kernel<<<fold_blocks, THREADS, 0, st>>>(
       (const int*)valid, L, bpk, G, lanes, split, (const int*)tab, O, C, pmax,
       (const int*)part, (const uint8_t*)edge, (const uint8_t*)inv, (const int*)started_in,
@@ -836,30 +965,4 @@ extern "C" int repro_bt_axes_activity(const void* x, const void* w, int dtype, l
   return fn(x, w, L, P, n, valid, width, il, wl, split, pack_row, bpk, G, tab, O, C, pmax,
             part, edge, inv, started_in, started_out, wire, invc, totals, &act,
             (cudaStream_t)stream);
-}
-
-// dtype: 0 = uint8, 1 = int32; k == 0 selects ACC; wl is 0 or il (w may be
-// null when wl == 0).  `bt` is two zeroed int32 on the device.
-extern "C" int repro_psu_stream(const void* x, const void* w, int dtype,
-                                long long P, int n, int width, int k, int desc,
-                                int il, int wl, int pack_row, void* order,
-                                void* rank, void* out, void* bt, void* stream) {
-  using namespace repro;
-  cudaStream_t st = (cudaStream_t)stream;
-  const KeySpec s = make_key_spec(width, k, desc);
-  const int lanes = il + wl;
-  const int img_bytes = (n / il) * lanes;
-  const size_t smem = (size_t)WARPS * ((img_bytes + lanes + 15) & ~15);
-  const long long per_block = (long long)WARPS * PPW;
-  const unsigned blocks = (unsigned)((P + per_block - 1) / per_block);
-  if (dtype == 0) {
-    psu_stream_kernel<uint8_t><<<blocks, THREADS, smem, st>>>(
-        (const uint8_t*)x, (const uint8_t*)w, P, n, s, il, wl, pack_row,
-        (int*)order, (int*)rank, (uint8_t*)out, (unsigned*)bt);
-  } else {
-    psu_stream_kernel<int32_t><<<blocks, THREADS, smem, st>>>(
-        (const int32_t*)x, (const int32_t*)w, P, n, s, il, wl, pack_row,
-        (int*)order, (int*)rank, (uint8_t*)out, (unsigned*)bt);
-  }
-  return (int)cudaGetLastError();
 }

@@ -3,13 +3,15 @@ and the CUDA kernel's wrapper.
 
 Replaces the TPU kernel ``repro/kernels/psu.py:psu_sort_pallas`` (body
 ``_psu_kernel``; helpers ``_popcount_bits``, ``_rank_from_keys``,
-``_rank_block``).  The CUDA kernel (``csrc/psu.cu``) sorts one packet row
-per warp: ``__popc`` key, a shared-memory histogram of the <= 17 keys and
-a warp scan for the bucket starts, ``__match_any_sync`` for the stable
-earlier-equal count, and ``order[rank[i]] = i`` as an integer scatter.
-It is bound by bytes on the H100 — the input read once and 8 bytes of
-order + rank written per element — so it does no padding and no
-intermediate round trip through device memory.
+``_rank_block``).  The CUDA kernel (``csrc/psu.cu``) is bound by bytes on
+the H100 — the input read once and 8 bytes of order + rank written per
+element — and is built to move just those: persistent blocks walk tiles of
+whole packets (16 KB spans of the input, read with 16-byte loads one tile
+ahead), each key is computed once into shared memory, ranks come from the
+keys' bit-plane ballots (several short packets per warp; one warp per
+packet above 32 elements, with a bucket scan), ``rank`` is stored
+coalesced and ``order[rank[i]] = i`` is staged in shared memory before its
+16-byte stores.
 
 The plain version repeats the reference's arithmetic: SWAR popcount on
 int32 lanes, one-hot / histogram / prefix-sum ranks, and the inverse
@@ -29,7 +31,7 @@ __all__ = [
     "check_key",
 ]
 
-MAX_N = 1024  # packet width the CUDA kernels take (one warp per packet)
+MAX_N = 1024  # packet width the CUDA kernels take (32 ranking chunks of a warp)
 
 
 def check_key(width: int, k: int | None) -> None:

@@ -196,3 +196,54 @@ def test_cpu_tensors_never_launch_and_the_cuda_wrapper_checks_first():
         bt_axes_cuda(torch.zeros((1, 2, 2048), dtype=torch.uint8), None, torch.tensor([2]), **kw)
     with pytest.raises(ValueError, match="contiguous"):
         bt_axes_cuda(x.transpose(0, 1), None, torch.tensor([4, 4]), **kw)
+
+
+@pytest.mark.parametrize("links,p,flits,lanes,orderings", [
+    (1, 1838, 4, 16, 3),      # the codec path: one stream, three orderings
+    (256, 16384, 4, 16, 5),   # the scale batch: already thousands of blocks
+    (6, 1001, 4, 16, 10),
+    (2, 3, 4, 16, 7),         # fewer packets than one block
+    (1, 1, 1, 1, 1),
+    (3, 5000, 64, 32, 1),     # 1,024-byte paired packets: 8 per image
+    (1, 999, 10, 5, 2),       # 5-lane rows padded to 12 bytes
+])
+@pytest.mark.parametrize("sms", [132, 8])
+def test_axes_blocking_fills_the_card_and_fits_the_image(links, p, flits, lanes, orderings, sms):
+    from repro_torch.kernels.axes import AXES_BLOCK_PACKETS, AXES_IMAGE_BYTES, axes_blocking
+
+    bpk, g = axes_blocking(links, p, flits, lanes, orderings, sms)
+    row = 4 * (-(-lanes // 4) | 1)  # rows padded to an odd number of words
+    assert 1 <= bpk <= AXES_BLOCK_PACKETS
+    assert bpk * flits * row <= AXES_IMAGE_BYTES  # the padded image fits
+    assert g == -(-p // bpk) and g * bpk >= p  # every valid packet has a block
+    full = min(AXES_BLOCK_PACKETS, AXES_IMAGE_BYTES // (flits * row))
+    if links * -(-p // full) * orderings >= 2 * sms:
+        assert bpk == full  # a batch that fills the card keeps whole images
+    else:  # a small one is split until two blocks per SM, or one packet a block
+        assert links * g * orderings >= 2 * sms or bpk == 1
+        # and no further: one halving less (at most twice as many packets
+        # per block) would not fill the card
+        assert bpk == full or links * -(-p // min(full, 2 * bpk)) * orderings < 2 * sms
+
+
+def test_config_table_records_each_orderings_configs_and_items():
+    """The kernels' table: per ordering its stateless codec bits, its
+    stateless configs and its bus-invert (config, partition) items."""
+    from repro_torch.kernels.axes import _config_table
+
+    configs = tuple(tk.CodecVariant(*c) for c in _grid(8))
+    lanes = 16
+    tab, n_ord = _config_table(configs, lanes, torch.device("cpu"))
+    tab = tab.tolist()
+    assert n_ord == len(ORDERINGS)
+    cfgs = tab[3 * n_ord:]
+    for o in range(n_ord):
+        need, s_off, n_s, i_off, n_i = cfgs[4 * len(configs) + 5 * o: 4 * len(configs) + 5 * o + 5]
+        mine = [c for c in range(len(configs)) if cfgs[4 * c] == o]
+        stateless = [c for c in mine if configs[c].codec != "bus_invert"]
+        assert tab[s_off: s_off + n_s] == stateless
+        assert need == sum({1 << cfgs[4 * c + 1] for c in stateless})
+        pairs = [(c, q) for c in mine if configs[c].codec == "bus_invert"
+                 for q in range(cfgs[4 * c + 2])]
+        got = tab[i_off: i_off + 2 * n_i]
+        assert list(zip(got[::2], got[1::2])) == pairs

@@ -25,7 +25,7 @@ def _packets(dev, shape, seed, dtype=np.uint8, hi=256):
     return torch.from_numpy(a).to(dev)
 
 
-@pytest.mark.parametrize("n", [1, 8, 25, 49, 64, 1024])
+@pytest.mark.parametrize("n", [1, 2, 8, 16, 25, 31, 32, 33, 49, 64, 128, 1024])
 def test_psu_sort_kernel_matches_plain(dev, n):
     x = _packets(dev, (1003, n), n)
     x32 = _packets(dev, (1003, n), n + 1, np.int32, 1 << 16)
@@ -38,6 +38,26 @@ def test_psu_sort_kernel_matches_plain(dev, n):
     assert tk.launch_counts()["psu_sort"] == 8
     with pytest.raises(ValueError, match=f"N <= {MAX_N}"):
         psu_sort_cuda(_packets(dev, (2, MAX_N + 1), 0))
+
+
+# P against the kernel's tiles (16 KB of input: 1,024 packets of 16 bytes,
+# 256 of 64, 16 of 1,024 or 1,023, 15 of 33 int32) and its persistent grid
+# (a few blocks per SM, 132 SMs: about 1,000 tiles in flight, so 300,001
+# packets of 64 bytes walk several tiles per block)
+@pytest.mark.parametrize("n,p", [(16, 1), (16, 7 * 1024 + 3), (64, 255), (64, 300_001),
+                                 (33, 4099), (1023, 33), (1024, 17)])
+def test_psu_sort_kernel_tiles_and_grid(dev, n, p):
+    tk.reset_launch_counts()
+    for dtype, hi in ((np.uint8, 256), (np.int32, 1 << 16)):
+        flat = _packets(dev, (p * n + 1,), n + p, dtype, hi)
+        # a contiguous view one element past an aligned base: the kernel's
+        # unaligned (element-wise) load path
+        for x in (flat[: p * n].view(p, n), flat[1:].view(p, n)):
+            for k, desc in ((None, False), (4, True)):
+                got = tk.psu_sort(x, k=k, descending=desc)
+                ref = tk.psu_sort(x, k=k, descending=desc, backend="torch")
+                assert all(torch.equal(a, b) for a, b in zip(got, ref)), (dtype, k, desc)
+    assert tk.launch_counts()["psu_sort"] == 8
 
 
 @pytest.mark.parametrize("n,lanes,paired", [(32, 8, True), (64, 16, False), (25, 5, True)])
@@ -92,6 +112,63 @@ def test_bt_axes_kernel_matches_plain(dev, width, n, lanes, paired, pack):
         assert tk.launch_counts()["bt_axes"] == (1 if chunk is None else -(-p // chunk))
         ref = tk.bt_count_axes(x, w, valid, backend="torch", **kw)
         assert torch.equal(got, ref), (chunk, (got != ref).nonzero()[:5].tolist())
+
+
+def test_bt_axes_codec_path_shape(dev):
+    """One link of 1,838 packets of 64 bytes on 16 input lanes, the codec
+    path's shape: the wrapper splits it into small blocks to fill the card."""
+    x = _packets(dev, (1, 1838, 64), 11)
+    valid = torch.tensor([1838], device=dev)
+    configs = _axes_configs(16) + (tk.CodecVariant("acc", None, False, "bus_invert", 1),)
+    for chunk in (None, 1, 7):
+        kw = dict(configs=configs, input_lanes=16, chunk_packets=chunk)
+        got = tk.bt_count_axes(x, None, valid, **kw)
+        ref = tk.bt_count_axes(x, None, valid, backend="torch", **kw)
+        assert torch.equal(got, ref), (chunk, (got != ref).nonzero()[:5].tolist())
+
+
+@pytest.mark.parametrize("p", [1, 3, 20])
+def test_bt_axes_batches_below_one_block(dev, p):
+    x = _packets(dev, (2, p, 32), p)
+    w = _packets(dev, (2, p, 32), p + 1)
+    valid = torch.tensor([p, p - 1], device=dev)
+    # 16-lane flits: partitions of 1 lane give 16 invert lines, more than
+    # the block's 8 warps
+    configs = _axes_configs(16) + (tk.CodecVariant("app", 4, True, "bus_invert", 1),)
+    for chunk in (None, 1, 7):
+        kw = dict(configs=configs, input_lanes=8, chunk_packets=chunk)
+        got = tk.bt_count_axes(x, w, valid, **kw)
+        ref = tk.bt_count_axes(x, w, valid, backend="torch", **kw)
+        assert torch.equal(got, ref), (chunk, (got != ref).nonzero()[:5].tolist())
+
+
+def test_bt_axes_bus_invert_ties_across_segments_and_blocks(dev):
+    """Flit rows whose data distance to the previous row is exactly half of
+    every partition (XOR 0x0f per lane), beside rows that flip (0x1f) or
+    keep (0x01): ties force state 0 wherever warp segments and blocks meet.
+    32 links of 1,024 packets keep 128 packets (512 rows) per block."""
+    rng = np.random.default_rng(5)
+    links, p, lanes, flits = 32, 1024, 16, 4
+    steps = rng.choice(np.array([0x0F, 0x0F, 0x0F, 0x1F, 0x01, 0x00], np.uint8),
+                       size=(links, p * flits, 1))
+    start = rng.integers(0, 256, (links, 1, lanes), dtype=np.uint8)
+    rows = np.bitwise_xor.accumulate(
+        np.concatenate([start, np.broadcast_to(steps, (links, p * flits, lanes))], axis=1),
+        axis=1)[:, 1:]
+    x = torch.from_numpy(np.ascontiguousarray(rows).reshape(links, p, flits * lanes)).to(dev)
+    valid = torch.from_numpy(rng.integers(0, p + 1, links)).to(dev)
+    valid[:2] = p
+    configs = tuple(tk.CodecVariant(key, None, False, codec, part)
+                    for key in ("none", "column_major")
+                    for codec, part in (("none", None), ("bus_invert", None), ("bus_invert", 8),
+                                        ("bus_invert", 4), ("bus_invert", 2),
+                                        ("bus_invert", 1)))
+    for chunk in (None, 1, 7):
+        kw = dict(configs=configs, input_lanes=lanes, pack="row", chunk_packets=chunk)
+        got = tk.bt_count_axes(x, None, valid, **kw)
+        ref = tk.bt_count_axes(x, None, valid, backend="torch", **kw)
+        assert torch.equal(got, ref), (chunk, (got != ref).nonzero()[:5].tolist())
+    assert int(got[:, 1::6, 2].sum()) > 0  # the invert lines did toggle
 
 
 def test_bt_axes_entry_points_and_int32_payloads(dev):

@@ -213,5 +213,5 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "axes.cu", "btcount.cu", "psu.cu", "quantize.cu",
+        "axes.cu", "btcount.cu", "psu.cu", "quantize.cu", "stream.cu",
     ]
