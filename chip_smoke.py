@@ -13,7 +13,9 @@ non-zero:
    version on the same inputs (integer outputs must be bit-exact) —
    ``psu_sort`` over ACC / APP k in {2, 4, 8} x direction x width 4/8 x
    N in {25, 32, 64} at P = 100,003, ``bt_count`` on (400,001, L) streams
-   and their column slices, ``psu_stream`` on the paired and the 16-lane
+   of L in {1, 3, 8, 15, 16, 17, 24} (aligned and one byte past an aligned
+   base, uint8 and int32, widths 4 / 8 / 12 / 16), their column slices and
+   (2, 100,003) streams, ``psu_stream`` on the paired and the 16-lane
    input-only framings in 'lane' and 'row' packing, and ``bt_axes`` (the
    multi-axis measurement) on jagged (6, 1,001, N) batches over every
    ordering (none, column_major, ACC, APP k in {2, 4, 8}, both directions)
@@ -67,10 +69,10 @@ non-zero:
    one exists, at the main path's shapes and at the scale shapes (for
    ``quantize_egress``: 2**20 elements and the full-width gradient), and
    each call's device time from the profiler, split by CUDA kernel (for
-   ``bt_axes``: the block kernel and the fold; at scale also under subsets
-   of its configs, to show where its time goes) and printed beside the
-   time recorded before the ``psu_sort`` / ``bt_axes`` redesign
-   (``BEFORE_DEVICE_MS``).
+   ``bt_axes``: the block kernel and the fold; at scale ``bt_axes`` and
+   ``bt_axes_activity`` also under subsets of their configs, to show where
+   their time goes) and printed beside the time recorded before each
+   kernel's redesign (``BEFORE_DEVICE_MS``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The full record is also
@@ -367,14 +369,16 @@ KERNELS = {
 
 # Each kernel's device time (ms, torch.profiler) at its phase-4 shapes —
 # main, scale and, where there is one, egress — on an NVIDIA H100 80GB
-# HBM3 at 700 W with the first versions of psu_sort and bt_axes, before
-# their redesign (PERF.md's kernel table); phase 4 prints them beside its own
+# HBM3 at 700 W before its redesign (PERF.md's kernel table): psu_sort,
+# bt_axes, psu_stream and quantize_egress with their first versions;
+# bt_count and bt_axes_activity with the versions their redesign replaced.
+# Phase 4 prints them beside its own.
 BEFORE_DEVICE_MS = {
     "psu_sort": (0.0019584, 1.145806, 12.1694994),
-    "bt_count": (0.0054908, 0.5816984, 0.137486),
+    "bt_count": (0.00545, 0.5865, 0.1385),
     "psu_stream": (0.0630354, 2.4865984),
     "bt_axes": (0.130239, 5.9027808),
-    "bt_axes_activity": (0.3039514, 25.4583768),
+    "bt_axes_activity": (0.0743, 21.95),
     "quantize_egress": (0.0033098, 4.0300034),
 }
 
@@ -532,20 +536,37 @@ def phase_kernels(dev: torch.device, p: int = 100_003, t: int = 400_001,
                             fail(f"psu_sort N={n} W={width} k={k} desc={desc} {x.dtype}: err {e}")
     log(f"psu_sort: {cases} cases at P={p} bit-exact")
 
+    # bt_count: contiguous streams (aligned and one byte past an aligned
+    # base) of odd and even lane counts, int32 streams, column slices (row
+    # strided, at even and odd offsets) and a short wide stream
     cases = 0
-    for lanes in (8, 16):
-        s8 = rand((t, lanes))
+    for lanes in (1, 3, 8, 15, 16, 17, 24):
+        flat8 = rand((t * lanes + 1,))
+        s8 = flat8[: t * lanes].view(t, lanes)
         s32 = rand((t, lanes), torch.int32, 1 << 16)
-        for width in (4, 8):
-            views = [s8, s8[:, : lanes // 2], s8[:, lanes // 2:], s32]
+        views = [s8, flat8[1:].view(t, lanes), s32]
+        if lanes >= 8:
+            views += [s8[:, : lanes // 2], s8[:, lanes // 2:], s8[:, 1:], s32[:, lanes // 2:]]
+        for width in (4, 8, 12, 16) if lanes in (8, 16) else (8,):
             for v in views:
                 got, ref = bt_count(v, width=width), bt_count(v, width=width, backend="torch")
                 e = max_err(got, ref)
                 errs["bt_count"] = max(errs["bt_count"], e)
                 cases += 1
                 if e:
-                    fail(f"bt_count {tuple(v.shape)} stride {v.stride()} W={width}: err {e}")
-    log(f"bt_count: {cases} cases at T={t} bit-exact (incl. column slices)")
+                    fail(f"bt_count {tuple(v.shape)} stride {v.stride()} {v.dtype} "
+                         f"offset {v.storage_offset()} W={width}: err {e}")
+    wide = rand((2, 100_004))
+    for v in (wide, wide[:, 1:], wide.view(-1)[1: 1 + 2 * 100_003].view(2, 100_003),
+              rand((2, 100_003), torch.int32, 1 << 16)):
+        got, ref = bt_count(v), bt_count(v, backend="torch")
+        e = max_err(got, ref)
+        errs["bt_count"] = max(errs["bt_count"], e)
+        cases += 1
+        if e:
+            fail(f"bt_count short wide {tuple(v.shape)} stride {v.stride()}: err {e}")
+    log(f"bt_count: {cases} cases at T={t} bit-exact (lanes 1-24, unaligned bases, int32, "
+        f"column slices, (2, 100,003))")
 
     cases = 0
     for n, il, paired in ((32, 8, True), (64, 16, False)):
@@ -1367,7 +1388,8 @@ def phase_scale(dev: torch.device, full_m: int | None = None) -> dict:
         "quantize_egress": (quant_case(gq), quant_case(gfull, plain_reps=3)),
     }
     # the same calls split into device time (profiler) and host wall time
-    kernel_names = {"psu_sort": ("psu_sort_kernel",), "bt_count": ("bt_rows_kernel",),
+    kernel_names = {"psu_sort": ("psu_sort_kernel",),
+                    "bt_count": ("bt_flat_kernel", "bt_rows_kernel"),
                     "psu_stream": ("psu_stream_kernel",), "bt_axes": ("bt_axes",),
                     # the activity entry's three kernels and its result's zero fill
                     "bt_axes_activity": ("bt_axes", "FillFunctor"),
@@ -1413,6 +1435,21 @@ def phase_scale(dev: torch.device, full_m: int | None = None) -> dict:
         log(f"time bt_axes scale subset {tag} ({len(cfgs)} configs): device_ms={total} "
             f"device_split={split}")
     cases["bt_axes"][1]["subsets"] = breakdown
+    # the same for the activity entry (its fill, pair and own kernel)
+    act_subsets = {tag: subsets[tag] for tag in ("none/none", "none/bus_invert",
+                                                 "none/bus_invert4")}
+    act_subsets["none/transition"] = (CodecVariant("none", None, False, "transition"),)
+    act_subsets["all 14 configs"] = SCALE_AXES_CONFIGS
+    breakdown = {}
+    for tag, cfgs in act_subsets.items():
+        total, split = device_ms(lambda: bt_count_axes(xa, None, va, configs=cfgs,
+                                                       input_lanes=16,
+                                                       activity_windows=SCALE_WINDOW),
+                                 kernel_names["bt_axes_activity"])
+        breakdown[tag] = {"configs": len(cfgs), "device_ms": total, "device_split": split}
+        log(f"time bt_axes_activity scale subset {tag} ({len(cfgs)} configs): "
+            f"device_ms={total} device_split={split}")
+    cases["bt_axes_activity"][1]["subsets"] = breakdown
     for name, pair in cases.items():
         for tag, case, before in zip(("main", "scale", "egress"), pair, BEFORE_DEVICE_MS[name]):
             case["bound_ms"], case["bound_by"] = bound(case["bytes"], case["ops"])

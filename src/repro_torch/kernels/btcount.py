@@ -3,12 +3,16 @@ CUDA kernel's wrapper.
 
 Replaces the TPU kernel ``repro/kernels/btcount.py:bt_count_pallas``
 (body ``_bt_kernel``), which reduced per-block int32 partials over two
-shifted, padded copies of the stream.  The CUDA kernel
-(``csrc/btcount.cu``) is a grid-stride XOR-popcount reduction that reads
-adjacent rows straight from the stream — with any row stride, so the
-staged TX path's column slices need no copy — and adds one int32 partial
-per block with ``atomicAdd``.  It is bound by bytes on the H100: every
-stream byte is read once for ~3 integer ops.
+shifted, padded copies of the stream.  The CUDA kernels
+(``csrc/btcount.cu``) read the stream in place and add one int32 partial
+per block with ``atomicAdd``.  They are bound by bytes on the H100 (every
+stream byte read once for ~1 integer operation); a thread per row pair
+with one load per element is bound by load instructions instead, so a
+contiguous stream (the egress wire, the scale stream) is counted as a flat
+array, s[i] against s[i + L], with 16-byte loads in a persistent grid, and
+a row-strided one (the staged TX path's column slices, which need no copy)
+with one 4-, 8- or 16-byte vector per row where its alignment allows and a
+group of threads per row pair.  One launch per call either way.
 
 Totals are int32 and wrap modulo 2**32 as the reference's int32 sum does.
 """

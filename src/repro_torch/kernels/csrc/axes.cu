@@ -76,30 +76,52 @@
 //     boundary into the block's first row counts; it carries the parity;
 //   * bt_axes_activity_kernel, one block per (link, packet block,
 //     ordering) — the orderings on the grid's y axis, as a short stream
-//     has few packet blocks — lays the block out again with the same
-//     device code, rebuilds bus-invert's per-row invert states for the
-//     known entry branch (one warp per partition, the same warp scan of
-//     state maps), then walks the rows
-//     with one warp per (config, lane) item (and per invert line): per 32
-//     rows one __ballot_sync per bit of the toggle and level bytes, and
-//     per wire a __popc of the mask over each window span, summed in a
-//     register while the window stays the same (the walk tracks the
-//     window's end row, no division per step) and added to the
-//     (L, C, NW, WIRES) result with one atomicAdd per (wire, window) run.
+//     has few packet blocks — stages and lays the block out again as
+//     bt_axes_kernel does (build_image), then counts all configs of the
+//     ordering at once.  Bus-invert states are built by the whole
+//     block: every warp ballots [2 HD > half] and [2 HD == half] for 32
+//     rows of one (partition, step) cell, HD from word XOR-popcounts, for
+//     every partition of every bus-invert config of the ordering; one
+//     warp per partition then scans its steps' state maps (a tie forces 0,
+//     HD > half flips) for the state entering each step and derives the
+//     step's 32 row states as one word from its two ballots (a prefix XOR
+//     with resets, by shifts).  All (config, column) pairs are
+//     then dealt to the warps at once: a column is one 32-bit word of the
+//     flit row (32 wires) or of a config's invert lines, walked 32 rows a
+//     step, one row a lane.  Per row the wire levels are the coded word
+//     (for 'transition' the entry parity XOR a warp prefix XOR of the data
+//     words; for bus-invert the data XOR the row-state bytes) and the
+//     toggles that word XOR the row before it (a shuffle from the lane
+//     below; the block's entry state for row 0).  Both are counted per
+//     wire in bit-sliced SWAR counters (nibble fields spilled to bytes)
+//     and summed over the warp by a reduce-scatter when a window closes,
+//     so each lane adds one wire's count with one atomicAdd per (wire,
+//     window); walks of a few steps, and steps that cross a window edge,
+//     transpose the step's 32 x 32 bits instead and count per window span.
 //     Integer adds commute, so the result is exact in any block order; no
 //     float arithmetic touches a count.
 // Memory: the result plus O(L * G * C * (lanes + 2 PMAX)) bytes of entry
 // state.  Bound on this card: integer operations (a few per valid row x
 // wire x config) at the scale shapes; the result's bytes (written once by
-// the zero fill, then by atomics) for short windows.
+// the zero fill, then by atomics) for short windows.  What the kernel
+// spends is latency: the layout (the same per ordering as bt_axes_kernel's)
+// and the column walks, each a chain of dependent shared-memory loads,
+// shuffles and adds over its block's rows.
 #include "common.cuh"
+#include "plan.h"
 
 namespace repro {
 
 constexpr int MAX_ROW_WORDS = 512;  // 32-bit words of a flit row (lanes <= 2 * MAX_N)
 constexpr int BI_BATCH = 24;  // bus-invert (config, partition) items walked between barriers
+// activity mode: (bus-invert item, 32-row step) cells a batch holds at least,
+// and the dynamic shared memory a launch takes without opting in to more
+constexpr int ACT_CELLS = 512;
+constexpr int SHORT_WALK = 4;  // 32-row steps up to which a column walk transposes
+constexpr size_t ACT_SMEM_DEFAULT = 40 * 1024;
 
 enum { CODEC_NONE = 0, CODEC_GRAY = 1, CODEC_SM = 2, CODEC_TRANSITION = 3, CODEC_BI = 4 };
+constexpr int COL_INVERT = 5;  // activity mode: a column of bus-invert lines
 enum { KEY_NONE = 0, KEY_COLUMN_MAJOR = 1, KEY_ACC = 2, KEY_APP = 3 };
 
 // The stateless byte maps of repro/core/coding.py on one wire byte (the
@@ -310,6 +332,39 @@ __device__ void lay_out(const T* x, const T* w, int vp, int n, int il, int wl, i
   });
 }
 
+// The block's vp valid packets (at x + off and, paired, w + off) laid out
+// under one ordering as the (vp * flits, lw)-word image in shared memory,
+// rows padded with zero bytes (which code to 0) to the odd word count lw:
+// the pad words are zeroed first (the layout then writes the lanes' bytes
+// over them), and byte packets are staged in shared memory with 16-byte
+// loads, so the layout's scattered reads wait on one load instead of one a
+// packet.  Every thread calls it; it ends with a barrier.
+template <typename T>
+__device__ void build_image(const T* x, const T* w, long long off, int vp, int n, int il,
+                            int wl, int flits, int lanes, int lw, int bpk, int pack_row,
+                            int key, const KeySpec& s, unsigned (*bal)[BAL_WORDS],
+                            unsigned char* img) {
+  const int vr = vp * flits;
+  unsigned* img_w = reinterpret_cast<unsigned*>(img);
+  for (int t = threadIdx.x; t < vr; t += THREADS)
+    for (int wi = lanes >> 2; wi < lw; ++wi) img_w[t * lw + wi] = 0u;
+  const T* xb = x + off;
+  const T* wb = wl ? w + off : nullptr;
+  if (sizeof(T) == 1) {
+    unsigned char* raw = img + image_words_bytes(bpk, flits, lanes);
+    stage_bytes(raw, reinterpret_cast<const unsigned char*>(xb), vp * n);
+    xb = reinterpret_cast<const T*>(raw);
+    if (wl) {  // the weights' copy starts 16-byte aligned too
+      unsigned char* wraw = raw + ((vp * n + 15) & ~15);
+      stage_bytes(wraw, reinterpret_cast<const unsigned char*>(wb), vp * n);
+      wb = reinterpret_cast<const T*>(wraw);
+    }
+  }
+  __syncthreads();
+  lay_out(xb, wb, vp, n, il, wl, flits, lw * 4, pack_row, key, s, bal, img);
+  __syncthreads();
+}
+
 // tab: O orderings as (key, k, descending), then C configs as (ordering,
 // codec, partitions, lanes per partition), then per ordering a record
 // (stateless codec bits, offset and count of its stateless configs, offset
@@ -366,10 +421,8 @@ bt_axes_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   const int key = tab[3 * o];
   const KeySpec s = make_key_spec(width, key == KEY_APP ? tab[3 * o + 1] : 0, tab[3 * o + 2]);
-  // the pad words of every row are zeroed first (the layout then writes
-  // the lanes' bytes over them), and byte packets are staged in shared
-  // memory with 16-byte loads: the layout's scattered reads then wait on
-  // one load instead of one a packet
+  // the same staging and layout as build_image, written out: calling it
+  // here measured slower at the scale batch, force-inlined or not
   unsigned* img_w = reinterpret_cast<unsigned*>(img);
   for (int t = threadIdx.x; t < vr; t += THREADS)
     for (int wi = lanes >> 2; wi < lw; ++wi) img_w[t * lw + wi] = 0u;
@@ -382,9 +435,10 @@ bt_axes_kernel(const T* __restrict__ x, const T* __restrict__ w,
     unsigned char* raw = img + ((bpk * flits * ls + 15) & ~15);
     stage_bytes(raw, reinterpret_cast<const unsigned char*>(xb), vp * n);
     xb = reinterpret_cast<const T*>(raw);
-    if (wl) {
-      stage_bytes(raw + vp * n, reinterpret_cast<const unsigned char*>(wb), vp * n);
-      wb = reinterpret_cast<const T*>(raw + vp * n);
+    if (wl) {  // the weights' copy starts 16-byte aligned too
+      unsigned char* wraw = raw + ((vp * n + 15) & ~15);
+      stage_bytes(wraw, reinterpret_cast<const unsigned char*>(wb), vp * n);
+      wb = reinterpret_cast<const T*>(wraw);
     }
   }
   __syncthreads();
@@ -692,115 +746,249 @@ bt_axes_fold_kernel(const int* __restrict__ valid, long long L, int bpk, int G, 
 // invert state, and [lanes + 2 PMAX] whether the boundary into the first
 // row counts (something was sent before it).
 
-// One warp: the invert states v_t of partition q over the block's vr image
-// rows for the known entry branch b, into vst[t * pmax + q].  Row 0 is b;
-// row t > 0 applies the rule of bus_invert_segment (tie -> 0, HD > half ->
-// flip, else keep) as a state map, composed across the warp by a scan.
-__device__ void invert_states(const unsigned char* img, int vr, int lanes, int pw, int q,
-                              int pmax, unsigned b, unsigned char* vst) {
-  const int lane = threadIdx.x & 31;
-  const int j0 = q * pw;
-  const unsigned lbits = 8u * pw;
-  unsigned vin = 0;  // state before the step's first row
-  for (int base = 0; base < vr; base += 32) {
-    const int t = base + lane;
-    unsigned m = 2u;  // rows past vr keep the state
-    if (t == 0) {
-      m = b ? 3u : 0u;
-    } else if (t < vr) {
-      unsigned hd = 0;
-      for (int jj = 0; jj < pw; ++jj)
-        hd += __popc((unsigned)(img[t * lanes + j0 + jj] ^ img[(t - 1) * lanes + j0 + jj]));
-      m = 2u * hd == lbits ? 0u : (2u * hd > lbits ? 1u : 2u);
-    }
-    for (int o = 1; o < 32; o <<= 1) {  // m := m o (maps of earlier rows)
-      const unsigned e = __shfl_up_sync(FULL, m, o);
-      if (lane >= o) m = compose(m, e);
-    }
-    const unsigned vt = (m >> vin) & 1u;
-    if (t < vr) vst[t * pmax + q] = (unsigned char)vt;
-    vin = __shfl_sync(FULL, vt, 31);
+// Per-wire counters of one lane of a warp over the rows it walks, bit-sliced
+// (vertical) in SWAR fields: add(x) counts bit b of x for wire b, as nibble
+// fields (wire 4f + k in nibble f of nib[k]) spilled every 15 adds into
+// byte fields (wire 8m + u in byte m of byt[u]; at most 128 rows a lane, so
+// a byte never overflows).  reduce() sums the 32 wires over the warp's
+// lanes by a reduce-scatter of the fields (23 shuffles) and returns wire
+// `lane`'s total on each lane; every lane of the warp calls it.
+struct WireCounts {
+  unsigned nib[4], byt[8];
+  int n;
+  bool any;  // an add since the last reduce (the same on every lane)
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) nib[k] = 0u;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) byt[u] = 0u;
+    n = 0;
+    any = false;
   }
+  __device__ __forceinline__ void spill() {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      byt[k] += nib[k] & 0x0F0F0F0Fu;
+      byt[4 + k] += (nib[k] >> 4) & 0x0F0F0F0Fu;
+      nib[k] = 0u;
+    }
+    n = 0;
+  }
+  __device__ __forceinline__ void add(unsigned x) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) nib[k] += (x >> k) & 0x11111111u;
+    any = true;
+    if (++n == 15) spill();
+  }
+  __device__ __forceinline__ unsigned reduce() {
+    const int lane = threadIdx.x & 31;
+    spill();
+    // lane bit 4 picks bytes {0, 1} or {2, 3} of each word (as 16-bit fields)
+    unsigned f[8];
+    const bool b4 = lane & 16;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const unsigned w = byt[u];
+      const unsigned lo = (w & 0xFFu) | ((w & 0xFF00u) << 8);
+      const unsigned hi = ((w >> 16) & 0xFFu) | ((w >> 8) & 0xFF0000u);
+      f[u] = (b4 ? hi : lo) + __shfl_xor_sync(FULL, b4 ? lo : hi, 16);
+    }
+    // lane bit 3 picks the field: c[u] is wire 8 * (lane >> 3) + u
+    unsigned c[8];
+    const bool b3 = lane & 8;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const unsigned lo = f[u] & 0xFFFFu, hi = f[u] >> 16;
+      c[u] = (b3 ? hi : lo) + __shfl_xor_sync(FULL, b3 ? lo : hi, 8);
+    }
+    // lane bits 2, 1, 0 pick u
+#pragma unroll
+    for (int h = 4; h >= 1; h >>= 1) {
+      const bool b = lane & h;
+#pragma unroll
+      for (int i = 0; i < h; ++i)
+        c[i] = (b ? c[h + i] : c[i]) + __shfl_xor_sync(FULL, b ? c[i] : c[h + i], h);
+    }
+    clear();
+    return c[0];
+  }
+};
+
+// Lane i's bit b -> lane b's bit i, across the warp (a 32 x 32 bit
+// transpose: five exchanges of off-diagonal blocks).
+__device__ __forceinline__ unsigned transpose32(unsigned x) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lo_masks[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu, 0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int j = 16 >> k;
+    const unsigned mlo = lo_masks[k];
+    const unsigned y = __shfl_xor_sync(FULL, x, j);
+    x = (lane & j) ? ((x & ~mlo) | ((y >> j) & mlo)) : ((x & mlo) | ((y << j) & ~mlo));
+  }
+  return x;
 }
 
-// One warp walks one activity item over the block's rows, 32 at a time:
-// data lane j (item < lanes; wires j*8 .. j*8+7) or, for bus-invert, the
-// invert line of partition item - lanes.  Per row it forms the byte of
-// toggles at the boundary into the row and the byte of wire levels; one
-// ballot per bit gives lane b the masks of wire b, which counts its levels
-// and, per window span of the 32 rows, its toggles — summed in a register
-// while the window stays the same, added with one atomicAdd per run.
-__device__ void activity_walk(const unsigned char* img, const unsigned char* vst, int vr,
-                              int lanes, int pmax, int codec, int pw, int item,
-                              const uint8_t* e, long long row0, int W, int nwires,
-                              unsigned* tog_out, unsigned* ones_out) {
+// The invert states of a 32-row step (bit i: row i) from its ballots H =
+// [2 HD > half] and T = [2 HD == half] and the state v entering it: a tie
+// forces 0, HD > half flips, so row i's state is the XOR of H over the rows
+// after the last tie up to i, or v XOR that over rows 0..i with no tie yet.
+// P is the prefix XOR of H, F carries P's value at each tie forward to the
+// next tie, and R marks the rows with a tie at or before them.
+__device__ __forceinline__ unsigned row_states(unsigned H, unsigned T, unsigned v) {
+  unsigned P = H, R = T, D = T;
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    P ^= P << s;
+    R |= R << s;
+  }
+  unsigned F = P & T;
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    F |= (F << s) & ~D;
+    D |= D << s;
+  }
+  return ((P ^ F) & R) | ((P ^ (0u - v)) & ~R);
+}
+
+// One bus-invert (item, step) cell: the ballots of its 32 rows' [2 HD >
+// half] and [2 HD == half], and the rows' states (bit i: row i).
+struct InvCell {
+  unsigned h, t, s;
+};
+constexpr int INV_CELL_BYTES = 12;
+static_assert(sizeof(InvCell) == INV_CELL_BYTES, "act_smem's cell size");
+
+// One warp walks one activity column of the block: data word j of config c
+// (wires 32 j .. 32 j + 31, four lanes) or, for bus-invert, word j of its
+// invert lines (wires lanes*8 + 32 j + b, bit b = partition 32 j + b), 32
+// rows a step, one row a lane.  Per row it forms the word of wire levels
+// (the coded data, the parity prefix for 'transition', the invert states)
+// and the word of toggles at the boundary into the row (the previous row's
+// word from the lane below, the block's entry state for row 0), and counts
+// both per wire in WireCounts.  A step inside one window only adds; the
+// toggles are reduced when the window closes and added with one atomicAdd
+// per (wire, window).  A step that crosses a window edge (W < 32, or rows
+// not aligned to it), and every step of a walk of at most SHORT_WALK steps
+// (where the reductions would cost more than the steps), is transposed so
+// that lane b holds wire b's 32 rows, counted per window span.  cells: the
+// config's bus-invert cells, partition q's at cells + q * steps.
+template <int COL>
+__device__ void activity_column(const unsigned* img32, int lw, int vr, int lanes, int pmax,
+                                int npart, int pw, int j, const uint8_t* e,
+                                const InvCell* cells, int steps, long long row0, int W,
+                                int nwires, unsigned* tog_out, unsigned* ones_out) {
+  constexpr bool INV = COL == COL_INVERT;
   const int lane = threadIdx.x & 31;
-  const bool aux = item >= lanes;
-  const int j = aux ? 0 : item;
-  const int q = aux ? item - lanes : (codec == CODEC_BI ? item / pw : 0);
-  const int nb = aux ? 1 : 8;
-  const int wire0 = aux ? lanes * 8 + q : item * 8;
   const bool st = e[lanes + 2 * pmax] != 0;
-  unsigned par = codec == CODEC_TRANSITION ? e[j] : 0u;  // parity before the step
-  // the current run: its window, the first global row past that window
-  // (advanced by adding W, so the walk divides once) and its count
+  int wire0, nb = 0;
+  unsigned vmask, carry = 0u;  // carry: the word of the row before the step
+  if (INV) {
+    wire0 = lanes * 8 + 32 * j;
+    nb = npart - 32 * j < 32 ? npart - 32 * j : 32;
+    vmask = nb == 32 ? FULL : (1u << nb) - 1u;
+    for (int b = 0; b < nb; ++b) carry |= (unsigned)(e[lanes + pmax + 32 * j + b] & 1u) << b;
+  } else {
+    wire0 = 32 * j;
+    vmask = byte_span(0, lanes - 4 * j);
+    for (int k = 0; k < 4 && 4 * j + k < lanes; ++k) carry |= (unsigned)e[4 * j + k] << (8 * k);
+  }
+  // bus-invert data word: the partitions of its four lanes
+  const int q0 = COL == CODEC_BI ? (4 * j) / pw : 0;
+  const int q3 = COL == CODEC_BI ? (4 * j + 3 < lanes ? 4 * j + 3 : lanes - 1) / pw : 0;
+  // a walk of a few steps transposes each step's words (lane b then holds
+  // wire b's 32 rows) instead of counting in WireCounts and reducing at the end
+  const bool swar = steps > SHORT_WALK;
+  WireCounts togc, lvlc;
+  togc.clear();
+  lvlc.clear();
+  unsigned run = 0;   // wire `lane`'s toggles in window run_w, not yet added
+  unsigned ones = 0;  // its rows at level 1 from transposed steps
   long long run_w = row0 / W;
-  long long w_end = (run_w + 1) * W;
-  unsigned ones = 0, run = 0;
-  for (int base = 0; base < vr; base += 32) {
-    const int t = base + lane;
-    const bool active = t < vr;
-    unsigned tog = 0, lvl = 0;
-    if (codec == CODEC_TRANSITION) {
-      // toggle = the data bit; level = entry parity ^ XOR of data up to t
-      const unsigned d = active ? img[t * lanes + j] : 0u;
-      unsigned px = d;
-      for (int o = 1; o < 32; o <<= 1) {
-        const unsigned v = __shfl_up_sync(FULL, px, o);
-        if (lane >= o) px ^= v;
-      }
-      tog = d;
-      lvl = active ? (par ^ px) & 0xFFu : 0u;
-      par ^= __shfl_sync(FULL, px, 31);
-    } else if (active && aux) {
-      const unsigned vt = vst[t * pmax + q];
-      tog = vt ^ (t > 0 ? (unsigned)vst[(t - 1) * pmax + q] : (unsigned)e[lanes + pmax + q]);
-      lvl = vt;
-    } else if (active) {
-      unsigned cur, prev;
-      if (codec == CODEC_BI) {
-        cur = img[t * lanes + j] ^ (vst[t * pmax + q] ? 0xFFu : 0u);
-        prev = t > 0 ? img[(t - 1) * lanes + j] ^ (vst[(t - 1) * pmax + q] ? 0xFFu : 0u)
-                     : (unsigned)e[j];
+  long long w_end = (run_w + 1) * W;  // the first global row past window run_w
+  // every step only adds when the block's rows lie in one window
+  const bool fast = swar && row0 + vr <= w_end;
+  unsigned m0 = lane == 0 && !st ? 0u : FULL;  // no boundary into the first row ever sent
+  const unsigned* src = img32 + lane * lw + j;
+  for (int s = 0; s < steps; ++s) {
+    const int t = s * 32 + lane;
+    const unsigned vm = t < vr ? vmask : 0u;
+    unsigned cur, tog;
+    if (INV) {  // lane q holds partition q's row states: transpose them
+      const int q = 32 * j + (nb == 1 ? 0 : lane);
+      const unsigned rows = lane < nb || nb == 1 ? cells[q * steps + s].s : 0u;
+      cur = nb == 1 ? (rows >> lane) & 1u : transpose32(rows);
+    } else {
+      const unsigned raw = t < vr ? src[s * 32 * lw] : 0u;
+      if (COL == CODEC_TRANSITION) {
+        // toggle = the data bit; level = entry parity ^ XOR of data up to t
+        unsigned px = raw;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const unsigned v = __shfl_up_sync(FULL, px, o);
+          if (lane >= o) px ^= v;
+        }
+        cur = carry ^ px;
+        carry = __shfl_sync(FULL, cur, 31);
+        tog = raw;
+      } else if (COL == CODEC_GRAY) {
+        cur = raw ^ ((raw >> 1) & 0x7F7F7F7Fu);
+      } else if (COL == CODEC_SM) {
+        cur = sm_word(raw);
+      } else if (COL == CODEC_BI) {
+        unsigned inv = 0u;
+        for (int q = q0; q <= q3; ++q) {
+          const unsigned v = 0u - ((cells[q * steps + s].s >> lane) & 1u);
+          inv |= q0 == q3 ? v : v & byte_span(q * pw - 4 * j, (q + 1) * pw - 4 * j);
+        }
+        cur = raw ^ inv;
       } else {
-        cur = code_byte(img[t * lanes + j], codec);
-        prev = t > 0 ? code_byte(img[(t - 1) * lanes + j], codec) : (unsigned)e[j];
-      }
-      tog = (cur ^ prev) & 0xFFu;
-      lvl = cur & 0xFFu;
-    }
-    if (t == 0 && !st) tog = 0;  // no boundary into the first row ever sent
-    unsigned tm = 0, lm = 0;
-    for (int b = 0; b < nb; ++b) {
-      const unsigned mt = __ballot_sync(FULL, (tog >> b) & 1u);
-      const unsigned ml = __ballot_sync(FULL, (lvl >> b) & 1u);
-      if (lane == b) {
-        tm = mt;
-        lm = ml;
+        cur = raw;
       }
     }
-    if (lane < nb) {
-      ones += __popc(lm);
-      const long long r0 = row0 + base;  // global row of this step's first row
-      const int nrow = vr - base < 32 ? vr - base : 32;
+    if (COL != CODEC_TRANSITION) {
+      unsigned prev = __shfl_up_sync(FULL, cur, 1);
+      if (lane == 0) prev = carry;
+      carry = __shfl_sync(FULL, cur, 31);
+      tog = cur ^ prev;
+    }
+    tog &= vm & m0;
+    m0 = FULL;
+    const unsigned lvl = cur & vm;
+    if (fast) {
+      togc.add(tog);
+      lvlc.add(lvl);
+      continue;
+    }
+    if (swar)
+      lvlc.add(lvl);
+    else
+      ones += __popc(transpose32(lvl));
+    const int nrow = vr - s * 32 < 32 ? vr - s * 32 : 32;
+    const long long g0 = row0 + s * 32;  // global row of the step's first row
+    if (g0 >= w_end) {  // the step opens a later window: close this one
+      if (togc.any) run += togc.reduce();
+      if (run) atomicAdd(tog_out + run_w * nwires + wire0 + lane, run);
+      run = 0;
+      while (g0 >= w_end) {
+        ++run_w;
+        w_end += W;
+      }
+    }
+    if (swar && g0 + nrow <= w_end) {
+      togc.add(tog);
+    } else {  // a short walk, or a step across a window edge: per wire and window span
+      if (togc.any) run += togc.reduce();
+      const unsigned tm = transpose32(tog);
       for (int i = 0; i < nrow;) {
-        if (r0 + i == w_end) {  // row i opens the next window
+        if (g0 + i == w_end) {  // row i opens the next window
           if (run) atomicAdd(tog_out + run_w * nwires + wire0 + lane, run);
           run = 0;
           ++run_w;
           w_end += W;
         }
-        const long long stop = w_end - r0;
+        const long long stop = w_end - g0;
         const int iend = stop < nrow ? (int)stop : nrow;
         const unsigned span = (iend >= 32 ? FULL : ((1u << iend) - 1u)) & ~((1u << i) - 1u);
         run += __popc(tm & span);
@@ -808,17 +996,25 @@ __device__ void activity_walk(const unsigned char* img, const unsigned char* vst
       }
     }
   }
-  if (lane < nb) {
-    if (run) atomicAdd(tog_out + run_w * nwires + wire0 + lane, run);
-    if (ones) atomicAdd(ones_out + wire0 + lane, ones);
-  }
+  if (togc.any) run += togc.reduce();
+  if (run) atomicAdd(tog_out + run_w * nwires + wire0 + lane, run);
+  if (swar) ones += lvlc.reduce();
+  if (ones) atomicAdd(ones_out + wire0 + lane, ones);
 }
 
 // One block per (link, packet block) and ordering (blockIdx.y), after the
-// fold has filled `ent`: the image of that ordering again, then per config
-// of it its bus-invert states and its items, one warp each.  toggles (L, C, NW, nwires) and ones
-// (L, C, nwires) are zeroed or hold earlier chunks' counts; base_row is the
-// global row of this call's first flit row.
+// fold has filled `ent`: the image of that ordering again (the same staging
+// and layout as bt_axes_kernel), then all of its configs at once.  Bus-
+// invert items are taken in batches whose (item, step) cells fit `ncells`:
+// per batch every warp first ballots the [2 HD > half] / [2 HD == half]
+// rows of (item, step) cells, HD from the partition's word XOR-popcounts;
+// one warp per item then scans its steps' state maps for the state entering
+// each step and turns it into the step's 32 row states (row_states); then
+// all warps walk the columns (activity_column) of the stateless configs
+// (with the first batch) and of the batch's bus-invert configs, round
+// robin.  toggles (L, C, NW, nwires) and ones (L, C, nwires) are zeroed or
+// hold earlier chunks' counts; base_row is the global row of this call's
+// first flit row.
 template <typename T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 bt_axes_activity_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -826,46 +1022,151 @@ bt_axes_activity_kernel(const T* __restrict__ x, const T* __restrict__ w,
                         int wl, int pack_row, int bpk, int G, const int* __restrict__ tab,
                         int O, int C, int pmax, const uint8_t* __restrict__ ent, int es,
                         long long base_row, int W, int NW, unsigned* __restrict__ toggles,
-                        unsigned* __restrict__ ones) {
-  extern __shared__ unsigned char img[];
+                        unsigned* __restrict__ ones, int ncells) {
+  extern __shared__ uint4 smem_act[];
+  unsigned char* img = reinterpret_cast<unsigned char*>(smem_act);
   __shared__ unsigned bal[WARPS][BAL_WORDS];
   const int warp = threadIdx.x >> 5;
-  const long long l = blockIdx.x / G;
-  const int g = (int)(blockIdx.x - l * G);
+  const int lane = threadIdx.x & 31;
+  const long long blk = blockIdx.x;
+  const long long l = blk / G;
+  const int g = (int)(blk - l * G);
   const int lanes = il + wl;
+  const int lw = ((lanes + 3) >> 2) | 1;
   const int flits = n / il;
   const long long p_lo = (long long)g * bpk;
   const long long left = (long long)valid[l] - p_lo;
   if (left <= 0) return;
   const int vp = left < bpk ? (int)left : bpk;
   const int vr = vp * flits;
-  unsigned char* vst = img + (size_t)bpk * flits * lanes;  // (rows, pmax) invert states
+  const int steps = (vr + 31) >> 5;
+  const int words = (lanes + 3) >> 2;  // data words of a row
   const int* cfgs = tab + 3 * O;
+  const int o = blockIdx.y;
+  const int* rec = cfgs + 4 * C + 5 * o;
+  const int* stateless = tab + rec[1];
+  const int n_stateless = rec[2];
+  const int* items = tab + rec[3];
+  const int n_items = rec[4];
   const int nwires = lanes * 8 + pmax;
   const long long row0 = base_row + p_lo * flits;
-
-  const int o = blockIdx.y;
   const int key = tab[3 * o];
   const KeySpec s = make_key_spec(width, key == KEY_APP ? tab[3 * o + 1] : 0, tab[3 * o + 2]);
-  const long long off = ((long long)l * P + p_lo) * n;
-  lay_out(x + off, wl ? w + off : nullptr, vp, n, il, wl, flits, lanes, pack_row, key, s, bal,
-          img);
-  __syncthreads();
-  for (int c = 0; c < C; ++c) {
-    if (cfgs[4 * c] != o) continue;
-    const int codec = cfgs[4 * c + 1], npart = cfgs[4 * c + 2], pw = cfgs[4 * c + 3];
-    const uint8_t* e = ent + (blockIdx.x * (long long)C + c) * es;
-    if (codec == CODEC_BI) {
-      for (int q = warp; q < npart; q += WARPS) invert_states(img, vr, lanes, pw, q, pmax, e[lanes + q], vst);
-      __syncthreads();
+  // the cells reuse the staged packets' room once the image is laid out
+  InvCell* cells = reinterpret_cast<InvCell*>(img + image_words_bytes(bpk, flits, lanes));
+  build_image(x, w, ((long long)l * P + p_lo) * n, vp, n, il, wl, flits, lanes, lw, bpk,
+              pack_row, key, s, bal, img);
+  const unsigned* img32 = reinterpret_cast<const unsigned*>(img);
+  const uint8_t* ent_blk = ent + blk * C * es;
+
+  int first = 0;  // the batch's items [first, last)
+  do {
+    int last = first;
+    while (last < n_items) {  // whole configs while their cells fit
+      const int npart = cfgs[4 * items[2 * last] + 2];
+      if (last > first && (last + npart - first) * steps > ncells) break;
+      last += npart;
     }
-    unsigned* tog = toggles + ((long long)l * C + c) * NW * nwires;
-    unsigned* one = ones + ((long long)l * C + c) * nwires;
-    const int items = lanes + (codec == CODEC_BI ? npart : 0);
-    for (int it = warp; it < items; it += WARPS)
-      activity_walk(img, vst, vr, lanes, pmax, codec, pw, it, e, row0, W, nwires, tog, one);
-    __syncthreads();  // the next config rebuilds vst
-  }
+    const int nbi = last - first;
+    for (int p = warp; p < nbi * steps; p += WARPS) {
+      const int i = p / steps, st = p - i * steps;
+      const int c = items[2 * (first + i)], q = items[2 * (first + i) + 1];
+      const int pw = cfgs[4 * c + 3];
+      const int t = st * 32 + lane;
+      bool h = false, tie = false;
+      if (t == 0) {  // row 0 is in the block's entry branch
+        h = ent_blk[c * es + lanes + q] != 0;
+      } else if (t < vr) {
+        const int j0 = q * pw;
+        const unsigned* cur = img32 + t * lw;
+        unsigned hd = 0;
+        if (((j0 | pw) & 3) == 0) {  // whole words
+          for (int wi = j0 >> 2; wi < (j0 + pw) >> 2; ++wi) hd += __popc(cur[wi] ^ cur[wi - lw]);
+        } else {
+          for (int wi = j0 >> 2; wi < ((j0 + pw + 3) >> 2); ++wi)
+            hd += __popc((cur[wi] ^ cur[wi - lw]) & byte_span(j0 - 4 * wi, j0 + pw - 4 * wi));
+        }
+        h = 2u * hd > 8u * pw;
+        tie = 2u * hd == 8u * pw;
+      }
+      const unsigned H = __ballot_sync(FULL, h), Tb = __ballot_sync(FULL, tie);
+      if (lane == 0) {
+        cells[p].h = H;
+        cells[p].t = Tb;
+      }
+    }
+    __syncthreads();
+    // one warp per item: the state entering each step by a warp scan of the
+    // steps' state maps, 32 steps a pass, then every row's state
+    for (int i = warp; i < nbi; i += WARPS) {
+      unsigned v = 0u;  // the state entering the pass
+      for (int base = 0; base < steps; base += 32) {
+        const int st = base + lane;
+        InvCell* cl = cells + i * steps + (st < steps ? st : 0);
+        const unsigned H = st < steps ? cl->h : 0u, Tb = st < steps ? cl->t : 0u;
+        // bit x: the state after the step entered in state x (a tie fixes it)
+        unsigned m = Tb ? ((__popc(H & ~(FULL >> __clz(Tb))) & 1u) ? 3u : 0u)
+                        : ((__popc(H) & 1u) ? 1u : 2u);
+        for (int o = 1; o < 32; o <<= 1) {  // m := m o (maps of earlier steps)
+          const unsigned e = __shfl_up_sync(FULL, m, o);
+          if (lane >= o) m = compose(m, e);
+        }
+        const unsigned before = __shfl_up_sync(FULL, m, 1);
+        const unsigned vin = lane == 0 ? v : (before >> v) & 1u;
+        if (st < steps) cl->s = row_states(H, Tb, vin);
+        v = (__shfl_sync(FULL, m, 31) >> v) & 1u;
+      }
+    }
+    __syncthreads();
+    // the columns of this round, dealt to the warps in turn: the stateless
+    // configs' (with the first batch), then each bus-invert config's data
+    // words and invert-line words
+    const int n_sl = first == 0 ? n_stateless * words : 0;
+    int ntask = n_sl;
+    for (int i = first; i < last; i += cfgs[4 * items[2 * i] + 2])
+      ntask += words + ((cfgs[4 * items[2 * i] + 2] + 31) >> 5);
+    for (int task = warp; task < ntask; task += WARPS) {
+      int c, j, col;
+      const InvCell* cl = nullptr;
+      if (task < n_sl) {
+        c = stateless[task / words];
+        j = task - (task / words) * words;
+        col = cfgs[4 * c + 1];
+      } else {
+        int r = task - n_sl, i = first;
+        for (;;) {
+          c = items[2 * i];
+          const int np = cfgs[4 * c + 2], nt = words + ((np + 31) >> 5);
+          if (r < nt) break;
+          r -= nt;
+          i += np;
+        }
+        cl = cells + (i - first) * steps;
+        col = r < words ? CODEC_BI : COL_INVERT;
+        j = r < words ? r : r - words;
+      }
+      const int npart = cfgs[4 * c + 2], pw = cfgs[4 * c + 3];
+      const uint8_t* e = ent_blk + c * es;
+      unsigned* tog = toggles + ((long long)l * C + c) * NW * nwires;
+      unsigned* one = ones + ((long long)l * C + c) * nwires;
+      switch (col) {
+#define REPRO_WALK(K) \
+  case K: \
+    activity_column<K>(img32, lw, vr, lanes, pmax, npart, pw, j, e, cl, steps, row0, W, \
+                       nwires, tog, one); \
+    break;
+        REPRO_WALK(CODEC_NONE)
+        REPRO_WALK(CODEC_GRAY)
+        REPRO_WALK(CODEC_SM)
+        REPRO_WALK(CODEC_TRANSITION)
+        REPRO_WALK(CODEC_BI)
+        REPRO_WALK(COL_INVERT)
+#undef REPRO_WALK
+      }
+    }
+    first = last;
+    if (first < n_items) __syncthreads();  // the next batch rewrites the cells
+  } while (first < n_items);
 }
 
 }  // namespace repro
@@ -892,12 +1193,11 @@ int launch_axes(const void* x, const void* w, long long L, long long P, int n,
                 void* totals, const ActivityArgs* act, cudaStream_t st) {
   using namespace repro;
   const int lanes = il + wl;
-  const size_t img = (size_t)bpk * (n / il) * lanes;
+  const int flits = n / il;
   // the image, rows padded to an odd word count, then (byte packets) the
   // staged packets
-  const size_t img_words =
-      ((size_t)bpk * (n / il) * 4 * (((lanes + 3) >> 2) | 1) + 15) & ~(size_t)15;
-  const size_t staged = sizeof(T) == 1 ? (size_t)bpk * n * (wl ? 2 : 1) : 0;
+  const size_t img_words = image_words_bytes(bpk, flits, lanes);
+  const size_t staged = staged_bytes(bpk, n, wl > 0, sizeof(T));
   const unsigned blocks = (unsigned)(L * G);
   bt_axes_kernel<T><<<blocks * O, THREADS, img_words + staged, st>>>(
       (const T*)x, (const T*)w, (const int*)valid, P, n, width, il, wl, split, pack_row, bpk,
@@ -915,11 +1215,19 @@ int launch_axes(const void* x, const void* w, long long L, long long P, int n,
       act ? act->es : 0, act ? (int*)act->parity : nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess || !act) return (int)err;
-  const size_t smem = img + (size_t)bpk * (n / il) * pmax;
-  bt_axes_activity_kernel<T><<<dim3(blocks, O), THREADS, smem, st>>>(
+  const ActSmem a = act_smem(bpk, flits, lanes, n, wl > 0, sizeof(T), pmax, ACT_CELLS,
+                             INV_CELL_BYTES);
+  const size_t smem = a.bytes;
+  const int ncells = a.ncells;
+  auto kern = bt_axes_activity_kernel<T>;
+  if (smem > ACT_SMEM_DEFAULT) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<dim3(blocks, O), THREADS, smem, st>>>(
       (const T*)x, (const T*)w, (const int*)valid, P, n, width, il, wl, pack_row, bpk, G,
       (const int*)tab, O, C, pmax, (const uint8_t*)act->ent, act->es, act->base_row, act->W,
-      act->NW, (unsigned*)act->toggles, (unsigned*)act->ones);
+      act->NW, (unsigned*)act->toggles, (unsigned*)act->ones, ncells);
   return (int)cudaGetLastError();
 }
 

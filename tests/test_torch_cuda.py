@@ -84,6 +84,54 @@ def test_bt_count_kernel_matches_plain(dev, shape):
             assert torch.equal(tk.bt_count(v, width=width), ref)
 
 
+# the contiguous (flat) path: lane counts whose rows are and are not whole
+# 16-byte words, streams one element past an aligned base (unaligned head
+# and tail), uint8 and int32 at every width class; and T = 2, 3
+@pytest.mark.parametrize("lanes", [1, 3, 8, 15, 16, 17, 24])
+@pytest.mark.parametrize("t", [2, 3, 4099])
+def test_bt_count_flat_layouts_match_plain(dev, lanes, t):
+    tk.reset_launch_counts()
+    calls = 0
+    for dtype, hi in ((np.uint8, 256), (np.int32, 1 << 20)):
+        flat = _packets(dev, (t * lanes + 1,), lanes + t, dtype, hi)
+        for v in (flat[: t * lanes].view(t, lanes), flat[1:].view(t, lanes)):
+            for width in (1, 7, 8, 12, 16):
+                ref = tk.bt_count(v, width=width, backend="torch")
+                assert torch.equal(tk.bt_count(v, width=width), ref), (dtype, v.storage_offset(),
+                                                                       width)
+                calls += 1
+    assert tk.launch_counts()["bt_count"] == calls
+
+
+# the row-strided path: column slices of both halves (at even and odd
+# offsets), one-element rows, and short wide streams whose rows spread over
+# a group of threads
+@pytest.mark.parametrize("shape", [(4099, 16), (4099, 24), (3, 40), (2, 100_003), (4099, 2)])
+def test_bt_count_strided_layouts_match_plain(dev, shape):
+    s8 = _packets(dev, shape, shape[1])
+    s32 = _packets(dev, shape, shape[1] + 1, np.int32, 1 << 20)
+    half = shape[1] // 2
+    for src in (s8, s32):
+        for v in (src[:, :half], src[:, half:], src[:, 1:], src[:, 1: half + 1], src[:, :1]):
+            for width in (1, 8, 16):
+                ref = tk.bt_count(v, width=width, backend="torch")
+                assert torch.equal(tk.bt_count(v, width=width), ref), (src.dtype, v.stride(),
+                                                                       v.storage_offset(), width)
+
+
+def test_bt_count_wraps_past_2_32(dev):
+    """16 toggling bits in each of 256 lanes of 2**20 + 2**10 rows: the BT
+    passes 2**32, and the int32 total wraps as the reference's does."""
+    t = (1 << 20) + (1 << 10)
+    s = torch.zeros((t, 256), dtype=torch.int32, device=dev)
+    s[1::2] = 0xFFFF
+    want = ((t - 1) * 256 * 16 + 2**31) % 2**32 - 2**31
+    assert int(tk.bt_count(s, width=16)) == want == int(tk.bt_count(s, width=16, backend="torch"))
+    s8 = s.to(torch.uint8)  # 8 bits a lane: the same total halved, contiguous and strided
+    for v in (s8, s8[:, 1:]):
+        assert torch.equal(tk.bt_count(v, width=16), tk.bt_count(v, width=16, backend="torch"))
+
+
 def _axes_configs(lanes, width=8):
     """Every ordering (ACC / APP k in {2, 4, 8} x direction, none,
     column_major) crossed with every codec, bus-invert partitions None / 4 / 2
@@ -171,6 +219,21 @@ def test_bt_axes_bus_invert_ties_across_segments_and_blocks(dev):
     assert int(got[:, 1::6, 2].sum()) > 0  # the invert lines did toggle
 
 
+@pytest.mark.parametrize("n,lanes", [(24, 12), (20, 4), (40, 8)])
+def test_bt_axes_paired_packets_of_odd_16_byte_blocks(dev, n, lanes):
+    """Paired byte packets whose block of packets is no whole number of
+    16-byte words (vp * N % 16 != 0): the weights' shared-memory copy must
+    still take only aligned 16-byte stores."""
+    x = _packets(dev, (4, 203, n), n)
+    w = _packets(dev, (4, 203, n), n + 1)
+    valid = torch.tensor([203, 7, 1, 150], device=dev)
+    configs = _axes_configs(2 * lanes)
+    for chunk in (None, 3):
+        kw = dict(configs=configs, input_lanes=lanes, chunk_packets=chunk)
+        got = tk.bt_count_axes(x, w, valid, **kw)
+        assert torch.equal(got, tk.bt_count_axes(x, w, valid, backend="torch", **kw))
+
+
 def test_bt_axes_entry_points_and_int32_payloads(dev):
     streams = _packets(dev, (6, 999, 16), 3)
     lengths = torch.tensor([999, 0, 2, 500, 1, 2000], device=dev)
@@ -206,6 +269,72 @@ def test_bt_axes_activity_kernel_matches_plain(dev, window, width, n, lanes, pai
         counts = tk.launch_counts()
         assert counts["bt_axes_activity"] == (1 if chunk is None else -(-p // chunk))
         assert counts["bt_axes"] == 0
+        for field, a, b in zip(ref._fields, ref, got):
+            assert torch.equal(a, b), (chunk, field, (a != b).nonzero()[:5].tolist())
+
+
+@pytest.mark.parametrize("window", [512, 1, 33])
+def test_bt_axes_activity_windows_across_blocks(dev, window):
+    """The codec path's shape (16 packets = 64 flit rows a block): windows
+    longer than a block, one-row windows at every block edge, and chunks of
+    7 packets, whose first rows (28 k) are no multiple of the window."""
+    x = _packets(dev, (1, 1838, 64), 11 + window)
+    valid = torch.tensor([1838], device=dev)
+    configs = _axes_configs(16) + (tk.CodecVariant("acc", None, False, "bus_invert", 1),)
+    kw = dict(configs=configs, input_lanes=16, activity_windows=window)
+    ref = tk.bt_count_axes(x, None, valid, backend="torch", **kw)
+    for chunk in (None, 7):
+        got = tk.bt_count_axes(x, None, valid, chunk_packets=chunk, **kw)
+        for field, a, b in zip(ref._fields, ref, got):
+            assert torch.equal(a, b), (chunk, field, (a != b).nonzero()[:5].tolist())
+
+
+def test_bt_axes_activity_bus_invert_ties_across_segments_and_blocks(dev):
+    """test_bt_axes_bus_invert_ties_across_segments_and_blocks's rows (data
+    distances of exactly half a partition beside flips and keeps) in the
+    activity mode: the invert states at every 32-row step and block edge."""
+    rng = np.random.default_rng(5)
+    links, p, lanes, flits = 32, 1024, 16, 4
+    steps = rng.choice(np.array([0x0F, 0x0F, 0x0F, 0x1F, 0x01, 0x00], np.uint8),
+                       size=(links, p * flits, 1))
+    start = rng.integers(0, 256, (links, 1, lanes), dtype=np.uint8)
+    rows = np.bitwise_xor.accumulate(
+        np.concatenate([start, np.broadcast_to(steps, (links, p * flits, lanes))], axis=1),
+        axis=1)[:, 1:]
+    x = torch.from_numpy(np.ascontiguousarray(rows).reshape(links, p, flits * lanes)).to(dev)
+    valid = torch.from_numpy(rng.integers(0, p + 1, links)).to(dev)
+    valid[:2] = p
+    configs = tuple(tk.CodecVariant(key, None, False, codec, part)
+                    for key in ("none", "column_major")
+                    for codec, part in (("none", None), ("bus_invert", None), ("bus_invert", 8),
+                                        ("bus_invert", 4), ("bus_invert", 2),
+                                        ("bus_invert", 1)))
+    for window in (32, 5):
+        kw = dict(configs=configs, input_lanes=lanes, pack="row", activity_windows=window)
+        ref = tk.bt_count_axes(x, None, valid, backend="torch", **kw)
+        for chunk in (None, 7):
+            got = tk.bt_count_axes(x, None, valid, chunk_packets=chunk, **kw)
+            for field, a, b in zip(ref._fields, ref, got):
+                assert torch.equal(a, b), (window, chunk, field, (a != b).nonzero()[:5].tolist())
+    assert int(ref.toggles[:, 1::6, :, lanes * 8:].sum()) > 0  # the invert lines did toggle
+
+
+# every partition count of a 24-lane paired flit (partitions that straddle
+# 32-bit words among them) and of a 40-lane one (two words of invert lines)
+@pytest.mark.parametrize("n,il,paired,parts", [
+    (24, 12, True, (None, 12, 8, 6, 4, 3, 2, 1)),
+    (80, 40, False, (None, 20, 10, 8, 5, 4, 2, 1)),
+])
+def test_bt_axes_activity_every_partition_count(dev, n, il, paired, parts):
+    x = _packets(dev, (3, 301, n), n)
+    w = _packets(dev, (3, 301, n), n + 1) if paired else None
+    valid = torch.tensor([301, 13, 0], device=dev)
+    configs = tuple(tk.CodecVariant(*o, "bus_invert", part)
+                    for o in (("none", None, False), ("app", 4, True)) for part in parts)
+    kw = dict(configs=configs, input_lanes=il, activity_windows=9)
+    ref = tk.bt_count_axes(x, w, valid, backend="torch", **kw)
+    for chunk in (None, 7):
+        got = tk.bt_count_axes(x, w, valid, chunk_packets=chunk, **kw)
         for field, a, b in zip(ref._fields, ref, got):
             assert torch.equal(a, b), (chunk, field, (a != b).nonzero()[:5].tolist())
 
