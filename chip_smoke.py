@@ -16,7 +16,9 @@ non-zero:
    of L in {1, 3, 8, 15, 16, 17, 24} (aligned and one byte past an aligned
    base, uint8 and int32, widths 4 / 8 / 12 / 16), their column slices and
    (2, 100,003) streams, ``psu_stream`` on the paired and the 16-lane
-   input-only framings in 'lane' and 'row' packing, and ``bt_axes`` (the
+   input-only framings in 'lane' and 'row' packing at N in {16, 32, 64}
+   (P = 100,003) and 1,024 (P = 2,001), uint8 aligned and one element past
+   an aligned base and int32, and ``bt_axes`` (the
    multi-axis measurement) on jagged (6, 1,001, N) batches over every
    ordering (none, column_major, ACC, APP k in {2, 4, 8}, both directions)
    x every codec (bus-invert partitions None / 4 / 2) x width 4/8 x
@@ -60,7 +62,8 @@ non-zero:
    gradient (1,889,107,968 elements, made on the card), each kernel
    against its plain version in chunks, the permutation a bijection, and
    the launch counters showing every kernel of the path;
-4. scale and times: ``psu_stream`` on 4,194,304 paired packets,
+4. scale and times: ``psu_stream`` on 4,194,304 paired packets and on
+   Table I's conv input stream (7,350 packets of 64, 16 lanes),
    ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
    (256, 16,384, 64) batch, the same batch through ``bt_axes_activity``
    with windows of 512 rows (also in 4,096-packet chunks), all generated
@@ -368,19 +371,24 @@ KERNELS = {
 }
 
 # Each kernel's device time (ms, torch.profiler) at its phase-4 shapes —
-# main, scale and, where there is one, egress — on an NVIDIA H100 80GB
-# HBM3 at 700 W before its redesign (PERF.md's kernel table): psu_sort,
-# bt_axes, psu_stream and quantize_egress with their first versions;
-# bt_count and bt_axes_activity with the versions their redesign replaced.
-# Phase 4 prints them beside its own.
+# main, scale and, where there is one, a third (egress; for psu_stream the
+# Table I conv stream) — on an NVIDIA H100 80GB HBM3 at 700 W before its
+# redesign (PERF.md's kernel table): psu_sort, bt_axes and quantize_egress
+# with their first versions; bt_count, bt_axes_activity and psu_stream
+# with the versions their redesign replaced (psu_stream's conv time: that
+# version under this script's conv case).  Phase 4 prints them beside its
+# own.
 BEFORE_DEVICE_MS = {
     "psu_sort": (0.0019584, 1.145806, 12.1694994),
     "bt_count": (0.00545, 0.5865, 0.1385),
-    "psu_stream": (0.0630354, 2.4865984),
+    "psu_stream": (0.0434, 1.717, 0.01203),
     "bt_axes": (0.130239, 5.9027808),
     "bt_axes_activity": (0.0743, 21.95),
     "quantize_egress": (0.0033098, 4.0300034),
 }
+
+# phase 4's third case of a kernel when it is not the egress path's
+THIRD_CASE = {"psu_stream": "conv"}
 
 SCALE_PACKETS = 4_194_304
 SCALE_BT_ROWS = 2**27
@@ -568,23 +576,33 @@ def phase_kernels(dev: torch.device, p: int = 100_003, t: int = 400_001,
     log(f"bt_count: {cases} cases at T={t} bit-exact (lanes 1-24, unaligned bases, int32, "
         f"column slices, (2, 100,003))")
 
+    # psu_stream: the paired and 16-lane input-only framings, 16-byte and
+    # 1,024-element packets (P = 2,001: a few packets a tile, so many
+    # tiles), uint8 aligned and one element past an aligned base (the
+    # element-wise load path) and int32
     cases = 0
-    for n, il, paired in ((32, 8, True), (64, 16, False)):
-        x, w = rand((p, n)), rand((p, n))
-        for pack in ("lane", "row"):
-            for width, k, desc in ((8, None, False), (8, 4, False), (8, 4, True),
-                                   (8, 2, False), (4, None, True), (4, 4, False)):
-                kw = dict(width=width, k=k, descending=desc, input_lanes=il, pack=pack)
-                ww = w if paired else None
-                got = psu_stream(x, ww, **kw)
-                ref = psu_stream(x, ww, backend="torch", **kw)
-                e = max(max_err(a, b) for a, b in zip(got, ref))
-                errs["psu_stream"] = max(errs["psu_stream"], e)
-                cases += 1
-                if e:
-                    fail(f"psu_stream N={n} il={il} paired={paired} {pack} W={width} "
-                         f"k={k} desc={desc}: err {e}")
-    log(f"psu_stream: {cases} cases at P={p} bit-exact")
+    for n, il, paired, pn in ((32, 8, True, p), (64, 16, False, p), (16, 8, True, p),
+                              (1024, 32, True, 2_001)):
+        flat_x, flat_w = rand((pn * n + 1,)), rand((pn * n + 1,))
+        views = {"u8": (flat_x[: pn * n].view(pn, n), flat_w[: pn * n].view(pn, n)),
+                 "u8+1": (flat_x[1:].view(pn, n), flat_w[1:].view(pn, n)),
+                 "i32": (rand((pn, n), torch.int32, 1 << 16), rand((pn, n), torch.int32, 1 << 16))}
+        for view, (x, w) in views.items():
+            for pack in ("lane", "row"):
+                for width, k, desc in ((8, None, False), (8, 4, False), (8, 4, True),
+                                       (8, 2, False), (4, None, True), (4, 4, False)):
+                    kw = dict(width=width, k=k, descending=desc, input_lanes=il, pack=pack)
+                    ww = w if paired else None
+                    got = psu_stream(x, ww, **kw)
+                    ref = psu_stream(x, ww, backend="torch", **kw)
+                    e = max(max_err(a, b) for a, b in zip(got, ref))
+                    errs["psu_stream"] = max(errs["psu_stream"], e)
+                    cases += 1
+                    if e:
+                        fail(f"psu_stream ({pn}, {n}) {view} il={il} paired={paired} {pack} "
+                             f"W={width} k={k} desc={desc}: err {e}")
+    log(f"psu_stream: {cases} cases at P={p} (N = 16, 32, 64) and 2,001 (N = 1,024), uint8 "
+        f"aligned and unaligned, int32, bit-exact")
 
     # bt_axes: jagged links (valid 0, P and past P among them) x the whole
     # ordering x codec grid, each chunking against the unchunked plain version
@@ -1279,14 +1297,19 @@ def phase_scale(dev: torch.device, full_m: int | None = None) -> dict:
             "bytes": t * lanes + 4, "ops": (t - 1) * lanes * 3,
         }
 
-    def stream_case(a, b):
+    def stream_case(a, b, **kw):
+        """Each side's bytes read once, int32 order and rank and the uint8
+        stream written once, the two BT totals; ~4 operations per element
+        (key, rank, scatter) and ~3 per stream byte (XOR-popcount, add)."""
         pn = a.numel()
+        sides = 2 if b is not None else 1
         return {
-            "shape": list(a.shape) + ["paired"],
-            "ms": time_ms(lambda: psu_stream(a, b, k=4)),
-            "plain_ms": time_ms(lambda: psu_stream(a, b, k=4, backend="torch")),
+            "shape": list(a.shape) + (["paired"] if b is not None else
+                                      [f"input-only {kw['input_lanes']} lanes"]),
+            "ms": time_ms(lambda: psu_stream(a, b, k=4, **kw)),
+            "plain_ms": time_ms(lambda: psu_stream(a, b, k=4, backend="torch", **kw)),
             "library_ms": None, "library": "none (no single PyTorch call sorts, packs and counts)",
-            "bytes": pn * (2 + 8 + 2) + 8, "ops": pn * 4 + pn * 2 * 3,
+            "bytes": pn * (sides + 8 + sides) + 8, "ops": pn * 4 + pn * sides * 3,
         }
 
     def axes_work(xb, vb, configs):
@@ -1367,12 +1390,22 @@ def phase_scale(dev: torch.device, full_m: int | None = None) -> dict:
     gq = torch.from_numpy(egress_inputs()[0]).to(dev)
     gfull = torch.randn(full_m, generator=gen, device=dev)
     conv_in = torch.from_numpy(conv_streams(n_images=CODEC_COMPARE["conv_images"])[0]).to(dev)
+    # the transmit path's conv input stream (Table I: 7,350 packets of 64)
+    conv_tx = torch.from_numpy(conv_streams(n_images=TABLE1_CONV["images"])[0]).to(dev)
+    got = psu_stream(conv_tx, None, k=4, input_lanes=16)
+    ref = psu_stream(conv_tx, None, k=4, input_lanes=16, backend="torch")
+    e = max(max_err(a, b) for a, b in zip(got, ref))
+    if e:
+        fail(f"psu_stream on the conv stream {tuple(conv_tx.shape)}: err {e} vs plain")
+    log(f"conv psu_stream: {tuple(conv_tx.shape)} input-only, 16 lanes, APP k=4 bit-exact, "
+        f"BT={int(got.bt_input)}")
     conv_valid = torch.tensor([conv_in.shape[0]], device=dev)
     grid = SCALE_AXES_CONFIGS[:12]  # the codec path's grid
     cases = {
         "psu_sort": (sort_case(q), sort_case(x), egress_sort),
         "bt_count": (bt_case(uslice), bt_case(big), egress_bt),
-        "psu_stream": (stream_case(ui, uw), stream_case(x, w)),
+        "psu_stream": (stream_case(ui, uw), stream_case(x, w),
+                       stream_case(conv_tx, None, input_lanes=16)),
         "bt_axes": (
             axes_case(conv_in[None], conv_valid, grid, lambda: bt_count_axes(
                 conv_in[None], None, conv_valid, configs=grid, input_lanes=16,
@@ -1399,7 +1432,8 @@ def phase_scale(dev: torch.device, full_m: int | None = None) -> dict:
                      lambda: psu_sort(pk_e, k=4)),
         "bt_count": (lambda: bt_count(uslice), lambda: bt_count(big),
                      lambda: bt_count(stream_e)),
-        "psu_stream": (lambda: psu_stream(ui, uw, k=4), lambda: psu_stream(x, w, k=4)),
+        "psu_stream": (lambda: psu_stream(ui, uw, k=4), lambda: psu_stream(x, w, k=4),
+                       lambda: psu_stream(conv_tx, None, k=4, input_lanes=16)),
         "bt_axes": (
             lambda: bt_count_axes(conv_in[None], None, conv_valid, configs=grid, input_lanes=16),
             lambda: bt_count_axes(xa, None, va, **akw),
@@ -1451,7 +1485,8 @@ def phase_scale(dev: torch.device, full_m: int | None = None) -> dict:
             f"device_ms={total} device_split={split}")
     cases["bt_axes_activity"][1]["subsets"] = breakdown
     for name, pair in cases.items():
-        for tag, case, before in zip(("main", "scale", "egress"), pair, BEFORE_DEVICE_MS[name]):
+        for tag, case, before in zip(("main", "scale", THIRD_CASE.get(name, "egress")), pair,
+                                     BEFORE_DEVICE_MS[name]):
             case["bound_ms"], case["bound_by"] = bound(case["bytes"], case["ops"])
             head = f"time {name} {tag} {case['shape']}:"
             log(f"{head} kernel_ms={case['ms']}")
@@ -1505,11 +1540,12 @@ def main() -> int:
             "scale_plain_ms": s["plain_ms"], "scale_bound_ms": s["bound_ms"],
             "scale_library_ms": s["library_ms"], "library": m["library"],
         })
-        for e in egress:  # the egress path's full-width shape
-            record[-1].update({"egress_shape": e["shape"], "egress_ms": e["ms"],
-                               "egress_plain_ms": e["plain_ms"],
-                               "egress_bound_ms": e["bound_ms"],
-                               "egress_library_ms": e["library_ms"]})
+        for e in egress:  # the egress path's full-width shape, psu_stream's conv stream
+            tag = THIRD_CASE.get(name, "egress")
+            record[-1].update({f"{tag}_shape": e["shape"], f"{tag}_ms": e["ms"],
+                               f"{tag}_plain_ms": e["plain_ms"],
+                               f"{tag}_bound_ms": e["bound_ms"],
+                               f"{tag}_library_ms": e["library_ms"]})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({

@@ -9,14 +9,20 @@ Replaces ``repro/kernels/axes.py:bt_axes_pallas`` (body
 * **the fused transmit stream** (``emit_stream``): one link, one uncoded
   'acc'/'app' config.  The CUDA kernel (``csrc/stream.cu``,
   ``psu_stream_kernel``) runs popcount -> bucket -> rank -> reorder ->
-  flit-pack -> (input, weight) BT in one launch: one warp ranks a run of
-  packets, scatters each byte straight into its flit cell of a
-  shared-memory packet image (integer addressing — no float permutation
-  product, whose TF32 form would round payloads above 2**11), writes the
-  stream rows out contiguously and counts BT over every flit boundary it
-  owns, including the one from the previous packet, which the first packet
-  of a run gets by re-sorting its predecessor.  Bound by bytes on the H100:
-  each side's packets read once, int32 order and rank and the uint8 stream
+  flit-pack -> (input, weight) BT in one launch.  Persistent blocks walk
+  tiles of whole packets (``csrc/plan.h`` ``stream_plan``: 16-byte aligned
+  spans, at most 8 KB of inputs, small batches cut to spread over every
+  SM); each tile's inputs and weights, with the packet before the
+  tile, arrive by bulk asynchronous copy into a two-stage shared-memory
+  ring one tile ahead.  The warps rank the tile's packets from the keys'
+  bit-plane ballots (several packets a warp for N <= 32) and scatter each
+  byte straight into its flit cell of a shared-memory image of the whole
+  tile (integer addressing — no float permutation product, whose TF32
+  form would round payloads above 2**11); the image goes out with 16-byte
+  stores and its BT is counted in 32-bit words with per-word input/weight
+  byte masks, the first row against the last flit of the packet before
+  the tile, which one warp re-ranks.  Bound by bytes on the H100: each
+  side's packets read once, int32 order and rank and the uint8 stream
   written once.
 * **the jagged link x ordering x codec measurement** (``bt_axes``): an
   (L, P, N) batch with a real packet count per link, every (ordering,

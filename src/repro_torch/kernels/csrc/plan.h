@@ -97,4 +97,59 @@ inline ActSmem act_smem(int bpk, int flits, int lanes, int n, int paired, int is
   return a;
 }
 
+// psu_stream on P packets of n elements of `isz` bytes, il input lanes and
+// wl (0 or il) weight lanes: persistent blocks walk tiles of tp whole
+// packets.  A tile's spans in x and w (tp*n*isz bytes each), in order and
+// rank (tp*n*4) and in the stream (tp*n*lanes/il) start 16-byte aligned
+// when the bases are: tp is a multiple of the quantum q.  tp is the largest
+// such count whose x span fits STREAM_TILE_BYTES, cut (when the card's SM
+// count `sms` is > 0) to the smallest count that leaves no more than
+// STREAM_TILES_PER_SM tiles per SM: a batch too small for full tiles
+// everywhere (the transmit path's) still spreads over every SM.  Two tiles
+// an SM, each walked by its own block, measured faster on the H100 at every
+// transmit-path shape than one, three (a tile per block slot) or six: a
+// tile's and a block's fixed steps against the packets a warp ranks in
+// turn.  One block's dynamic shared memory: two stages, each holding for
+// each side the `head` bytes before the tile (its last n elements are the
+// packet before the tile) and the tile; a row (`pad`) that ends where the
+// flit image begins and holds the flit before the tile's first; the image
+// (tp*F rows of `lanes` bytes); for n > 32 a row of n ints per warp for
+// `order`.
+constexpr int STREAM_TILE_BYTES = 8192;
+constexpr int STREAM_TILES_PER_SM = 2;
+
+struct StreamPlan {
+  int q, tp;
+  long long tiles;
+  size_t head, stage, pad, image, wbuf, smem;
+};
+
+inline size_t round16(size_t b) { return (b + 15) & ~(size_t)15; }
+
+inline StreamPlan stream_plan(long long P, int n, int isz, int il, int wl, int warps, int sms) {
+  StreamPlan p;
+  const int lanes = il + wl;
+  const int per_elem = isz < lanes / il ? isz : lanes / il;  // fewest bytes an element spans
+  int g = 16;
+  while ((n * per_elem) % g) g >>= 1;
+  p.q = 16 / g;
+  const int fit = STREAM_TILE_BYTES / (n * isz) / p.q * p.q;
+  p.tp = fit > p.q ? fit : p.q;
+  if (sms > 0) {
+    const long long most = (long long)STREAM_TILES_PER_SM * sms;
+    const long long cap = (P + most - 1) / most;
+    const long long cut = (cap + p.q - 1) / p.q * p.q;
+    if (cut < p.tp) p.tp = (int)cut;
+  }
+  p.tiles = (P + p.tp - 1) / p.tp;
+  const size_t elems = (size_t)p.tp * n;
+  p.head = round16((size_t)n * isz);
+  p.stage = p.head + round16(elems * isz);
+  p.pad = round16((size_t)lanes);
+  p.image = round16(elems * lanes / il);
+  p.wbuf = n > 32 ? (size_t)warps * n * 4 : 0;
+  p.smem = 2 * p.stage * (wl ? 2 : 1) + p.pad + p.image + p.wbuf;
+  return p;
+}
+
 }  // namespace repro

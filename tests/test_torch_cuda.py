@@ -5,6 +5,8 @@ here skips.  On the GPU machine, which has no JAX, this file runs alone:
     python -m pytest -q tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -71,6 +73,49 @@ def test_psu_stream_kernel_matches_plain(dev, n, lanes, paired, pack):
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
         # the stream's BT is what bt_count measures on each side of it
         assert torch.equal(got.bt_input, tk.bt_count(got.stream[:, :lanes]))
+
+
+def _stream_tile(n, isz, paired):
+    """Packets in a full psu_stream tile (csrc/plan.h stream_plan: at most
+    8 KB of x, a multiple of the 16-byte alignment quantum)."""
+    q = 16 // math.gcd(16, n * min(isz, 2 if paired else 1))
+    return max(q, 8192 // (n * isz) // q * q)
+
+
+# P against the kernel's tiles and its persistent grid: one packet; a full
+# tile - 1 and + 1 (small batches, cut to the smallest aligned tiles so
+# that they spread over every SM: many one- or few-packet tiles,
+# each with a tile boundary before it); 300,001 packets (full tiles,
+# several a block, a ragged last one); 2,001 packets of 1,024 — uint8 and
+# int32, aligned and one element past an aligned base (the element-wise
+# load path), paired, zero weight lanes and input-only, both packs
+@pytest.mark.parametrize("n,il", [(16, 8), (25, 5), (32, 8), (64, 16), (1024, 32)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_psu_stream_kernel_tiles_and_grid(dev, n, il, dtype):
+    isz, hi = (1, 256) if dtype == np.uint8 else (4, 1 << 16)
+    tile = _stream_tile(n, isz, True)
+    tk.reset_launch_counts()
+    calls = 0
+    for p in (1, max(tile - 1, 1), tile + 1, 300_001 if n <= 64 else 2_001):
+        fx = _packets(dev, (p * n + 1,), n + p, dtype, hi)
+        fw = _packets(dev, (p * n + 1,), n + p + 1, dtype, hi)
+        for off in (0, 1):
+            x, w = fx[off: off + p * n].view(p, n), fw[off: off + p * n].view(p, n)
+            for weights, wl in ((w, il), (None, il), (None, 0)):
+                for pack in ("lane", "row"):
+                    for width, k, desc in ((8, None, False), (16, 4, True)):
+                        kw = dict(width=width, k=k, descending=desc, input_lanes=il,
+                                  weight_lanes=wl, pack=pack)
+                        got = tk.psu_stream(x, weights, **kw)
+                        calls += 1
+                        ref = tk.psu_stream(x, weights, backend="torch", **kw)
+                        what = (p, off, wl, weights is None, pack, width, k, desc)
+                        assert all(torch.equal(a, b) for a, b in zip(got, ref)), what
+                        # each side's BT is what bt_count measures on it
+                        bt_w = tk.bt_count(got.stream[:, il:]) if wl else torch.tensor(0)
+                        assert torch.equal(got.bt_input, tk.bt_count(got.stream[:, :il])), what
+                        assert int(got.bt_weight) == int(bt_w), what
+    assert tk.launch_counts()["psu_stream"] == calls
 
 
 @pytest.mark.parametrize("shape", [(2, 8), (4099, 16), (1000, 5), (777, 24)])
