@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's transmit, codec, activity and egress paths on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress and NoC / DSE paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -62,6 +62,25 @@ non-zero:
    gradient (1,889,107,968 elements, made on the card), each kernel
    against its plain version in chunks, the permutation a bijection, and
    the launch counters showing every kernel of the path;
+3e. NoC and DSE path: ``repro_torch.noc.simulate_noc`` at
+   ``benchmarks/noc_bt.py``'s defaults (3-image conv-platform flows on
+   mesh(4, 4) and ring(8) under five (key, sort_at) designs, the hop
+   sweep, the hottest links, the mesh ACC fabric with activity windows of
+   32 flits into profiles and SAIF, a bus-invert4 fabric, the looped
+   ``bt_count`` baseline), ``fleet_noc.py``'s 1,024-flow fleet on
+   mesh(16, 16) with its contention model, and ``dse_sweep.py``'s grid
+   through ``repro_torch.dse.evaluate_grid`` (front, knee, mesh4x4 point,
+   the multi-axis grid also wire-resolved, ``grid_launch_count``,
+   ``fig5/k_sweep`` and ``fig7/psu_power_overhead``), each equal to the JAX
+   pins below (``NOC_BT``, ``FLEET``, ``DSE_SWEEP``) and to the plain
+   versions, every call with its launch counts checked (one ``bt_axes`` or
+   ``bt_axes_activity`` launch per fabric or grid width, one ``psu_sort``
+   per ACC / APP source order); then one ring reduce-scatter step of the
+   same full-width gradient's int8 wire on ring(8) (8 shards of 3,689,664
+   packets of 64 bytes) under none / ACC / APP4, every link's BT equal to
+   ``bt_count`` of its shard built independently (``psu_reorder`` -> pack),
+   with the expansion's, the one measurement's and the source sort's times
+   and the peak device memory;
 4. scale and times: ``psu_stream`` on 4,194,304 paired packets and on
    Table I's conv input stream (7,350 packets of 64, 16 lanes),
    ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
@@ -84,6 +103,7 @@ written to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -101,8 +121,8 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from benchmarks.datagen import conv_streams, uniform_pairs  # noqa: E402
-from repro_torch import kernels, obs  # noqa: E402
+from benchmarks.datagen import conv_streams, im2col, synth_images, uniform_pairs  # noqa: E402
+from repro_torch import dse, kernels, noc, obs  # noqa: E402
 from repro_torch.codec import compare_streams, demo_workloads, format_table  # noqa: E402
 from repro_torch.codec import codec_by_name, kernel_config  # noqa: E402
 from repro_torch.core import bitonic_area, bucket_map, csn_area, popcount, psu_area  # noqa: E402
@@ -120,6 +140,7 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import quantize_egress  # noqa: E402
 from repro_torch.kernels.axes import max_partitions  # noqa: E402
+from repro_torch.noc.fabric import _queue_gather_table  # noqa: E402
 from repro_torch.link import LinkPowerModel, LinkSpec, TxPipeline  # noqa: E402
 from repro_torch.traffic import (  # noqa: E402
     egress_permutation,
@@ -1038,6 +1059,18 @@ def _permute(codes: torch.Tensor, perm: torch.Tensor, step: int = 1 << 27) -> to
     return out
 
 
+def full_gradient(m: int, dev: torch.device) -> tuple[torch.Tensor, torch.Generator]:
+    """The full-width flat gradient, made on the card: N(0, 1) scaled by
+    lognormal(0, 2) per quantizer block (seed 14), and its generator."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    g = torch.randn(m, generator=gen, device=dev)
+    block = EGRESS["block"]
+    nb = m // block
+    g[: nb * block].view(nb, block).mul_(
+        torch.empty((nb, 1), device=dev).log_normal_(0, 2, generator=gen))
+    return g, gen
+
+
 def phase_egress(dev: torch.device, full: bool = True) -> dict:
     """The gradient-egress path: quantize -> static popcount permutation ->
     BT, at the pinned size against the JAX pins (and benchmarks/arch_bt.py
@@ -1098,12 +1131,9 @@ def phase_egress(dev: torch.device, full: bool = True) -> dict:
     # (ii) full width: the flat gradient of EGRESS_ARCH, made on the card
     m = get_config(EGRESS_ARCH).param_count() if full else 64 * 1000 + 3
     torch.cuda.reset_peak_memory_stats(dev)
-    gen = torch.Generator(device=dev).manual_seed(14)
     t0 = time.perf_counter()
-    g = torch.randn(m, generator=gen, device=dev)
+    g, gen = full_gradient(m, dev)
     nb = m // e["block"]
-    g[: nb * e["block"]].view(nb, e["block"]).mul_(
-        torch.empty((nb, 1), device=dev).log_normal_(0, 2, generator=gen))
     codes, scales, mp = quantize_egress(g, block=e["block"])
     step = 1 << 26  # plain check in row chunks of 2**18 blocks
     err = 0
@@ -1168,6 +1198,521 @@ def phase_egress(dev: torch.device, full: bool = True) -> dict:
     if counts != expected:
         fail(f"egress-path launch counts {counts} != {expected}")
     return {"rows": rows, "launches": counts, "max_abs_err": err}
+
+
+# ------------------------------------------------------------------ phase 3e
+# The NoC fabric and the design-space sweep.  Pins from the JAX package
+# (``repro``, compiled backend, CPU) on the same inputs:
+# benchmarks/noc_bt.py's defaults (NOC_BT), benchmarks/fleet_noc.py's
+# (FLEET) and benchmarks/dse_sweep.py's with fig5_area.py's k sweep and
+# fig7_power.py's sorting-unit overhead row (DSE_SWEEP).  Digests are of
+# ``links_digest`` / ``evals_digest`` below and of the SAIF text of
+# ``write_saif(..., design="noc_bt")``; tests/test_torch_noc.py and
+# tests/test_torch_dse.py hold both packages to them.
+
+NOC_FABRICS = (("mesh", (4, 4), 0, tuple(r for r in range(16) if r % 4)),  # PEs off col 0
+               ("ring", (8,), 0, tuple(range(1, 8))))
+NOC_DESIGNS = (("none", "source"), ("acc", "source"), ("app", "source"), ("acc", "hop"),
+               ("none", "hop"))
+
+NOC_BT = {
+    "n_images": 3,
+    "max_hops": 6,
+    "window": 32,  # flit rows per activity window (noc_bt.py --activity)
+    # per fabric and (key, sort_at): total BT, active links, flit hops,
+    # links_digest of the (link, bt_input, bt_weight) rows
+    "designs": {
+        "mesh4x4": {
+            "none-source": [1220904, 12, 25704,
+                           "9017c710f71cb230431ac63329d15c6303035e02c4de56d602e56777aa743a72"],
+            "acc-source": [1112357, 12, 25704,
+                          "ca4882ba71471029c46ac0a59098137abd6a221987c7a864990eb874e2264a70"],
+            "app-source": [1136002, 12, 25704,
+                          "b7bc615d54683a403f5cf71d12910698cbb5220223ecbfa5dee230c7b5232065"],
+            "acc-hop": [1102142, 12, 25704,
+                       "b57b4dccbe0c329094b040201f130e141e3e6afe4b60366a19f625512429c47c"],
+            "none-hop": [1210317, 12, 25704,
+                        "88663cefbe273b3b170086b00004c4fa42fb9918ac07a8e571f6775b38300522"],
+        },
+        "ring1x8": {
+            "none-source": [790267, 7, 16776,
+                           "603c9051ba8dfd1b55e73e5b8750dd787551e2ef91150ab586bbd49a18922c79"],
+            "acc-source": [723532, 7, 16776,
+                          "b25a82168e12d98570029be383ac0b358687ff48de382b5150da8809a258743c"],
+            "app-source": [738142, 7, 16776,
+                          "4dd082a40c8d7cfc549025f6b357d5739c310c1506406060ae05dec397927a65"],
+            "acc-hop": [716012, 7, 16776,
+                       "b424945404d2524a5ec121101dcfc271eb64eb373ad7ef6e573dc0df40406970"],
+            "none-hop": [788440, 7, 16776,
+                        "52ddee229f98c4b716411e633f362dcea2e218e449f2d8b6bf656e44994f0908"],
+        },
+    },
+    # the mesh acc/source fabric's top 3 links: (link, gross BT)
+    "hot_links": [[0, 317991], [2, 212197], [5, 105994]],
+    # the hop sweep: (hops, BT none, BT acc) of one paired unicast flow
+    "hops": [[1, 18544, 16632], [2, 37088, 33264], [3, 55632, 49896], [4, 74176, 66528],
+             [5, 92720, 83160], [6, 111264, 99792]],
+    "saif_sha256": "c02f3ce1099df82e56bfade5d2c497263bc706f987d7b51a844a5707a0fe4e9b",
+    "coded": [1006867, 24196],  # mesh acc + bus_invert4: (total BT, aux BT)
+}
+
+FLEET = {
+    "users": 16, "layers": 16, "shards": 4, "rows": 16, "cols": 16,
+    "plan": [1024, 240, 64],  # flows, active links, distinct queues
+    "bt": {"none": 4703297, "acc": 4150346, "app": 4231682},  # source-sorted fabrics
+    "latency": [9110.0, 3342.0, 240],  # max / mean flow latency (ns), contended links
+}
+
+DSE_SWEEP = {
+    "conv_images": 8,
+    "ks": (2, 4, 8),
+    "ns": (25, 49),
+    "window": 32,  # activity windows of the axis grid's wire-resolved run
+    "bt": {  # label: (total BT, aux BT)
+        "none@N25": [929378, 0], "acc@N25": [797027, 0], "app-k2@N25": [874104, 0],
+        "app-k4@N25": [812190, 0], "app-k8@N25": [800413, 0], "column_major@N25": [967505, 0],
+        "bitonic@N25": [797027, 0], "csn@N25": [797027, 0], "none@N49": [929378, 0],
+        "acc@N49": [797027, 0], "app-k2@N49": [874104, 0], "app-k4@N49": [812190, 0],
+        "app-k8@N49": [800413, 0], "column_major@N49": [967505, 0], "bitonic@N49": [797027, 0],
+        "csn@N49": [797027, 0],
+    },
+    "evals_sha256": "c0a9f47c0b937f22d5ad62dd11d956ea2c5d074c5ff34a3b8a2783a5bac54b0e",
+    "front": ["none@N25", "acc@N25", "app-k2@N25", "app-k4@N25", "app-k8@N25", "bitonic@N25",
+              "none@N49"],  # the 3-objective front of the whole grid
+    "knee": "app-k4@N25",  # of the area x BT plane at N = 25
+    "noc_point_sha256": "d824d2e1df2adfc84940992f7e45f9f1205ae1faba772a39ffd46d22e0c633b4",
+    "axis_sha256": "4f0b4ba951071be77747a21d2f0dd325bcf32f93ebe8531be4549779abbfb275",
+    "axis_activity_sha256": "a3a19445b44cb5bb3113cce00935d7e1c9bdadef0e48dcbe79ec8ea1a52efb55",
+    "grid_launches": 1,
+    "fig5_k_sweep": {"k2": "total=1703um2", "k4": "total=2193um2", "k8": "total=3126um2"},
+    "fig7_psu_power_overhead": "app/acc area ratio=0.646 -> overhead reduction=35.4%",
+}
+
+
+def links_digest(report) -> str:
+    """sha256 of a NoC report's per-link (link, bt_input, bt_weight) rows."""
+    rows = [[s.link, s.bt_input, s.bt_weight] for s in report.links]
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()
+
+
+def evals_digest(evals) -> str:
+    """sha256 of every measured and derived field of DSE evaluations (floats
+    by their exact repr)."""
+    rows = [[e.label, e.total_bt, e.aux_bt, e.num_flits, e.bt_reduction, e.area_reduction,
+             e.link_power_reduction, e.energy_pj, e.noc_bt_reduction, e.noc_active_links,
+             e.noc_latency_ns, e.extra_wires,
+             None if e.per_wire_bt is None else list(e.per_wire_bt)] for e in evals]
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()
+
+
+def noc_conv_inputs(n_images: int) -> tuple[list[np.ndarray], np.ndarray]:
+    """noc_bt.py's conv-platform payloads: each image's im2col patches and
+    one output channel's kernel bytes."""
+    kernel = np.random.default_rng(0).integers(0, 256, (25,), dtype=np.uint8)
+    return [np.ascontiguousarray(im2col(img, 5)) for img in synth_images(n_images, seed=7)], kernel
+
+
+def noc_hop_inputs(max_hops: int) -> tuple[np.ndarray, np.ndarray, list[int]]:
+    """noc_bt.py's hop sweep: 96 paired 32-byte packets and the mesh(4, 4)
+    routers at XY distance 1..max_hops from router 0 (capped at the
+    diameter)."""
+    rng = np.random.default_rng(1)
+    img = synth_images(1, seed=11)[0]
+    pkts = np.ascontiguousarray(im2col(img, 5).reshape(-1)[: 96 * 32].reshape(96, 32))
+    wgts = rng.integers(0, 256, pkts.shape, dtype=np.uint8)
+    hops = range(1, min(max_hops, 6) + 1)
+    return pkts, wgts, [4 * max(0, h - 3) + min(h, 3) for h in hops]
+
+
+def fleet_weights() -> np.ndarray:
+    """fleet_noc.py's weight tensor (its int8 wire image is itself)."""
+    return np.random.default_rng(0).integers(0, 256, (1 << 16,), dtype=np.uint8)
+
+
+def dse_grid(ks, ns, mod=dse) -> tuple:
+    """dse_sweep.py's grid: the k sweep, column-major and the comparator
+    families at each sort width (``mod``: the package building the points)."""
+    points = []
+    for n in ns:
+        points.extend(mod.k_sweep(n=n, width=8, ks=ks))
+        points.append(mod.DesignPoint(n=n, width=8, k=None, ordering="column_major"))
+        points.append(mod.DesignPoint(family="bitonic", n=n, width=8, k=None, ordering="acc"))
+        points.append(mod.DesignPoint(family="csn", n=n, width=8, k=None, ordering="acc"))
+    return tuple(points)
+
+
+def dse_axis_points(n: int, ks, mod=dse) -> tuple:
+    """dse_sweep.py's full multi-axis grid: the k sweep, a bus-invert4
+    point and a mesh4x4 point."""
+    return tuple(mod.k_sweep(n=n, width=8, ks=ks)) + (
+        mod.DesignPoint(n=n, ordering="acc", k=None, codec="bus_invert4"),
+        mod.DesignPoint(n=n, ordering="app", k=4, topology="mesh4x4"),
+    )
+
+
+def _device_total_ms(fn, reps: int = 3, top: int = 6) -> tuple[float | None, dict]:
+    """Device time per call of every CUDA kernel ``fn`` launches
+    (``torch.profiler``; None when it records none), and the ``top``
+    kernels' shares of it by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if str(getattr(ev, "device_type", "")).endswith("CUDA") and ev.self_device_time_total]
+    evs.sort(key=lambda ev: -ev.self_device_time_total)
+    total = sum(ev.self_device_time_total for ev in evs)
+    split = {ev.key[:80]: ev.self_device_time_total / reps / 1e3 for ev in evs[:top]}
+    return (total / reps / 1e3 if total else None), split
+
+
+class _PathLaunches:
+    """The launch counts of one path's calls: each call runs with every
+    count set to 0 just before it and read just after (checks between the
+    calls launch nothing that counts)."""
+
+    def __init__(self):
+        self.total = {k: 0 for k in kernels.launch_counts()}
+
+    def run(self, what: str, fn, expect: dict):
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = kernels.launch_counts()
+        want = {k: 0 for k in got} | expect
+        if got != want:
+            fail(f"{what}: launches {got} != {want}")
+        for k, v in got.items():
+            self.total[k] += v
+        return out
+
+
+def _same_links(a, b, what: str) -> None:
+    if [dataclasses.astuple(s) for s in a.links] != [dataclasses.astuple(s) for s in b.links]:
+        fail(f"{what}: link rows differ from the plain version's")
+
+
+def _sorts(key: str) -> dict:
+    """psu_sort launches of a fabric's source order: one for acc / app."""
+    return {"psu_sort": 1} if key in ("acc", "app") else {}
+
+
+def phase_noc(dev: torch.device, full: bool = True) -> dict:
+    """The NoC fabric and the design-space sweep: (a) benchmarks/noc_bt.py,
+    (b) fleet_noc.py and (c) dse_sweep.py at their defaults against the JAX
+    pins and the plain versions, (d) one ring all-reduce step of
+    EGRESS_ARCH's whole int8 gradient against independent per-shard
+    ``bt_count`` measurements.  Returns rows, times and the launch counts."""
+    t_phase = time.perf_counter()
+    lc = _PathLaunches()
+    rows: dict = {}
+    nb = NOC_BT
+
+    # (a) the paper's NoC: conv-platform traffic on a mesh and a ring
+    patches, kernel = noc_conv_inputs(nb["n_images"])
+    kt = torch.from_numpy(kernel).to(dev)
+    mesh_flows = None
+    for kind, args, src, pes in NOC_FABRICS:
+        topo = getattr(noc, kind)(*args)
+        tname = f"{topo.kind}{topo.rows}x{topo.cols}"
+        flows = [f for pt in patches for f in noc.conv_platform_flows(
+            torch.from_numpy(pt).to(dev), kt, topo, src, pes, LinkSpec())]
+        if kind == "mesh":
+            mesh_topo, mesh_flows = topo, flows
+        base = None
+        for key, sort_at in NOC_DESIGNS:
+            spec = LinkSpec(key=key)
+            watch = (kind, key, sort_at) == ("mesh", "acc", "source")
+            with (obs.collect() if watch else contextlib.nullcontext()) as reg:
+                rep = lc.run(f"noc/{tname}/{key}-{sort_at}", lambda: noc.simulate_noc(
+                    topo, flows, spec, sort_at=sort_at), {"bt_axes": 1} | _sorts(key))
+            _same_links(rep, noc.simulate_noc(topo, flows, spec, sort_at=sort_at,
+                                              backend="torch"), f"noc/{tname}/{key}-{sort_at}")
+            got = [rep.total_bt, rep.active_links, rep.total_flit_hops, links_digest(rep)]
+            pin = nb["designs"][tname][f"{key}-{sort_at}"]
+            if got != pin:
+                fail(f"noc/{tname}/{key}-{sort_at}: {got} != pinned {pin}")
+            if base is None:
+                base = rep
+            rows[f"noc/{tname}/{key}-{sort_at}"] = {
+                "bt": rep.total_bt, "red_pct": 100 * rep.reduction_vs(base),
+                "links": rep.active_links, "flit_hops": rep.total_flit_hops,
+                "energy_nj": rep.energy_pj / 1e3}
+            if reg is not None:
+                hot = [[r["link"], r["gross_bt"]] for r in obs.top_links(reg, 3)]
+                if hot != nb["hot_links"]:
+                    fail(f"noc hot links {hot} != pinned {nb['hot_links']}")
+                rows["noc/hot_links"] = hot
+        log(f"noc/{tname}: {len(flows)} conv flows, 5 designs x (total BT, active links, flit "
+            "hops, per-link digest) = reference and = the plain versions; "
+            + " ".join(f"{k}={rows[f'noc/{tname}/{k}']['red_pct']:.2f}%"
+                       for k in ("acc-source", "app-source", "acc-hop")))
+    # the hop sweep: one paired unicast flow at XY distance 1..max_hops
+    pkts, wgts, dests = noc_hop_inputs(nb["max_hops"])
+    pk, wg = torch.from_numpy(pkts).to(dev), torch.from_numpy(wgts).to(dev)
+    hops = []
+    for dst in dests:
+        flow = [noc.TrafficFlow("sweep", 0, (dst,), pk, wg)]
+        bt = [lc.run(f"noc/hops to {dst}", lambda: noc.simulate_noc(
+            mesh_topo, flow, LinkSpec(key=key)), {"bt_axes": 1} | _sorts(key)).total_bt
+            for key in ("none", "acc")]
+        hops.append([noc.hop_count(mesh_topo, 0, dst), *bt])
+    if hops != nb["hops"]:
+        fail(f"noc hop sweep {hops} != pinned {nb['hops']}")
+    rows["noc/hops"] = hops
+    # the mesh acc/source fabric wire by wire, into profiles and SAIF
+    w = nb["window"]
+    rep = lc.run("noc activity", lambda: noc.simulate_noc(
+        mesh_topo, mesh_flows, LinkSpec(key="acc"), activity_windows=w),
+        {"bt_axes_activity": 1, "psu_sort": 1})
+    plain = noc.simulate_noc(mesh_topo, mesh_flows, LinkSpec(key="acc"), activity_windows=w,
+                             backend="torch")
+    _same_links(rep, plain, "noc activity")
+    if not all(np.array_equal(a, b) for a, b in zip(rep.wire_toggles + rep.wire_ones,
+                                                     plain.wire_toggles + plain.wire_ones)):
+        fail("noc activity: wire arrays differ from the plain version's")
+    profiles = obs.profiles_from_noc(rep)
+    for p, s in zip(profiles, rep.links):
+        p.check(s.gross_bt)
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    text = obs.write_saif(str(out / "ACTIVITY_noc_bt.saif"), profiles, design="noc_bt")
+    saif = hashlib.sha256(text.encode()).hexdigest()
+    if saif != nb["saif_sha256"]:
+        fail(f"noc SAIF digest {saif} != the reference's {nb['saif_sha256']}")
+    # one coded fabric: a bus-invert4 encoder at every link's egress
+    coded = LinkSpec(key="acc", codec="bus_invert4")
+    rep = lc.run("noc coded", lambda: noc.simulate_noc(mesh_topo, mesh_flows, coded),
+                 {"bt_axes": 1, "psu_sort": 1})
+    _same_links(rep, noc.simulate_noc(mesh_topo, mesh_flows, coded, backend="torch"),
+                "noc coded")
+    if [rep.total_bt, rep.total_aux_bt] != nb["coded"]:
+        fail(f"noc coded: {[rep.total_bt, rep.total_aux_bt]} != pinned {nb['coded']}")
+    # noc_bt's looped baseline: two bt_count launches per link
+    ls = lc.run("noc expand", lambda: noc.expand_link_streams(
+        mesh_topo, mesh_flows, LinkSpec(key="acc")), {"psu_sort": 1})
+    il = LinkSpec().input_lanes
+    fused = lc.run("noc fused", lambda: kernels.bt_count_links(ls.streams, input_lanes=il),
+                   {"bt_axes": 1})
+    looped = lc.run("noc looped", lambda: torch.stack([torch.stack([
+        bt_count(ls.streams[i, :, :il]), bt_count(ls.streams[i, :, il:])])
+        for i in range(ls.streams.shape[0])]), {"bt_count": 2 * ls.streams.shape[0]})
+    if not torch.equal(fused, looped):
+        fail("noc: bt_count_links differs from the looped bt_count baseline")
+    log(f"noc hop sweep {hops}, hot links {rows['noc/hot_links']}, activity ({len(profiles)} "
+        f"links, windows of {w}: per-wire sums = gross BT, SAIF sha256 {saif}), bus_invert4 "
+        f"fabric {nb['coded']}, fused = looped over {ls.streams.shape[0]} links: = reference")
+
+    # (b) the fleet: users x layers x shards multicast flows on mesh(16, 16)
+    fl = FLEET
+    topo = noc.mesh(fl["rows"], fl["cols"])
+    spec = LinkSpec(input_lanes=16, weight_lanes=0, key="acc")
+    flows = noc.fleet_decode_flows(torch.from_numpy(fleet_weights()).to(dev), topo,
+                                   users=fl["users"], layers=fl["layers"], shards=fl["shards"],
+                                   spec=spec)
+    plan = noc.compile_fabric(topo, [(f.src, f.dsts) for f in flows])
+    got = [len(flows), plan.active_links, plan.num_queues]
+    if got != fl["plan"]:
+        fail(f"fleet plan {got} != pinned {fl['plan']}")
+    fleet_bt = {}
+    for key in ("none", "acc", "app"):
+        sk = dataclasses.replace(spec, key=key)
+        rep = lc.run(f"fleet/{key}", lambda: noc.simulate_noc(topo, flows, sk),
+                     {"bt_axes": 1} | _sorts(key))
+        _same_links(rep, noc.simulate_noc(topo, flows, sk, backend="torch"), f"fleet/{key}")
+        fleet_bt[key] = rep.total_bt
+    if fleet_bt != fl["bt"]:
+        fail(f"fleet BT {fleet_bt} != pinned {fl['bt']}")
+    lat = noc.fabric_latency(plan, [f.inputs.shape[0] * spec.flits_per_packet for f in flows])
+    got = [lat.max_latency_ns, lat.mean_latency_ns, lat.contended_links]
+    if got != fl["latency"]:
+        fail(f"fleet latency {got} != pinned {fl['latency']}")
+    rows["fleet"] = {"plan": fl["plan"], "bt": fleet_bt, "latency": got}
+    log(f"fleet mesh{fl['rows']}x{fl['cols']}: flows/active links/queues {fl['plan']}, BT "
+        f"{fleet_bt}, latency max/mean/contended {got} = reference")
+
+    # (c) the design-space sweep on dse_sweep.py's conv streams
+    ds = DSE_SWEEP
+    inp, wgt = (torch.from_numpy(a).to(dev) for a in conv_streams(n_images=ds["conv_images"]))
+    workload = dse.Workload("conv", (inp, wgt), lanes=16)
+    points = dse_grid(ds["ks"], ds["ns"])
+    evals = lc.run("dse grid", lambda: dse.evaluate_grid(points, workload), {"bt_axes": 1})
+    plain = dse.evaluate_grid(points, workload, backend="torch")
+    if [dataclasses.asdict(e) for e in evals] != [dataclasses.asdict(e) for e in plain]:
+        fail("dse grid: evaluations differ from the plain version's")
+    got = {e.label: [e.total_bt, e.aux_bt] for e in evals}
+    if got != ds["bt"] or evals_digest(evals) != ds["evals_sha256"]:
+        fail(f"dse grid: {got} / {evals_digest(evals)} != the pins")
+    front = [e.label for e in dse.pareto_front(evals)]
+    plane = [e for e in evals if e.point.n == ds["ns"][0]]
+    knee = dse.knee_point(dse.pareto_front(plane, dse.AREA_BT_OBJECTIVES),
+                          dse.AREA_BT_OBJECTIVES).label
+    if front != ds["front"] or knee != ds["knee"]:
+        fail(f"dse front {front} / knee {knee} != pinned {ds['front']} / {ds['knee']}")
+    noc_pt = dse.DesignPoint(ordering="app", k=4, topology="mesh4x4")
+    ne = lc.run("dse noc point", lambda: dse.evaluate_grid(
+        (noc_pt,), dse.Workload("conv", (inp,), lanes=16)), {"bt_axes": 1})
+    if evals_digest(ne) != ds["noc_point_sha256"]:
+        fail("dse mesh4x4 point differs from the reference's")
+    axis = dse_axis_points(ds["ns"][0], ds["ks"])
+    ae = lc.run("dse axis grid", lambda: dse.evaluate_grid(axis, workload), {"bt_axes": 1})
+    aw = lc.run("dse axis grid, activity", lambda: dse.evaluate_grid(
+        axis, workload, activity_windows=ds["window"]), {"bt_axes_activity": 1})
+    launches = lc.run("dse grid_launch_count", lambda: dse.grid_launch_count(axis, workload),
+                      {"bt_axes": 1})
+    if [evals_digest(ae), evals_digest(aw), launches] != [
+            ds["axis_sha256"], ds["axis_activity_sha256"], ds["grid_launches"]]:
+        fail(f"dse axis grid {[evals_digest(ae), evals_digest(aw), launches]} != the pins")
+    plain = dse.evaluate_grid(axis, workload, activity_windows=ds["window"], backend="torch")
+    if [dataclasses.asdict(e) for e in aw] != [dataclasses.asdict(e) for e in plain]:
+        fail("dse axis grid with activity differs from the plain version's")
+    fig5 = {f"k{pt.k}": f"total={pt.area().total:.0f}um2" for pt in dse.k_sweep(
+        n=25, width=8, ks=(2, 4, 8), include_baseline=False, include_precise=False)}
+    red = dse.area_reduction(dse.DesignPoint(n=25, width=8, k=4, ordering="app"))
+    fig7 = f"app/acc area ratio={1 - red:.3f} -> overhead reduction={100 * red:.1f}%"
+    if fig5 != ds["fig5_k_sweep"] or fig7 != ds["fig7_psu_power_overhead"]:
+        fail(f"fig5/k_sweep {fig5} / fig7/psu_power_overhead {fig7!r} != the reference's rows")
+    rows["dse"] = {"points": len(evals), "front": front, "knee": knee,
+                   "noc_point": {"bt_red": ne[0].noc_bt_reduction,
+                                 "links": ne[0].noc_active_links},
+                   "grid_launches": launches, "fig5/k_sweep": fig5,
+                   "fig7/psu_power_overhead": fig7}
+    log(f"dse sweep: {len(evals)} points = reference (BT, floats by digest) and = plain; "
+        f"front {front}; knee {knee}; mesh4x4 point {ne[0].noc_active_links} links "
+        f"bt_red={100 * ne[0].noc_bt_reduction:.2f}%; axis grid (+activity) = reference, "
+        f"{launches} launch; fig5/k_sweep {fig5}; fig7/psu_power_overhead {fig7} (paper 37.3% "
+        "power, 35.4% area)")
+    del inp, wgt, workload
+
+    # (d) full width: one ring reduce-scatter step of EGRESS_ARCH's int8 gradient
+    m = get_config(EGRESS_ARCH).param_count() if full else 64 * 8000 + 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    g, _ = full_gradient(m, dev)
+    codes = lc.run("full quantize", lambda: quantize_egress(g, block=EGRESS["block"])[0],
+                   {"quantize_egress": 1})
+    del g
+    ring = noc.ring(8)
+    spec0 = LinkSpec(input_lanes=16, weight_lanes=0, k=4)
+    flows = noc.ring_allreduce_flows(codes[:m], ring, spec=spec0)
+    shard = (m // 64) // 8
+    if [f.inputs.shape[0] for f in flows] != [shard] * 7 + [m // 64 - 7 * shard]:
+        fail(f"full ring: shard packets {[f.inputs.shape[0] for f in flows]}")
+    full_rows = {}
+    for key in ("none", "acc", "app"):
+        spec = dataclasses.replace(spec0, key=key)
+        t1 = time.perf_counter()
+        rep = lc.run(f"full ring {key}", lambda: noc.simulate_noc(ring, flows, spec),
+                     {"bt_axes": 1} | _sorts(key))
+        call_s = time.perf_counter() - t1
+        by_link = {s.link: s for s in rep.links}
+        for f in flows:
+            s = by_link[noc.unicast_links(ring, f.src, f.dsts[0])[0]]
+            pk = f.inputs if key == "none" else psu_reorder(
+                f.inputs, k=4 if key == "app" else None)
+            stream = pk.reshape(-1, 16, 4).transpose(1, 2).reshape(-1, 16)
+            bt = _bt_sum(stream)
+            if [s.bt_input, s.bt_weight, s.num_flits] != [bt, 0, stream.shape[0]]:
+                fail(f"full ring {key} link {s.link}: {[s.bt_input, s.bt_weight, s.num_flits]} "
+                     f"!= independent bt_count {[bt, 0, stream.shape[0]]}")
+        head = stream[: 1 << 22][None]
+        plain = int(kernels.bt_count_links(head, backend="torch")[0, 0])
+        if plain != _bt_sum(head[0]) or plain != int(kernels.bt_count_links(head)[0, 0]):
+            fail(f"full ring {key}: bt_count_links on 2**22 rows differs from plain / bt_count")
+        full_rows[key] = {"bt": rep.total_bt, "links": rep.active_links,
+                          "flit_hops": rep.total_flit_hops, "call_s": call_s}
+    base = full_rows["none"]["bt"]
+    log(f"full ring {EGRESS_ARCH}: {m} int8 codes, 8 shards of {shard} packets, "
+        f"{shard * 4} flits a link; every link's BT = independent bt_count of psu_reorder -> "
+        f"pack -> stream; " + " ".join(
+            f"{k}: bt={r['bt']} red={100 * (1 - r['bt'] / base):.4f}% ({r['call_s']:.2f} s)"
+            for k, r in full_rows.items()))
+    # times at this shape: the expansion, the one measurement, the sort
+    spec = dataclasses.replace(spec0, key="app")
+    plan = noc.compile_fabric(ring, [(f.src, f.dsts) for f in flows])
+    batch = noc.FlowBatch.from_flows(flows, spec)
+    fs = noc.expand_fabric(plan, batch, spec)
+    t, lanes = int(fs.streams.shape[1]), int(fs.streams.shape[2])
+    links_bytes = sum(fs.lengths) * lanes
+    lb, lby = bound(links_bytes, sum(max(n - 1, 0) for n in fs.lengths) * lanes * 3)
+    pkts = batch.inputs.view(-1, 64)
+
+    def measure():
+        return kernels.bt_count_links(fs.streams, input_lanes=16, lengths=fs.lengths)
+
+    def sort():
+        return psu_sort(pkts, k=4)
+
+    plain_links = []  # the plain version's per-link rows of its timed call
+
+    def measure_plain():
+        plain_links[:] = [kernels.bt_count_links(
+            fs.streams[i: i + 1], input_lanes=16, lengths=fs.lengths[i: i + 1], backend="torch")
+            for i in range(len(fs.lengths))]
+
+    sb, sby = bound(pkts.numel() * 9, pkts.numel() * 4)
+    times = {
+        "expand_fabric": {"shape": [len(flows), shard, 64],
+                          "wall_ms": wall_ms(lambda: noc.expand_fabric(plan, batch, spec), reps=3)},
+        # the plain versions link by link and in 2**19-packet chunks, as
+        # phase 3d checks the sort (whole, their temporaries would not fit)
+        "bt_count_links": {"shape": [len(fs.lengths), t, lanes], "bytes": links_bytes,
+                           "bound_ms": lb, "bound_by": lby, "ms": time_ms(measure, reps=5),
+                           "plain_ms": time_ms(measure_plain, reps=1, warmup=1),
+                           "library_ms": None},
+        "psu_sort": {"shape": list(pkts.shape), "bound_ms": sb, "bound_by": sby,
+                     "ms": time_ms(sort, reps=5),
+                     "plain_ms": time_ms(lambda: [psu_sort(pkts[a: a + (1 << 19)], k=4,
+                                                           backend="torch")
+                                                  for a in range(0, pkts.shape[0], 1 << 19)],
+                                         reps=1, warmup=1)},
+    }
+    got = measure()
+    if not torch.equal(torch.cat(plain_links), got):
+        fail(f"full ring: bt_count_links {got.tolist()} != plain per link "
+             f"{torch.cat(plain_links).tolist()}")
+    del plain_links
+    times["expand_fabric"]["device_ms"], times["expand_fabric"]["device_split"] = (
+        _device_total_ms(lambda: noc.expand_fabric(plan, batch, spec)))
+    # the queue gather a ring step skips (each queue is one whole flow):
+    # its table built on the card, and the batch's index_select by it
+    table = _queue_gather_table(plan, batch.counts, batch.inputs.shape[1], dev)[0].reshape(-1)
+    if not torch.equal(table, torch.arange(table.numel(), device=dev)):
+        fail("full ring: the queue gather table is not the identity")
+    times["expand_fabric"]["table_ms"] = time_ms(
+        lambda: _queue_gather_table(plan, batch.counts, batch.inputs.shape[1], dev), reps=5)
+    times["expand_fabric"]["gather_ms"] = time_ms(lambda: pkts.index_select(0, table), reps=5)
+    del table
+    # the kernels' device time split by kernel (for bt_axes: block kernel and fold)
+    for name, fn, names in (("bt_count_links", measure, ("bt_axes",)),
+                            ("psu_sort", sort, ("psu_sort_kernel",))):
+        times[name]["device_ms"], times[name]["device_split"] = device_ms(fn, names)
+    del fs, batch, flows, codes
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the library call for the sort, after the path's peak is read: its
+    # int64 result alone is 8 bytes an element
+    keys = bucket_map(popcount(pkts, 8), 8, 4).to(torch.uint8)
+    times["psu_sort"]["library_ms"] = time_ms(
+        lambda: torch.argsort(keys, dim=-1, stable=True), reps=5)
+    del keys, pkts
+    torch.cuda.empty_cache()
+    rows["noc/full_ring"] = {"arch": EGRESS_ARCH, "elems": m, "shard_packets": shard,
+                             "rows": full_rows, "times": times, "peak_bytes": peak,
+                             "seconds": seconds}
+    for name, r in times.items():
+        log(f"time noc full ring {name} {r['shape']}: " + " ".join(
+            f"{k}={v}" for k, v in r.items() if k != "shape"))
+    log(f"full ring: peak {peak} bytes allocated; {seconds:.1f} s")
+    seconds = time.perf_counter() - t_phase
+    log(f"noc/dse-path launches: {lc.total}; phase 3e {seconds:.1f} s")
+    return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1515,6 +2060,7 @@ def main() -> int:
     codec_path = phase_codec(dev)
     activity_path = phase_activity(dev)
     egress_path = phase_egress(dev)
+    noc_path = phase_noc(dev)
     cases = phase_scale(dev)
     record = []
     for name, meta in KERNELS.items():
@@ -1523,12 +2069,14 @@ def main() -> int:
         # path (phase 3) and the egress path (3d) for psu_sort and
         # bt_count, the transmit path for psu_stream, the codec path for
         # bt_axes, the activity path for bt_axes_activity and the egress
-        # path for quantize_egress
-        paths = {"psu_sort": ("transmit", "egress"), "bt_count": ("transmit", "egress"),
-                 "psu_stream": ("transmit",), "bt_axes": ("codec",),
-                 "bt_axes_activity": ("activity",), "quantize_egress": ("egress",)}[name]
+        # path for quantize_egress; the NoC / DSE path (3e) for all but
+        # psu_stream
+        paths = {"psu_sort": ("transmit", "egress", "noc"),
+                 "bt_count": ("transmit", "egress", "noc"), "psu_stream": ("transmit",),
+                 "bt_axes": ("codec", "noc"), "bt_axes_activity": ("activity", "noc"),
+                 "quantize_egress": ("egress", "noc")}[name]
         runs = {"transmit": main_path, "codec": codec_path, "activity": activity_path,
-                "egress": egress_path}
+                "egress": egress_path, "noc": noc_path}
         by_path = {p: runs[p]["launches"][name] for p in paths}
         record.append({
             "name": name, "route": "cuda", **meta,
@@ -1546,11 +2094,15 @@ def main() -> int:
                                f"{tag}_plain_ms": e["plain_ms"],
                                f"{tag}_bound_ms": e["bound_ms"],
                                f"{tag}_library_ms": e["library_ms"]})
+        noc_time = noc_path["rows"]["noc/full_ring"]["times"].get(
+            {"bt_axes": "bt_count_links", "psu_sort": "psu_sort"}.get(name, ""))
+        if noc_time is not None:  # the full-width ring's shape (phase 3e (d))
+            record[-1].update({f"noc_{k}": v for k, v in noc_time.items()})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
         "card": card, "kernels": record, "main_path": main_path, "codec_path": codec_path,
-        "activity_path": activity_path, "egress_path": egress_path,
+        "activity_path": activity_path, "egress_path": egress_path, "noc_path": noc_path,
         "scale_cases": cases,
         "seconds": time.perf_counter() - t0,
     }, indent=1, default=str))

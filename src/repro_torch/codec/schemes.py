@@ -105,41 +105,44 @@ def _stateless_decode(fn: Callable[[torch.Tensor], torch.Tensor]):
 
 def transition_encode(stream: torch.Tensor) -> CodedStream:
     """wire_t = wire_{t-1} ^ data_t (wire_0 = data_0): a cumulative XOR
-    over rows, by doubling steps."""
+    over rows, by doubling steps.  Takes (T, lanes) or a batch of streams
+    (..., T, lanes), each coded on its own."""
     wire = stream.to(torch.uint8).clone()
     step = 1
-    while step < wire.shape[0]:
-        wire[step:] = wire[step:] ^ wire[:-step]
+    while step < wire.shape[-2]:
+        wire[..., step:, :] = wire[..., step:, :] ^ wire[..., :-step, :]
         step *= 2
     return CodedStream(wire, None)
 
 
 def transition_decode(coded: CodedStream) -> torch.Tensor:
     w = coded.wire.to(torch.uint8)
-    return torch.cat([w[:1], w[1:] ^ w[:-1]], dim=0)
+    return torch.cat([w[..., :1, :], w[..., 1:, :] ^ w[..., :-1, :]], dim=-2)
 
 
 def bus_invert_encode(stream: torch.Tensor, partition: int | None = None) -> CodedStream:
     """Bus-invert over a flit stream: flit 0 uninverted; each later flit
     group complemented iff that strictly lowers its Hamming distance to
-    the previous wire flit (ties uninverted)."""
-    t, lanes = stream.shape
+    the previous wire flit (ties uninverted).  Takes (T, lanes) or a
+    batch of streams (..., T, lanes), each coded on its own: ``invert``
+    is then (..., T, partitions)."""
+    *lead, t, lanes = stream.shape
     npart, pw = bus_invert_partitions(lanes, partition)
-    d = stream.to(torch.int32).reshape(t, npart, pw)
-    hd = _popcount_bits(d[1:] ^ d[:-1], 8).sum(-1)
-    entry = torch.zeros(npart, dtype=torch.int32, device=stream.device)
+    d = stream.to(torch.int32).reshape(*lead, t, npart, pw)
+    hd = _popcount_bits(d[..., 1:, :, :] ^ d[..., :-1, :, :], 8).sum(-1)
+    entry = torch.zeros((*lead, npart), dtype=torch.int32, device=stream.device)
     inv = bus_invert_lines(hd, 8 * pw, entry)
-    wire = (d ^ (inv[:, :, None] * 0xFF)).reshape(t, lanes)
+    wire = (d ^ (inv[..., None] * 0xFF)).reshape(*lead, t, lanes)
     return CodedStream(wire.to(torch.uint8), inv.to(torch.uint8))
 
 
 def bus_invert_decode(coded: CodedStream) -> torch.Tensor:
-    t, lanes = coded.wire.shape
+    *lead, t, lanes = coded.wire.shape
     npart = coded.invert.shape[-1]
     _, pw = bus_invert_partitions(lanes, lanes // npart)
-    w = coded.wire.to(torch.int32).reshape(t, npart, pw)
+    w = coded.wire.to(torch.int32).reshape(*lead, t, npart, pw)
     inv = coded.invert.to(torch.int32)
-    return (w ^ (inv[:, :, None] * 0xFF)).reshape(t, lanes).to(torch.uint8)
+    return (w ^ (inv[..., None] * 0xFF)).reshape(*lead, t, lanes).to(torch.uint8)
 
 
 CODECS: Dict[str, Codec] = {}

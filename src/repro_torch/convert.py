@@ -10,6 +10,10 @@ device with their dtype unchanged.  For model traffic,
 :func:`model_config_from_reference` rebuilds a ``ModelConfig`` from its
 ``asdict`` dict and :func:`params_from_numpy` carries a nested dict of
 numpy weights (the reference's ``init_params`` tree, as numpy) across.
+For the NoC and the design-space sweep, :func:`flows_from_reference`
+builds ``noc.TrafficFlow``s from (name, src, dsts, inputs, weights) tuples
+of numpy payloads and :func:`design_point_from_reference` rebuilds a
+``dse.DesignPoint`` from its ``asdict`` dict.
 """
 
 from __future__ import annotations
@@ -20,13 +24,17 @@ import torch
 from .kernels.backend import resolve_device
 from .link.power import LinkPowerModel
 from .link.spec import LinkSpec
+from .dse.space import DesignPoint
 from .models.config import ModelConfig, MoEConfig, SSMConfig
+from .noc.simulate import TrafficFlow
 
 __all__ = [
     "from_reference",
     "packets_from_numpy",
     "model_config_from_reference",
     "params_from_numpy",
+    "flows_from_reference",
+    "design_point_from_reference",
 ]
 
 
@@ -66,3 +74,25 @@ def params_from_numpy(tree: dict, device: str | torch.device | None = None) -> d
             a = np.asarray(v)
             out[k] = packets_from_numpy(a if a.flags.writeable else a.copy(), dev)
     return out
+
+
+def flows_from_reference(
+    flows, device: str | torch.device | None = None
+) -> list[TrafficFlow]:
+    """The port's ``TrafficFlow``s from (name, src, dsts, inputs, weights)
+    tuples: numpy payloads (``weights`` may be None) carried to ``device``
+    (``cuda`` unless named) with their dtype unchanged."""
+    dev = resolve_device(device)
+    return [
+        TrafficFlow(
+            str(name), int(src), tuple(int(d) for d in dsts),
+            packets_from_numpy(np.asarray(inputs), dev),
+            None if weights is None else packets_from_numpy(np.asarray(weights), dev),
+        )
+        for name, src, dsts, inputs, weights in flows
+    ]
+
+
+def design_point_from_reference(point_dict: dict) -> DesignPoint:
+    """The port's ``DesignPoint`` from the reference's ``asdict`` dict."""
+    return DesignPoint(**point_dict)

@@ -436,3 +436,97 @@ def test_egress_permutation_on_cuda_matches_plain(dev):
             assert torch.equal(perm, rp) and torch.equal(inv, ri)
     with pytest.raises(ValueError, match="packet"):
         egress_permutation(w, packet=1025)
+
+
+# ------------------------------------------------------------ NoC and DSE
+
+
+def _fabric_flows(dev, topo, spec, seed=0):
+    """Unicasts and multicasts with shared prefixes, paired when the spec
+    has weight lanes."""
+    from repro_torch.noc import TrafficFlow
+
+    far, mid = topo.num_routers - 1, topo.num_routers // 2
+    ends = [(0, (far,)), (0, (mid, far)), (1, (far,)), (mid, (0, 1, far))]
+    return [
+        TrafficFlow(f"f{i}", src, dsts,
+                    _packets(dev, (30 + 17 * i, spec.elems_per_packet), seed + 2 * i),
+                    _packets(dev, (30 + 17 * i, spec.weight_elems_per_packet), seed + 2 * i + 1)
+                    if spec.weight_lanes else None)
+        for i, (src, dsts) in enumerate(ends)
+    ]
+
+
+@pytest.mark.parametrize("key,sort_at,codec,windows", [
+    ("none", "source", "none", None), ("acc", "source", "none", None),
+    ("app", "hop", "bus_invert4", None), ("acc", "hop", "transition", 5),
+    ("app", "source", "bus_invert", 32), ("column_major", "source", "gray", None),
+])
+def test_simulate_noc_on_card_matches_plain(dev, key, sort_at, codec, windows):
+    import dataclasses
+
+    from repro_torch import noc
+    from repro_torch.link import LinkSpec
+
+    topo, spec = noc.mesh(3, 3), LinkSpec(key=key, codec=codec)
+    flows = _fabric_flows(dev, topo, spec)
+    tk.reset_launch_counts()
+    got = noc.simulate_noc(topo, flows, spec, sort_at=sort_at, activity_windows=windows)
+    counts = tk.launch_counts()
+    ref = noc.simulate_noc(topo, flows, spec, sort_at=sort_at, activity_windows=windows,
+                           backend="torch")
+    assert [dataclasses.astuple(s) for s in got.links] == [
+        dataclasses.astuple(s) for s in ref.links]
+    for a, b in zip(got.wire_toggles + got.wire_ones, ref.wire_toggles + ref.wire_ones):
+        assert np.array_equal(a, b)
+    want = {k: 0 for k in counts} | {"bt_axes_activity" if windows else "bt_axes": 1}
+    want["psu_sort"] = int(key in ("acc", "app"))
+    assert counts == want
+
+
+def test_expand_fabric_on_card_matches_plain(dev):
+    """Queued and identity (one flow a queue) fabrics: the streams, aux
+    counts and invert lines of the CUDA source sort equal the plain ones."""
+    from repro_torch import noc
+    from repro_torch.link import LinkSpec
+
+    for topo, spec, flows in (
+        (noc.torus(3, 3), LinkSpec(key="app", codec="bus_invert4"), None),
+        (noc.ring(8), LinkSpec(input_lanes=16, weight_lanes=0, key="acc"), "ring"),
+    ):
+        if flows is None:
+            flows = _fabric_flows(dev, topo, spec, seed=7)
+        else:
+            flows = noc.ring_allreduce_flows(_packets(dev, (8 * 64 * 1001,), 3).view(torch.int8),
+                                             topo, spec=spec)
+        plan = noc.compile_fabric(topo, [(f.src, f.dsts) for f in flows])
+        batch = noc.FlowBatch.from_flows(flows, spec)
+        got = noc.expand_fabric(plan, batch, spec, sort_at="hop")
+        ref = noc.expand_fabric(plan, batch, spec, sort_at="hop", backend="torch")
+        assert got.lengths == ref.lengths and torch.equal(got.streams, ref.streams)
+        for a, b in ((got.aux_bt, ref.aux_bt), (got.inverts, ref.inverts)):
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+
+
+def test_evaluate_grid_on_card_matches_plain(dev):
+    """Two key widths, codecs, a topology and wire-resolved activity: the
+    evaluations equal the plain version's, one bt_axes launch per width."""
+    import dataclasses
+
+    from repro_torch import dse
+
+    streams = (_packets(dev, (700, 64), 1), _packets(dev, (333, 64), 2))
+    workload = dse.Workload("w", streams, lanes=16)
+    points = dse.k_sweep(n=25, ks=(2, 4)) + (
+        dse.DesignPoint(ordering="acc", k=None, codec="bus_invert4", topology="mesh4x4"),
+        dse.DesignPoint(ordering="app", k=3, width=4, codec="transition"),
+    )
+    for windows in (None, 16):
+        tk.reset_launch_counts()
+        got = dse.evaluate_grid(points, workload, activity_windows=windows)
+        counts = tk.launch_counts()
+        ref = dse.evaluate_grid(points, workload, activity_windows=windows, backend="torch")
+        assert [dataclasses.asdict(e) for e in got] == [dataclasses.asdict(e) for e in ref]
+        assert counts["bt_axes_activity" if windows else "bt_axes"] == 2
+    assert dse.grid_launch_count(points, workload) == 2
+    assert dse.grid_launch_count(points[:-1], workload) == 1

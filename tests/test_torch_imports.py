@@ -32,7 +32,12 @@ def test_every_port_module_is_listed():
                      "repro_torch.obs.trace", "repro_torch.kernels.quantize",
                      "repro_torch.models", "repro_torch.models.config", "repro_torch.configs",
                      "repro_torch.configs.shapes", "repro_torch.configs.internlm2_1_8b",
-                     "repro_torch.traffic"):
+                     "repro_torch.traffic", "repro_torch.noc", "repro_torch.noc.topology",
+                     "repro_torch.noc.routing", "repro_torch.noc.fabric",
+                     "repro_torch.noc.simulate", "repro_torch.noc.latency",
+                     "repro_torch.noc.power", "repro_torch.noc.adapters", "repro_torch.dse",
+                     "repro_torch.dse.space", "repro_torch.dse.evaluate",
+                     "repro_torch.dse.pareto", "repro_torch.dse.report"):
         assert expected in names
 
 
@@ -50,6 +55,22 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         timeout=300, cwd=ROOT,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_noc_and_dse_export_the_reference_names():
+    """``repro_torch.noc`` / ``repro_torch.dse`` carry the reference's
+    ``__all__`` (read from its source: importing it would load JAX here)."""
+    import ast
+
+    import repro_torch.dse
+    import repro_torch.noc
+
+    for name, port in (("noc", repro_torch.noc), ("dse", repro_torch.dse)):
+        tree = ast.parse((ROOT / "src" / "repro" / name / "__init__.py").read_text())
+        ref = next(ast.literal_eval(n.value) for n in tree.body if isinstance(n, ast.Assign)
+                   and any(getattr(t, "id", None) == "__all__" for t in n.targets))
+        assert port.__all__ == ref
+        assert all(hasattr(port, n) for n in ref)
 
 
 def test_obs_and_its_hooks_import_without_jax():
