@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress and NoC / DSE paths on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE and serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -81,6 +81,24 @@ non-zero:
    ``bt_count`` of its shard built independently (``psu_reorder`` -> pack),
    with the expansion's, the one measurement's and the source sort's times
    and the peak device memory;
+3f. serving path: ``repro_torch.serve.generate`` under
+   ``repro_torch.obs.capture()`` on the smoke configs of internlm2-1.8b,
+   qwen3-moe-30b-a3b, zamba2-1.2b, mamba2-370m and whisper-medium at
+   float32 (weights drawn by ``serve_inputs``): greedy tokens, stream
+   names, the weight stream's sha256, ``benchmarks/model_traffic.py``'s
+   four-point grid on it, for internlm2-1.8b its NoC run on mesh(4, 4) and
+   its grid with activity windows of 32, and ``benchmarks/arch_bt.py`` row
+   2, equal to the JAX pins (``SERVE``) and every measurement to its plain
+   version, the KV bytes within one int8 code of the JAX package's
+   (``tests/data/serve_kv_pins.npz``) on at most 1 % of the bytes; then
+   internlm2-1.8b at full width: 4 requests of 256-token prompts and 16
+   greedy new tokens served under capture, the 1,889,107,968-byte weight
+   stream equal to ``int8_view`` of each leaf in sorted-key order, the
+   weight and the KV workloads each through one ``evaluate_grid`` (one
+   ``bt_axes`` launch) against the plain version, ``decode_step`` against
+   ``forward`` in float32, the APP-ordered weights against the unordered,
+   with prefill, decode, capture, measurement and ``bt_axes`` times and
+   the peak device memory;
 4. scale and times: ``psu_stream`` on 4,194,304 paired packets and on
    Table I's conv input stream (7,350 packets of 64, 16 lanes),
    ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
@@ -122,7 +140,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from benchmarks.datagen import conv_streams, im2col, synth_images, uniform_pairs  # noqa: E402
-from repro_torch import dse, kernels, noc, obs  # noqa: E402
+from repro_torch import _obs_hooks, dse, kernels, noc, obs, serve  # noqa: E402
 from repro_torch.codec import compare_streams, demo_workloads, format_table  # noqa: E402
 from repro_torch.codec import codec_by_name, kernel_config  # noqa: E402
 from repro_torch.core import bitonic_area, bucket_map, csn_area, popcount, psu_area  # noqa: E402
@@ -137,12 +155,22 @@ from repro_torch.kernels import (  # noqa: E402
     psu_sort,
     psu_stream,
 )
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    decode_step,
+    forward,
+    init_params,
+    param_shapes,
+    prefill,
+    unembed,
+)
 from repro_torch.kernels import quantize_egress  # noqa: E402
 from repro_torch.kernels.axes import max_partitions  # noqa: E402
 from repro_torch.noc.fabric import _queue_gather_table  # noqa: E402
 from repro_torch.link import LinkPowerModel, LinkSpec, TxPipeline  # noqa: E402
 from repro_torch.traffic import (  # noqa: E402
+    apply_weight_ordering,
     egress_permutation,
     int8_view,
     stream_bt_report,
@@ -450,6 +478,21 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / MEM_BYTES_PER_S * 1e3
     t_ops = ops / CORE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def axes_work(xb, vb, configs) -> dict:
+    """Work of one ``bt_axes`` measurement.  Bytes: each valid packet byte
+    read once, valid counts and totals.  Operations: per valid byte ~4 per
+    distinct sorted ordering (key, rank, scatter) and ~3 per config (code,
+    XOR-popcount, add)."""
+    nl, npk, nb = xb.shape
+    vbytes = int(vb.clamp(0, npk).sum()) * nb
+    sorted_orderings = {c.ordering for c in configs if c.key in ("acc", "app")}
+    return {
+        "shape": [nl, npk, nb, "input-only 16 lanes", f"{len(configs)} configs"],
+        "bytes": vbytes + nl * 8 + nl * len(configs) * 12,
+        "ops": vbytes * (4 * len(sorted_orderings) + 3 * len(configs)),
+    }
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -1715,6 +1758,453 @@ def phase_noc(dev: torch.device, full: bool = True) -> dict:
     return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
 
 
+# ------------------------------------------------------------------ phase 3f
+
+# The serving path at smoke size: these configs at dtype float32, weights
+# drawn by serve_inputs(), batch 2, prompt 8, 4 greedy new tokens (whisper:
+# 8 stub frames), captured and measured as benchmarks/model_traffic.py
+# measures serve_decode: its four design points (SERVE_POINTS) on the
+# weight workload (64-byte packets, 16 lanes), windows of 32 rows, and
+# decode_weight_flows on mesh(4, 4) from router 0 to routers 1-3 with an
+# input-only 16-lane link.  The pins are the JAX package's (tests/
+# test_torch_serve.py holds both packages to them): greedy tokens, the
+# weight stream's byte count and sha256, the stream names in order, the
+# grid totals (data BT, invert-line BT) per point, and for SERVE_ARCH the
+# NoC run (none BT, ACC BT, ACC active links, ACC flit hops, ACC per-link
+# digest), the grid with activity windows (evals_digest) and
+# benchmarks/arch_bt.py row 2's report (flits, BT unordered, BT APP) of
+# layer 0's streamed MLP tensor.  KV bytes depend on float rounding: the
+# JAX package's are in SERVE_KV_PINS, and the port's must lie within
+# ``kv_codes`` int8 codes of them with at most ``kv_share`` of the bytes
+# differing.
+SERVE_ARCHS = ("internlm2-1.8b", "qwen3-moe-30b-a3b", "zamba2-1.2b", "mamba2-370m",
+               "whisper-medium")
+SERVE_ARCH = "internlm2-1.8b"
+SERVE_POINTS = (dse.DesignPoint(ordering="none", k=None), dse.DesignPoint(ordering="acc", k=None),
+                dse.DesignPoint(ordering="app", k=4),
+                dse.DesignPoint(ordering="app", k=4, codec="bus_invert"))
+SERVE_KV_PINS = ROOT / "tests" / "data" / "serve_kv_pins.npz"
+SERVE = {
+    "batch": 2, "prompt": 8, "new_tokens": 4, "frames": 8, "seed": 0,
+    "elems": 64, "lanes": 16, "window": 32, "noc_dsts": (1, 2, 3),
+    "kv_codes": 1, "kv_share": 0.01,
+    "pins": {
+        "internlm2-1.8b": {
+            "tokens": [[40, 217, 164, 223], [29, 235, 32, 29]],
+            "names": ["weights"] + ["kv"] * 4,
+            "weights_bytes": 106752,
+            "weights_sha256": "570477b56649f37c01b42ed67c36696a48cb63b6d8b5127779f71f247eac7667",
+            "grid": {"none@N25": [426708, 0], "acc@N25": [319131, 0],
+                     "app-k4@N25": [332233, 0], "app-k4+bus_invert@N25": [331939, 74]},
+            "noc": [1280124, 957393, 3, 20016,
+                    "44c6ad0484a64a61a1086707f478db05a51d4505a6d3c4742f12e2836d8df5fc"],
+            "activity_sha256": "b468d5240b90d0ed9c0237675702e0c545cfebd9fd972f744dbdfd7d728f1aa6",
+            "arch_bt_row2": [512, 28965, 28965],
+        },
+        "qwen3-moe-30b-a3b": {
+            "tokens": [[147, 225, 202, 181], [2, 171, 230, 9]],
+            "names": ["weights"] + ["kv"] * 4,
+            "weights_bytes": 255296,
+            "weights_sha256": "4679ed9f6078f778539f0ae98760ae5d3b3e10d5dd632635ed44700405b17cbd",
+            "grid": {"none@N25": [1020863, 0], "acc@N25": [747605, 0],
+                     "app-k4@N25": [778708, 0], "app-k4+bus_invert@N25": [778296, 108]},
+            "arch_bt_row2": [2048, 111202, 111202],
+        },
+        "zamba2-1.2b": {
+            "tokens": [[45, 88, 196, 219], [110, 105, 107, 249]],
+            "names": ["weights"] + ["kv"] * 4,
+            "weights_bytes": 214488,
+            "weights_sha256": "22dbafe359869c945b3b92ff66e39dcad4e9dac207cc01c168129372e37f688f",
+            "grid": {"none@N25": [856777, 0], "acc@N25": [634676, 0],
+                     "app-k4@N25": [659922, 0], "app-k4+bus_invert@N25": [659524, 97]},
+        },
+        "mamba2-370m": {
+            "tokens": [[43, 81, 87, 27], [17, 115, 22, 76]],
+            "names": ["weights"] + ["kv"] * 4,
+            "weights_bytes": 120800,
+            "weights_sha256": "b658080231e0a243afbcadc0a759f3deb30cce95343e4ef217ac88b5773f2a5c",
+            "grid": {"none@N25": [482509, 0], "acc@N25": [355164, 0],
+                     "app-k4@N25": [369222, 0], "app-k4+bus_invert@N25": [369064, 37]},
+            "arch_bt_row2": [512, 28246, 28246],
+        },
+        "whisper-medium": {
+            "tokens": [[192, 125, 125, 125], [84, 209, 227, 237]],
+            "names": ["weights"] + ["kv"] * 4,
+            "weights_bytes": 197248,
+            "weights_sha256": "f938fdd310f091f03179182d20f2236ad0f50e80df68a932d2ad24c3946b262a",
+            "grid": {"none@N25": [788823, 0], "acc@N25": [592404, 0],
+                     "app-k4@N25": [614451, 0], "app-k4+bus_invert@N25": [614119, 99]},
+        },
+    },
+}
+# The full-width serving run: SERVE_ARCH's own config (24 layers, d_model
+# 2,048, bf16 compute, f32 parameters, chunked_skip attention at chunk
+# 1,024), weights from init_params with a seeded CUDA generator, 4 requests
+# of 256-token prompts and 16 greedy new tokens; the weight stream is every
+# parameter of two or more dimensions (final_norm is 1-D) and each KV
+# stream 24 layers x 4 x 8 heads x 128 x (k, v) bytes.
+SERVE_FULL = {"requests": 4, "prompt": 256, "new_tokens": 16, "seed": 0,
+              "weight_bytes": 1_889_107_968, "kv_bytes": 196_608, "f32_steps": 2, "split": 16,
+              "f32_rel_tol": 2e-3, "ordered_rel_tol": 0.05}
+
+
+def serve_inputs(arch: str, seed: int = SERVE["seed"]) -> tuple:
+    """Smoke-size serving inputs for both packages: (config at float32,
+    numpy weights for every leaf of the port's ``param_shapes``, prompts,
+    stub frames or None).  Each leaf is drawn in sorted-key order from one
+    numpy generator: normal x 0.02 for the embedding, normal / sqrt(fan-in)
+    for a matrix, 1 + 0.1 x normal for a norm gain or skip, 0.1 x normal
+    for any other vector."""
+    cfg = smoke_config(arch, dtype="float32")
+    rng = np.random.default_rng(seed)
+
+    def draw(tree: dict, path: tuple) -> dict:
+        out = {}
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                out[k] = draw(v, path + (k,))
+                continue
+            stacked = bool(path) and path[0] in ("layers", "enc_layers", "trailing")
+            per = tuple(v.shape[1:]) if stacked else tuple(v.shape)
+            x = rng.standard_normal(tuple(v.shape), dtype=np.float32)
+            if k == "embed":
+                x *= 0.02
+            elif len(per) == 1:
+                x = x * 0.1 + (1.0 if ("norm" in k or k == "d_skip") else 0.0)
+            else:
+                fan = per[0] * per[1] if k == "wo" else per[1] if len(per) == 3 and \
+                    path[-1] == "moe" else per[0]
+                x /= np.sqrt(fan)
+            out[k] = x.astype(np.float32)
+        return out
+
+    params = draw(param_shapes(cfg), ())
+    prompts = rng.integers(0, cfg.vocab, (SERVE["batch"], SERVE["prompt"])).astype(np.int32)
+    frames = None
+    if cfg.family in ("encdec", "audio"):
+        frames = rng.standard_normal((SERVE["batch"], SERVE["frames"], cfg.d_model),
+                                     dtype=np.float32)
+    return cfg, params, prompts, frames
+
+
+def arch_bt_row2_tensor(params: dict, cfg) -> torch.Tensor:
+    """benchmarks/arch_bt.py row 2's tensor: layer 0's streamed MLP weight
+    (dense down projection, MoE experts' down projections as rows, or the
+    SSD output projection)."""
+    layer = params["layers"]
+    if "mlp" in layer:
+        return layer["mlp"]["down"][0]
+    if "moe" in layer:
+        return layer["moe"]["down"][0].reshape(-1, cfg.d_model)
+    return layer["ssd"]["out_proj"][0]
+
+
+def serve_smoke(arch: str, dev: torch.device, session=None) -> tuple:
+    """The port's serving path on ``serve_inputs(arch)``: ``generate``
+    under ``obs.capture()``.  Returns (cfg, params, session, result)."""
+    cfg, params_np, prompts, frames = serve_inputs(arch)
+    params = params_from_numpy(params_np, dev)
+    kw = {} if frames is None else {"frames": torch.from_numpy(frames).to(dev)}
+    with obs.capture(session) as sess:
+        res = serve.generate(params, cfg, torch.from_numpy(prompts).to(dev), SERVE["new_tokens"],
+                             **kw)
+    return cfg, params, sess, res
+
+
+def serve_grid(sess, **kw):
+    """model_traffic.py's grid on a session's serve_decode weight stream."""
+    wl = sess.workload("serve_decode", elems=SERVE["elems"], lanes=SERVE["lanes"],
+                       names=["weights"])
+    return dse.evaluate_grid(SERVE_POINTS, wl, **kw)
+
+
+def serve_noc(weights: torch.Tensor, key: str, **kw):
+    """model_traffic.py's serve_decode fabric: the weight stream multicast on
+    mesh(4, 4) from router 0 to SERVE['noc_dsts'], sorted at the source."""
+    spec = input_only_spec(key, SERVE["elems"], SERVE["lanes"])
+    topo = noc.mesh(4, 4)
+    flows = noc.decode_weight_flows(weights.view(torch.int8), topo, 0, SERVE["noc_dsts"], spec)
+    return noc.simulate_noc(topo, flows, spec, sort_at="source", **kw)
+
+
+def kv_bytes(sess) -> np.ndarray:
+    """Every serve_decode KV stream's bytes, concatenated, on the host."""
+    return np.concatenate([s.data.cpu().numpy() for s in sess.get("serve_decode", "kv")])
+
+
+def kv_differ(got: np.ndarray, want: np.ndarray) -> tuple[int, float]:
+    """(largest int8 code difference, share of bytes that differ)."""
+    if got.shape != want.shape:
+        fail(f"KV bytes: {got.shape} != pinned {want.shape}")
+    d = np.abs(got.view(np.int8).astype(np.int16) - want.view(np.int8).astype(np.int16))
+    return int(d.max(initial=0)), float((d != 0).mean()) if d.size else 0.0
+
+
+def _sorted_tensor_leaves(tree: dict, path: str = "") -> list:
+    """(path, tensor) in sorted-key order at every level."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += _sorted_tensor_leaves(v, f"{path}{k}/") if isinstance(v, dict) else [
+            (f"{path}{k}", v)]
+    return out
+
+
+def phase_serve(dev: torch.device, full: bool = True) -> dict:
+    """The serving path: (a) the smoke configs through ``serve.generate``
+    under capture against the JAX pins, every measurement against its
+    plain version; (b) SERVE_ARCH at full width (at smoke width with
+    ``full=False``): served, captured, the weight stream checked byte for
+    byte, measured through ``bt_axes``, decode held against the forward and
+    the ordered weights against the unordered.  Returns the rows, times
+    and launch counts."""
+    t_phase = time.perf_counter()
+    lc = _PathLaunches()
+    sv = SERVE
+    rows: dict = {}
+    kv_pins = np.load(SERVE_KV_PINS)
+    worst = (0, 0.0)
+    for arch in SERVE_ARCHS:
+        pin = sv["pins"][arch]
+        cfg, params, sess, res = lc.run(f"serve/{arch}", lambda: serve_smoke(arch, dev), {})
+        names = [s.name for s in sess.streams]
+        (w,) = sess.get("serve_decode", "weights")
+        got = {"tokens": res.tokens.tolist(), "names": names, "weights_bytes": w.num_bytes,
+               "weights_sha256": hashlib.sha256(w.data.cpu().numpy().tobytes()).hexdigest()}
+        evals = lc.run(f"serve/{arch} grid", lambda: serve_grid(sess), {"bt_axes": 1})
+        if [dataclasses.asdict(e) for e in evals] != [
+                dataclasses.asdict(e) for e in serve_grid(sess, backend="torch")]:
+            fail(f"serve/{arch}: grid differs from the plain version's")
+        got["grid"] = {e.label: [e.total_bt, e.aux_bt] for e in evals}
+        if arch == SERVE_ARCH:
+            base = lc.run("serve noc none", lambda: serve_noc(w.data, "none"), {"bt_axes": 1})
+            acc = lc.run("serve noc acc", lambda: serve_noc(w.data, "acc"),
+                         {"bt_axes": 1, "psu_sort": 1})
+            for key, rep in (("none", base), ("acc", acc)):
+                _same_links(rep, serve_noc(w.data, key, backend="torch"), f"serve noc {key}")
+            got["noc"] = [base.total_bt, acc.total_bt, acc.active_links, acc.total_flit_hops,
+                          links_digest(acc)]
+            act = lc.run("serve activity", lambda: serve_grid(
+                sess, activity_windows=sv["window"]), {"bt_axes_activity": 1})
+            if [dataclasses.asdict(e) for e in act] != [dataclasses.asdict(e) for e in serve_grid(
+                    sess, activity_windows=sv["window"], backend="torch")]:
+                fail("serve activity: grid differs from the plain version's")
+            got["activity_sha256"] = evals_digest(act)
+        if arch in ("internlm2-1.8b", "qwen3-moe-30b-a3b", "mamba2-370m"):
+            t = arch_bt_row2_tensor(params, cfg)
+            rep = lc.run(f"serve/{arch} arch_bt row 2", lambda: stream_bt_report(
+                arch, t, "app", sign_magnitude=True, layout="col"), {"bt_count": 2})
+            got["arch_bt_row2"] = [rep.num_flits, int(rep.bt_none), int(rep.bt_ordered)]
+            plain = stream_bt_report(arch, t.cpu(), "app", sign_magnitude=True, layout="col")
+            if [plain.num_flits, int(plain.bt_none), int(plain.bt_ordered)] != got[
+                    "arch_bt_row2"]:
+                fail(f"serve/{arch}: arch_bt row 2 differs from the plain version's (CPU)")
+        if got != pin:
+            fail(f"serve/{arch}: {got} != pinned {pin}")
+        codes, share = kv_differ(kv_bytes(sess), kv_pins[arch])
+        if codes > sv["kv_codes"] or share > sv["kv_share"]:
+            fail(f"serve/{arch}: KV bytes differ from the JAX package's by up to {codes} codes "
+                 f"in {100 * share:.3f}% of bytes (allowed {sv['kv_codes']}, "
+                 f"{100 * sv['kv_share']}%)")
+        worst = max(worst, (codes, share))
+        rows[f"serve/{arch}"] = {**got, "kv_max_codes": codes, "kv_share": share}
+        red = {e.label: round(100 * e.bt_reduction, 4) for e in evals}
+        log(f"serve/{arch}: tokens {got['tokens']}, {len(names)} streams, weights "
+            f"{w.num_bytes} bytes = reference (sha256, grid BT {red} %)"
+            + (", noc + activity + arch_bt row 2 = reference" if "noc" in got else "")
+            + f"; KV within {codes} code(s), {100 * share:.3f}% of bytes differ")
+    rows["serve/kv_worst"] = {"codes": worst[0], "share": worst[1]}
+
+    rows["serve/full"] = _serve_full(dev, lc, full)
+    seconds = time.perf_counter() - t_phase
+    log(f"serve-path launches: {lc.total}; phase 3f {seconds:.1f} s")
+    return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
+
+
+def _weight_tap_ms(params: dict) -> float:
+    """CUDA-event time of one ``serve.weights`` tap under capture: the int8
+    view of every leaf written into one stream."""
+    def tap():
+        with obs.capture():
+            _obs_hooks.tap("serve.weights", params=params)
+
+    return time_ms(tap, reps=3, warmup=1)
+
+
+def _serve_full(dev: torch.device, lc: _PathLaunches, full: bool) -> dict:
+    """Phase 3f (b): SERVE_ARCH served at full width under capture."""
+    sf = SERVE_FULL
+    cfg = get_config(SERVE_ARCH) if full else smoke_config(SERVE_ARCH, attn_impl="chunked_skip",
+                                                           attn_chunk=8)
+    nreq, plen, new = sf["requests"], sf["prompt"] if full else 64, sf["new_tokens"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(sf["seed"])
+    params = init_params(cfg, gen, dev)
+    prompts = torch.randint(0, cfg.vocab, (nreq, plen), generator=gen, device=dev)
+    out: dict = {"arch": cfg.name, "requests": nreq, "prompt": plen, "new_tokens": new}
+
+    # serve under capture; the model path launches none of the port's kernels
+    res = serve.generate(params, cfg, prompts, new)  # warm-up, and the run without capture
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = serve.generate(params, cfg, prompts, new)
+    torch.cuda.synchronize()
+    out["generate_s"] = time.perf_counter() - t1
+    with obs.capture() as sess:
+        cap = lc.run("serve full", lambda: serve.generate(params, cfg, prompts, new), {})
+    out["capture_ms"] = _weight_tap_ms(params)
+    if not torch.equal(cap.tokens, res.tokens):
+        fail("serve full: tokens under capture differ from the run without it")
+    prefill_fn = serve.make_prefill_fn(cfg, plen + new)
+    decode_fn = serve.make_decode_fn(cfg)
+    logits, cache = prefill_fn(params, prompts)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    out["prefill_ms"] = time_ms(lambda: prefill_fn(params, prompts), reps=3, warmup=1)
+    out["decode_ms_per_token"] = time_ms(lambda: decode_fn(params, cache, tok), reps=5, warmup=1)
+    out["decode_tokens_per_s"] = nreq / out["decode_ms_per_token"] * 1e3
+    out["generate_tokens_per_s"] = nreq * new / out["generate_s"]
+    # the card's busy time inside each (the rest of the wall is host work)
+    out["prefill_device_ms"], out["prefill_device_split"] = _device_total_ms(
+        lambda: prefill_fn(params, prompts))
+    out["decode_device_ms"], out["decode_device_split"] = _device_total_ms(
+        lambda: decode_fn(params, cache, tok))
+    del logits, cache
+
+    # the captured streams: names, sizes, and the weight bytes leaf by leaf
+    names = [s.name for s in sess.streams]
+    if names != ["weights"] + ["kv"] * new:
+        fail(f"serve full: streams {names}")
+    (w,) = sess.get("serve_decode", "weights")
+    kvs = sess.get("serve_decode", "kv")
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    want_kv = cfg.n_layers * nreq * hkv * hd * 2
+    if full and (w.num_bytes, want_kv) != (sf["weight_bytes"], sf["kv_bytes"]):
+        fail(f"serve full: {w.num_bytes} weight bytes, {want_kv} KV bytes a step")
+    if any(s.num_bytes != want_kv for s in kvs):
+        fail(f"serve full: KV streams of {[s.num_bytes for s in kvs]} bytes, not {want_kv}")
+    at = 0
+    for path, leaf in _sorted_tensor_leaves(params):
+        if leaf.dim() < 2:
+            continue
+        mine = int8_view(leaf).reshape(-1).view(torch.uint8)
+        if not torch.equal(w.data[at: at + mine.numel()], mine):
+            fail(f"serve full: weight stream bytes of {path} differ from int8_view")
+        at += mine.numel()
+    if at != w.num_bytes:
+        fail(f"serve full: weight stream {w.num_bytes} bytes, leaves {at}")
+
+    # measure: the weight workload and the KV workload, each one bt_axes
+    # launch.  A link's BT is int32, as in the reference, and the weight
+    # stream as one link carries ~7e9 transitions, so its totals wrap; the
+    # reductions come from the same bytes as SERVE_FULL["split"] contiguous
+    # links (independent links: the seams between them are not counted)
+    meas = {}
+    wls = {name: sess.workload("serve_decode", elems=SERVE["elems"], lanes=SERVE["lanes"],
+                               names=[name]) for name in ("weights", "kv")}
+    wls["weights_split"] = dse.Workload("weights_split", tuple(
+        wls["weights"].streams[0].tensor_split(sf["split"])), lanes=SERVE["lanes"])
+    for name, wl in wls.items():
+        t1 = time.perf_counter()
+        ev = lc.run(f"serve full {name} grid", lambda: dse.evaluate_grid(SERVE_POINTS, wl),
+                    {"bt_axes": 1})
+        ms = (time.perf_counter() - t1) * 1e3
+        # the plain version in chunks of 2**20 packets over all links: its
+        # rank one-hots would not fit whole
+        plain = dse.evaluate_grid(SERVE_POINTS, wl, backend="torch",
+                                  chunk_packets=max(1, (1 << 20) // len(wl.streams)))
+        if [dataclasses.asdict(e) for e in ev] != [dataclasses.asdict(e) for e in plain]:
+            fail(f"serve full {name}: grid differs from the plain version's")
+        del plain
+        meas[name] = {"streams": len(wl.streams), "packets": sum(s.shape[0] for s in wl.streams),
+                      "measure_ms": ms, "bt": {e.label: [e.total_bt, e.aux_bt] for e in ev},
+                      "red_pct": {e.label: 100 * e.bt_reduction for e in ev}}
+    out["measure"] = meas
+
+    # bt_axes at the serving weight shape: (1, P, 64) under the grid's 4 configs
+    pk = w.data[: w.num_bytes // 64 * 64].reshape(1, -1, 64)
+    configs = dse.evaluate._configs_by_width(SERVE_POINTS)[8]
+    work = axes_work(pk, torch.tensor([pk.shape[1]]), configs)
+    b_ms, b_by = bound(work["bytes"], work["ops"])
+
+    def measure():
+        return bt_count_axes(pk, None, configs=configs, input_lanes=SERVE["lanes"])
+
+    got = measure()
+    ref = bt_count_axes(pk, None, configs=configs, input_lanes=SERVE["lanes"], backend="torch",
+                        chunk_packets=1 << 20)
+    if not torch.equal(got, ref):
+        fail("serve full: bt_axes at the weight shape differs from the plain version")
+    t = {"shape": list(pk.shape) + [f"{len(configs)} configs"], "bytes": work["bytes"],
+         "ops": work["ops"], "bound_ms": b_ms, "bound_by": b_by, "ms": time_ms(measure, reps=5),
+         "plain_ms": time_ms(lambda: bt_count_axes(
+             pk, None, configs=configs, input_lanes=SERVE["lanes"], backend="torch",
+             chunk_packets=1 << 20), reps=1, warmup=0),
+         "library_ms": None}
+    t["device_ms"], t["device_split"] = device_ms(measure, ("bt_axes",))
+    out["bt_axes"] = t
+    del pk, got, ref
+
+    # decode against the forward, in float32, for f32_steps steps
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.no_grad():
+        logits, cache = prefill(params, c32, prompts, plen + sf["f32_steps"])
+        toks, dec = [], []
+        for _ in range(sf["f32_steps"]):
+            toks.append(torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32))
+            logits, cache = decode_step(params, c32, cache, toks[-1])
+            dec.append(logits[:, 0])
+        h, _ = forward(params, c32, tokens=torch.cat([prompts, *toks], dim=1))
+        want = unembed(params, c32, h[:, plen: plen + sf["f32_steps"]])
+    del cache, h
+    dec = torch.stack(dec, dim=1)
+    rel = float((dec - want).abs().max() / want.abs().max())
+    if not rel <= sf["f32_rel_tol"]:
+        fail(f"serve full: f32 decode logits differ from the forward's by {rel:.3g} of max|logit|"
+             f" (allowed {sf['f32_rel_tol']})")
+    out["f32_decode_rel_err"] = rel
+    del dec, want
+
+    # weight ordering: a numeric no-op up to summation order (bf16 here)
+    ordered = apply_weight_ordering(params, cfg, "app")
+    with torch.no_grad():
+        a, _ = prefill_fn(params, prompts)
+        b, _ = prefill_fn(ordered, prompts)
+    rel = float((a.float() - b.float()).abs().max() / a.float().abs().max())
+    if not rel <= sf["ordered_rel_tol"]:
+        fail(f"serve full: ordered-weight prefill logits differ by {rel:.3g} of max|logit| "
+             f"(allowed {sf['ordered_rel_tol']})")
+    same = float((serve.generate(ordered, cfg, prompts, new).tokens == res.tokens)
+                 .float().mean())
+    out["ordered_prefill_rel_err"], out["ordered_same_token_share"] = rel, same
+    del ordered, a, b
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["seconds"] = time.perf_counter() - t0
+    del params, sess
+    torch.cuda.empty_cache()
+    log(f"serve full {cfg.name}: {nreq} requests x {plen}-token prompts + {new} greedy tokens; "
+        f"prefill {out['prefill_ms']:.2f} ms, decode {out['decode_ms_per_token']:.3f} ms/token "
+        f"({out['decode_tokens_per_s']:.1f} tokens/s; generate {out['generate_tokens_per_s']:.1f} "
+        f"tokens/s), capture {out['capture_ms']:.1f} ms; weights {w.num_bytes} bytes = int8_view "
+        f"leaf by leaf, {len(kvs)} KV streams of {want_kv} bytes")
+    log(f"serve full device time: prefill {out['prefill_device_ms']} ms "
+        f"{out['prefill_device_split']}; decode {out['decode_device_ms']} ms "
+        f"{out['decode_device_split']}")
+    for name, m in meas.items():
+        log(f"serve full {name}: {m['streams']} stream(s), {m['packets']} packets, grid = plain, "
+            f"{m['measure_ms']:.1f} ms; reductions " + " ".join(
+                f"{k}={v:.4f}%" for k, v in m["red_pct"].items()))
+    log(f"time serve bt_axes {t['shape']}: " + " ".join(
+        f"{k}={v}" for k, v in t.items() if k != "shape"))
+    log(f"serve full: f32 decode vs forward rel err {out['f32_decode_rel_err']:.3g}; ordered "
+        f"weights prefill rel err {rel:.3g}, same greedy tokens {100 * same:.1f}%; peak "
+        f"{out['peak_bytes']} bytes; {out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -1855,19 +2345,6 @@ def phase_scale(dev: torch.device, full_m: int | None = None) -> dict:
             "plain_ms": time_ms(lambda: psu_stream(a, b, k=4, backend="torch", **kw)),
             "library_ms": None, "library": "none (no single PyTorch call sorts, packs and counts)",
             "bytes": pn * (sides + 8 + sides) + 8, "ops": pn * 4 + pn * sides * 3,
-        }
-
-    def axes_work(xb, vb, configs):
-        """Bytes: each valid packet byte read once, valid counts and totals.
-        Operations: per valid byte ~4 per distinct sorted ordering (key,
-        rank, scatter) and ~3 per config (code, XOR-popcount, add)."""
-        nl, npk, nb = xb.shape
-        vbytes = int(vb.clamp(0, npk).sum()) * nb
-        sorted_orderings = {c.ordering for c in configs if c.key in ("acc", "app")}
-        return {
-            "shape": [nl, npk, nb, "input-only 16 lanes", f"{len(configs)} configs"],
-            "bytes": vbytes + nl * 8 + nl * len(configs) * 12,
-            "ops": vbytes * (4 * len(sorted_orderings) + 3 * len(configs)),
         }
 
     def axes_case(xb, vb, configs, plain):
@@ -2061,6 +2538,7 @@ def main() -> int:
     activity_path = phase_activity(dev)
     egress_path = phase_egress(dev)
     noc_path = phase_noc(dev)
+    serve_path = phase_serve(dev)
     cases = phase_scale(dev)
     record = []
     for name, meta in KERNELS.items():
@@ -2070,13 +2548,15 @@ def main() -> int:
         # bt_count, the transmit path for psu_stream, the codec path for
         # bt_axes, the activity path for bt_axes_activity and the egress
         # path for quantize_egress; the NoC / DSE path (3e) for all but
-        # psu_stream
-        paths = {"psu_sort": ("transmit", "egress", "noc"),
-                 "bt_count": ("transmit", "egress", "noc"), "psu_stream": ("transmit",),
-                 "bt_axes": ("codec", "noc"), "bt_axes_activity": ("activity", "noc"),
+        # psu_stream; the serving path (3f) for psu_sort, bt_count, bt_axes
+        # and bt_axes_activity
+        paths = {"psu_sort": ("transmit", "egress", "noc", "serve"),
+                 "bt_count": ("transmit", "egress", "noc", "serve"), "psu_stream": ("transmit",),
+                 "bt_axes": ("codec", "noc", "serve"),
+                 "bt_axes_activity": ("activity", "noc", "serve"),
                  "quantize_egress": ("egress", "noc")}[name]
         runs = {"transmit": main_path, "codec": codec_path, "activity": activity_path,
-                "egress": egress_path, "noc": noc_path}
+                "egress": egress_path, "noc": noc_path, "serve": serve_path}
         by_path = {p: runs[p]["launches"][name] for p in paths}
         record.append({
             "name": name, "route": "cuda", **meta,
@@ -2098,11 +2578,15 @@ def main() -> int:
             {"bt_axes": "bt_count_links", "psu_sort": "psu_sort"}.get(name, ""))
         if noc_time is not None:  # the full-width ring's shape (phase 3e (d))
             record[-1].update({f"noc_{k}": v for k, v in noc_time.items()})
+        if name == "bt_axes":  # the served weight stream's shape (phase 3f (b))
+            record[-1].update({f"serve_{k}": v for k, v in
+                               serve_path["rows"]["serve/full"]["bt_axes"].items()})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
         "card": card, "kernels": record, "main_path": main_path, "codec_path": codec_path,
         "activity_path": activity_path, "egress_path": egress_path, "noc_path": noc_path,
+        "serve_path": serve_path,
         "scale_cases": cases,
         "seconds": time.perf_counter() - t0,
     }, indent=1, default=str))

@@ -16,18 +16,20 @@ observability code until a collector turns it on.
 
 from __future__ import annotations
 
-__all__ = ["SINK", "TAP", "active", "capturing", "event", "span", "tap"]
+__all__ = ["SINK", "TAP", "active", "capturing", "event", "muted", "span", "tap"]
 
 # The installed sink (repro_torch.obs.probes._Sink) or None.  Probes read
 # this once per call; repro_torch.obs flips it when the first collector
 # activates.
 SINK = None
 
-# The traffic-tap slot, kept beside SINK for the model-zoo capture that a
-# later part of the port adds; no tap site fires yet.  Tap payloads carry
-# tensors, not the JSON-safe scalars the probe sink expects, hence a slot
-# of its own with the same zero-cost contract.
+# The installed traffic tap (repro_torch.obs.capture._Tap) or None.  Tap
+# payloads carry tensors, not the JSON-safe scalars the probe sink
+# expects, hence a slot of its own with the same zero-cost contract.
 TAP = None
+
+# Depth of open ``muted()`` scopes: tap sites inside one record nothing.
+_MUTED = 0
 
 
 class _NullSpan:
@@ -75,7 +77,35 @@ def capturing() -> bool:
 
 def tap(kind: str, **payload) -> None:
     """Offer tensors at a traffic-tap site (no-op when no capture is
-    active)."""
+    active, or inside ``muted()``)."""
     t = TAP
-    if t is not None:
+    if t is not None and not _MUTED:
         t.tap(kind, payload)
+
+
+class _Muted:
+    """The context manager ``muted()`` returns."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        global _MUTED
+        _MUTED += 1
+        return self
+
+    def __exit__(self, *exc):
+        global _MUTED
+        _MUTED -= 1
+        return False
+
+
+def muted():
+    """A scope in which tap sites record nothing.
+
+    ``repro_torch.serve`` runs the model's prefill and decode inside one:
+    the reference jits them, so a tap site inside the model (``moe.dispatch``)
+    sees tracers there and its tap drops them.  The serving loop's own taps
+    (``serve.weights``, ``serve.kv``) fire outside the scope, as in the
+    reference.
+    """
+    return _Muted()

@@ -8,8 +8,11 @@ imports the reference), and :func:`packets_from_numpy` moves numpy packet
 arrays — what ``benchmarks/datagen.py`` makes for both packages — onto a
 device with their dtype unchanged.  For model traffic,
 :func:`model_config_from_reference` rebuilds a ``ModelConfig`` from its
-``asdict`` dict and :func:`params_from_numpy` carries a nested dict of
-numpy weights (the reference's ``init_params`` tree, as numpy) across.
+``asdict`` dict, :func:`params_from_numpy` carries a nested dict of
+numpy weights across (bfloat16 arrays included) and
+:func:`params_from_reference` carries the reference's ``init_params``
+tree, as numpy, into the port's tree, checked against the port's
+``param_shapes``.
 For the NoC and the design-space sweep, :func:`flows_from_reference`
 builds ``noc.TrafficFlow``s from (name, src, dsts, inputs, weights) tuples
 of numpy payloads and :func:`design_point_from_reference` rebuilds a
@@ -33,6 +36,7 @@ __all__ = [
     "packets_from_numpy",
     "model_config_from_reference",
     "params_from_numpy",
+    "params_from_reference",
     "flows_from_reference",
     "design_point_from_reference",
 ]
@@ -62,17 +66,59 @@ def model_config_from_reference(config_dict: dict) -> ModelConfig:
     return ModelConfig(**fields).validate()
 
 
+def _tensor_from_numpy(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``torch.from_numpy`` refuses ``ml_dtypes`` bfloat16: those arrays
+    cross as their uint16 bits, viewed back as ``torch.bfloat16``."""
+    a = a if a.flags.writeable else a.copy()
+    if a.dtype.name == "bfloat16":
+        return packets_from_numpy(a.view(np.uint16), dev).view(torch.bfloat16)
+    return packets_from_numpy(a, dev)
+
+
 def params_from_numpy(tree: dict, device: str | torch.device | None = None) -> dict:
     """A nested dict of numpy arrays as the same dict of tensors, dtypes
-    and shapes unchanged, on ``device`` (``cuda`` unless named)."""
+    (bfloat16 included) and shapes unchanged, on ``device`` (``cuda``
+    unless named)."""
     dev = resolve_device(device)
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             out[k] = params_from_numpy(v, dev)
         else:
-            a = np.asarray(v)
-            out[k] = packets_from_numpy(a if a.flags.writeable else a.copy(), dev)
+            out[k] = _tensor_from_numpy(np.asarray(v), dev)
+    return out
+
+
+def _mismatches(got: dict, want: dict, path: str = "") -> list[str]:
+    bad = [f"{path}{k}: missing" for k in want if k not in got]
+    bad += [f"{path}{k}: not a parameter of this config" for k in got if k not in want]
+    for k in want.keys() & got.keys():
+        g, w = got[k], want[k]
+        if isinstance(w, dict) != isinstance(g, dict):
+            bad.append(f"{path}{k}: tree structure differs")
+        elif isinstance(w, dict):
+            bad += _mismatches(g, w, f"{path}{k}/")
+        elif (tuple(g.shape), g.dtype) != (tuple(w.shape), w.dtype):
+            bad.append(f"{path}{k}: {tuple(g.shape)} {g.dtype} != {tuple(w.shape)} {w.dtype}")
+    return bad
+
+
+def params_from_reference(
+    tree: dict, cfg: ModelConfig, device: str | torch.device | None = None
+) -> dict:
+    """The reference's parameter tree (``repro.models.init_params``, as
+    numpy arrays: ``jax.tree.map(np.asarray, params)``) as the port's
+    tree on ``device`` (``cuda`` unless named).  Both packages stack layers
+    on a leading axis with the same keys, so leaves carry across one to
+    one; every path, shape and dtype is checked against the port's
+    ``param_shapes(cfg)`` and a mismatch raises."""
+    from .models.transformer import param_shapes  # deferred: the model zoo
+
+    out = params_from_numpy(tree, device)
+    bad = _mismatches(out, param_shapes(cfg))
+    if bad:
+        raise ValueError(f"{cfg.name}: reference parameters do not fit the port's tree: "
+                         + "; ".join(sorted(bad)))
     return out
 
 

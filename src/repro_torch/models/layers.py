@@ -1,0 +1,345 @@
+"""Shared neural-net layers: norms, RoPE, attention (train + decode), MLPs.
+
+Counterpart of ``repro.models.layers``.  Parameters are plain nested dicts
+of tensors, initialisers take an explicit ``torch.Generator``, and every
+layer is a function ``(params, inputs, ...) -> outputs`` that follows the
+reference's op sequence (so float32 outputs agree to rounding).
+Attention supports the reference's three implementations
+(``config.attn_impl``):
+
+  dense        -- full (S, S) score matrix; smoke tests and short sequences.
+  chunked      -- a loop over query chunks, online softmax over all KV
+                  chunks with causal masking (2x causal FLOPs).
+  chunked_skip -- the same loop skipping KV chunks above the causal
+                  diagonal (FLOP-optimal; the default).
+
+The products are ``torch.matmul`` / ``einsum``; none of this is a Pallas
+kernel in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def torch_dtype(name: str | torch.dtype) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` / ``param_dtype`` string."""
+    if isinstance(name, torch.dtype):
+        return name
+    if name not in _DTYPES:
+        raise ValueError(f"unknown dtype {name!r}; choose from {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+# --------------------------------------------------------------------------
+# initialisers / norms / rope
+# --------------------------------------------------------------------------
+
+
+def normal(gen: torch.Generator | None, shape: tuple[int, ...], device: torch.device):
+    """Standard normal draws of ``shape`` from ``gen`` on ``device``; on the
+    ``meta`` device (``param_shapes``) a shape-only tensor and no draw."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.randn(shape, generator=gen, device=gen.device).to(device)
+
+
+def dense_init(gen, shape: tuple[int, ...], in_axis_size: int, dtype, device):
+    """Normal weights scaled by 1/sqrt(fan-in), as the reference's."""
+    scale = 1.0 / math.sqrt(max(1, in_axis_size))
+    return (normal(gen, shape, device) * scale).to(torch_dtype(dtype))
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * w.to(torch.float32)).to(dt)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float) -> tuple:
+    """cos/sin tables for given positions: (..., head_dim // 2)."""
+    half = head_dim // 2
+    freqs = torch.exp(
+        -math.log(theta)
+        * torch.arange(0, half, dtype=torch.float32, device=positions.device)
+        / half
+    )
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D); cos/sin: (B, S, D/2) or (S, D/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.dim() == 2:
+        cos = cos[None, :, None, :]
+        sin = sin[None, :, None, :]
+    else:
+        cos = cos[:, :, None, :]
+        sin = sin[:, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+
+def init_mlp(gen, cfg: ModelConfig, d_ff: int, lead: tuple = (), device=None) -> Params:
+    """MLP weights; ``lead`` prefixes every shape (a stacked layer axis)."""
+    pdt = cfg.param_dtype
+    d = cfg.d_model
+    gated = cfg.act in ("swiglu", "geglu")
+    p: Params = {}
+    if gated:
+        p["gate"] = dense_init(gen, (*lead, d, d_ff), d, pdt, device)
+    p["up"] = dense_init(gen, (*lead, d, d_ff), d, pdt, device)
+    p["down"] = dense_init(gen, (*lead, d_ff, d), d_ff, pdt, device)
+    return p
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = x.dtype
+    if cfg.act == "swiglu":
+        h = F.silu(x @ params["gate"].to(dt)) * (x @ params["up"].to(dt))
+    elif cfg.act == "geglu":
+        h = _gelu(x @ params["gate"].to(dt)) * (x @ params["up"].to(dt))
+    else:
+        h = _gelu(x @ params["up"].to(dt))
+    return h @ params["down"].to(dt)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+
+def init_attention(gen, cfg: ModelConfig, lead: tuple = (), device=None) -> Params:
+    pdt = cfg.param_dtype
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    p: Params = {
+        "wq": dense_init(gen, (*lead, d, cfg.n_heads, hd), d, pdt, device),
+        "wk": dense_init(gen, (*lead, d, cfg.n_kv_heads, hd), d, pdt, device),
+        "wv": dense_init(gen, (*lead, d, cfg.n_kv_heads, hd), d, pdt, device),
+        "wo": dense_init(gen, (*lead, cfg.n_heads, hd, d), cfg.n_heads * hd, pdt, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((*lead, hd), dtype=torch_dtype(pdt), device=device)
+        p["k_norm"] = torch.ones((*lead, hd), dtype=torch_dtype(pdt), device=device)
+    return p
+
+
+def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """Project + (optional) qk-norm + rope.  x: (B, S, d)."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.rms_eps)
+        k = rms_norm(k, params["k_norm"], cfg.rms_eps)
+    cos, sin = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _sdpa_dense(q, k, v, scale: float, causal: bool) -> torch.Tensor:
+    """q: (B, Sq, H, D), k/v: (B, Sk, Hkv, D) with H = Hkv * rep."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    qg = q.reshape(b, sq, hkv, rep, d)
+    scores = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).to(torch.float32) * scale
+    if causal:
+        mask = torch.tril(torch.ones((sq, sk), dtype=torch.bool, device=q.device),
+                          diagonal=sk - sq)
+        scores = torch.where(mask[None, None, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v)
+    return out.reshape(b, sq, h, d)
+
+
+def _attn_block(q, k, v, scale, mask_bias):
+    """One (q-chunk, kv-chunk) online-softmax block.
+
+    q: (B, Cq, Hkv, rep, D); k/v: (B, Ck, Hkv, D).
+    Returns (m, l, acc) partials with m/l: (B, Hkv, rep, Cq), acc like q.
+    """
+    s = torch.einsum("bqhrd,bkhd->bhrqk", q, k).to(torch.float32) * scale
+    if mask_bias is not None:
+        s = s + mask_bias
+    m = torch.amax(s, dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    acc = torch.einsum("bhrqk,bkhd->bqhrd", p.to(q.dtype), v)
+    return m, l, acc
+
+
+def _merge_blocks(m1, l1, a1, m2, l2, a2):
+    m = torch.maximum(m1, m2)
+    e1 = torch.exp(m1 - m)
+    e2 = torch.exp(m2 - m)
+    l = l1 * e1 + l2 * e2
+    # scale accumulators: acc axes (B, Cq, Hkv, rep, D) vs stats (B,Hkv,rep,Cq)
+    s1 = e1.permute(0, 3, 1, 2)[..., None].to(a1.dtype)
+    s2 = e2.permute(0, 3, 1, 2)[..., None].to(a2.dtype)
+    return m, l, a1 * s1 + a2 * s2
+
+
+def _finalize(m, l, acc):
+    denom = l.permute(0, 3, 1, 2)[..., None]
+    return (acc.to(torch.float32) / torch.clamp_min(denom, 1e-30)).to(acc.dtype)
+
+
+def _sdpa_chunked(q, k, v, scale: float, chunk: int, skip: bool) -> torch.Tensor:
+    """Causal online-softmax attention over chunks.
+
+    ``skip=True`` skips KV chunks above the causal diagonal (FLOP-optimal);
+    ``skip=False`` visits every KV chunk with the causal bias (the
+    reference's ``lax.scan`` form: 2x causal FLOPs).  Both are Python
+    loops over the chunks here.
+    """
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    cq = min(chunk, sq)
+    ck = min(chunk, sk)
+    if sq % cq or sk % ck:
+        return _sdpa_dense(q, k, v, scale, causal=True)
+    nq, nk = sq // cq, sk // ck
+    qg = q.reshape(b, nq, cq, hkv, rep, d)
+    kg = k.reshape(b, nk, ck, hkv, d)
+    vg = v.reshape(b, nk, ck, hkv, d)
+    hist = sk - sq  # KV positions preceding the query window (decode prefill)
+    ar_q = torch.arange(cq, device=q.device)
+    ar_k = torch.arange(ck, device=q.device)
+
+    def block_bias(qi: int, kj: int):
+        qpos = qi * cq + hist + ar_q
+        kpos = kj * ck + ar_k
+        keep = qpos[:, None] >= kpos[None, :]
+        zero = torch.zeros((), dtype=torch.float32, device=q.device)
+        return torch.where(keep, zero, -1e30)[None, None, None]
+
+    outs = []
+    for i in range(nq):
+        m = torch.full((b, hkv, rep, cq), -1e30, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, hkv, rep, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, cq, hkv, rep, d), dtype=q.dtype, device=q.device)
+        if skip:
+            hi = min(nk, ((i + 1) * cq + hist + ck - 1) // ck)
+        else:
+            hi = nk
+        for j in range(hi):
+            diag = (j + 1) * ck > i * cq + hist  # block touches the mask
+            bias = block_bias(i, j) if (diag or not skip) else None
+            mb, lb, ab = _attn_block(qg[:, i], kg[:, j], vg[:, j], scale, bias)
+            m, l, acc = _merge_blocks(m, l, acc, mb, lb, ab)
+        outs.append(_finalize(m, l, acc))
+    out = torch.stack(outs, dim=1)
+    return out.reshape(b, sq, h, d)
+
+
+def attention(
+    params: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Full-sequence attention (training / prefill).  x: (B, S, d)."""
+    q, k, v = _qkv(params, x, cfg, positions)
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    if not causal or cfg.attn_impl == "dense" or x.shape[1] <= cfg.attn_chunk:
+        out = _sdpa_dense(q, k, v, scale, causal)
+    else:
+        skip = cfg.attn_impl == "chunked_skip"
+        # the reference floors the skip form's chunk at S/8 to bound its
+        # unrolled HLO; kept so both packages take the same blocks
+        chunk = max(cfg.attn_chunk, x.shape[1] // 8) if skip else cfg.attn_chunk
+        out = _sdpa_chunked(q, k, v, scale, chunk, skip=skip)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+
+
+def cross_attention(
+    params: Params,
+    x: torch.Tensor,
+    kv_k: torch.Tensor,
+    kv_v: torch.Tensor,
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V (no rope)."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.rms_eps)
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    out = _sdpa_dense(q, kv_k, kv_v, scale, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+
+
+def encode_kv(params: Params, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Precompute cross-attention K/V from encoder output."""
+    dt = enc_out.dtype
+    k = torch.einsum("bsd,dhk->bshk", enc_out, params["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, params["wv"].to(dt))
+    if cfg.qk_norm:
+        k = rms_norm(k, params["k_norm"], cfg.rms_eps)
+    return k, v
+
+
+def attention_decode(
+    params: Params,
+    x: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    pos: torch.Tensor,
+    cfg: ModelConfig,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token decode with KV cache.
+
+    x: (B, 1, d); cache_k/v: (B, S_max, Hkv, D); pos: 0-d int32 tensor
+    (tokens already in cache).  Returns (y, new_k, new_v); the caches
+    passed in are not modified.
+    """
+    dt = x.dtype
+    b = x.shape[0]
+    positions = pos.to(torch.int32).expand(b, 1)
+    q, k, v = _qkv(params, x, cfg, positions)
+    smax = cache_k.shape[1]
+    ar = torch.arange(smax, device=x.device)
+    slot = (ar == pos)[None, :, None, None]
+    cache_k = torch.where(slot, k.to(cache_k.dtype), cache_k)
+    cache_v = torch.where(slot, v.to(cache_v.dtype), cache_v)
+    hkv = cfg.n_kv_heads
+    rep = cfg.q_rep
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    qg = q.reshape(b, 1, hkv, rep, q.shape[-1])
+    scores = (
+        torch.einsum("bqhrd,bkhd->bhrqk", qg, cache_k.to(dt)).to(torch.float32) * scale
+    )
+    valid = (ar <= pos)[None, None, None, None, :]
+    scores = torch.where(valid, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", probs, cache_v.to(dt))
+    out = out.reshape(b, 1, cfg.n_heads, cfg.resolved_head_dim)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+    return y, cache_k, cache_v

@@ -6,8 +6,9 @@
 #   report.py   - per-link BT tables, top-N hottest links, CSV/JSON dumps
 #   activity.py - wire-level switching-activity profiles
 #   saif.py     - SAIF / VCD export of measured activity for EDA flows
-# The reference's capture.py (taps on the model zoo recording real wire
-# streams) waits for the model zoo to be ported.
+#   capture.py  - real-model traffic capture: taps on the model zoo record
+#                 int8 wire streams (serving and MoE dispatch; the training
+#                 drivers wait for the training slice)
 #
 # Off and free by default: production modules import only
 # repro_torch._obs_hooks (one None test per probe, no device sync), so an
@@ -21,6 +22,16 @@ from .activity import (
     wire_name,
     wire_records,
     write_wires_csv,
+)
+from .capture import (
+    TAP_SCENARIOS,
+    CapturedStream,
+    CaptureSession,
+    capture,
+    capture_moe_dispatch,
+    capture_serve_decode,
+    load_session,
+    save_session,
 )
 from .metrics import Counter, Gauge, Histogram, Registry, registry_from_dict
 from .probes import (
@@ -86,4 +97,12 @@ __all__ = [
     "parse_saif",
     "write_saif",
     "write_vcd",
+    "TAP_SCENARIOS",
+    "CapturedStream",
+    "CaptureSession",
+    "capture",
+    "capture_serve_decode",
+    "capture_moe_dispatch",
+    "save_session",
+    "load_session",
 ]

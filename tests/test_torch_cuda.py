@@ -530,3 +530,42 @@ def test_evaluate_grid_on_card_matches_plain(dev):
         assert counts["bt_axes_activity" if windows else "bt_axes"] == 2
     assert dse.grid_launch_count(points, workload) == 2
     assert dse.grid_launch_count(points[:-1], workload) == 1
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen3-moe-30b-a3b", "zamba2-1.2b"])
+def test_serving_capture_on_card_holds_the_pins(dev, arch):
+    """The serving path on the card: greedy tokens, stream names and the
+    weight stream's bytes equal phase 3f's pins (the JAX package's), the
+    captured bytes stay on the card, and the grid over them is one
+    bt_axes launch equal to the plain version."""
+    import dataclasses
+    import hashlib
+
+    from chip_smoke import SERVE, serve_grid, serve_smoke
+
+    pin = SERVE["pins"][arch]
+    _, _, sess, res = serve_smoke(arch, dev)
+    (w,) = sess.get("serve_decode", "weights")
+    assert w.data.device.type == "cuda"
+    assert res.tokens.tolist() == pin["tokens"]
+    assert [s.name for s in sess.streams] == pin["names"]
+    assert hashlib.sha256(w.data.cpu().numpy().tobytes()).hexdigest() == pin["weights_sha256"]
+    tk.reset_launch_counts()
+    got = serve_grid(sess)
+    assert tk.launch_counts()["bt_axes"] == 1
+    ref = serve_grid(sess, backend="torch")
+    assert [dataclasses.asdict(e) for e in got] == [dataclasses.asdict(e) for e in ref]
+    assert {e.label: [e.total_bt, e.aux_bt] for e in got} == pin["grid"]
+
+
+def test_capture_moe_dispatch_on_card(dev):
+    """The MoE dispatch tap records on the card; a serving capture of the
+    same config does not record it."""
+    from repro_torch import obs
+    from repro_torch.configs import smoke_config
+
+    cfg = smoke_config("qwen3-moe-30b-a3b")
+    (e,) = obs.capture_moe_dispatch(cfg, batch=2, seq=8, device=dev).get("moe_dispatch")
+    assert e.data.device.type == "cuda" and len(e.source_shape) == 4
+    sess = obs.capture_serve_decode(cfg, batch=2, prompt=8, new_tokens=2, device=dev)
+    assert [s.name for s in sess.streams] == ["weights", "kv", "kv"]

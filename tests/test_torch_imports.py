@@ -37,7 +37,11 @@ def test_every_port_module_is_listed():
                      "repro_torch.noc.simulate", "repro_torch.noc.latency",
                      "repro_torch.noc.power", "repro_torch.noc.adapters", "repro_torch.dse",
                      "repro_torch.dse.space", "repro_torch.dse.evaluate",
-                     "repro_torch.dse.pareto", "repro_torch.dse.report"):
+                     "repro_torch.dse.pareto", "repro_torch.dse.report",
+                     "repro_torch.models.layers", "repro_torch.models.moe",
+                     "repro_torch.models.ssd", "repro_torch.models.transformer",
+                     "repro_torch.serve", "repro_torch.serve.kv_quant", "repro_torch.serve.loop",
+                     "repro_torch.obs.capture"):
         assert expected in names
 
 
@@ -71,6 +75,47 @@ def test_noc_and_dse_export_the_reference_names():
                    and any(getattr(t, "id", None) == "__all__" for t in n.targets))
         assert port.__all__ == ref
         assert all(hasattr(port, n) for n in ref)
+
+
+def _reference_all(path: str) -> list:
+    """A reference package's ``__all__``, read from its source (importing
+    it would load JAX here)."""
+    import ast
+
+    tree = ast.parse((ROOT / "src" / "repro" / path / "__init__.py").read_text())
+    return next(ast.literal_eval(n.value) for n in tree.body if isinstance(n, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__" for t in n.targets))
+
+
+def test_models_and_serve_export_the_reference_names():
+    import repro_torch.models
+    import repro_torch.serve
+
+    for name, port in (("models", repro_torch.models), ("serve", repro_torch.serve)):
+        assert port.__all__ == _reference_all(name)
+        assert all(hasattr(port, n) for n in port.__all__)
+
+
+def test_serving_path_imports_without_jax():
+    """The model zoo, the serving loop and the capture drivers run a small
+    model end to end with neither JAX nor the reference loaded."""
+    code = (
+        "import json, sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
+        "import torch\n"
+        "from repro_torch import obs\n"
+        "from repro_torch.configs import smoke_config\n"
+        "sess = obs.capture_serve_decode(smoke_config('internlm2-1.8b'), batch=1, prompt=4,\n"
+        "                                new_tokens=2, device='cpu')\n"
+        "assert [s.name for s in sess.streams] == ['weights', 'kv', 'kv']\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, check=True,
+        timeout=300, cwd=ROOT,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_obs_and_its_hooks_import_without_jax():
