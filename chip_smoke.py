@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE and serving paths on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE, serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -99,6 +99,33 @@ non-zero:
    ``forward`` in float32, the APP-ordered weights against the unordered,
    with prefill, decode, capture, measurement and ``bt_axes`` times and
    the peak device memory;
+3g. training path: one ``repro_torch.train.make_train_step`` step under
+   ``obs.capture()`` on the smoke configs of internlm2-1.8b,
+   qwen3-moe-30b-a3b and mamba2-370m at float32 (weights by
+   ``draw_params``, batch 2 x 32 by ``obs.train_batch``): loss and
+   ``grad_norm`` within a relative 1e-4 of the JAX pins (``TRAIN``), the
+   gradient bytes within one int8 code of the JAX package's
+   (``tests/data/train_grad_pins.npz``) on at most 1 % of the bytes,
+   ``model_traffic.py``'s train_allreduce grid (activity windows of 32) and
+   ring(8) fabric equal to the plain versions and, on the pinned bytes, to
+   the pins; ``microbatches=2`` against one batch; a ``train()`` run
+   preempted at step 5 and resumed from its checkpoints in ``build/``,
+   bitwise equal to a straight run; the reference's trained LeNet
+   (``tests/data/lenet_ref.npz``) through ``capture_lenet_conv``, its conv
+   and input bytes equal to the reference's and ``model_traffic.py``'s
+   lenet_conv grid, mesh(4, 4) fabric and recalibration rows
+   (``TxPipeline``) equal to the pins (``LENET``) and the plain versions;
+   the port's own LeNet trained 300 steps on the card under a loss bound,
+   checkpointed and restored; then internlm2-1.8b at full width: 3 steps of
+   ``train()`` on 4 x 256 tokens (losses finite, step 0's batch loss
+   lower after them), step wall and device time, a float32
+   directional-derivative check of the gradient, one ``capture_train_step``
+   whose 1,889,110,016-byte grads stream equals ``int8_view`` of each
+   gradient leaf, measured as 16 links under the four points and as a
+   ring(8) step under none / ACC / APP4 (plain versions on 2 links and on
+   ring link 0), and ``compressed_psum`` (int8 + error feedback) of the
+   flat gradient, unordered and through the static egress permutation,
+   equal, with the wire's BT both ways and the peak device memory;
 4. scale and times: ``psu_stream`` on 4,194,304 paired packets and on
    Table I's conv input stream (7,350 packets of 64, 16 lanes),
    ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
@@ -140,7 +167,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from benchmarks.datagen import conv_streams, im2col, synth_images, uniform_pairs  # noqa: E402
-from repro_torch import _obs_hooks, dse, kernels, noc, obs, serve  # noqa: E402
+from repro_torch import _obs_hooks, dse, kernels, noc, obs, optim, serve, train  # noqa: E402
+from repro_torch._tree import leaves as tree_leaves  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.codec import compare_streams, demo_workloads, format_table  # noqa: E402
 from repro_torch.codec import codec_by_name, kernel_config  # noqa: E402
 from repro_torch.core import bitonic_area, bucket_map, csn_area, popcount, psu_area  # noqa: E402
@@ -156,7 +185,8 @@ from repro_torch.kernels import (  # noqa: E402
     psu_stream,
 )
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
-from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.convert import lenet_params_from_reference, params_from_numpy  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     decode_step,
     forward,
@@ -166,6 +196,9 @@ from repro_torch.models import (  # noqa: E402
     unembed,
 )
 from repro_torch.kernels import quantize_egress  # noqa: E402
+from repro_torch.models import lenet  # noqa: E402
+from repro_torch.optim.compress import int8_wire  # noqa: E402
+from repro_torch.train.step import value_and_grad  # noqa: E402
 from repro_torch.kernels.axes import max_partitions  # noqa: E402
 from repro_torch.noc.fabric import _queue_gather_table  # noqa: E402
 from repro_torch.link import LinkPowerModel, LinkSpec, TxPipeline  # noqa: E402
@@ -1857,6 +1890,18 @@ def serve_inputs(arch: str, seed: int = SERVE["seed"]) -> tuple:
     for any other vector."""
     cfg = smoke_config(arch, dtype="float32")
     rng = np.random.default_rng(seed)
+    params = draw_params(cfg, rng)
+    prompts = rng.integers(0, cfg.vocab, (SERVE["batch"], SERVE["prompt"])).astype(np.int32)
+    frames = None
+    if cfg.family in ("encdec", "audio"):
+        frames = rng.standard_normal((SERVE["batch"], SERVE["frames"], cfg.d_model),
+                                     dtype=np.float32)
+    return cfg, params, prompts, frames
+
+
+def draw_params(cfg, rng: np.random.Generator) -> dict:
+    """numpy weights for every leaf of the port's ``param_shapes(cfg)``,
+    drawn in sorted-key order from ``rng`` (``serve_inputs``' recipe)."""
 
     def draw(tree: dict, path: tuple) -> dict:
         out = {}
@@ -1879,13 +1924,7 @@ def serve_inputs(arch: str, seed: int = SERVE["seed"]) -> tuple:
             out[k] = x.astype(np.float32)
         return out
 
-    params = draw(param_shapes(cfg), ())
-    prompts = rng.integers(0, cfg.vocab, (SERVE["batch"], SERVE["prompt"])).astype(np.int32)
-    frames = None
-    if cfg.family in ("encdec", "audio"):
-        frames = rng.standard_normal((SERVE["batch"], SERVE["frames"], cfg.d_model),
-                                     dtype=np.float32)
-    return cfg, params, prompts, frames
+    return draw(param_shapes(cfg), ())
 
 
 def arch_bt_row2_tensor(params: dict, cfg) -> torch.Tensor:
@@ -2203,6 +2242,674 @@ def _serve_full(dev: torch.device, lc: _PathLaunches, full: bool) -> dict:
         f"weights prefill rel err {rel:.3g}, same greedy tokens {100 * same:.1f}%; peak "
         f"{out['peak_bytes']} bytes; {out['seconds']:.1f} s")
     return out
+
+
+# ------------------------------------------------------------------ phase 3g
+
+# The training path at smoke size: TRAIN_ARCHS' smoke configs at dtype
+# float32, weights drawn by draw_params (serve_inputs' recipe) and the batch
+# by obs.train_batch, both from the seed (batch 2, 32 tokens: model_traffic
+# .py's capture_train_step shapes).  One make_train_step step under
+# obs.capture() with AdamWConfig(warmup_steps=1, total_steps=10), as
+# capture_train_step takes it; its train_allreduce grads stream measured as
+# benchmarks/model_traffic.py measures it: the four points of SERVE_POINTS
+# with activity windows of 32 rows (64-byte packets, 16 lanes), and
+# ring_allreduce_flows on ring(8) through simulate_noc with an input-only
+# 16-lane link, none and ACC sorted at the source.  The pins are the JAX
+# package's (tests/test_torch_train_step.py holds both packages to them):
+# loss and grad_norm within ``rel_tol``, the stream names and byte count,
+# the grid totals (data BT, invert-line BT) and activity digest, the ring's
+# (none BT, ACC BT, ACC per-link digest).  Gradient bytes depend on float
+# rounding: the JAX package's are in TRAIN_GRAD_PINS, and the port's must
+# lie within ``grad_codes`` int8 codes of them on at most ``grad_share`` of
+# the bytes; where they equal the pinned bytes the measurements must equal
+# the pins too (they always equal the plain versions).
+TRAIN_ARCHS = ("internlm2-1.8b", "qwen3-moe-30b-a3b", "mamba2-370m")
+TRAIN_GRAD_PINS = ROOT / "tests" / "data" / "train_grad_pins.npz"
+TRAIN = {
+    "batch": 2, "seq": 32, "seed": 0, "elems": 64, "lanes": 16, "window": 32, "ring": 8,
+    "opt": {"warmup_steps": 1, "total_steps": 10},
+    "rel_tol": 1e-4, "grad_codes": 1, "grad_share": 0.01,
+    # train() on the smoke internlm2-1.8b: checkpoints every 3 steps,
+    # preempted at step 5, resumed; final params bitwise equal to a run
+    # without the preemption
+    "restart": {"arch": "internlm2-1.8b", "steps": 8, "every": 3, "fail_at": 5,
+                "data": {"seq_len": 32, "global_batch": 8, "seed": 1, "noise": 0.05},
+                "opt": {"peak_lr": 2e-3, "warmup_steps": 3, "total_steps": 40}},
+    "pins": {
+        "internlm2-1.8b": {
+            "loss": 5.876974105834961, "grad_norm": 13.552249908447266,
+            "names": ["grads"], "grads_bytes": 106816,
+            "grid": {"none@N25": [363855, 0], "acc@N25": [207336, 0],
+                     "app-k4@N25": [222619, 0], "app-k4+bus_invert@N25": [221665, 72]},
+            "activity_sha256": "00576c863d247af3a8e127d9e1c3343badc208e88ef42f6d8b977d7cf81de3c5",
+            "ring": [363425, 207040,
+                     "84dc72ffab1aacc499fe943aeaaea2c2264625a11d65e26447deccc704739bd8"],
+        },
+        "qwen3-moe-30b-a3b": {
+            "loss": 5.9482927322387695, "grad_norm": 14.36476993560791,
+            "names": ["grads"], "grads_bytes": 255360,
+            "grid": {"none@N25": [953364, 0], "acc@N25": [418590, 0],
+                     "app-k4@N25": [462936, 0], "app-k4+bus_invert@N25": [461930, 71]},
+            "activity_sha256": "84012336e75a4b5692f1983b07548ca3a0fda4778c47138494f2b86c17375dc9",
+            "ring": [952952, 418426,
+                     "f7435d1e52e18422f9f9d652f64f78e2496b9293ea205eece5f35f1e38c76c62"],
+        },
+        "mamba2-370m": {
+            "loss": 4.866202354431152, "grad_norm": 4.690311431884766,
+            "names": ["grads"], "grads_bytes": 120864,
+            "grid": {"none@N25": [469552, 0], "acc@N25": [179913, 0],
+                     "app-k4@N25": [203795, 0], "app-k4+bus_invert@N25": [203635, 18]},
+            "activity_sha256": "51c3891f2f65fea83b9b77c3a8096b7dca695da5096c13e48b7279c6cafbb2b4",
+            "ring": [469097, 179713,
+                     "c8a39855854f3783445d67320ba29e408ff1bd4599136b5cffbe84a9a4b056a2"],
+        },
+    },
+}
+# LeNet with the reference's trained weights: repro.models.lenet.
+# train_lenet(300) params and its 8 capture images (jax.random draws),
+# kept in LENET_REF with the bytes the reference's capture_lenet_conv
+# recorded from them; measured as model_traffic.py measures lenet_conv:
+# the four-point grid with windows of 32 rows, conv_platform_flows on
+# mesh(4, 4) from router 0 to the routers r % 4 != 0 (conv1's trained
+# kernel bytes on the weight lanes, im2col patches of synth_images(1,
+# seed=7) on the input lanes, LinkSpec() framing, none vs ACC sorted at the
+# source), and the recalibration rows: TxPipeline over input-only 16-lane
+# links of the captured inputs and the conv1 + conv2 kernels, BT per flit
+# under none / ACC / APP (k = 4), and the overall reductions beside
+# model_traffic.py's SYNTHETIC_OVERALL and PAPER_OVERALL.  The port's own
+# LeNet (train_lenet(300, 64) with its generator) must end under
+# ``loss_bound``, set from the reference's final loss (``pins``).
+LENET_REF = ROOT / "tests" / "data" / "lenet_ref.npz"
+LENET = {
+    "steps": 300, "batch": 64, "images": 8, "patch_seed": 7, "window": 32,
+    "noc_pes": tuple(r for r in range(16) if r % 4),
+    "synthetic_overall": {"acc": 14.21, "app": 12.66},
+    "paper_overall": {"acc": 20.42, "app": 19.50},
+    # about 26x the reference's final loss (pins), two orders of magnitude
+    # under chance (ln 10 = 2.303): a different generator sees other batches
+    "loss_bound": 0.02,
+    "pins": {
+        "final_loss": 0.0007744004251435399,
+        "grid": {"none@N25": [40999, 0], "acc@N25": [31939, 0],
+                 "app-k4@N25": [32863, 0], "app-k4+bus_invert@N25": [32821, 8]},
+        "activity_sha256": "5d5ed9588992693ffdf1b205d844b981c449a321bb9652b53cb18abf76143942",
+        "noc": [426413, 381704,
+                "03d2ae8f489e4132bf8dffab10db23f2589c2bf0457016526a31ba0ffaef2e72"],
+        "recalib": {
+            "bt_per_flit": {"none": [60.7734375, 64.73717948717949],
+                            "acc": [47.544921875, 49.38461538461539],
+                            "app": [48.79296875, 51.37179487179487]},
+            "captured_red": {"acc": 22.771842266127628, "app": 20.194190717725203},
+        },
+    },
+}
+# internlm2-1.8b uncut (phase 3f's config): train() for 3 steps of
+# DataConfig(vocab 92,544, seq_len 256, global_batch 4) with AdamWConfig(
+# warmup_steps=1, total_steps=10); a directional-derivative check in
+# float32 on 1 x 64 tokens (central difference of the loss along g/|g| at
+# step h against |g|); one capture_train_step at full width, its
+# 1,889,110,016-byte grads stream (every leaf, final_norm too) measured as
+# 16 links (one link would wrap the int32 BT counters) under the four
+# points and as one ring reduce-scatter step on ring(8) under none / ACC /
+# APP4, the plain versions
+# on 2 of the 16 links and on ring link 0; then compressed_psum(int8_ef) of
+# the flat gradient, one replica, unordered and with the static egress
+# permutation of the trained weights' int8 bytes.
+TRAIN_FULL = {"steps": 3, "seq_len": 256, "global_batch": 4, "seed": 0, "split": 16,
+              "plain_links": 2, "fd_tokens": 64, "fd_h": 1e-2, "fd_rel_tol": 0.02,
+              "grad_bytes": 1_889_110_016}
+
+
+def train_inputs(arch: str, seed: int = TRAIN["seed"]) -> tuple:
+    """Smoke-size training inputs for both packages: (config at float32,
+    numpy weights from ``draw_params``, numpy batch from
+    ``obs.train_batch``), all from ``seed``."""
+    cfg = smoke_config(arch, dtype="float32")
+    params = draw_params(cfg, np.random.default_rng(seed))
+    batch = {k: v.numpy() for k, v in
+             obs.train_batch(cfg, TRAIN["batch"], TRAIN["seq"], seed, "cpu").items()}
+    return cfg, params, batch
+
+
+def train_smoke(arch: str, dev: torch.device, microbatches: int = 1) -> tuple:
+    """The port's train step on ``train_inputs(arch)`` under
+    ``obs.capture()``: (session, metrics as floats)."""
+    cfg, params_np, batch = train_inputs(arch)
+    params = params_from_numpy(params_np, dev)
+    step = train.make_train_step(cfg, optim.AdamWConfig(**TRAIN["opt"]), microbatches)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    with obs.capture() as sess:
+        _, _, metrics = step(params, optim.init(params), data)
+    return sess, {k: float(v) for k, v in metrics.items()}
+
+
+def train_grid(sess, **kw):
+    """model_traffic.py's grid (windows of 32 rows) on the grads stream."""
+    wl = sess.workload("train_allreduce", elems=TRAIN["elems"], lanes=TRAIN["lanes"])
+    return dse.evaluate_grid(SERVE_POINTS, wl, activity_windows=TRAIN["window"], **kw)
+
+
+def train_ring(grads: torch.Tensor, key: str, **kw):
+    """model_traffic.py's train_allreduce fabric: one ring reduce-scatter
+    step of the grads bytes on ring(8), sorted at the source."""
+    spec = input_only_spec(key, TRAIN["elems"], TRAIN["lanes"])
+    topo = noc.ring(TRAIN["ring"])
+    flows = noc.ring_allreduce_flows(grads.view(torch.int8), topo, spec=spec)
+    return noc.simulate_noc(topo, flows, spec, sort_at="source", **kw)
+
+
+def train_rows(sess, **kw) -> dict:
+    """The train_allreduce measurements that are pinned: grid totals and
+    activity digest, the ring fabric's (none BT, ACC BT, ACC per-link
+    digest)."""
+    evals = train_grid(sess, **kw)
+    (g,) = sess.get("train_allreduce", "grads")
+    base, acc = train_ring(g.data, "none", **kw), train_ring(g.data, "acc", **kw)
+    return {"grid": {e.label: [e.total_bt, e.aux_bt] for e in evals},
+            "activity_sha256": evals_digest(evals),
+            "ring": [base.total_bt, acc.total_bt, links_digest(acc)]}
+
+
+def pinned_grads_session(arch: str, dev: torch.device):
+    """A capture session holding the JAX package's pinned gradient bytes
+    of ``arch`` (TRAIN_GRAD_PINS) as its train_allreduce grads stream."""
+    sess = obs.CaptureSession()
+    data = np.load(TRAIN_GRAD_PINS)[arch]
+    sess._add_bytes("train_allreduce", "grads", torch.from_numpy(data.copy()).to(dev),
+                    (data.size,), "train.grads", {})
+    return sess
+
+
+def lenet_reference(dev: torch.device) -> tuple:
+    """LENET_REF on ``dev``: (the reference's trained LeNet tree, its 8
+    capture images, the bytes its capture recorded by stream name)."""
+    ref = np.load(LENET_REF)
+    tree: dict = {}
+    for key in ref.files:
+        if key.startswith("params/"):
+            _, layer, leaf = key.split("/")
+            tree.setdefault(layer, {})[leaf] = ref[key]
+    images = torch.from_numpy(ref["images"]).to(dev)
+    want = {k.split("/")[1]: ref[k] for k in ref.files if k.startswith("bytes/")}
+    return lenet_params_from_reference(tree, dev), images, want
+
+
+def lenet_patches() -> np.ndarray:
+    """model_traffic.py's conv-platform input patches: im2col of one
+    synth_images image (seed 7), 5 x 5 windows."""
+    return im2col(synth_images(1, seed=LENET["patch_seed"])[0], 5)
+
+
+def lenet_grid(sess, **kw):
+    """model_traffic.py's lenet_conv grid (windows of 32 rows) over its
+    captured streams."""
+    wl = sess.workload("lenet_conv", elems=TRAIN["elems"], lanes=TRAIN["lanes"])
+    return dse.evaluate_grid(SERVE_POINTS, wl, activity_windows=LENET["window"], **kw)
+
+
+def lenet_noc(sess, key: str, **kw):
+    """model_traffic.py's lenet_conv fabric: conv1's kernel bytes and the
+    patches on mesh(4, 4) from router 0 to the PEs off column 0."""
+    kernel = sess.scenario_bytes("lenet_conv", ["conv1"])
+    patches = torch.from_numpy(lenet_patches()).to(kernel.device)
+    topo = noc.mesh(4, 4)
+    flows = noc.conv_platform_flows(patches, kernel, topo, 0, LENET["noc_pes"], LinkSpec())
+    return noc.simulate_noc(topo, flows, dataclasses.replace(LinkSpec(), key=key),
+                            sort_at="source", **kw)
+
+
+def lenet_recalib(sess) -> dict:
+    """model_traffic.py's recalibration rows: BT per flit of the captured
+    inputs and of the conv1 + conv2 kernels, each on its own input-only
+    link through TxPipeline, under none / ACC / APP (k = 4), and the
+    overall reductions in percent."""
+    inp = sess.packets("lenet_conv", TRAIN["elems"], names=["inputs"])
+    wgt = sess.packets("lenet_conv", TRAIN["elems"], names=["conv1", "conv2"])
+    bt = {key: [TxPipeline(input_only_spec(key, TRAIN["elems"], TRAIN["lanes"]),
+                           device=x.device).measure(x).overall_bt_per_flit for x in (inp, wgt)]
+          for key in ("none", "acc", "app")}
+    base = sum(bt["none"])
+    return {"bt_per_flit": bt,
+            "captured_red": {k: 100 * (1 - sum(bt[k]) / base) for k in ("acc", "app")}}
+
+
+def lenet_rows(sess) -> dict:
+    """The lenet_conv measurements that are pinned: grid totals and
+    activity digest, the fabric's (none BT, ACC BT, ACC per-link digest),
+    the recalibration rows."""
+    evals = lenet_grid(sess)
+    base, acc = lenet_noc(sess, "none"), lenet_noc(sess, "acc")
+    return {"grid": {e.label: [e.total_bt, e.aux_bt] for e in evals},
+            "activity_sha256": evals_digest(evals),
+            "noc": [base.total_bt, acc.total_bt, links_digest(acc)],
+            "recalib": lenet_recalib(sess)}
+
+
+def _grads_differ(got: np.ndarray, want: np.ndarray, what: str) -> tuple[int, float]:
+    """(largest int8 code difference, share of bytes that differ) of two
+    gradient streams; fails beyond TRAIN's allowance."""
+    codes, share = kv_differ(got, want)
+    if codes > TRAIN["grad_codes"] or share > TRAIN["grad_share"]:
+        fail(f"{what}: gradient bytes differ by up to {codes} codes in "
+             f"{100 * share:.3f}% of bytes (allowed {TRAIN['grad_codes']}, "
+             f"{100 * TRAIN['grad_share']}%)")
+    return codes, share
+
+
+def _close(got: float, want: float, tol: float, what: str) -> float:
+    rel = abs(got - want) / max(abs(want), 1e-30)
+    if not rel <= tol:
+        fail(f"{what}: {got} vs {want}, relative difference {rel:.3g} > {tol}")
+    return rel
+
+
+def phase_train(dev: torch.device, full: bool = True) -> dict:
+    """The training path: (i) the smoke configs' train step under capture
+    against the JAX pins, its measurements against their plain versions,
+    microbatching and a train() restart; (ii) the reference's trained LeNet
+    captured and measured against the JAX pins; (iii) the port's own LeNet
+    trained, checkpointed and restored; (iv) internlm2-1.8b trained at full
+    width (at smoke width with ``full=False``), its gradient checked,
+    captured and measured.  Returns the rows, times and launch counts."""
+    t_phase = time.perf_counter()
+    lc = _PathLaunches()
+    tr = TRAIN
+    rows: dict = {}
+    grad_pins = np.load(TRAIN_GRAD_PINS)
+    worst = (0, 0.0)
+
+    # (i) smoke training pins
+    for arch in TRAIN_ARCHS:
+        pin = tr["pins"][arch]
+        sess, metrics = lc.run(f"train/{arch}", lambda: train_smoke(arch, dev), {})
+        rel = max(_close(metrics[k], pin[k], tr["rel_tol"], f"train/{arch} {k}")
+                  for k in ("loss", "grad_norm"))
+        (g,) = sess.get("train_allreduce", "grads")
+        got = {"names": [s.name for s in sess.streams], "grads_bytes": g.num_bytes}
+        gb = g.data.cpu().numpy()
+        codes, share = _grads_differ(gb, grad_pins[arch], f"train/{arch} vs the JAX package")
+        worst = max(worst, (codes, share))
+        # one grid (activity windows) and two fabrics (one ACC source sort)
+        # on the port's bytes, then on the JAX package's pinned bytes
+        launches = {"bt_axes_activity": 1, "bt_axes": 2, "psu_sort": 1}
+        meas = lc.run(f"train/{arch} measurements", lambda: train_rows(sess), launches)
+        if meas != train_rows(sess, backend="torch"):
+            fail(f"train/{arch}: grid or ring differs from the plain version's")
+        on_pins = lc.run(f"train/{arch} measurements of the pinned bytes",
+                         lambda: train_rows(pinned_grads_session(arch, dev)), launches)
+        exact = bool(np.array_equal(gb, grad_pins[arch]))
+        if got != {k: pin[k] for k in got} or on_pins != {k: pin[k] for k in on_pins} or (
+                exact and meas != on_pins):
+            fail(f"train/{arch}: {got | meas} (pinned bytes: {on_pins}) != pinned {pin}")
+        rows[f"train/{arch}"] = {**got, **meas, **metrics, "metrics_rel_err": rel,
+                                 "grad_max_codes": codes, "grad_share": share,
+                                 "bytes_equal_pins": exact}
+        base = meas["grid"]["none@N25"][0]
+        red = {k: round(100 * (1 - sum(v) / base), 4) for k, v in meas["grid"].items()}
+        log(f"train/{arch}: loss {metrics['loss']:.6f} grad_norm {metrics['grad_norm']:.6f} "
+            f"(JAX within {rel:.2g}); grads {g.num_bytes} bytes within {codes} code(s), "
+            f"{100 * share:.3f}% differ" + (" (= JAX bytes)" if exact else "")
+            + f"; grid BT {red} % and ring(8) none/ACC = plain; on the JAX bytes = pins")
+    rows["train/grad_worst"] = {"codes": worst[0], "share": worst[1]}
+
+    # microbatches=2 against microbatches=1
+    arch = TRAIN_ARCHS[0]
+    one, m1 = train_smoke(arch, dev)
+    two, m2 = lc.run("train microbatches=2", lambda: train_smoke(arch, dev, microbatches=2), {})
+    rel = max(_close(m2[k], m1[k], tr["rel_tol"], f"microbatches=2 {k}")
+              for k in ("loss", "grad_norm"))
+    codes, share = _grads_differ(two.streams[0].data.cpu().numpy(),
+                                 one.streams[0].data.cpu().numpy(), "microbatches=2 vs 1")
+    rows["train/microbatches"] = {"rel_err": rel, "grad_max_codes": codes, "grad_share": share}
+    log(f"train microbatches=2 vs 1 ({arch}): loss / grad_norm within {rel:.2g}, grads within "
+        f"{codes} code(s) on {100 * share:.3f}% of bytes")
+
+    rows["train/restart"] = _train_restart(dev, lc)
+    rows["train/lenet_ref"] = _lenet_ref(dev, lc)
+    rows["train/lenet_port"] = _lenet_port(dev, lc, rows["train/lenet_ref"])
+    rows["train/full"] = _train_full(dev, lc, full)
+    seconds = time.perf_counter() - t_phase
+    log(f"train-path launches: {lc.total}; phase 3g {seconds:.1f} s")
+    return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
+
+
+def _train_restart(dev: torch.device, lc: _PathLaunches) -> dict:
+    """train() preempted and resumed from its checkpoints in build/: final
+    params bitwise equal to a run without the preemption."""
+    import shutil
+
+    rs = TRAIN["restart"]
+    cfg = smoke_config(rs["arch"])
+    dcfg = DataConfig(vocab=cfg.vocab, **rs["data"])
+    ocfg = optim.AdamWConfig(**rs["opt"])
+    dirs = [ROOT / "build" / f"train_ckpt_{tag}" for tag in ("straight", "resumed")]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+
+    def loop(d, fail_at=None):
+        return train.TrainLoopConfig(steps=rs["steps"], checkpoint_every=rs["every"],
+                                     checkpoint_dir=str(d), fail_at_step=fail_at)
+
+    t0 = time.perf_counter()
+    straight = lc.run("train straight", lambda: train.train(cfg, dcfg, ocfg, loop(dirs[0]),
+                                                            device=dev), {})
+    try:
+        train.train(cfg, dcfg, ocfg, loop(dirs[1], rs["fail_at"]), device=dev)
+        fail("train restart: the simulated preemption did not fire")
+    except train.SimulatedPreemption:
+        pass
+    kept = CheckpointManager(str(dirs[1])).all_steps()
+    resumed = lc.run("train resumed", lambda: train.train(cfg, dcfg, ocfg, loop(dirs[1]),
+                                                          device=dev), {})
+    a = _sorted_tensor_leaves(straight["params"])
+    b = _sorted_tensor_leaves(resumed["params"])
+    if [p for p, _ in a] != [p for p, _ in b] or not all(
+            torch.equal(x, y) for (_, x), (_, y) in zip(a, b)):
+        fail("train restart: resumed final params differ from the straight run's")
+    losses = [m["loss"] for m in straight["log"]]
+    if not losses[-1] < losses[0]:
+        fail(f"train restart: the straight run's loss did not fall: {losses}")
+    if [m["loss"] for m in resumed["log"]] != losses[rs["every"]:]:
+        fail("train restart: the resumed run's losses differ from the straight run's")
+    out = {"checkpoints_at_preemption": kept, "losses": losses,
+           "resumed_from": rs["every"], "seconds": time.perf_counter() - t0}
+    log(f"train restart ({rs['arch']} smoke): checkpoints {kept} when preempted at step "
+        f"{rs['fail_at']}, resumed from step {rs['every']}: final params bitwise equal, losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    return out
+
+
+def _lenet_ref(dev: torch.device, lc: _PathLaunches) -> dict:
+    """Phase 3g (ii): the reference's trained LeNet captured and measured."""
+    params, images, want = lenet_reference(dev)
+    sess = lc.run("lenet capture", lambda: obs.capture_lenet_conv(
+        params=params, images=images, device=dev), {})
+    names = [s.name for s in sess.streams]
+    if names != ["conv1", "conv2", "inputs"]:
+        fail(f"lenet capture: streams {names}")
+    for s in sess.streams:
+        if not np.array_equal(s.data.cpu().numpy(), want[s.name]):
+            fail(f"lenet capture: {s.name} bytes differ from the reference's")
+    # 1 grid (activity), 2 fabrics (1 sort), TxPipeline: none staged
+    # (bt_count), ACC / APP fused (psu_stream), two links each
+    got = lc.run("lenet measurements", lambda: lenet_rows(sess),
+                 {"bt_axes_activity": 1, "bt_axes": 2, "psu_sort": 1, "bt_count": 2,
+                  "psu_stream": 4})
+    if [dataclasses.asdict(e) for e in lenet_grid(sess)] != [
+            dataclasses.asdict(e) for e in lenet_grid(sess, backend="torch")]:
+        fail("lenet grid differs from the plain version's")
+    for key in ("none", "acc"):
+        _same_links(lenet_noc(sess, key), lenet_noc(sess, key, backend="torch"),
+                    f"lenet noc {key}")
+    cpu_sess = obs.CaptureSession()
+    for s in sess.streams:
+        cpu_sess._add_bytes(s.scenario, s.name, s.data.cpu(), s.source_shape, s.kind, s.meta)
+    if lenet_recalib(cpu_sess) != got["recalib"]:
+        fail("lenet recalibration rows differ from the plain version's (CPU)")
+    pin = LENET["pins"]
+    if got != {k: pin[k] for k in got}:
+        fail(f"lenet_conv on the reference's weights: {got} != pinned {pin}")
+    red = got["recalib"]["captured_red"]
+    log(f"lenet_conv (reference weights): conv1/conv2/inputs bytes = reference; grid, activity, "
+        f"mesh(4, 4) fabric and recalibration rows = JAX pins = plain; captured_red ACC "
+        f"{red['acc']:.2f}% APP {red['app']:.2f}% (synthetic {LENET['synthetic_overall']}, "
+        f"paper {LENET['paper_overall']})")
+    return got
+
+
+def _lenet_port(dev: torch.device, lc: _PathLaunches, ref: dict) -> dict:
+    """Phase 3g (iii): the port's own LeNet trained on the card,
+    checkpointed and restored, and its recalibration rows."""
+    import shutil
+
+    ck = ROOT / "build" / "lenet_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.perf_counter()
+    params, info = lc.run("lenet train", lambda: lenet.train_lenet(
+        steps=LENET["steps"], batch=LENET["batch"], ckpt_dir=str(ck), device=dev), {})
+    train_s = time.perf_counter() - t0
+    if info["restored"] or not info["final_loss"] < LENET["loss_bound"]:
+        fail(f"lenet train: {info} (final loss bound {LENET['loss_bound']})")
+    back, info2 = lenet.train_lenet(ckpt_dir=str(ck), device=dev)
+    if not info2["restored"] or info2["final_loss"] != info["final_loss"] or not all(
+            torch.equal(x, y) for (_, x), (_, y) in zip(_sorted_tensor_leaves(params),
+                                                        _sorted_tensor_leaves(back))):
+        fail(f"lenet restore: {info2}, params equal to the trained ones expected")
+    sess = obs.capture_lenet_conv(params=back, device=dev)
+    rec = lc.run("lenet port recalibration", lambda: lenet_recalib(sess),
+                 {"bt_count": 2, "psu_stream": 4})
+    out = {"final_loss": info["final_loss"], "train_s": train_s, "restored": True, **rec}
+    log(f"lenet (port, trained on the card, {LENET['steps']} steps x {LENET['batch']}): final "
+        f"loss {info['final_loss']:.5f} < {LENET['loss_bound']} (reference "
+        f"{LENET['pins']['final_loss']:.5f}), {train_s:.1f} s; restored from build/ with equal "
+        f"params; captured_red ACC {rec['captured_red']['acc']:.2f}% APP "
+        f"{rec['captured_red']['app']:.2f}% (reference weights: "
+        f"{ref['recalib']['captured_red']['acc']:.2f}% / "
+        f"{ref['recalib']['captured_red']['app']:.2f}%)")
+    return out
+
+
+def _flat_int8(tree: dict) -> torch.Tensor:
+    """The int8 view of every leaf of a tree, in sorted-key order, as one
+    flat int8 vector (the capture stream's bytes)."""
+    parts = [int8_view(t).reshape(-1) for _, t in _sorted_tensor_leaves(tree)]
+    return torch.cat(parts)
+
+
+def _train_full(dev: torch.device, lc: _PathLaunches, full: bool) -> dict:
+    """Phase 3g (iv): SERVE_ARCH trained at full width, its gradient
+    checked, captured and measured."""
+    tf = TRAIN_FULL
+    cfg = get_config(SERVE_ARCH) if full else smoke_config(SERVE_ARCH)
+    seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb, seed=tf["seed"])
+    ocfg = optim.AdamWConfig(warmup_steps=1, total_steps=10)
+    out: dict = {"arch": cfg.name, "steps": tf["steps"], "tokens_per_step": seq * gb}
+
+    res = lc.run("train full", lambda: train.train(
+        cfg, dcfg, ocfg, train.TrainLoopConfig(steps=tf["steps"], seed=tf["seed"]), device=dev),
+        {})
+    log_ = res["log"]
+    losses = [m["loss"] for m in log_]
+    norms = [m["grad_norm"] for m in log_]
+    if not all(np.isfinite(losses + norms)):
+        fail(f"train full: losses {losses} grad norms {norms}")
+    params, opt_state = res["params"], res["opt_state"]
+    del res
+    loss_fn = train.make_loss_fn(cfg)
+    batch0 = {k: torch.from_numpy(v).to(dev)
+              for k, v in SyntheticLMDataset(dcfg).global_batch(0).items()}
+    with torch.no_grad():
+        after = float(loss_fn(params, batch0))
+    if not after < losses[0]:
+        fail(f"train full: step 0's batch loss {losses[0]} before, {after} after "
+             f"{tf['steps']} steps")
+    out.update(losses=losses, grad_norms=norms, step0_loss_after=after,
+               step_wall_ms=[1e3 * m["sec"] for m in log_])
+    # the step's times: wall (CUDA events) and the card's busy time inside it
+    step_fn = train.make_train_step(cfg, ocfg, donate=True)
+
+    def one_step():
+        return step_fn(params, opt_state, batch0)
+
+    out["step_ms"] = time_ms(one_step, reps=2, warmup=1)
+    out["step_device_ms"], out["step_device_split"] = _device_total_ms(one_step, reps=2)
+    out["tokens_per_s"] = seq * gb / out["step_ms"] * 1e3
+    torch.cuda.synchronize()
+    out["train_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del opt_state, step_fn
+    w8 = _flat_int8(params)  # the static egress permutation's weight bytes
+
+    # the gradient check, in float32 on 1 x fd_tokens tokens
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    loss32 = train.make_loss_fn(c32)
+    fd_batch = {k: v[:1, : tf["fd_tokens"]] for k, v in batch0.items()}
+    _, grads = value_and_grad(loss32, params, fd_batch)
+    gnorm = float(optim.global_norm(grads))
+    h = tf["fd_h"]
+    side = []
+    with torch.no_grad():
+        for sign in (1.0, -2.0):  # p + h u, then p - h u
+            for p, d in zip(tree_leaves(params), tree_leaves(grads)):
+                p.add_(d, alpha=sign * h / gnorm)
+            side.append(float(loss32(params, fd_batch)))
+    del grads, params
+    fd = (side[0] - side[1]) / (2 * h)
+    fd_rel = abs(fd - gnorm) / gnorm
+    if not fd_rel <= tf["fd_rel_tol"]:
+        fail(f"train full: directional derivative {fd} vs |g| {gnorm} (rel {fd_rel:.3g} > "
+             f"{tf['fd_rel_tol']})")
+    out.update(fd_grad_norm=gnorm, fd_derivative=fd, fd_rel_err=fd_rel)
+
+    # one capture_train_step at full width; the gradient tree is read from
+    # the train.grads payload as the tap records it
+    cap_mod = sys.modules["repro_torch.obs.capture"]
+    seen = {}
+
+    def spy(kind, payload):
+        if kind == "train.grads":
+            seen["grads"] = payload["grads"]
+        type(cap_mod._TAP).tap(cap_mod._TAP, kind, payload)
+
+    cap_mod._TAP.tap = spy
+    try:
+        t1 = time.perf_counter()
+        sess = lc.run("train full capture", lambda: obs.capture_train_step(
+            cfg, batch=gb, seq=seq, seed=tf["seed"], device=dev), {})
+        out["capture_step_s"] = time.perf_counter() - t1
+    finally:
+        del cap_mod._TAP.tap
+    grads = seen.pop("grads")
+    names = [s.name for s in sess.streams]
+    (g,) = sess.get("train_allreduce", "grads")
+    out["grads_bytes"] = g.num_bytes
+    if names != ["grads"] or (full and g.num_bytes != tf["grad_bytes"]):
+        fail(f"train full: streams {names}, {g.num_bytes} grads bytes")
+    at = 0
+    for path, leaf in _sorted_tensor_leaves(grads):
+        mine = int8_view(leaf).reshape(-1).view(torch.uint8)
+        if not torch.equal(g.data[at: at + mine.numel()], mine):
+            fail(f"train full: grads stream bytes of {path} differ from int8_view")
+        at += mine.numel()
+    if at != g.num_bytes:
+        fail(f"train full: grads stream {g.num_bytes} bytes, leaves {at}")
+    flat = torch.cat([t.reshape(-1) for _, t in _sorted_tensor_leaves(grads)])
+    del grads
+
+    # measure: 16 links under the four points; the plain version on 2 of them
+    pk = g.data[: g.num_bytes // 64 * 64].view(-1, 64)
+    links = pk.tensor_split(tf["split"])
+    meas = {}
+    t1 = time.perf_counter()
+    ev = lc.run("train full grid", lambda: dse.evaluate_grid(
+        SERVE_POINTS, dse.Workload("grads_split", tuple(links), lanes=TRAIN["lanes"])),
+        {"bt_axes": 1})
+    meas["grid_ms"] = (time.perf_counter() - t1) * 1e3
+    sub = dse.Workload("grads_sub", tuple(links[: tf["plain_links"]]), lanes=TRAIN["lanes"])
+    got = lc.run("train full grid subset", lambda: dse.evaluate_grid(SERVE_POINTS, sub),
+                 {"bt_axes": 1})
+    plain = dse.evaluate_grid(SERVE_POINTS, sub, backend="torch",
+                              chunk_packets=max(1, (1 << 20) // tf["plain_links"]))
+    if [dataclasses.asdict(e) for e in got] != [dataclasses.asdict(e) for e in plain]:
+        fail(f"train full: grid on {tf['plain_links']} links differs from the plain version's")
+    meas["grid"] = {e.label: [e.total_bt, e.aux_bt] for e in ev}
+    meas["red_pct"] = {e.label: 100 * e.bt_reduction for e in ev}
+    del links, sub, got, plain
+
+    # one ring reduce-scatter step on ring(8); ring link 0 against the plain
+    # source order and BT (2**19-packet chunks)
+    ring = {}
+    for key in ("none", "acc", "app"):
+        t1 = time.perf_counter()
+        rep = lc.run(f"train full ring {key}", lambda: train_ring(g.data, key),
+                     {"bt_axes": 1} | _sorts(key))
+        ms = (time.perf_counter() - t1) * 1e3
+        topo = noc.ring(TRAIN["ring"])
+        f0 = noc.ring_allreduce_flows(g.data.view(torch.int8), topo,
+                                      spec=input_only_spec(key, 64, 16))[0]
+        k = {"none": None, "acc": None, "app": 4}[key]
+        pk0 = f0.inputs if key == "none" else torch.cat([
+            psu_reorder(f0.inputs[a: a + (1 << 19)], k=k, backend="torch")
+            for a in range(0, f0.inputs.shape[0], 1 << 19)])
+        bt0 = _bt_sum(pk0.reshape(-1, 16, 4).transpose(1, 2).reshape(-1, 16), "torch")
+        s0 = {s.link: s for s in rep.links}[noc.unicast_links(topo, f0.src, f0.dsts[0])[0]]
+        if s0.bt_input != bt0:
+            fail(f"train full ring {key}: link 0 BT {s0.bt_input} != plain {bt0}")
+        ring[key] = {"bt": rep.total_bt, "ms": ms}
+        del pk0
+    meas["ring"] = ring
+    meas["ring_red_pct"] = {k: 100 * (1 - r["bt"] / ring["none"]["bt"]) for k, r in ring.items()}
+    out["measure"] = meas
+    del pk
+
+    # compressed_psum(int8_ef), one replica: unordered, then through the
+    # static egress permutation of the trained weights' bytes
+    ccfg = optim.CompressionConfig(mode="int8_ef")
+    ocfg8 = dataclasses.replace(ccfg, use_egress_ordering=True)
+    del g, sess
+    err0 = torch.zeros((), device=dev).expand(flat.shape[0])  # a zero buffer, no bytes
+    t1 = time.perf_counter()
+    unordered, _ = lc.run("compressed_psum", lambda: optim.compressed_psum(flat, err0, ccfg), {})
+    out["psum_ms"] = (time.perf_counter() - t1) * 1e3
+    m = flat.shape[0]
+    perm, inv = lc.run("egress permutation", lambda: egress_permutation(w8[:m], packet=64),
+                       {"psu_sort": 1})
+    del w8
+    pad = (-m) % ccfg.block  # the wire's padding to whole blocks stays in place
+    if pad:
+        tail = torch.arange(m, m + pad, dtype=torch.int32, device=dev)
+        perm, inv = torch.cat([perm, tail]), torch.cat([inv, tail])
+    ordered, _ = lc.run("compressed_psum ordered", lambda: optim.compressed_psum(
+        flat, err0, ocfg8, perm=perm, inv_perm=inv), {})
+    if not torch.equal(ordered, unordered):
+        fail("train full: compressed_psum through the egress permutation differs from unordered")
+    del ordered, unordered, inv
+    wire, _, _ = int8_wire(flat, err0, ccfg)
+    del flat, err0
+    permuted = _permute(wire, perm)[:m]
+    wire = wire[:m]
+    del perm
+    wbt = lc.run("compressed wire BT", lambda: (_bt_sum(_wire(wire)), _bt_sum(_wire(permuted))),
+                 {"bt_count": 2 * -(-(m // 16 - 1) // (1 << 23))})
+    out["wire_bt"] = {"unordered": wbt[0], "ordered": wbt[1],
+                      "red_pct": 100 * (1 - wbt[1] / wbt[0])}
+    del wire, permuted
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    log(f"train full {cfg.name}: {tf['steps']} steps of {gb} x {seq} tokens; losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f", grad norms "
+        + " ".join(f"{x:.3f}" for x in norms)
+        + f"; step 0's batch {losses[0]:.4f} -> {after:.4f}; step {out['step_ms']:.1f} ms wall "
+        f"(CUDA events), {out['step_device_ms']} ms device, {out['tokens_per_s']:.0f} tokens/s; "
+        f"training peak {out['train_peak_bytes']} bytes")
+    log(f"train full step device split: {out['step_device_split']}")
+    log(f"train full gradient check (float32, 1 x {tf['fd_tokens']} tokens, h={h}): "
+        f"central difference {fd:.6g} vs |g| {gnorm:.6g} (rel {fd_rel:.3g})")
+    log(f"train full capture: grads {out['grads_bytes']} bytes = int8_view leaf by "
+        f"leaf; grid on {tf['split']} links {meas['grid_ms']:.1f} ms (= plain on "
+        f"{tf['plain_links']}): " + " ".join(f"{k}={v:.4f}%" for k, v in meas["red_pct"].items())
+        + "; ring(8) " + " ".join(f"{k}: bt={r['bt']} ({r['ms']:.0f} ms)"
+                                  for k, r in ring.items())
+        + f" (link 0 = plain); compressed_psum {out['psum_ms']:.1f} ms, ordered = unordered, "
+        f"wire BT {wbt[0]} -> {wbt[1]} ({out['wire_bt']['red_pct']:.4f}%)")
+    log(f"train full: peak {out['peak_bytes']} bytes; {out['seconds']:.1f} s")
+    return out
+
+
+def _compare_reductions(serve_path: dict, train_path: dict) -> None:
+    """The ACC / APP / composed BT reductions of internlm2-1.8b's real
+    gradient (phase 3g) beside its served weight stream's (phase 3f), both
+    as 16 links of the same run."""
+    w = serve_path["rows"]["serve/full"]["measure"]["weights_split"]["red_pct"]
+    g = train_path["rows"]["train/full"]["measure"]["red_pct"]
+    log("full width BT reductions, gradient (3g) vs served weights (3f), 16 links each: "
+        + " ".join(f"{k}: {g[k]:.4f}% vs {w[k]:.4f}%" for k in g))
 
 
 # ------------------------------------------------------------------ phase 4
@@ -2539,6 +3246,8 @@ def main() -> int:
     egress_path = phase_egress(dev)
     noc_path = phase_noc(dev)
     serve_path = phase_serve(dev)
+    train_path = phase_train(dev)
+    _compare_reductions(serve_path, train_path)
     cases = phase_scale(dev)
     record = []
     for name, meta in KERNELS.items():
@@ -2549,14 +3258,17 @@ def main() -> int:
         # bt_axes, the activity path for bt_axes_activity and the egress
         # path for quantize_egress; the NoC / DSE path (3e) for all but
         # psu_stream; the serving path (3f) for psu_sort, bt_count, bt_axes
-        # and bt_axes_activity
-        paths = {"psu_sort": ("transmit", "egress", "noc", "serve"),
-                 "bt_count": ("transmit", "egress", "noc", "serve"), "psu_stream": ("transmit",),
-                 "bt_axes": ("codec", "noc", "serve"),
-                 "bt_axes_activity": ("activity", "noc", "serve"),
+        # and bt_axes_activity; the training path (3g) for all but
+        # quantize_egress
+        paths = {"psu_sort": ("transmit", "egress", "noc", "serve", "train"),
+                 "bt_count": ("transmit", "egress", "noc", "serve", "train"),
+                 "psu_stream": ("transmit", "train"),
+                 "bt_axes": ("codec", "noc", "serve", "train"),
+                 "bt_axes_activity": ("activity", "noc", "serve", "train"),
                  "quantize_egress": ("egress", "noc")}[name]
         runs = {"transmit": main_path, "codec": codec_path, "activity": activity_path,
-                "egress": egress_path, "noc": noc_path, "serve": serve_path}
+                "egress": egress_path, "noc": noc_path, "serve": serve_path,
+                "train": train_path}
         by_path = {p: runs[p]["launches"][name] for p in paths}
         record.append({
             "name": name, "route": "cuda", **meta,
@@ -2586,7 +3298,7 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps({
         "card": card, "kernels": record, "main_path": main_path, "codec_path": codec_path,
         "activity_path": activity_path, "egress_path": egress_path, "noc_path": noc_path,
-        "serve_path": serve_path,
+        "serve_path": serve_path, "train_path": train_path,
         "scale_cases": cases,
         "seconds": time.perf_counter() - t0,
     }, indent=1, default=str))

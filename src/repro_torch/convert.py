@@ -13,6 +13,10 @@ numpy weights across (bfloat16 arrays included) and
 :func:`params_from_reference` carries the reference's ``init_params``
 tree, as numpy, into the port's tree, checked against the port's
 ``param_shapes``.
+For the training path, :func:`lenet_params_from_reference` carries the
+reference's LeNet tree (HWIO conv kernels, as numpy), checked against
+``init_lenet``'s shapes, and :func:`opt_state_from_reference` its AdamW
+``OptState`` (as numpy).
 For the NoC and the design-space sweep, :func:`flows_from_reference`
 builds ``noc.TrafficFlow``s from (name, src, dsts, inputs, weights) tuples
 of numpy payloads and :func:`design_point_from_reference` rebuilds a
@@ -37,6 +41,8 @@ __all__ = [
     "model_config_from_reference",
     "params_from_numpy",
     "params_from_reference",
+    "lenet_params_from_reference",
+    "opt_state_from_reference",
     "flows_from_reference",
     "design_point_from_reference",
 ]
@@ -120,6 +126,33 @@ def params_from_reference(
         raise ValueError(f"{cfg.name}: reference parameters do not fit the port's tree: "
                          + "; ".join(sorted(bad)))
     return out
+
+
+def lenet_params_from_reference(tree: dict, device: str | torch.device | None = None) -> dict:
+    """The reference's LeNet tree (``repro.models.lenet.init_lenet`` /
+    ``train_lenet``, as numpy: HWIO conv kernels, (in, out) dense weights)
+    as the port's on ``device`` (``cuda`` unless named); every path, shape
+    and dtype is checked against ``init_lenet``'s and a mismatch raises."""
+    from .models.lenet import init_lenet  # deferred: the model zoo
+
+    out = params_from_numpy(tree, device)
+    bad = _mismatches(out, init_lenet(None, "meta"))
+    if bad:
+        raise ValueError("LeNet: reference parameters do not fit the port's tree: "
+                         + "; ".join(sorted(bad)))
+    return out
+
+
+def opt_state_from_reference(state, device: str | torch.device | None = None):
+    """The reference's AdamW ``OptState`` (step, m, v; as numpy:
+    ``jax.tree.map(np.asarray, state)``) as the port's ``OptState`` on
+    ``device`` (``cuda`` unless named), the step a 0-d int32 tensor."""
+    from .optim import OptState  # deferred: the training path
+
+    step, m, v = state
+    dev = resolve_device(device)
+    return OptState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
+                    m=params_from_numpy(m, dev), v=params_from_numpy(v, dev))
 
 
 def flows_from_reference(

@@ -1,6 +1,6 @@
 # The model zoo (counterpart of repro.models): every family's forward,
-# prefill and decode, with the reference's parameter trees.  models/lenet.py
-# and the training path are a later slice.
+# prefill and decode, with the reference's parameter trees, differentiable
+# for training (repro_torch.train), and the in-repo LeNet (models/lenet.py).
 from .config import ModelConfig, MoEConfig, SSMConfig
 from .transformer import (
     decode_step,

@@ -6,9 +6,14 @@ tree carries across by a plain map (``repro_torch.convert``) and
 ``repro_torch.traffic.apply_weight_ordering`` applies unchanged.  The
 reference's ``lax.scan`` over that axis is a Python loop over it here.
 
-``cfg.remat`` and ``cfg.scan_layers`` are accepted and have no effect: the
-port runs the forward eagerly with no backward pass, so there is no
-activation to recompute and no traced loop to unroll.
+The forward is differentiable for every family (``repro_torch.train``
+takes the gradient of ``lm_loss(...) + aux`` with autograd): no in-place
+write, ``.item()`` or integer round trip lies on a path that carries a
+gradient.  ``cfg.remat`` and ``cfg.scan_layers`` are accepted and have no
+effect: there is no traced loop to unroll, and autograd keeps every
+layer's activations, and the bfloat16 copy of each float32 weight, for
+the backward instead of recomputing them (what that costs at full width is
+in PERF.md §5, phase 3g of ``chip_smoke.py``).
 
 Families:
   dense / vlm      -- GQA attention + (Ge/Swi)GLU MLP stack
@@ -51,6 +56,9 @@ from .moe import init_moe, moe_block
 from .ssd import init_ssd, init_ssd_cache, ssd_block, ssd_decode
 
 Params = Dict[str, Any]
+
+# the subtrees of a parameter tree whose leaves stack the layers on axis 0
+STACKED = ("layers", "enc_layers", "trailing")
 
 
 # --------------------------------------------------------------------------
@@ -133,13 +141,15 @@ def param_shapes(cfg: ModelConfig) -> Params:
 
 
 def _layer(tree: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked tree (views, no copy)."""
+    """Layer ``i`` of a stacked tree (views, no copy).  A stacked leaf is a
+    tensor with a leading layer axis, or the sequence of its layers (how
+    ``repro_torch.train`` hands each layer to autograd as its own leaf)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
 def _n_layers(tree: Params) -> int:
     for v in tree.values():
-        return _n_layers(v) if isinstance(v, dict) else int(v.shape[0])
+        return _n_layers(v) if isinstance(v, dict) else len(v)
     return 0
 
 
@@ -292,8 +302,9 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch
 
 
 def lm_loss(params: Params, cfg: ModelConfig, h: torch.Tensor, labels: torch.Tensor):
-    """Cross-entropy (the forward loss only); optionally sequence-chunked to
-    bound logits memory."""
+    """Mean cross-entropy over valid (label >= 0) positions, differentiable
+    in ``params`` and ``h``; optionally sequence-chunked (``logits_chunk``)
+    to bound the forward's logits memory."""
     chunk = cfg.logits_chunk
     s = h.shape[1]
     if chunk and s % chunk == 0 and s > chunk:

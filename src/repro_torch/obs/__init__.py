@@ -7,8 +7,8 @@
 #   activity.py - wire-level switching-activity profiles
 #   saif.py     - SAIF / VCD export of measured activity for EDA flows
 #   capture.py  - real-model traffic capture: taps on the model zoo record
-#                 int8 wire streams (serving and MoE dispatch; the training
-#                 drivers wait for the training slice)
+#                 int8 wire streams (serving, a train step's gradients, MoE
+#                 dispatch, the trained LeNet's conv kernels)
 #
 # Off and free by default: production modules import only
 # repro_torch._obs_hooks (one None test per probe, no device sync), so an
@@ -28,10 +28,13 @@ from .capture import (
     CapturedStream,
     CaptureSession,
     capture,
+    capture_lenet_conv,
     capture_moe_dispatch,
     capture_serve_decode,
+    capture_train_step,
     load_session,
     save_session,
+    train_batch,
 )
 from .metrics import Counter, Gauge, Histogram, Registry, registry_from_dict
 from .probes import (
@@ -102,7 +105,10 @@ __all__ = [
     "CaptureSession",
     "capture",
     "capture_serve_decode",
+    "capture_train_step",
     "capture_moe_dispatch",
+    "capture_lenet_conv",
+    "train_batch",
     "save_session",
     "load_session",
 ]

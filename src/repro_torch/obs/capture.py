@@ -1,12 +1,12 @@
 """Real-model traffic capture: tap the model zoo, record int8 wire streams.
 
-Counterpart of ``repro.obs.capture`` (its serving part; the training
-drivers ``train_batch``, ``capture_train_step`` and ``capture_lenet_conv``
-wait for the port's training slice).  It records the model zoo's actual
-traffic — the decode weight and KV streams of ``repro_torch.serve`` and
-the MoE dispatch buffers of ``repro_torch.models.moe`` — as int8 wire
-images (``repro_torch.traffic.int8_view``), ready for the measurement
-stack: ``TxPipeline`` / ``dse.evaluate_grid`` / ``noc.simulate_noc`` / the
+Counterpart of ``repro.obs.capture``.  It records the model zoo's actual
+traffic — the decode weight and KV streams of ``repro_torch.serve``, a
+train step's gradient all-reduce payload (``repro_torch.train``), the MoE
+dispatch buffers of ``repro_torch.models.moe`` and the trained LeNet's conv
+kernels (``repro_torch.models.lenet``) — as int8 wire images
+(``repro_torch.traffic.int8_view``), ready for the measurement stack:
+``TxPipeline`` / ``dse.evaluate_grid`` / ``noc.simulate_noc`` / the
 activity windows.
 
 The hook contract is ``repro_torch._obs_hooks``'s (zero cost when
@@ -15,9 +15,16 @@ at fixed tap sites — one ``None`` test while no capture is active; a
 :func:`capture` context installs this module's ``_Tap`` into
 ``_obs_hooks.TAP`` and every firing fans out to all active
 :class:`CaptureSession`\\ s.  The reference's tap drops payloads that are
-jax tracers (tap sites inside jitted functions); the port has no tracers,
-so ``repro_torch.serve`` runs the model inside ``_obs_hooks.muted()``
-instead, and a serving capture records exactly the reference's streams.
+jax tracers (tap sites inside jitted functions or under ``jax.grad``); the
+port has no tracers, so ``repro_torch.serve`` runs the model, and
+``repro_torch.train`` the loss and its backward, inside
+``_obs_hooks.muted()`` instead, and a capture records exactly the
+reference's streams.
+
+The scenario drivers take their inputs from a seed, drawn with numpy
+(model weights from a seeded ``torch.Generator``), or explicitly
+(``params=``, ``inputs=``, ``images=``), so the tests can feed both
+packages the same bytes.
 
 A stream's bytes stay on the device of the tensor it was taken from (a
 1-D uint8 tensor): a full-width weight stream is measured where it was
@@ -36,10 +43,12 @@ The tap vocabulary (kind -> scenario):
                                       stream)
   serve.kv           serve_decode     ``serve.generate`` after each decode
                                       step (the new KV / SSM-state bytes)
-  train.grads        train_allreduce  the training slice (not yet ported)
+  train.grads        train_allreduce  ``train.make_train_step`` after the
+                                      gradients are computed
   moe.dispatch       moe_dispatch     ``models.moe.moe_block`` after the
                                       expert input buffers are gathered
-  lenet.conv         lenet_conv       the training slice (not yet ported)
+  lenet.conv         lenet_conv       ``models.lenet.lenet_forward``
+                                      (trained conv kernels + input batch)
   =================  ===============  =====================================
 
 Each recorded stream fires a ``capture.stream`` probe event (bytes per
@@ -57,6 +66,7 @@ import numpy as np
 import torch
 
 from .. import _obs_hooks
+from .._tree import leaves
 from ..kernels.backend import resolve_device
 from ..traffic.ordering import int8_view
 
@@ -66,7 +76,10 @@ __all__ = [
     "CaptureSession",
     "capture",
     "capture_serve_decode",
+    "capture_train_step",
     "capture_moe_dispatch",
+    "capture_lenet_conv",
+    "train_batch",
     "save_session",
     "load_session",
 ]
@@ -126,30 +139,22 @@ def _int8_bytes(x) -> torch.Tensor:
     return int8_view(t).reshape(-1).view(torch.uint8)
 
 
-def _sorted_leaves(tree) -> list:
-    """Leaves in ``jax.tree.leaves`` order: dict keys sorted at every level."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _sorted_leaves(tree[k])]
-    return [tree]
-
-
 def _tree_bytes(tree, min_ndim: int) -> tuple[torch.Tensor, int]:
     """Concatenated int8 wire bytes of a tree's float leaves (one amax per
     leaf, stacked layers included), in sorted-key order."""
-    leaves = [
-        x for x in _sorted_leaves(tree)
+    sel = [
+        x for x in leaves(tree)
         if isinstance(x, torch.Tensor) and x.dim() >= min_ndim and x.numel()
         and x.is_floating_point()
     ]
-    if not leaves:
+    if not sel:
         return torch.zeros(0, dtype=torch.uint8), 0
-    out = torch.empty(sum(x.numel() for x in leaves), dtype=torch.uint8,
-                      device=leaves[0].device)
+    out = torch.empty(sum(x.numel() for x in sel), dtype=torch.uint8, device=sel[0].device)
     at = 0
-    for x in leaves:
+    for x in sel:
         out[at: at + x.numel()] = _int8_bytes(x)
         at += x.numel()
-    return out, len(leaves)
+    return out, len(sel)
 
 
 class CaptureSession:
@@ -344,6 +349,26 @@ def capture(session: CaptureSession | None = None):
 # --------------------------------------------------------------------------
 
 
+def train_batch(cfg, batch: int = 2, seq: int = 16, seed: int = 0,
+                device: str | torch.device | None = None) -> dict:
+    """A family-aware random batch for ``make_train_step`` on ``device``
+    (``cuda`` unless named), drawn with numpy from ``seed``: int32 tokens
+    and labels, float32 stub frames (encoder-decoder) or patch embeddings
+    (VLM, whose labels are padded with -100 over the patches)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)
+    lab = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)
+    out = {"tokens": tok, "labels": lab}
+    if cfg.family in ("encdec", "audio"):
+        out["frames"] = rng.standard_normal((batch, 8, cfg.d_model), dtype=np.float32)
+    elif cfg.family == "vlm":
+        out["patches"] = rng.standard_normal((batch, cfg.n_frontend_tokens, cfg.d_model),
+                                             dtype=np.float32)
+        out["labels"] = np.pad(lab, ((0, 0), (cfg.n_frontend_tokens, 0)), constant_values=-100)
+    return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
+
+
 def capture_serve_decode(
     cfg,
     *,
@@ -377,6 +402,39 @@ def capture_serve_decode(
     return sess
 
 
+def capture_train_step(
+    cfg,
+    *,
+    batch: int = 2,
+    seq: int = 16,
+    seed: int = 0,
+    session: CaptureSession | None = None,
+    device: str | torch.device | None = None,
+    params=None,
+    inputs: dict | None = None,
+) -> CaptureSession:
+    """Run one train step under capture on ``device`` (``cuda`` unless
+    named): the ``train.grads`` tap records the gradient all-reduce
+    payload.  Weights come from a generator seeded with ``seed`` (updated
+    in place by the step) unless ``params`` is given (left as it was), the
+    batch from :func:`train_batch` unless ``inputs`` is given."""
+    from ..models import init_params
+    from ..optim import AdamWConfig
+    from ..optim import init as opt_init
+    from ..train import make_train_step
+
+    dev = resolve_device(device)
+    own = params is None
+    if own:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    opt = opt_init(params)
+    step = make_train_step(cfg, AdamWConfig(warmup_steps=1, total_steps=10), donate=own)
+    data = train_batch(cfg, batch, seq, seed, dev) if inputs is None else inputs
+    with capture(session) as sess:
+        step(params, opt, data)
+    return sess
+
+
 def capture_moe_dispatch(
     cfg,
     *,
@@ -404,6 +462,49 @@ def capture_moe_dispatch(
         torch_dtype(cfg.dtype))
     with capture(session) as sess, torch.no_grad():
         moe_block(params, x, cfg)
+    return sess
+
+
+def _lenet_images(n: int = 8, seed: int = 0,
+                 device: str | torch.device | None = None) -> torch.Tensor:
+    """``n`` (n, 32, 32, 1) LeNet task images on ``device`` (``cuda``
+    unless named), drawn with numpy from ``seed``: class templates plus
+    0.3 x normal noise, ``models.lenet.synth_batch``'s recipe."""
+    from ..models.lenet import NUM_CLASSES, _templates
+
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, NUM_CLASSES, n)
+    imgs = _templates(seed)[labels] + np.float32(0.3) * rng.standard_normal(
+        (n, 32, 32), dtype=np.float32)
+    return torch.from_numpy(imgs[..., None]).to(resolve_device(device))
+
+
+def capture_lenet_conv(
+    params=None,
+    *,
+    steps: int = 300,
+    batch: int = 64,
+    seed: int = 0,
+    ckpt_dir: str | None = None,
+    session: CaptureSession | None = None,
+    device: str | torch.device | None = None,
+    images: torch.Tensor | None = None,
+) -> CaptureSession:
+    """Run a trained LeNet forward under capture on ``device`` (``cuda``
+    unless named): records the trained (zero-clustered) conv kernels plus
+    the input batch.  With ``params=None`` the model is trained in-repo
+    first (restored from ``ckpt_dir`` when a checkpoint exists); the 8
+    images are numpy draws from ``seed`` unless ``images`` is given."""
+    from ..models import lenet
+
+    dev = resolve_device(device)
+    if params is None:
+        params, _ = lenet.train_lenet(steps=steps, batch=batch, seed=seed, ckpt_dir=ckpt_dir,
+                                      device=dev)
+    if images is None:
+        images = _lenet_images(8, seed, dev)
+    with capture(session) as sess, torch.no_grad():
+        lenet.lenet_forward(params, images)
     return sess
 
 

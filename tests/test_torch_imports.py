@@ -41,7 +41,11 @@ def test_every_port_module_is_listed():
                      "repro_torch.models.layers", "repro_torch.models.moe",
                      "repro_torch.models.ssd", "repro_torch.models.transformer",
                      "repro_torch.serve", "repro_torch.serve.kv_quant", "repro_torch.serve.loop",
-                     "repro_torch.obs.capture"):
+                     "repro_torch.obs.capture", "repro_torch._tree", "repro_torch.checkpoint",
+                     "repro_torch.checkpoint.manager", "repro_torch.data",
+                     "repro_torch.data.pipeline", "repro_torch.optim", "repro_torch.optim.adamw",
+                     "repro_torch.optim.compress", "repro_torch.train", "repro_torch.train.step",
+                     "repro_torch.train.loop", "repro_torch.models.lenet"):
         assert expected in names
 
 
@@ -94,6 +98,54 @@ def test_models_and_serve_export_the_reference_names():
     for name, port in (("models", repro_torch.models), ("serve", repro_torch.serve)):
         assert port.__all__ == _reference_all(name)
         assert all(hasattr(port, n) for n in port.__all__)
+
+
+def test_training_path_exports_the_reference_names():
+    import repro_torch.checkpoint
+    import repro_torch.data
+    import repro_torch.optim
+    import repro_torch.train
+
+    for name, port in (("checkpoint", repro_torch.checkpoint), ("data", repro_torch.data),
+                       ("optim", repro_torch.optim), ("train", repro_torch.train)):
+        assert port.__all__ == _reference_all(name)
+        assert all(hasattr(port, n) for n in port.__all__)
+
+
+def test_training_path_imports_without_jax():
+    """The training loop with checkpoints, the optimizers, the LeNet and the
+    training capture drivers run end to end with neither JAX nor the
+    reference loaded."""
+    code = (
+        "import json, sys, tempfile\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
+        "import torch\n"
+        "from repro_torch import obs, optim\n"
+        "from repro_torch.configs import smoke_config\n"
+        "from repro_torch.data import DataConfig\n"
+        "from repro_torch.models import lenet\n"
+        "from repro_torch.train import TrainLoopConfig, train\n"
+        "cfg = smoke_config('internlm2-1.8b')\n"
+        "d = tempfile.mkdtemp()\n"
+        "r = train(cfg, DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2),\n"
+        "          optim.AdamWConfig(), TrainLoopConfig(steps=2, checkpoint_every=1,\n"
+        "          checkpoint_dir=d), device='cpu')\n"
+        "assert len(r['log']) == 2\n"
+        "sess = obs.capture_train_step(cfg, batch=1, seq=8, device='cpu')\n"
+        "assert [s.name for s in sess.streams] == ['grads']\n"
+        "p, info = lenet.train_lenet(steps=2, batch=4, ckpt_dir=d + '/lenet', device='cpu')\n"
+        "sess = obs.capture_lenet_conv(params=p, device='cpu')\n"
+        "assert [s.name for s in sess.streams] == ['conv1', 'conv2', 'inputs']\n"
+        "out, err = optim.compressed_psum(torch.ones(512), torch.zeros(512),\n"
+        "                                 optim.CompressionConfig(mode='int8_ef'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, check=True,
+        timeout=300, cwd=ROOT,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_serving_path_imports_without_jax():
