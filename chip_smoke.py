@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE, serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE, serving, training and distribution paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -126,6 +126,23 @@ non-zero:
    ring link 0), and ``compressed_psum`` (int8 + error feedback) of the
    flat gradient, unordered and through the static egress permutation,
    equal, with the wire's BT both ways and the peak device memory;
+3h. distribution path: a one-rank NCCL group and a (1, 1) ("data",
+   "model") ``DeviceMesh``; internlm2-1.8b at full width trained 3 steps
+   on 4 x 256 tokens by ``repro_torch.launch.step``'s rule-placed step,
+   once with ZeRO-1 and once plain, every loss and every param leaf
+   bitwise equal to phase 3g's ``train()``, with step wall, device time
+   and peak; the step's roofline record (``roofline.collect_from_step``:
+   ``FlopCounterMode`` FLOPs, peak memory, the recorded collectives) and
+   its ``analyse`` terms with the H100's constants beside the measured
+   device time; a one-stage ``pipeline_apply`` over the 24 layers and 4
+   microbatches bitwise equal to the sequential stack; ``compressed_psum``
+   (int8 + error feedback) of the full gradient over the group, unordered
+   and through the egress permutation, equal to ``group=None``, and its
+   wire's BT both ways; ``bt_count_axes_sharded`` of that wire as 16
+   links over the group equal to the unsharded table (one ``bt_axes``
+   launch each) and, on one link, the plain version; then the meta dry
+   run (``repro_torch.launch.dryrun``) of internlm2-1.8b's four shapes on
+   the 16 x 16 mesh;
 4. scale and times: ``psu_stream`` on 4,194,304 paired packets and on
    Table I's conv input stream (7,350 packets of 64, 16 lanes),
    ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
@@ -167,8 +184,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from benchmarks.datagen import conv_streams, im2col, synth_images, uniform_pairs  # noqa: E402
-from repro_torch import _obs_hooks, dse, kernels, noc, obs, optim, serve, train  # noqa: E402
+from repro_torch import _obs_hooks, dse, kernels, launch, noc, obs, optim, serve, train  # noqa: E402
 from repro_torch._tree import leaves as tree_leaves  # noqa: E402
+from repro_torch._tree import tree_map  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.codec import compare_streams, demo_workloads, format_table  # noqa: E402
 from repro_torch.codec import codec_by_name, kernel_config  # noqa: E402
@@ -2504,14 +2522,16 @@ def _close(got: float, want: float, tol: float, what: str) -> float:
     return rel
 
 
-def phase_train(dev: torch.device, full: bool = True) -> dict:
+def phase_train(dev: torch.device, full: bool = True, handoff: dict | None = None) -> dict:
     """The training path: (i) the smoke configs' train step under capture
     against the JAX pins, its measurements against their plain versions,
     microbatching and a train() restart; (ii) the reference's trained LeNet
     captured and measured against the JAX pins; (iii) the port's own LeNet
     trained, checkpointed and restored; (iv) internlm2-1.8b trained at full
     width (at smoke width with ``full=False``), its gradient checked,
-    captured and measured.  Returns the rows, times and launch counts."""
+    captured and measured; its losses and a host copy of its trained
+    params go into ``handoff`` for phase 3h.  Returns the rows, times and
+    launch counts."""
     t_phase = time.perf_counter()
     lc = _PathLaunches()
     tr = TRAIN
@@ -2568,7 +2588,7 @@ def phase_train(dev: torch.device, full: bool = True) -> dict:
     rows["train/restart"] = _train_restart(dev, lc)
     rows["train/lenet_ref"] = _lenet_ref(dev, lc)
     rows["train/lenet_port"] = _lenet_port(dev, lc, rows["train/lenet_ref"])
-    rows["train/full"] = _train_full(dev, lc, full)
+    rows["train/full"] = _train_full(dev, lc, full, handoff)
     seconds = time.perf_counter() - t_phase
     log(f"train-path launches: {lc.total}; phase 3g {seconds:.1f} s")
     return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
@@ -2697,7 +2717,8 @@ def _flat_int8(tree: dict) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def _train_full(dev: torch.device, lc: _PathLaunches, full: bool) -> dict:
+def _train_full(dev: torch.device, lc: _PathLaunches, full: bool,
+                handoff: dict | None = None) -> dict:
     """Phase 3g (iv): SERVE_ARCH trained at full width, its gradient
     checked, captured and measured."""
     tf = TRAIN_FULL
@@ -2720,6 +2741,8 @@ def _train_full(dev: torch.device, lc: _PathLaunches, full: bool) -> dict:
         fail(f"train full: losses {losses} grad norms {norms}")
     params, opt_state = res["params"], res["opt_state"]
     del res
+    if handoff is not None:  # phase 3h's placed steps are held to these
+        handoff.update(losses=losses, params=[t.cpu() for t in tree_leaves(params)])
     loss_fn = train.make_loss_fn(cfg)
     batch0 = {k: torch.from_numpy(v).to(dev)
               for k, v in SyntheticLMDataset(dcfg).global_batch(0).items()}
@@ -2910,6 +2933,303 @@ def _compare_reductions(serve_path: dict, train_path: dict) -> None:
     g = train_path["rows"]["train/full"]["measure"]["red_pct"]
     log("full width BT reductions, gradient (3g) vs served weights (3f), 16 links each: "
         + " ".join(f"{k}: {g[k]:.4f}% vs {w[k]:.4f}%" for k in g))
+
+
+# ------------------------------------------------------------------ phase 3h
+
+# The distribution path at full width on a one-rank NCCL group: the
+# rule-placed step (plain and ZeRO-1) against phase 3g's steps, the
+# compressed all-reduce and the sharded link axis over the group, a
+# one-stage pipeline, the step's roofline with the H100's constants and the
+# meta dry run of SERVE_ARCH's shapes on the 16 x 16 production mesh.
+DIST = {"links": 16, "micro": 4, "plain_packets": 1 << 19,
+        "configs": (CodecVariant("none"), CodecVariant("acc"), CodecVariant("app", 4))}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def phase_dist(dev: torch.device, full: bool = True, handoff: dict | None = None) -> dict:
+    """Phase 3h: a one-rank process group (NCCL on the card) and a (1, 1)
+    ("data", "model") mesh; (a) SERVE_ARCH trained 3 steps by the
+    rule-placed step, plain and ZeRO-1, losses and params against phase
+    3g's ``train()`` (``handoff``); (e) the step's roofline record; (d) a
+    one-stage ``pipeline_apply`` over all layers against the sequential
+    stack; (b) ``compressed_psum`` of the full gradient over the group
+    against ``group=None``, unordered and egress-ordered, and its wire's
+    BT; (c) ``bt_count_axes_sharded`` of that wire as 16 links against the
+    unsharded table; then the meta dry run.  Returns rows and launches."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    lc = _PathLaunches()
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = launch.make_smoke_mesh(device=dev.type)
+        rows = _dist_path(dev, lc, mesh, dist.group.WORLD, full, handoff or {})
+    finally:
+        dist.destroy_process_group()
+    rows["dist/dryrun"] = _dist_dryrun()
+    seconds = time.perf_counter() - t_phase
+    log(f"dist-path launches: {lc.total}; phase 3h {seconds:.1f} s ({backend}, world 1)")
+    return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
+
+
+def _placed_run(dev, lc, mesh, cfg, dcfg, ocfg, handoff: dict, what: str,
+                full: bool) -> tuple:
+    """Three placed steps from ``train()``'s initial weights and batches,
+    held to phase 3g's losses and params; returns (row, params, opt
+    state, step, step 0's batch)."""
+    from repro_torch.launch.step import make_placed_train_step, place_state
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(TRAIN_FULL["seed"]), dev)
+    p, o = place_state(cfg, mesh, params, optim.init(params))
+    del params
+    step = make_placed_train_step(cfg, ocfg, mesh)
+    data = SyntheticLMDataset(dcfg)
+    losses, walls = [], []
+    for i in range(TRAIN_FULL["steps"]):
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in data.global_batch(i).items()}
+        t1 = time.perf_counter()
+        p, o, m = lc.run(f"{what} step {i}", lambda: step(p, o, batch), {})
+        walls.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+    row = {"losses": losses, "step_wall_ms": walls,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    want, theirs, mine = handoff.get("losses"), handoff.get("params"), tree_leaves(p)
+    if full and (want is None or theirs is None or len(theirs) != len(mine)):
+        fail(f"{what}: phase 3g handed over {len(theirs or [])} param leaves and losses "
+             f"{want}; the placed step has {len(mine)} leaves")
+    if want is not None and losses != want:
+        fail(f"{what}: losses {losses} != phase 3g's {want}")
+    if theirs is not None:
+        differ = sum(int(not torch.equal(a.to_local().cpu(), b)) for a, b in zip(mine, theirs))
+        if differ:
+            fail(f"{what}: {differ} param leaves differ from phase 3g's after "
+                 f"{TRAIN_FULL['steps']} steps")
+    row["equal_to_3g"] = want is not None and theirs is not None
+    batch0 = {k: torch.as_tensor(v).to(dev) for k, v in data.global_batch(0).items()}
+    return row, p, o, step, batch0
+
+
+def _dist_path(dev, lc, mesh, group, full: bool, handoff: dict) -> dict:
+    from repro_torch import roofline
+    from repro_torch.launch.pipeline import make_pipe_mesh, pipeline_apply, stack_stages
+    from repro_torch.models.transformer import _attn_layer, _layer, _positions, embed_tokens
+    from repro_torch.train.step import accumulate, make_loss_fn
+
+    tf = TRAIN_FULL
+    cfg = get_config(SERVE_ARCH) if full else smoke_config(SERVE_ARCH)
+    seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb, seed=tf["seed"])
+    ocfg = optim.AdamWConfig(warmup_steps=1, total_steps=10)
+    rows: dict = {}
+
+    # (a) ZeRO-1, then plain: three steps each, equal to phase 3g's
+    zcfg = dataclasses.replace(cfg, zero1=True)
+    rows["dist/zero1"], p, o, _, _ = _placed_run(dev, lc, mesh, zcfg, dcfg, ocfg, handoff,
+                                                 "dist zero1", full)
+    del p, o
+    torch.cuda.empty_cache()
+    row, p, o, step, batch0 = _placed_run(dev, lc, mesh, cfg, dcfg, ocfg, handoff, "dist plain",
+                                          full)
+
+    def one_step():
+        return step(p, o, batch0)
+
+    row["step_ms"] = time_ms(one_step, reps=2, warmup=1)
+    row["step_device_ms"], row["step_device_split"] = _device_total_ms(one_step, reps=2)
+    rows["dist/plain"] = row
+    for what, r in (("zero1", rows["dist/zero1"]), ("plain", row)):
+        log(f"dist (a) {cfg.name} placed step, {what}: losses "
+            + " ".join(f"{x:.6f}" for x in r["losses"])
+            + (" = phase 3g's, params bitwise equal" if r["equal_to_3g"] else "")
+            + "; step wall " + " ".join(f"{x:.1f}" for x in r["step_wall_ms"])
+            + f" ms; peak {r['peak_bytes']} bytes")
+    log(f"dist (a) plain step: {row['step_ms']:.1f} ms wall (CUDA events), "
+        f"{row['step_device_ms']} ms device; split {row['step_device_split']}")
+
+    # (e) the step's roofline record with the H100's constants
+    rec = lc.run("dist roofline step", lambda: roofline.collect_from_step(
+        step, p, o, batch0, arch=cfg.name, shape=f"train_{gb}x{seq}", kind="train",
+        mesh_desc="1x1", num_devices=1, cfg=cfg, device=dev), {})
+    terms = roofline.analyse(rec, seq, gb, cfg)
+    dev_ms = row["step_device_ms"] or row["step_ms"]
+    rows["dist/roofline"] = {
+        "record": {k: v for k, v in rec.items() if k != "collective_ops"},
+        "compute_s": terms.compute_s, "memory_floor_s": terms.memory_floor_s,
+        "collective_s": terms.collective_s, "bound_s": terms.bound_s,
+        "dominant": terms.dominant, "roofline_fraction": terms.roofline_fraction,
+        "model_flops": terms.model_flops_per_device, "useful_ratio": terms.useful_ratio,
+        "measured_ms": dev_ms, "measured_fraction": terms.measured_fraction(dev_ms / 1e3)}
+    log(f"dist (e) roofline of the placed step (H100 SXM: {roofline.PEAK_FLOPS:.3g} FLOP/s, "
+        f"{roofline.HBM_BW:.3g} B/s, link {roofline.ICI_BW:.3g} B/s): FLOPs "
+        f"{rec['hlo_flops_per_device']:.4e} counted ({rec['cost_source']}), model "
+        f"{terms.model_flops_per_device:.4e} (useful {terms.useful_ratio:.3f}); compute "
+        f"{terms.compute_s * 1e3:.3f} ms, memory floor {terms.memory_floor_s * 1e3:.3f} ms "
+        f"({rec.get('peak_bytes_per_device')} bytes), collective {terms.collective_s * 1e3:.3f} "
+        f"ms ({rec['collectives']}); bound {terms.bound_s * 1e3:.3f} ms ({terms.dominant}), "
+        f"roofline fraction {terms.roofline_fraction:.4f}; against the measured {dev_ms} ms "
+        f"device step: {rows['dist/roofline']['measured_fraction']:.4f}")
+
+    # (d) a one-stage pipeline over every layer, 4 microbatches
+    whole = {k: v.to_local() for k, v in p.items() if k != "layers"}
+    layers = tree_map(lambda t: t.to_local(), p["layers"])
+    with torch.no_grad():
+        h = embed_tokens(whole, cfg, batch0["tokens"])
+        micro = h.reshape(DIST["micro"], gb // DIST["micro"], seq, -1)
+        pos = _positions(seq, h.device)
+
+        def stage_fn(sp, x):
+            for i in range(tree_leaves(sp)[0].shape[0]):
+                x = _attn_layer(_layer(sp, i), x, cfg, pos)
+            return x
+
+        t1 = time.perf_counter()
+        piped = lc.run("dist pipeline", lambda: pipeline_apply(
+            stage_fn, stack_stages(layers, 1), micro, make_pipe_mesh(1, dev.type)), {})
+        pipe_ms = (time.perf_counter() - t1) * 1e3
+        seq_out = torch.stack([stage_fn(layers, micro[i]) for i in range(DIST["micro"])])
+    if not torch.equal(piped, seq_out):
+        fail("dist (d): the one-stage pipeline differs from the sequential stack")
+    rows["dist/pipeline"] = {"shape": list(micro.shape), "ms": pipe_ms, "equal": True}
+    log(f"dist (d) one-stage pipeline_apply over {tree_leaves(layers)[0].shape[0]} layers x "
+        f"{DIST['micro']} microbatches {list(micro.shape)}: = sequential stack bitwise "
+        f"({pipe_ms:.1f} ms)")
+    del h, micro, piped, seq_out
+
+    # the full gradient at the trained weights, and their int8 bytes
+    plain = {**whole, "layers": layers}
+    del o, step, one_step, whole, layers, p
+    _, grads = accumulate(make_loss_fn(cfg), plain, batch0)
+    flat = torch.cat([g.reshape(-1) for g in tree_leaves(grads)])
+    del grads
+    w8 = _flat_int8(plain)
+    del plain
+    torch.cuda.empty_cache()
+    rows["dist/psum"], wire = _dist_psum(dev, lc, group, flat, w8)
+    del w8, flat
+    rows["dist/axes"] = _dist_axes(lc, group, wire)
+    del wire
+    torch.cuda.synchronize()
+    rows["dist/peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    log(f"dist: peak {rows['dist/peak_bytes']} bytes since the plain run began")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _dist_psum(dev, lc, group, flat: torch.Tensor, w8: torch.Tensor) -> tuple[dict, torch.Tensor]:
+    """(b) compressed_psum(int8_ef) of the full gradient over the group,
+    unordered and through the egress permutation of the weights' bytes,
+    against group=None; the wire's BT both ways through bt_count.
+    Returns the row and the unordered int8 wire."""
+    m = flat.shape[0]
+    ccfg = optim.CompressionConfig(mode="int8_ef")
+    ocfg8 = dataclasses.replace(ccfg, use_egress_ordering=True)
+    err0 = torch.zeros((), device=dev).expand(m)  # a zero buffer, no bytes
+    ref = optim.compressed_psum(flat, err0, ccfg)
+    t1 = time.perf_counter()
+    got = lc.run("dist compressed_psum", lambda: optim.compressed_psum(flat, err0, ccfg, group), {})
+    out = {"elems": m, "psum_ms": (time.perf_counter() - t1) * 1e3}
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        fail("dist (b): compressed_psum over the group differs from group=None")
+    del got
+    perm, inv = lc.run("dist egress permutation", lambda: egress_permutation(w8[:m], packet=64),
+                       {"psu_sort": 1})
+    pad = (-m) % ccfg.block
+    if pad:
+        tail = torch.arange(m, m + pad, dtype=torch.int32, device=dev)
+        perm, inv = torch.cat([perm, tail]), torch.cat([inv, tail])
+    t1 = time.perf_counter()
+    got = lc.run("dist compressed_psum ordered", lambda: optim.compressed_psum(
+        flat, err0, ocfg8, group, perm=perm, inv_perm=inv), {})
+    out["psum_ordered_ms"] = (time.perf_counter() - t1) * 1e3
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        fail("dist (b): ordered compressed_psum over the group differs from group=None")
+    del got, ref, inv
+    wire, _, _ = int8_wire(flat, err0, ccfg)
+    permuted = _permute(wire, perm)[:m]
+    wire = wire[:m]
+    del perm
+    wbt = lc.run("dist wire BT", lambda: (_bt_sum(_wire(wire)), _bt_sum(_wire(permuted))),
+                 {"bt_count": 2 * -(-(m // 16 - 1) // (1 << 23))})
+    del permuted
+    out["wire_bt"] = {"unordered": wbt[0], "ordered": wbt[1],
+                      "red_pct": 100 * (1 - wbt[1] / wbt[0])}
+    log(f"dist (b) compressed_psum(int8_ef) of the {m}-element gradient over the "
+        f"{group_name(group)} group = group=None, unordered ({out['psum_ms']:.1f} ms) and "
+        f"egress-ordered ({out['psum_ordered_ms']:.1f} ms); wire BT {wbt[0]} -> {wbt[1]} "
+        f"({out['wire_bt']['red_pct']:.4f}%)")
+    return out, wire
+
+
+def group_name(group) -> str:
+    import torch.distributed as dist
+
+    return f"{dist.get_backend(group)} {dist.get_world_size(group)}-rank"
+
+
+def _dist_axes(lc, group, wire: torch.Tensor) -> dict:
+    """(c) the gradient's int8 wire as 16 equal links through the sharded
+    link axis over the group (one bt_axes launch), against the unsharded
+    table and, on one link, the plain version."""
+    nl = DIST["links"]
+    pk = wire.shape[0] // (nl * 64)
+    x = wire[: nl * pk * 64].view(nl, pk, 64)
+    kw = dict(configs=DIST["configs"], input_lanes=16)
+    t1 = time.perf_counter()
+    sharded = lc.run("dist sharded link axis", lambda: kernels.bt_count_axes_sharded(
+        x, group=group, **kw), {"bt_axes": 1})
+    ms = (time.perf_counter() - t1) * 1e3
+    whole = lc.run("dist unsharded link axis", lambda: bt_count_axes(x, **kw), {"bt_axes": 1})
+    plain = bt_count_axes(x[:1], backend="torch", chunk_packets=DIST["plain_packets"], **kw)
+    if not torch.equal(sharded, whole) or not torch.equal(sharded[:1], plain):
+        fail("dist (c): the sharded link axis differs from the unsharded table or the plain "
+             "version")
+    tot = sharded.sum(dim=0)[:, 0].tolist()
+    out = {"shape": [nl, pk, 64], "ms": ms, "bt": tot,
+           "red_pct": [100 * (1 - t / tot[0]) for t in tot]}
+    log(f"dist (c) bt_count_axes_sharded of the int8 wire as {nl} links x {pk} packets over "
+        f"the {group_name(group)} group ({ms:.1f} ms): = unsharded table, link 0 = plain; "
+        f"BT none/ACC/APP4 {tot} ({', '.join(f'{r:.4f}%' for r in out['red_pct'])})")
+    return out
+
+
+def _dist_dryrun() -> dict:
+    """The meta dry run of SERVE_ARCH's four shapes on the 16 x 16 mesh."""
+    from repro_torch import roofline
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for shape in SHAPES:
+        rec = dryrun.run_cell(SERVE_ARCH, shape, False, verbose=False)
+        if rec["status"] == "ok":
+            sp = SHAPES[shape]
+            t = roofline.analyse(rec, sp.seq_len, sp.global_batch)
+            rec.update(compute_s=t.compute_s, memory_floor_s=t.memory_floor_s,
+                       collective_s=t.collective_s, dominant=t.dominant,
+                       roofline_fraction=t.roofline_fraction)
+            log(f"dist dry run {SERVE_ARCH} x {shape} [16x16]: {rec['kind']}, argument bytes "
+                f"{rec['argument_bytes_per_device']}/device, FLOPs {rec['global_flops']:.4e} "
+                f"global (model {rec['model_flops_global']:.4e}); compute "
+                f"{t.compute_s * 1e3:.3f} ms, memory floor {t.memory_floor_s * 1e3:.3f} ms, "
+                f"collectives not modelled; {rec['seconds']} s on the host")
+        else:
+            log(f"dist dry run {SERVE_ARCH} x {shape}: {rec['status']} ({rec['reason']})")
+        out[shape] = rec
+    return out
 
 
 # ------------------------------------------------------------------ phase 4
@@ -3246,8 +3566,11 @@ def main() -> int:
     egress_path = phase_egress(dev)
     noc_path = phase_noc(dev)
     serve_path = phase_serve(dev)
-    train_path = phase_train(dev)
+    handoff: dict = {}
+    train_path = phase_train(dev, handoff=handoff)
     _compare_reductions(serve_path, train_path)
+    dist_path = phase_dist(dev, handoff=handoff)
+    del handoff
     cases = phase_scale(dev)
     record = []
     for name, meta in KERNELS.items():
@@ -3259,16 +3582,17 @@ def main() -> int:
         # path for quantize_egress; the NoC / DSE path (3e) for all but
         # psu_stream; the serving path (3f) for psu_sort, bt_count, bt_axes
         # and bt_axes_activity; the training path (3g) for all but
-        # quantize_egress
-        paths = {"psu_sort": ("transmit", "egress", "noc", "serve", "train"),
-                 "bt_count": ("transmit", "egress", "noc", "serve", "train"),
+        # quantize_egress; the distribution path (3h) for psu_sort,
+        # bt_count and bt_axes
+        paths = {"psu_sort": ("transmit", "egress", "noc", "serve", "train", "dist"),
+                 "bt_count": ("transmit", "egress", "noc", "serve", "train", "dist"),
                  "psu_stream": ("transmit", "train"),
-                 "bt_axes": ("codec", "noc", "serve", "train"),
+                 "bt_axes": ("codec", "noc", "serve", "train", "dist"),
                  "bt_axes_activity": ("activity", "noc", "serve", "train"),
                  "quantize_egress": ("egress", "noc")}[name]
         runs = {"transmit": main_path, "codec": codec_path, "activity": activity_path,
                 "egress": egress_path, "noc": noc_path, "serve": serve_path,
-                "train": train_path}
+                "train": train_path, "dist": dist_path}
         by_path = {p: runs[p]["launches"][name] for p in paths}
         record.append({
             "name": name, "route": "cuda", **meta,
@@ -3298,7 +3622,7 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps({
         "card": card, "kernels": record, "main_path": main_path, "codec_path": codec_path,
         "activity_path": activity_path, "egress_path": egress_path, "noc_path": noc_path,
-        "serve_path": serve_path, "train_path": train_path,
+        "serve_path": serve_path, "train_path": train_path, "dist_path": dist_path,
         "scale_cases": cases,
         "seconds": time.perf_counter() - t0,
     }, indent=1, default=str))

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["leaves", "leaves_with_path", "tree_map", "unflatten_like"]
+__all__ = ["leaves", "leaves_with_path", "tree_map", "tree_map_with_path", "unflatten_like"]
 
 
 def _children(node) -> list | None:
@@ -67,6 +67,13 @@ def tree_map(fn: Callable, tree, *rest):
         raise ValueError("tree_map: trees differ in structure")
     return _rebuild(tree, [tree_map(fn, child, *(o[i][1] for o in others))
                            for i, (_, child) in enumerate(kids)])
+
+
+def tree_map_with_path(fn: Callable, tree, *rest):
+    """``fn(keystr path, leaf, *leaves of rest)`` over ``tree``, as
+    ``jax.tree_util.tree_map_with_path`` maps; containers rebuilt."""
+    paths = iter([path for path, _ in leaves_with_path(tree)])
+    return tree_map(lambda *xs: fn(next(paths), *xs), tree, *rest)
 
 
 def unflatten_like(like, flat: list):

@@ -20,6 +20,7 @@ from .ops import (
     PsuStreamResult,
     bt_count,
     bt_count_axes,
+    bt_count_axes_sharded,
     bt_count_codecs,
     bt_count_links,
     bt_count_variants,
@@ -40,6 +41,7 @@ __all__ = [
     "LinkActivity",
     "bt_count",
     "bt_count_axes",
+    "bt_count_axes_sharded",
     "bt_count_links",
     "bt_count_variants",
     "bt_count_codecs",

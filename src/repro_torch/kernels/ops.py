@@ -1,10 +1,11 @@
 """Public kernel entry points, dispatched by the tensor's device.
 
-Counterpart of ``repro/kernels/ops.py`` without its sharded link axis:
+Counterpart of ``repro/kernels/ops.py``:
 ``psu_sort`` / ``psu_reorder`` (``ops.py:165-238``), ``psu_stream`` and
 ``PsuStreamResult`` (``ops.py:684-804``), ``bt_count`` (``ops.py:807-835``),
-and the multi-axis measurement ``bt_count_axes`` (``ops.py:853-983``) with
-its thin configurations ``bt_count_links``, ``bt_count_variants`` and
+the multi-axis measurement ``bt_count_axes`` (``ops.py:853-983``), its link
+axis sharded over a ``torch.distributed`` group ``bt_count_axes_sharded``
+(``ops.py:986-1095``), and its thin configurations ``bt_count_links``, ``bt_count_variants`` and
 ``bt_count_codecs`` (``ops.py:1098-1308``), per-wire activity windows
 (``AxesActivity`` / ``LinkActivity``) included, and the int8 egress
 quantizer ``quantize_egress`` (``ops.py:1312-1343``).  A CUDA tensor launches
@@ -32,6 +33,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from .. import _collectives
 from .. import _obs_hooks as _obs
 from ..core.bt import wrap_int32
 from .axes import (
@@ -63,6 +65,7 @@ __all__ = [
     "LinkActivity",
     "bt_count",
     "bt_count_axes",
+    "bt_count_axes_sharded",
     "bt_count_links",
     "bt_count_variants",
     "bt_count_codecs",
@@ -331,6 +334,84 @@ def bt_count_axes(
             weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack, cuda=cuda,
             chunk_packets=chunk_packets, activity_windows=activity_windows,
         )
+
+
+def bt_count_axes_sharded(
+    inputs: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    valid: torch.Tensor | Sequence[int] | None = None,
+    configs: tuple[CodecVariant, ...] = (CodecVariant(),),
+    width: int = 8,
+    input_lanes: int = 8,
+    weight_lanes: int | None = None,
+    split_lanes: int | None = None,
+    pack: str = "lane",
+    backend: str | None = None,
+    chunk_packets: int | None = None,
+    activity_windows: int | None = None,
+    group=None,
+) -> torch.Tensor | AxesActivity:
+    """:func:`bt_count_axes` with the LINK axis split over the ranks of a
+    ``torch.distributed`` process ``group`` (None: one rank, no collective).
+
+    Every rank passes the whole batch.  The links are padded to a multiple
+    of the group's size with ``valid = 0`` links, whose rows count nothing,
+    so the padding is exact; rank r measures the r-th contiguous block of
+    links with :func:`bt_count_axes` (one ``bt_axes`` or
+    ``bt_axes_activity`` launch per chunk on a CUDA tensor, the plain
+    version on a CPU one), scatters it into a zero table of all the links,
+    and one SUM ``all_reduce`` per output assembles the (L, C, 3) table
+    (and the activity tensors) on every rank.  Each link's result
+    is its unsharded one, bit for bit: a link's measurement never crosses
+    a block boundary.
+    """
+    if inputs.dim() != 3:
+        raise ValueError(f"expected (L, P, N) packets, got {tuple(inputs.shape)}")
+    links, p, _ = inputs.shape
+    dev = inputs.device
+    if group is None:
+        nd, me = 1, 0
+    else:
+        import torch.distributed as dist
+
+        nd, me = dist.get_world_size(group), dist.get_rank(group)
+    if valid is None:
+        valid = torch.full((links,), p, dtype=torch.int32, device=dev)
+    else:
+        valid = torch.as_tensor(valid, device=dev).to(torch.int32).clamp(0, p)
+    if valid.shape != (links,):
+        raise ValueError(f"valid must be ({links},), got {tuple(valid.shape)}")
+    ltot = links + (-links) % nd
+    shard = ltot // nd
+    lo, hi = me * shard, min((me + 1) * shard, links)
+    real = max(hi - lo, 0)
+
+    def block(t):  # this rank's links, padded with zero links to ``shard``
+        if t is None:
+            return None
+        mine = t[lo: lo + real]
+        if real == shard:
+            return mine
+        return torch.cat([mine, mine.new_zeros((shard - real,) + tuple(t.shape[1:]))])
+
+    out = bt_count_axes(
+        block(inputs), block(weights), block(valid), configs=configs, width=width,
+        input_lanes=input_lanes, weight_lanes=weight_lanes, split_lanes=split_lanes, pack=pack,
+        backend=backend, chunk_packets=chunk_packets, activity_windows=activity_windows,
+    )
+    if group is None:
+        return out
+
+    def assemble(arr):
+        full = arr.new_zeros((ltot,) + tuple(arr.shape[1:]))
+        full[lo: lo + shard] = arr
+        dist.all_reduce(full, group=group)
+        _collectives.note("all-reduce", full.numel() * full.element_size(), group)
+        return full[:links]
+
+    if activity_windows is None:
+        return assemble(out)
+    return AxesActivity(*(assemble(o) for o in out))
 
 
 def bt_count_links(

@@ -1,0 +1,180 @@
+"""Multi-pod dry run on meta tensors (counterpart of ``repro.launch.dryrun``).
+
+The reference lowers and compiles every (architecture x input-shape) cell
+on 512 forced host devices and reads XLA's memory and cost analyses and
+its collective schedule.  torch has no counterpart of that compile, so the
+port's dry run is a meta-tensor sweep: for each cell on the production
+mesh (16x16, or 2x16x16 with ``--multipod``) it records
+
+  * the per-device bytes of the step's arguments under the sharding rules
+    (each leaf's bytes over the product of the axes its spec splits);
+  * the step's global FLOPs, counted by ``FlopCounterMode`` while the
+    port's own step (train step, prefill or decode) runs on ``meta``
+    tensors, and an even split of them per device;
+  * ``model_flops_global`` (``repro_torch.roofline``).
+
+GSPMD's collectives are not modelled: the record says so
+(``"collectives_modelled": False``) and carries no collective ops, so its
+roofline has no collective term.  Its memory floor is the argument bytes
+alone (activations are not counted).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2-1.8b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out experiments/dryrun_torch
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multipod
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import time
+import traceback
+
+__all__ = ["run_cell", "argument_bytes_per_device", "main"]
+
+
+def _split(spec, axes: dict) -> int:
+    from .sharding import spec_axes
+
+    return math.prod(axes[a] for a in spec_axes(spec))
+
+
+def argument_bytes_per_device(args, shardings, mesh) -> int:
+    """Bytes of every argument leaf on one device under ``shardings``
+    (trees of ``NamedSharding`` matching ``args``)."""
+    from .._tree import leaves
+    from .mesh import mesh_axes
+
+    axes = mesh_axes(mesh)
+    total = 0
+    for tree, sh in zip(args, shardings):
+        for t, s in zip(leaves(tree), leaves(sh)):
+            total += t.numel() * t.element_size() // _split(s.spec, axes)
+    return total
+
+
+def run_cell(
+    arch: str,
+    shape_name: str,
+    multi_pod: bool,
+    verbose: bool = True,
+    cfg_overrides: dict | None = None,
+    mesh_shape: tuple[int, int] | None = None,  # logical remesh of the pod
+) -> dict:
+    """The meta-tensor dry run of one cell: per-device argument bytes under
+    the rules, the step's FLOPs and the model FLOPs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ..configs import arch_shapes
+    from ..roofline.analysis import model_flops_global
+    from .mesh import AbstractMesh
+    from .specs import build_case
+
+    mesh_desc = "2x16x16" if multi_pod else "16x16"
+    if shape_name not in arch_shapes(arch):
+        return {"arch": arch, "shape": shape_name, "status": "skipped", "mesh": mesh_desc,
+                "reason": "long_500k skipped for full-attention archs (DESIGN.md §4)"}
+    if mesh_shape is not None:
+        mesh = AbstractMesh(tuple(mesh_shape), ("data", "model"))
+        mesh_desc = f"{mesh_shape[0]}x{mesh_shape[1]}"
+    elif multi_pod:
+        mesh = AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    else:
+        mesh = AbstractMesh((16, 16), ("data", "model"))
+
+    t0 = time.monotonic()
+    case = build_case(arch, shape_name, **(cfg_overrides or {}))
+    in_sh, _ = case.shardings(mesh)
+    arg_bytes = argument_bytes_per_device(case.args, in_sh, mesh)
+    with FlopCounterMode(display=False) as counter:
+        case.fn(*case.args)
+    flops = float(counter.get_total_flops())
+    shape = case.shape
+    rec = {
+        "arch": arch, "shape": shape_name, "kind": case.kind, "mesh": mesh_desc,
+        "num_devices": mesh.size, "status": "ok",
+        "argument_bytes_per_device": int(arg_bytes),
+        "peak_bytes_per_device": int(arg_bytes),
+        "peak_source": "argument bytes under the sharding rules (activations not counted)",
+        "global_flops": flops,
+        "hlo_flops_per_device": flops / mesh.size,
+        "cost_source": "torch.FlopCounterMode on meta tensors, split evenly per device",
+        "collectives": {},
+        "collective_ops": [],
+        "collectives_modelled": False,
+        "params": int(case.cfg.param_count()),
+        "active_params": int(case.cfg.active_param_count()),
+    }
+    rec["model_flops_global"] = model_flops_global(rec, shape.seq_len, shape.global_batch,
+                                                   case.cfg)
+    rec["seconds"] = round(time.monotonic() - t0, 2)
+    if verbose:
+        print(f"--- {arch} x {shape_name} [{mesh_desc}] {rec['kind']}")
+        print(f"    argument bytes/device {arg_bytes / 2**30:.3f} GiB; FLOPs global "
+              f"{flops:.4e} (model {rec['model_flops_global']:.4e}, ratio "
+              f"{rec['model_flops_global'] / flops if flops else 0:.3f}); {rec['seconds']} s")
+    return rec
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true", help="run every assigned cell")
+    ap.add_argument("--multipod", action="store_true", help="2x16x16 mesh")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--out", default=None, help="directory for per-cell JSON records")
+    ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--profile", choices=["baseline", "optimized"], default="baseline",
+                    help="optimized = the reference's §Perf profiles")
+    args = ap.parse_args()
+
+    from ..configs import all_cells
+    from . import specs
+
+    if args.all:
+        cells = all_cells()
+    else:
+        if not args.arch or not args.shape:
+            ap.error("--arch and --shape required unless --all")
+        cells = [(args.arch, args.shape)]
+
+    meshes = [args.multipod] if not args.both_meshes else [False, True]
+    failures = 0
+    for multi in meshes:
+        for arch, shape in cells:
+            tag = f"{arch}__{shape}__{'2x16x16' if multi else '16x16'}"
+            out_path = os.path.join(args.out, tag + ".json") if args.out else None
+            if out_path and args.skip_existing and os.path.exists(out_path):
+                print(f"skip existing {tag}")
+                continue
+            try:
+                over, mesh_shape = None, None
+                if args.profile == "optimized":
+                    over, mesh_shape, mb = specs.OPTIMIZED_PROFILES.get(
+                        (arch, shape), ({}, None, None))
+                    if mb:
+                        specs.TRAIN_MICROBATCHES[arch] = mb
+                    if multi:
+                        mesh_shape = None  # remeshes are single-pod profiles
+                rec = run_cell(arch, shape, multi, cfg_overrides=over, mesh_shape=mesh_shape)
+            except Exception as e:  # a failing cell is a bug: record + count
+                traceback.print_exc()
+                rec = {"arch": arch, "shape": shape,
+                       "mesh": "2x16x16" if multi else "16x16",
+                       "status": "failed", "error": f"{type(e).__name__}: {e}"}
+                failures += 1
+            if out_path:
+                os.makedirs(args.out, exist_ok=True)
+                with open(out_path, "w") as f:
+                    json.dump(rec, f, indent=1)
+    if failures:
+        raise SystemExit(f"{failures} cells failed")
+
+
+if __name__ == "__main__":
+    main()

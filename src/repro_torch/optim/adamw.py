@@ -71,6 +71,43 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves(tree)))
 
 
+def step_scalars(cfg: AdamWConfig, grads: Params, state: OptState) -> dict[str, torch.Tensor]:
+    """The scalars one step shares across leaves: the global norm, the clip
+    scale, the new step, its learning rate and the bias corrections."""
+    gnorm = global_norm(grads)
+    step = state.step + 1
+    return {
+        "grad_norm": gnorm,
+        "scale": torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0),
+        "step": step,
+        "lr": lr_schedule(cfg)(step),
+        "bc1": 1 - torch.pow(cfg.b1, step.to(torch.float32)),
+        "bc2": 1 - torch.pow(cfg.b2, step.to(torch.float32)),
+    }
+
+
+@torch.no_grad()
+def update_leaf(cfg: AdamWConfig, s: dict, p, g, m, v, donate: bool = False):
+    """One leaf's AdamW update under the step's scalars ``s``: (p, m, v),
+    written into the tensors passed in with ``donate``.  Every product and
+    sum is rounded as the reference's out-of-place expression is."""
+    if not donate:
+        p, m, v = p.clone(), m.clone(), v.clone()
+    g = g.to(torch.float32) * s["scale"]
+    m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+    v.mul_(cfg.b2).add_(torch.square(g).mul_(1 - cfg.b2))
+    del g
+    den = (v / s["bc2"]).sqrt_().add_(cfg.eps)
+    delta = (m / s["bc1"]).div_(den)
+    del den
+    delta.add_(p.to(torch.float32) * cfg.weight_decay)
+    if p.dtype == torch.float32:
+        p.sub_(delta.mul_(s["lr"]))
+    else:
+        p.copy_((p.to(torch.float32) - s["lr"] * delta).to(p.dtype))
+    return p, m, v
+
+
 @torch.no_grad()
 def update(
     cfg: AdamWConfig, grads: Params, state: OptState, params: Params, donate: bool = False
@@ -78,34 +115,9 @@ def update(
     """One AdamW step.  Returns (new_params, new_state, metrics); with
     ``donate`` the new params and moments are the tensors passed in,
     updated in place."""
-    gnorm = global_norm(grads)
-    scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
-    step = state.step + 1
-    lr = lr_schedule(cfg)(step)
-    bc1 = 1 - torch.pow(cfg.b1, step.to(torch.float32))
-    bc2 = 1 - torch.pow(cfg.b2, step.to(torch.float32))
-
-    def upd(p, g, m, v):
-        # in place on p, m, v; every product and sum is rounded as the
-        # reference's out-of-place expression is
-        if not donate:
-            p, m, v = p.clone(), m.clone(), v.clone()
-        g = g.to(torch.float32) * scale
-        m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
-        v.mul_(cfg.b2).add_(torch.square(g).mul_(1 - cfg.b2))
-        del g
-        den = (v / bc2).sqrt_().add_(cfg.eps)
-        delta = (m / bc1).div_(den)
-        del den
-        delta.add_(p.to(torch.float32) * cfg.weight_decay)
-        if p.dtype == torch.float32:
-            p.sub_(delta.mul_(lr))
-        else:
-            p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
-        return p, m, v
-
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
+    s = step_scalars(cfg, grads, state)
+    out = [update_leaf(cfg, s, p, g, m, v, donate) for p, g, m, v in zip(
         leaves(params), leaves(grads), leaves(state.m), leaves(state.v))]
     new_p, new_m, new_v = (unflatten_like(params, [o[i] for o in out]) for i in range(3))
-    metrics = {"grad_norm": gnorm, "lr": lr}
-    return new_p, OptState(step=step, m=new_m, v=new_v), metrics
+    metrics = {"grad_norm": s["grad_norm"], "lr": s["lr"]}
+    return new_p, OptState(step=s["step"], m=new_m, v=new_v), metrics

@@ -26,7 +26,11 @@ under ``shard_map``): its source divides ``amax / 127.0``, which XLA turns
 into a multiply by float32(1/127), and its new error buffer
 ``x - q * scale`` is contracted into one fused multiply-add.  The port
 does both explicitly, so codes, scales, sums and error buffers are
-bit-exact with the reference's (``tests/test_torch_train.py``).
+bit-exact with the reference's (``tests/test_torch_train.py``).  Compiled
+XLA also reads a subnormal float as a zero of its sign and writes one for a
+subnormal result (flush-to-zero, as a TPU does); ``int8_wire`` flushes by
+hand where that changes a value: ``g`` and ``error`` on entry, their sum,
+and the new error buffer.
 """
 
 from __future__ import annotations
@@ -36,11 +40,19 @@ from typing import Literal, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from .. import _collectives
 
 Mode = Literal["none", "bf16", "int8_ef"]
 
 _INV_127 = float(np.float32(1 / 127))  # XLA's reciprocal of the constant 127
+_FLT_MIN = torch.finfo(torch.float32).tiny  # smallest normal float32
+_CHUNK = 1 << 24  # elements per flush pass: bounded temporaries at full width
+
+
+def _ftz(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with every subnormal replaced by a zero of its sign."""
+    return torch.where(t.abs() < _FLT_MIN, t * 0, t)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,15 +64,17 @@ class CompressionConfig:
     use_egress_ordering: bool = False
 
 
-def _all_reduce(t: torch.Tensor, group, op: str) -> torch.Tensor:
-    """``t`` reduced over ``group`` (SUM or MAX); the identity for None."""
+def _all_reduce(t: torch.Tensor, group, op: str, inplace: bool = False) -> torch.Tensor:
+    """``t`` reduced over ``group`` (SUM or MAX), into ``t`` itself with
+    ``inplace``; the identity for None."""
     if group is None:
         return t
     import torch.distributed as dist
 
-    out = t.clone()
+    out = t if inplace else t.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
                     group=group)
+    _collectives.note("all-reduce", out.numel() * out.element_size(), group)
     return out
 
 
@@ -70,22 +84,27 @@ def int8_wire(
     """The int8_ef quantization of ``g + error``: (flat int8 wire codes,
     padded to whole blocks; the shared per-block float32 scales; the new
     error buffer ``x - dequant(codes)``)."""
-    x = g + error
-    m = x.shape[0]
+    m = g.shape[0]
     pad = (-m) % cfg.block
-    xb = F.pad(x, (0, pad)) if pad else x
-    del x
+    xb = torch.zeros((m + pad,), dtype=torch.float32, device=g.device)
+    for a in range(0, m, _CHUNK):  # x = g + error, read and written as XLA does
+        b = min(a + _CHUNK, m)
+        torch.add(_ftz(g[a:b]), _ftz(error[a:b]), out=xb[a:b])
+        xb[a:b] = _ftz(xb[a:b])
     xr = xb.view(-1, cfg.block)
     local_amax = torch.amax(torch.abs(xr), dim=1)
     # shared scales: one float32 max-reduce per block keeps dequantization exact
     amax = _all_reduce(local_amax, group, "max")
     scale = torch.clamp_min(amax * _INV_127, 1e-12)
-    y = (xr / scale[:, None]).round_().clamp_(-127, 127)  # the codes, as floats
+    # the codes, as floats; + 0 makes a -0 code the int8 code's +0
+    y = (xr / scale[:, None]).round_().clamp_(-127, 127).add_(0.0)
     q = y.to(torch.int8)
     # the new error buffer in place of this call's own sum: x - q * scale
     # as one fused multiply-add
     xr.addcmul_(y, scale[:, None], value=-1)
     del y
+    for a in range(0, m, _CHUNK):
+        xb[a: a + _CHUNK] = _ftz(xb[a: a + _CHUNK])
     return q.reshape(-1), scale, xb[:m]
 
 
@@ -118,7 +137,7 @@ def compressed_psum(
     acc = wire.to(torch.int16)  # 2-byte wire accumulation
     del wire
     if group is not None:
-        acc = _all_reduce(acc.to(torch.int32), group, "sum").to(torch.int16)
+        acc = _all_reduce(acc.to(torch.int32), group, "sum", inplace=True).to(torch.int16)
     if ordered and inv_perm is not None:
         acc = torch.index_select(acc, 0, inv_perm)
     out = acc.to(torch.float32).reshape(-1, cfg.block).mul_(scale[:, None]).reshape(-1)

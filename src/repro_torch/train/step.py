@@ -85,6 +85,26 @@ def _layer_leaves(p: torch.Tensor) -> tuple:
     return tuple(x.requires_grad_(True) for x in p.detach().unbind(0))
 
 
+def accumulate(loss_fn: Callable, params: Params, batch: Batch,
+               microbatches: int = 1) -> tuple[torch.Tensor, Params]:
+    """(loss, gradients) of ``batch``; with ``microbatches > 1`` summed over
+    the strided split (row i -> microbatch i mod mb) in float32 and divided
+    by mb."""
+    if microbatches <= 1:
+        return value_and_grad(loss_fn, params, batch)
+    grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+    loss = torch.zeros((), dtype=torch.float32, device=leaves(params)[0].device)
+    for j in range(microbatches):
+        mbatch = {k: v[j::microbatches] for k, v in batch.items()}
+        l, g = value_and_grad(loss_fn, params, mbatch)
+        for a, b in zip(leaves(grads), leaves(g)):
+            a.add_(b)
+        loss = loss + l
+        del g
+    return loss / microbatches, tree_map(lambda g: g / microbatches, grads)
+
+
 def make_train_step(
     cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int = 1, donate: bool = False
 ) -> Callable[[Params, OptState, Batch], tuple[Params, OptState, dict]]:
@@ -94,21 +114,7 @@ def make_train_step(
     loss_fn = make_loss_fn(cfg)
 
     def train_step(params: Params, opt_state: OptState, batch: Batch):
-        if microbatches <= 1:
-            loss, grads = value_and_grad(loss_fn, params, batch)
-        else:
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
-            loss = torch.zeros((), dtype=torch.float32, device=leaves(params)[0].device)
-            for j in range(microbatches):  # strided split: row i -> microbatch i mod mb
-                mbatch = {k: v[j::microbatches] for k, v in batch.items()}
-                l, g = value_and_grad(loss_fn, params, mbatch)
-                for a, b in zip(leaves(grads), leaves(g)):
-                    a.add_(b)
-                loss = loss + l
-                del g
-            grads = tree_map(lambda g: g / microbatches, grads)
-            loss = loss / microbatches
+        loss, grads = accumulate(loss_fn, params, batch, microbatches)
         # traffic tap: the gradient tree is exactly the ring all-reduce
         # payload
         _obs_hooks.tap("train.grads", grads=grads)

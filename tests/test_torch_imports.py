@@ -45,7 +45,13 @@ def test_every_port_module_is_listed():
                      "repro_torch.checkpoint.manager", "repro_torch.data",
                      "repro_torch.data.pipeline", "repro_torch.optim", "repro_torch.optim.adamw",
                      "repro_torch.optim.compress", "repro_torch.train", "repro_torch.train.step",
-                     "repro_torch.train.loop", "repro_torch.models.lenet"):
+                     "repro_torch.train.loop", "repro_torch.models.lenet",
+                     "repro_torch.launch", "repro_torch.launch.mesh",
+                     "repro_torch.launch.sharding", "repro_torch.launch.specs",
+                     "repro_torch.launch.step", "repro_torch.launch.pipeline",
+                     "repro_torch.launch.dryrun", "repro_torch.roofline",
+                     "repro_torch.roofline.analysis", "repro_torch.roofline.collect",
+                     "repro_torch._collectives"):
         assert expected in names
 
 
@@ -187,4 +193,67 @@ def test_obs_and_its_hooks_import_without_jax():
         [sys.executable, "-c", code], capture_output=True, text=True, check=True,
         timeout=300, cwd=ROOT,
     )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_distribution_layer_exports_the_reference_names():
+    """``launch`` carries the reference's ``__all__``; ``roofline`` all of
+    its names but the two that read XLA executables; ``kernels`` the
+    sharded link axis."""
+    import repro_torch.kernels
+    import repro_torch.launch
+    import repro_torch.roofline
+
+    assert repro_torch.launch.__all__ == _reference_all("launch")
+    not_ported = {"collect_from_compiled", "parse_collectives"}
+    assert set(_reference_all("roofline")) - set(repro_torch.roofline.__all__) == not_ported
+    assert not any(hasattr(repro_torch.roofline, n) for n in not_ported)
+    # the Pallas backend switches have no meaning in the port (dispatch by device)
+    assert set(_reference_all("kernels")) - set(repro_torch.kernels.__all__) == {
+        "BACKEND_ENV_VAR", "default_backend", "default_interpret", "force_default_backend",
+        "pallas_launch_count", "resolve_backend"}
+    for mod in (repro_torch.launch, repro_torch.roofline, repro_torch.kernels):
+        assert all(hasattr(mod, n) for n in mod.__all__)
+
+
+def test_distribution_layer_imports_without_jax(tmp_path):
+    """A one-rank gloo group runs the rule-placed step, the sharded link
+    axis, a one-stage pipeline, a roofline record and a meta dry-run cell
+    with neither JAX nor the reference loaded."""
+    code = (
+        "import json, sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
+        "import torch, torch.distributed as dist\n"
+        f"dist.init_process_group('gloo', init_method='file://{tmp_path}/store', rank=0,\n"
+        "                        world_size=1)\n"
+        "from repro_torch import kernels, optim, roofline\n"
+        "from repro_torch.configs import smoke_config\n"
+        "from repro_torch.launch import dryrun, make_smoke_mesh\n"
+        "from repro_torch.launch.pipeline import make_pipe_mesh, pipeline_apply\n"
+        "from repro_torch.launch.step import make_placed_train_step, place_state\n"
+        "from repro_torch.models import init_params\n"
+        "cfg = smoke_config('internlm2-1.8b')\n"
+        "mesh = make_smoke_mesh(device='cpu')\n"
+        "p = init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "p, o = place_state(cfg, mesh, p, optim.init(p))\n"
+        "step = make_placed_train_step(cfg, optim.AdamWConfig(), mesh)\n"
+        "b = {k: torch.zeros((2, 8), dtype=torch.int32) for k in ('tokens', 'labels')}\n"
+        "rec = roofline.collect_from_step(step, p, o, b, arch=cfg.name, shape='s', kind='train',\n"
+        "                                 mesh_desc='1x1', num_devices=1, cfg=cfg)\n"
+        "assert rec['hlo_flops_per_device'] > 0\n"
+        "x = torch.randint(0, 256, (3, 5, 8), dtype=torch.int32)\n"
+        "assert torch.equal(kernels.bt_count_axes_sharded(x, group=dist.group.WORLD),\n"
+        "                   kernels.bt_count_axes(x))\n"
+        "y = pipeline_apply(lambda sp, h: h * sp['w'][0], {'w': torch.full((1, 1), 2.)},\n"
+        "                   torch.ones(3, 2), make_pipe_mesh(1, 'cpu'))\n"
+        "assert torch.equal(y, torch.full((3, 2), 2.))\n"
+        "assert dryrun.run_cell('mamba2-370m', 'decode_32k', False, verbose=False)['status'] == 'ok'\n"
+        "dist.destroy_process_group()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=ROOT,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -174,6 +174,36 @@ def test_compressed_psum_matches_reference(mode, m, block):
         np.testing.assert_array_equal(
             (wire.to(torch.float32).reshape(-1, block) * scale[:, None]).reshape(-1)[:m].numpy(),
             want)
+    # the compiled reference reads subnormal floats as zero and writes zero
+    # for a subnormal result: a block of subnormal gradients, g = error =
+    # 7e-39 (a normal sum of subnormal inputs), and a normal g and error
+    # whose sum is subnormal
+    for sg, se in _subnormal_cases(m, block):
+        want, want_e = _reference_psum(RCompressionConfig(mode=mode, block=block), sg, se)
+        got, got_e = optim.compressed_psum(torch.from_numpy(sg), torch.from_numpy(se), cfg)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got_e.numpy(), want_e)
+
+
+def _subnormal_cases(m: int, block: int) -> list:
+    rng = np.random.default_rng(m + block)
+    g = (rng.standard_normal(m) * rng.lognormal(0, 2, m)).astype(np.float32)
+    e = (0.01 * rng.standard_normal(m)).astype(np.float32)
+    cases = []
+    a, b = g.copy(), e.copy()
+    a[:block] = np.float32(1e-39) * np.sign(rng.standard_normal(block)).astype(np.float32)
+    cases.append((a, b))
+    a, b = g.copy(), e.copy()
+    a[block: 2 * block] = np.float32(7e-39)
+    b[block: 2 * block] = np.float32(7e-39)
+    cases.append((a, b))
+    a, b = g.copy(), e.copy()
+    a[:block] = np.float32(1.5e-38)
+    b[:block] = np.float32(-1.4e-38)
+    a[block: 2 * block] = np.float32(3e-38)
+    b[block: 2 * block] = np.float32(-2.95e-38)
+    cases.append((a, b))
+    return cases
 
 
 def test_error_feedback_converges_and_ordered_egress_is_transparent():
