@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE, serving, training and distribution paths on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE, serving, training, distribution and tensor-parallel paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -142,7 +142,22 @@ non-zero:
    links over the group equal to the unsharded table (one ``bt_axes``
    launch each) and, on one link, the plain version; then the meta dry
    run (``repro_torch.launch.dryrun``) of internlm2-1.8b's four shapes on
-   the 16 x 16 mesh;
+   the 16 x 16 mesh, with the collective term of its placed schedule;
+3i. tensor-parallel path: on a new one-rank NCCL group and (1, 1) mesh,
+   internlm2-1.8b at full width trained 3 steps on 4 x 256 tokens by the
+   placed step through ``repro_torch.launch.tp_model`` (every layer
+   counted through it, no collective recorded), every loss and param leaf
+   bitwise equal to phase 3g's ``train()``, with step wall, device time
+   and peak beside 3h's; the placed greedy ``repro_torch.launch.serve``
+   ``generate`` at phase 3f's full-width shapes and weights, tokens equal
+   to 3f's; the collective term of every dense dry-run cell
+   (internlm2-1.8b, qwen3-4b, codeqwen1.5-7b, gemma-7b x train_4k /
+   prefill_32k / decode_32k) on 16 x 16, recorded from the placed step,
+   prefill or decode on meta blocks; then internlm2-1.8b at full width
+   trained 3 steps by two processes of a gloo group sharing the card on a
+   (1, 2) mesh (gloo carries CUDA tensors through ``all_reduce``, the only
+   collective of that step; NCCL refuses two ranks on one device), losses
+   within 5e-3 of 3g's;
 4. scale and times: ``psu_stream`` on 4,194,304 paired packets and on
    Table I's conv input stream (7,350 packets of 64, 16 lanes),
    ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
@@ -169,6 +184,7 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2008,7 +2024,7 @@ def _sorted_tensor_leaves(tree: dict, path: str = "") -> list:
     return out
 
 
-def phase_serve(dev: torch.device, full: bool = True) -> dict:
+def phase_serve(dev: torch.device, full: bool = True, handoff: dict | None = None) -> dict:
     """The serving path: (a) the smoke configs through ``serve.generate``
     under capture against the JAX pins, every measurement against its
     plain version; (b) SERVE_ARCH at full width (at smoke width with
@@ -2073,7 +2089,7 @@ def phase_serve(dev: torch.device, full: bool = True) -> dict:
             + f"; KV within {codes} code(s), {100 * share:.3f}% of bytes differ")
     rows["serve/kv_worst"] = {"codes": worst[0], "share": worst[1]}
 
-    rows["serve/full"] = _serve_full(dev, lc, full)
+    rows["serve/full"] = _serve_full(dev, lc, full, handoff)
     seconds = time.perf_counter() - t_phase
     log(f"serve-path launches: {lc.total}; phase 3f {seconds:.1f} s")
     return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
@@ -2089,8 +2105,10 @@ def _weight_tap_ms(params: dict) -> float:
     return time_ms(tap, reps=3, warmup=1)
 
 
-def _serve_full(dev: torch.device, lc: _PathLaunches, full: bool) -> dict:
-    """Phase 3f (b): SERVE_ARCH served at full width under capture."""
+def _serve_full(dev: torch.device, lc: _PathLaunches, full: bool,
+                handoff: dict | None = None) -> dict:
+    """Phase 3f (b): SERVE_ARCH served at full width under capture; its
+    greedy tokens and log-probabilities go into ``handoff`` for phase 3i."""
     sf = SERVE_FULL
     cfg = get_config(SERVE_ARCH) if full else smoke_config(SERVE_ARCH, attn_impl="chunked_skip",
                                                            attn_chunk=8)
@@ -2115,6 +2133,9 @@ def _serve_full(dev: torch.device, lc: _PathLaunches, full: bool) -> dict:
     out["capture_ms"] = _weight_tap_ms(params)
     if not torch.equal(cap.tokens, res.tokens):
         fail("serve full: tokens under capture differ from the run without it")
+    if handoff is not None:  # phase 3i's placed generate is held to these
+        handoff.update(serve_tokens=res.tokens.cpu(), serve_logprobs=res.logprobs.cpu(),
+                       serve_generate_s=out["generate_s"])
     prefill_fn = serve.make_prefill_fn(cfg, plen + new)
     decode_fn = serve.make_decode_fn(cfg)
     logits, cache = prefill_fn(params, prompts)
@@ -3225,10 +3246,304 @@ def _dist_dryrun() -> dict:
                 f"{rec['argument_bytes_per_device']}/device, FLOPs {rec['global_flops']:.4e} "
                 f"global (model {rec['model_flops_global']:.4e}); compute "
                 f"{t.compute_s * 1e3:.3f} ms, memory floor {t.memory_floor_s * 1e3:.3f} ms, "
-                f"collectives not modelled; {rec['seconds']} s on the host")
+                f"collective {t.collective_s * 1e3:.3f} ms ({rec['collectives']}), "
+                f"{t.dominant}-bound; {rec['seconds']} s on the host")
         else:
             log(f"dist dry run {SERVE_ARCH} x {shape}: {rec['status']} ({rec['reason']})")
         out[shape] = rec
+    return out
+
+
+# ------------------------------------------------------------------ phase 3i
+
+# The tensor-parallel "model" axis: the dense forward on each rank's
+# blocks (launch/tp_model.py), placed serving (launch/serve.py) and the dry
+# run's collective term.  One card gives a one-rank NCCL group; the real
+# split runs in (d) as two processes of a gloo group sharing the card.
+TP = {"dense": ("internlm2-1.8b", "qwen3-4b", "codeqwen1.5-7b", "gemma-7b"),
+      "cells": ("train_4k", "prefill_32k", "decode_32k"), "ranks": 2,
+      "loss_tol": 5e-3,  # a bf16 forward split two ways (tests/test_torch_tp.py's REF_TOL)
+      "rank_timeout": 600}
+
+
+def phase_tp(dev: torch.device, full: bool = True, handoff: dict | None = None,
+             dist_path: dict | None = None) -> dict:
+    """Phase 3i: (a) SERVE_ARCH trained by the tensor-parallel placed step on
+    a one-rank NCCL group and a (1, 1) mesh, every loss and param bitwise
+    equal to phase 3g's ``train()`` and its times beside 3h's; (b) the placed
+    greedy ``generate`` at phase 3f's full-width shapes, tokens equal to
+    3f's; (c) the collective term of every dense dry-run cell on 16 x 16;
+    (d) SERVE_ARCH trained by the same step split over "model" by two
+    processes of a gloo group on the one card, losses against 3g's.
+    Returns rows and launches."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    lc = _PathLaunches()
+    handoff = handoff or {}
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = launch.make_smoke_mesh(device=dev.type)
+        rows = {"tp/step": _tp_step(dev, lc, mesh, full, handoff, dist_path or {}),
+                "tp/generate": _tp_generate(dev, lc, mesh, full, handoff)}
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    rows["tp/dryrun"] = _tp_dryrun(dist_path or {})
+    rows["tp/two_ranks"] = _tp_two_ranks(dev, full, handoff)
+    seconds = time.perf_counter() - t_phase
+    log(f"tp-path launches: {lc.total}; phase 3i {seconds:.1f} s ({backend}, world 1; gloo, "
+        f"world {TP['ranks']})")
+    return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
+
+
+def _tp_step(dev, lc, mesh, full: bool, handoff: dict, dist_path: dict) -> dict:
+    """(a) Three placed steps through the tensor-parallel forward, held to
+    phase 3g; every layer runs through ``tp_model.layer``, and a one-rank
+    group issues no collective."""
+    from repro_torch.launch import tp_model
+    from repro_torch.roofline import record_collectives
+
+    tf = TRAIN_FULL
+    cfg = get_config(SERVE_ARCH) if full else smoke_config(SERVE_ARCH)
+    seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb, seed=tf["seed"])
+    ocfg = optim.AdamWConfig(warmup_steps=1, total_steps=10)
+    plan = tp_model.make_plan(cfg, mesh)
+    if (plan.heads, plan.kv, plan.mlp, plan.embed, plan.head) != (
+            True, "heads", True, "vocab", "vocab"):
+        fail(f"tp (a): the plan of {cfg.name} on (1, 1) is {plan}")
+    calls = [0]
+    layer = tp_model.layer
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return layer(*a, **k)
+
+    tp_model.layer = counted
+    try:
+        with record_collectives() as ops:
+            row, p, o, step, batch0 = _placed_run(dev, lc, mesh, cfg, dcfg, ocfg, handoff,
+                                                  "tp", full)
+    finally:
+        tp_model.layer = layer
+    if calls[0] != cfg.n_layers * tf["steps"] or ops:
+        fail(f"tp (a): {calls[0]} layers through tp_model.layer (want "
+             f"{cfg.n_layers * tf['steps']}), collectives {ops} on a one-rank group")
+
+    def one_step():
+        return step(p, o, batch0)
+
+    row["step_ms"] = time_ms(one_step, reps=2, warmup=1)
+    row["step_device_ms"], row["step_device_split"] = _device_total_ms(one_step, reps=2)
+    row["tp_layers"] = calls[0]
+    h = dist_path.get("rows", {}).get("dist/plain", {})
+    log(f"tp (a) {cfg.name} tensor-parallel placed step on (1, 1): losses "
+        + " ".join(f"{x:.6f}" for x in row["losses"])
+        + (" = phase 3g's, params bitwise equal" if row["equal_to_3g"] else "")
+        + f"; {calls[0]} layers through tp_model, no collective; step "
+        f"{row['step_ms']:.1f} ms wall (CUDA events), {row['step_device_ms']} ms device, peak "
+        f"{row['peak_bytes']} bytes (3h's placed step: {h.get('step_ms', 0):.1f} ms, "
+        f"{h.get('step_device_ms')} ms, {h.get('peak_bytes')} bytes)")
+    del p, o, step, one_step, batch0
+    torch.cuda.empty_cache()
+    return row
+
+
+def _tp_generate(dev, lc, mesh, full: bool, handoff: dict) -> dict:
+    """(b) The placed greedy ``generate`` at phase 3f's full-width shapes and
+    weights: tokens equal to 3f's."""
+    from repro_torch.launch import serve as placed
+
+    sf = SERVE_FULL
+    cfg = get_config(SERVE_ARCH) if full else smoke_config(SERVE_ARCH, attn_impl="chunked_skip",
+                                                           attn_chunk=8)
+    nreq, plen, new = sf["requests"], sf["prompt"] if full else 64, sf["new_tokens"]
+    gen = torch.Generator(device=dev).manual_seed(sf["seed"])
+    params = init_params(cfg, gen, dev)
+    prompts = torch.randint(0, cfg.vocab, (nreq, plen), generator=gen, device=dev)
+    local = placed.shard_params(cfg, mesh, params)
+    mode = placed.kv_mode(cfg, mesh, nreq, plen + new)
+    placed.generate(local, cfg, mesh, prompts, new)  # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = lc.run("tp generate", lambda: placed.generate(local, cfg, mesh, prompts, new), {})
+    seconds = time.perf_counter() - t1
+    want = handoff.get("serve_tokens")
+    if full and want is None:
+        fail("tp (b): phase 3f handed over no tokens")
+    if want is not None and not torch.equal(res.tokens.cpu(), want):
+        fail("tp (b): the placed generate's tokens differ from phase 3f's")
+    lp = handoff.get("serve_logprobs")
+    lp_err = None if lp is None else float((res.logprobs.cpu() - lp).abs().max())
+    out = {"requests": nreq, "prompt": plen, "new_tokens": new, "cache": mode,
+           "generate_s": seconds, "tokens_equal_3f": want is not None, "logprob_max_err": lp_err}
+    log(f"tp (b) placed generate of {cfg.name}, {nreq} x {plen} prompts + {new} tokens, cache "
+        f"{mode}: tokens = phase 3f's, log-probabilities within {lp_err}; {seconds:.3f} s "
+        f"(3f's generate: {handoff.get('serve_generate_s', 0):.3f} s)")
+    del params, local, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_dryrun(dist_path: dict) -> dict:
+    """(c) The collectives one device issues in every dense cell on the
+    16 x 16 mesh (the placed step, prefill or decode on meta blocks over
+    stand-in groups), their wire bytes and collective term; SERVE_ARCH's
+    beside phase 3h's compute term."""
+    from repro_torch import roofline
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    h = dist_path.get("rows", {}).get("dist/dryrun", {})
+    out = {}
+    for arch in TP["dense"]:
+        for shape in TP["cells"]:
+            t1 = time.perf_counter()
+            ops = dryrun.placed_collectives(launch.build_case(arch, shape), mesh)
+            summary = roofline.summarize_collectives(ops)
+            wire = roofline.wire_bytes(ops)
+            rec = {"collectives": summary, "wire_bytes_per_device": wire,
+                   "collective_s": wire / roofline.ICI_BW, "host_s": time.perf_counter() - t1}
+            compute = h.get(shape, {}).get("compute_s") if arch == SERVE_ARCH else None
+            if compute is not None:
+                rec["compute_s"] = compute
+            if not ops or wire <= 0:
+                fail(f"tp (c): {arch} x {shape} records no collective")
+            out[f"{arch}/{shape}"] = rec
+            log(f"tp (c) dry run {arch} x {shape} [16x16]: {summary}; wire "
+                f"{wire:.6g} bytes/device, collective {rec['collective_s'] * 1e3:.3f} ms"
+                + (f" against compute {compute * 1e3:.3f} ms (3h)" if compute is not None else "")
+                + f"; {rec['host_s']:.1f} s on the host")
+    return out
+
+
+def tp_rank(rank: int, world: int, port: int, out: str, full: bool, device: str) -> None:
+    """Phase 3i (d), one rank of a ``world``-rank gloo group on ``device``
+    ("cuda": card 0, which must be visible; "cpu" for a rehearsal):
+    SERVE_ARCH trained TRAIN_FULL["steps"] steps by the placed step on a
+    (1, world) mesh; writes its losses, times, device and collectives to
+    ``out``.  The ranks build their state in turn, so the whole weights and
+    moments of one rank at a time stand beside the blocks of the others."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.step import make_placed_train_step, place_state
+    from repro_torch.roofline import record_collectives, summarize_collectives
+
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"tp (d) rank {rank}: asked for the card, but CUDA is not available")
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = launch.make_smoke_mesh(device=dev.type)
+        tf = TRAIN_FULL
+        cfg = get_config(SERVE_ARCH) if full else smoke_config(SERVE_ARCH)
+        seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
+        for turn in range(world):
+            if turn == rank:
+                params = init_params(cfg, torch.Generator(device=dev).manual_seed(tf["seed"]), dev)
+                p, o = place_state(cfg, mesh, params, optim.init(params))
+                del params
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        step = make_placed_train_step(cfg, optim.AdamWConfig(warmup_steps=1, total_steps=10),
+                                      mesh)
+        data = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb,
+                                             seed=tf["seed"]))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        losses, walls, ops = [], [], []
+        for i in range(tf["steps"]):
+            batch = {k: torch.as_tensor(v).to(dev) for k, v in data.global_batch(i).items()}
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with record_collectives() as rec:
+                p, o, m = step(p, o, batch)
+                losses.append(float(m["loss"]))
+            walls.append((time.perf_counter() - t1) * 1e3)
+            ops = ops or rec
+        blocks = [tuple(x.to_local().shape) for x in tree_leaves(p)]
+        res = {"rank": rank, "device": str(dev), "losses": losses, "step_wall_ms": walls,
+               "collectives": summarize_collectives(ops),
+               "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+               "local_params": int(sum(math.prod(b) for b in blocks)),
+               "params": int(sum(x.numel() for x in tree_leaves(p)))}
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+
+
+def _tp_two_ranks(dev, full: bool, handoff: dict) -> dict:
+    """(d) Two processes of a gloo group on ``dev``'s type (the one card;
+    the CPU in a rehearsal): gloo carries CUDA tensors through
+    ``all_reduce`` (torch.distributed's backend table), the only collective
+    this dense step issues on a (1, 2) mesh (the TP pair, the loss's MAX and
+    SUM, the norm; the one-rank "data" mean is skipped).  NCCL refuses two
+    ranks on one device.  Each rank reports its device, which must be
+    ``dev``'s, and on the card its peak; losses against phase 3g's."""
+    n = TP["ranks"]
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    port = _free_port()
+    outs = [build / f"tp_rank{r}.json" for r in range(n)]
+    logs = [build / f"tp_rank{r}.log" for r in range(n)]
+    for f in outs:
+        f.unlink(missing_ok=True)
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.tp_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), "
+            "sys.argv[5], sys.argv[6] == '1', sys.argv[7])")
+    t1 = time.perf_counter()
+    procs = []
+    try:
+        for r in range(n):
+            with open(logs[r], "w") as lf:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code, str(ROOT), str(r), str(n), str(port),
+                     str(outs[r]), "1" if full else "0", dev.type], stdout=lf,
+                    stderr=subprocess.STDOUT,
+                    cwd=ROOT))
+        codes = [p.wait(timeout=TP["rank_timeout"]) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t1
+    if any(codes):
+        for r in range(n):
+            log(f"tp (d) rank {r} exited {codes[r]}:\n" + logs[r].read_text()[-3000:])
+        fail(f"tp (d): the {n} ranks exited {codes}")
+    ranks = [json.loads(f.read_text()) for f in outs]
+    want_dev = "cuda:0" if dev.type == "cuda" else dev.type
+    if any(r["device"] != want_dev for r in ranks) or (dev.type == "cuda" and any(
+            not r["peak_bytes"] for r in ranks)):
+        fail(f"tp (d): the ranks ran on {[r['device'] for r in ranks]} with peaks "
+             f"{[r['peak_bytes'] for r in ranks]}, not on {want_dev}")
+    want = handoff.get("losses")
+    if full and want is None:
+        fail("tp (d): phase 3g handed over no losses")
+    errs = [max(abs(a - b) for a, b in zip(r["losses"], want)) for r in ranks] if want else []
+    if any(r["losses"] != ranks[0]["losses"] for r in ranks[1:]) or any(
+            e > TP["loss_tol"] for e in errs):
+        fail(f"tp (d): losses {[r['losses'] for r in ranks]} against phase 3g's {want}")
+    if not ranks[0]["params"] / n <= ranks[0]["local_params"] < ranks[0]["params"]:
+        fail(f"tp (d): a rank holds {ranks[0]['local_params']} of {ranks[0]['params']} params")
+    out = {"ranks": ranks, "loss_max_err": max(errs) if errs else None, "seconds": seconds}
+    log(f"tp (d) {SERVE_ARCH} split over 'model' by {n} gloo ranks on {want_dev}: losses "
+        + " ".join(f"{x:.6f}" for x in ranks[0]["losses"])
+        + f" (phase 3g's within {out['loss_max_err']}); a rank holds "
+        f"{ranks[0]['local_params']} of {ranks[0]['params']} params; step wall "
+        + " / ".join(" ".join(f"{x:.0f}" for x in r["step_wall_ms"]) for r in ranks)
+        + f" ms; peak {[r['peak_bytes'] for r in ranks]} bytes; collectives of a step "
+        f"{ranks[0]['collectives']}; {seconds:.1f} s")
     return out
 
 
@@ -3565,11 +3880,12 @@ def main() -> int:
     activity_path = phase_activity(dev)
     egress_path = phase_egress(dev)
     noc_path = phase_noc(dev)
-    serve_path = phase_serve(dev)
     handoff: dict = {}
+    serve_path = phase_serve(dev, handoff=handoff)
     train_path = phase_train(dev, handoff=handoff)
     _compare_reductions(serve_path, train_path)
     dist_path = phase_dist(dev, handoff=handoff)
+    tp_path = phase_tp(dev, handoff=handoff, dist_path=dist_path)
     del handoff
     cases = phase_scale(dev)
     record = []
@@ -3623,6 +3939,7 @@ def main() -> int:
         "card": card, "kernels": record, "main_path": main_path, "codec_path": codec_path,
         "activity_path": activity_path, "egress_path": egress_path, "noc_path": noc_path,
         "serve_path": serve_path, "train_path": train_path, "dist_path": dist_path,
+        "tp_path": tp_path,
         "scale_cases": cases,
         "seconds": time.perf_counter() - t0,
     }, indent=1, default=str))

@@ -1,6 +1,8 @@
 # Launch layer (counterpart of repro.launch): meshes, sharding rules,
-# dry-run cases, the rule-placed train step (step.py), the GPipe pipeline
-# (pipeline.py) and the meta-tensor dry run (dryrun.py).
+# dry-run cases, the rule-placed train step (step.py) with its
+# tensor-parallel "model" axis (tp.py, tp_model.py), placed serving
+# (serve.py), the GPipe pipeline (pipeline.py) and the meta-tensor dry run
+# (dryrun.py).
 from .mesh import axis_size, dp_axes, make_production_mesh, make_smoke_mesh
 from .sharding import (
     batch_shardings,

@@ -13,10 +13,24 @@ mesh (16x16, or 2x16x16 with ``--multipod``) it records
     tensors, and an even split of them per device;
   * ``model_flops_global`` (``repro_torch.roofline``).
 
-GSPMD's collectives are not modelled: the record says so
-(``"collectives_modelled": False``) and carries no collective ops, so its
-roofline has no collective term.  Its memory floor is the argument bytes
-alone (activations are not counted).
+  * for the dense family, the collectives one device issues: the cell's
+    placed step (``launch/step.py``'s ``reduce_gradients`` and ZeRO-1's
+    gathers) or placed prefill / decode (``launch/serve.py``) runs on the
+    ``meta`` blocks of rank 0 over stand-in groups of the mesh's sizes
+    (``launch/tp.py``: recorded, not issued), so ``collective_ops`` holds
+    the port's own schedule and the roofline its collective term
+    (``"collectives_modelled": True``).  The train step is not
+    microbatched there: a microbatched step sends the same bytes in more
+    calls.
+
+The other families' tensor-parallel forward is not built yet: their
+records say ``"collectives_modelled": False``, with the reason, and carry
+no collective ops.  The memory floor is the argument bytes alone
+(activations are not counted).  The stand-in groups need no process group:
+torch's ``fake`` backend would build a 256-rank ``DeviceMesh`` in one
+process, but it lives in ``torch.testing._internal``, a private module
+whose presence on the card's torch nothing here checks, while the
+operators' own record needs nothing beyond the port.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2-1.8b --shape train_4k
@@ -33,7 +47,7 @@ import os
 import time
 import traceback
 
-__all__ = ["run_cell", "argument_bytes_per_device", "main"]
+__all__ = ["run_cell", "argument_bytes_per_device", "placed_collectives", "main"]
 
 
 def _split(spec, axes: dict) -> int:
@@ -56,6 +70,63 @@ def argument_bytes_per_device(args, shardings, mesh) -> int:
     return total
 
 
+def placed_collectives(case, mesh) -> list[dict]:
+    """The collectives one device of ``mesh`` (a production ``AbstractMesh``)
+    issues in the placed counterpart of ``case``, a dense cell: recorded
+    while it runs on rank 0's ``meta`` blocks over stand-in groups."""
+    from .. import _collectives
+    from .._tree import leaves, tree_map
+    from ..optim import AdamWConfig
+    from ..roofline.collect import record_collectives
+    from . import serve, tp_model
+    from .step import block, reduce_gradients, zero1_gather
+    from .tp import axis_group
+
+    cfg, s = case.cfg, case.shape
+    in_sh, _ = case.shardings(mesh)
+    args = tree_map(block, case.args, in_sh)
+    with record_collectives() as ops:
+        if case.kind == "train":
+            params, opt_state, batch = args
+            dp = in_sh[2]["labels"].spec[0] or ()
+            reduce_gradients(cfg, AdamWConfig(total_steps=10_000),
+                             tp_model.make_plan(cfg, mesh, "train"),
+                             axis_group(mesh, dp if isinstance(dp, tuple) else (dp,)), params,
+                             batch, opt_state.step)
+            for p, ps, ms in zip(leaves(params), leaves(in_sh[0]), leaves(in_sh[1].m)):
+                gathered = zero1_gather(p, ps.placements(), ms.placements(), mesh)
+                if gathered:
+                    _collectives.note("all-gather", gathered[0], size=gathered[1])
+        else:
+            plan = tp_model.make_plan(cfg, mesh, "serve")
+            mode = serve.kv_mode(cfg, mesh, s.global_batch, s.seq_len)
+            if case.kind == "prefill":
+                serve.prefill(args[0], plan, args[1]["tokens"], s.seq_len, mode)
+            else:
+                serve.decode_step(args[0], plan, args[1], args[2], mode)
+    return ops
+
+
+def _collective_fields(case, mesh) -> dict:
+    """The record's collective keys: the placed schedule of a dense cell,
+    else none, with the reason."""
+    from ..roofline.collect import summarize_collectives
+    from .tp_model import unsupported
+
+    cfg = case.cfg
+    reason = (unsupported(cfg, mesh, "train" if case.kind == "train" else "serve")
+              or (f"{cfg.name}: FSDP placement is not run by the placed step's dry run"
+                  if cfg.fsdp else None))
+    if reason:
+        return {"collectives": {}, "collective_ops": [], "collectives_modelled": False,
+                "collectives_reason": reason}
+    ops = placed_collectives(case, mesh)
+    return {"collectives": summarize_collectives(ops), "collective_ops": ops,
+            "collectives_modelled": True,
+            "collective_source": "the port's placed step / prefill / decode on meta blocks "
+                                 "over stand-in groups (launch/tp.py)"}
+
+
 def run_cell(
     arch: str,
     shape_name: str,
@@ -70,6 +141,7 @@ def run_cell(
 
     from ..configs import arch_shapes
     from ..roofline.analysis import model_flops_global
+    from ..roofline.collect import wire_bytes
     from .mesh import AbstractMesh
     from .specs import build_case
 
@@ -102,12 +174,10 @@ def run_cell(
         "global_flops": flops,
         "hlo_flops_per_device": flops / mesh.size,
         "cost_source": "torch.FlopCounterMode on meta tensors, split evenly per device",
-        "collectives": {},
-        "collective_ops": [],
-        "collectives_modelled": False,
         "params": int(case.cfg.param_count()),
         "active_params": int(case.cfg.active_param_count()),
     }
+    rec.update(_collective_fields(case, mesh))
     rec["model_flops_global"] = model_flops_global(rec, shape.seq_len, shape.global_batch,
                                                    case.cfg)
     rec["seconds"] = round(time.monotonic() - t0, 2)
@@ -116,6 +186,11 @@ def run_cell(
         print(f"    argument bytes/device {arg_bytes / 2**30:.3f} GiB; FLOPs global "
               f"{flops:.4e} (model {rec['model_flops_global']:.4e}, ratio "
               f"{rec['model_flops_global'] / flops if flops else 0:.3f}); {rec['seconds']} s")
+        if rec["collectives_modelled"]:
+            print(f"    collectives/device {rec['collectives']}; wire "
+                  f"{wire_bytes(rec['collective_ops']) / 2**30:.3f} GiB")
+        else:
+            print(f"    collectives not modelled: {rec['collectives_reason']}")
     return rec
 
 

@@ -1,0 +1,310 @@
+"""The dense family's forward and loss on one rank's shards of "model".
+
+The reference's GSPMD splits the dense transformer over the mesh's "model"
+axis by the rules of ``launch.sharding``.  Here one rank runs its part with
+the operators of ``launch/tp.py``, and each split is read from the port's
+own ``param_spec`` (:func:`make_plan`), never decided again:
+
+  * ``wq`` / ``wo`` split on heads: a column / row pair.  Attention runs
+    ``models.layers.attention`` on the rank's heads with a local config
+    (``n_heads / m``); its input enters through ``copy_to_model`` and its
+    output leaves through ``reduce_from_model``.
+  * ``wk`` / ``wv`` split on kv-heads when ``hkv % m == 0``; otherwise they
+    are replicated (the reference's GQA rule) and each rank takes the kv
+    heads its query heads read.
+  * MLP: ``gate`` / ``up`` column-split, ``down`` row-split, the same pair.
+  * ``embed`` split on the vocabulary: a masked lookup summed over the
+    group; split on ``d`` (a vocabulary the axis does not divide): the
+    lookup's columns gathered.
+  * ``head`` split on the vocabulary: a vocab-parallel cross-entropy (a MAX
+    and a SUM all-reduce of per-token floats; the label's logit from the
+    rank that owns it), so the logits are never gathered.  Split on ``d``:
+    the partial logits summed over the group, then the plain loss.  With
+    tied embeddings the head is ``embed``'s shard transposed.
+  * ``q_norm`` / ``k_norm`` (per head, shared by the heads) and every norm
+    stay replicated.
+
+The gradient of a split leaf is this rank's block.  A replicated leaf has
+one of two kinds of gradient (:attr:`Plan.partial`):
+
+  * **partial**, when its use is split across the group: each rank's
+    gradient covers its own heads only and must be summed over "model".
+    These are ``wk`` / ``wv`` when replicated, and ``q_norm`` / ``k_norm``
+    under a head split.
+  * **whole**, when it is used whole before a split region: a norm whose
+    output enters the split products through ``copy_to_model``, whose
+    backward already sums the input's gradient.  Summing it again would
+    multiply it by m.
+
+On a one-rank group every operator is the identity and each function
+below runs the one-process op sequence of ``models.transformer``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .._tree import leaves_with_path
+from ..models import lm_loss as _lm_loss
+from ..models import param_shapes
+from ..models.config import ModelConfig
+from ..models.layers import attention, mlp, rms_norm, torch_dtype
+from ..models.transformer import _ce, _layer, _n_layers, _positions, embed_tokens
+from .mesh import mesh_axes
+from .sharding import params_shardings
+from .tp import (AxisGroup, all_reduce, axis_group, copy_to_model, gather_from_model,
+                 reduce_from_model)
+
+__all__ = ["Plan", "make_plan", "unsupported", "embed", "layer", "attention_block",
+           "mlp_block", "forward", "logits", "loss", "make_loss_fn", "take_heads"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one rank runs the dense model, read from the specs.
+
+    ``heads``: attention split on heads; ``kv``: "heads" (``wk`` / ``wv``
+    split) or "whole" (replicated); ``kv_index``: with a head split and
+    whole kv, the kv heads this rank's query heads read; ``mlp``: the MLP
+    split on ``d_ff``; ``embed`` / ``head``: "vocab", "d" or "whole";
+    ``local``: the config attention sees on this rank; ``split``: the leaf
+    paths "model" splits; ``partial``: the replicated leaf paths whose
+    gradient is a partial sum over "model"."""
+
+    cfg: ModelConfig
+    local: ModelConfig
+    model: AxisGroup
+    heads: bool
+    kv: str
+    kv_index: Optional[tuple[int, ...]]
+    mlp: bool
+    embed: str
+    head: str
+    split: frozenset
+    partial: frozenset
+
+
+def _model_dim(spec, rank: int) -> Optional[int]:
+    """The dim, counted from the end, that "model" splits in ``spec``."""
+    for d, e in enumerate(spec):
+        if e is not None and "model" in (e if isinstance(e, tuple) else (e,)):
+            return d - rank
+    return None
+
+
+def _name(path: str) -> str:
+    return path.rsplit("['", 1)[-1].rstrip("']")
+
+
+def _model_dims(cfg: ModelConfig, mesh, mode: str) -> dict[str, Optional[int]]:
+    """Leaf path -> the dim "model" splits (from the end), from the rules."""
+    shapes = param_shapes(cfg)
+    return {path: _model_dim(sh.spec, t.dim()) for (path, t), (_, sh) in zip(
+        leaves_with_path(shapes), leaves_with_path(params_shardings(cfg, mesh, shapes, mode)))}
+
+
+def _why_not(cfg: ModelConfig, dims: dict, m: int) -> Optional[str]:
+    attn = {_name(p): d for p, d in dims.items() if "['attn']" in p}
+    mlps = {_name(p): d for p, d in dims.items() if "['mlp']" in p}
+    if (attn["wq"], attn["wo"]) not in ((None, None), (-2, -3)):
+        return (f"{cfg.name}: the rules split attention's contraction ({attn['wq']}, "
+                f"{attn['wo']}) on a {m}-rank 'model' axis ({cfg.n_heads} heads), not its heads")
+    if set(mlps.values()) - {None} and mlps != {k: (-2 if k == "down" else -1) for k in mlps}:
+        return f"{cfg.name}: the rules split the MLP as {mlps}, not on d_ff"
+    return None
+
+
+def unsupported(cfg: ModelConfig, mesh, mode: str = "train") -> Optional[str]:
+    """Why the rules' splits of ``cfg`` on ``mesh`` are not ones this forward
+    runs, or None: it takes the dense family, attention split on heads (or
+    whole) and the MLP on ``d_ff`` (or whole)."""
+    if cfg.family != "dense":
+        return (f"{cfg.name}: the tensor-parallel forward covers the dense family, not "
+                f"{cfg.family!r}")
+    return _why_not(cfg, _model_dims(cfg, mesh, mode), mesh_axes(mesh)["model"])
+
+
+def make_plan(cfg: ModelConfig, mesh, mode: str = "train") -> Plan:
+    """The rank's plan on ``mesh`` (a ``DeviceMesh``, or an ``AbstractMesh``
+    for a stand-in group) from ``param_spec`` of every leaf."""
+    if cfg.family != "dense":
+        raise ValueError(unsupported(cfg, mesh, mode))
+    model = axis_group(mesh, "model")
+    dims = _model_dims(cfg, mesh, mode)
+    reason = _why_not(cfg, dims, model.size)
+    if reason:
+        raise ValueError(reason)
+    heads = dims["['layers']['attn']['wq']"] is not None
+    kv = "heads" if dims["['layers']['attn']['wk']"] is not None else "whole"
+    embed_mode = {-2: "vocab", -1: "d", None: "whole"}[dims["['embed']"]]
+    head_mode = embed_mode if cfg.tie_embeddings else {-1: "vocab", -2: "d", None: "whole"}[
+        dims["['head']"]]
+    local, kv_index, partial = cfg, None, frozenset()
+    if heads and model.size > 1:
+        hpl, rep = cfg.n_heads // model.size, cfg.q_rep
+        if kv == "heads":
+            kvl = cfg.n_kv_heads // model.size
+        else:
+            first = model.index * hpl
+            kv_index = ((first // rep,) if rep % hpl == 0
+                        else tuple((first + j) // rep for j in range(hpl)))
+            kvl = len(kv_index)
+        local = dataclasses.replace(cfg, n_heads=hpl, n_kv_heads=kvl,
+                                    head_dim=cfg.resolved_head_dim)
+        # replicated leaves whose use is split over the heads
+        partial = frozenset(p for p in dims if "['attn']" in p and (
+            _name(p) in ("q_norm", "k_norm") or (kv == "whole" and _name(p) in ("wk", "wv"))))
+    split = frozenset(p for p, d in dims.items() if d is not None and model.size > 1)
+    return Plan(cfg, local, model, heads, kv, kv_index,
+                dims["['layers']['mlp']['up']"] is not None, embed_mode, head_mode, split,
+                partial)
+
+
+# --------------------------------------------------------------------------
+# layers
+# --------------------------------------------------------------------------
+
+
+def take_heads(t: torch.Tensor, index: tuple[int, ...], dim: int) -> torch.Tensor:
+    """The heads ``index`` of ``t`` along ``dim`` (a view for one head)."""
+    if len(index) == 1:
+        return t.narrow(dim, index[0], 1)
+    return t.index_select(dim, torch.tensor(index, device=t.device))
+
+
+def _kv_view(lp: dict, plan: Plan) -> dict:
+    """A layer's attention params with whole ``wk`` / ``wv`` cut to the kv
+    heads this rank's query heads read."""
+    if plan.kv_index is None:
+        return lp
+    return {**lp, "wk": take_heads(lp["wk"], plan.kv_index, -2),
+            "wv": take_heads(lp["wv"], plan.kv_index, -2)}
+
+
+def attention_block(lp: dict, x: torch.Tensor, plan: Plan, positions) -> torch.Tensor:
+    """Attention of the normed, replicated ``x``; the result replicated."""
+    if not plan.heads:
+        return attention(lp, x, plan.cfg, positions)
+    g = plan.model
+    y = attention(_kv_view(lp, plan), copy_to_model(x, g), plan.local, positions)
+    return reduce_from_model(y, g)
+
+
+def mlp_block(lp: dict, x: torch.Tensor, plan: Plan) -> torch.Tensor:
+    if not plan.mlp:
+        return mlp(lp, x, plan.cfg)
+    g = plan.model
+    return reduce_from_model(mlp(lp, copy_to_model(x, g), plan.cfg), g)
+
+
+def layer(lp: dict, h: torch.Tensor, plan: Plan, positions) -> torch.Tensor:
+    """One dense layer (``models.transformer._attn_layer``'s op order)."""
+    eps = plan.cfg.rms_eps
+    h = h + attention_block(lp["attn"], rms_norm(h, lp["attn_norm"], eps), plan, positions)
+    return h + mlp_block(lp["mlp"], rms_norm(h, lp["mlp_norm"], eps), plan)
+
+
+def embed(params: dict, plan: Plan, tokens: torch.Tensor) -> torch.Tensor:
+    """The replicated embedding of ``tokens`` from this rank's shard."""
+    cfg, g = plan.cfg, plan.model
+    if g.size == 1 or plan.embed == "whole":
+        return embed_tokens(params, cfg, tokens)
+    w = params["embed"]
+    if plan.embed == "vocab":
+        ids = tokens.long() - g.index * w.shape[0]
+        own = ((ids >= 0) & (ids < w.shape[0]))[..., None]
+        e = torch.where(own, F.embedding(torch.where(own[..., 0], ids, 0), w), 0.0)
+        e = reduce_from_model(e, g)
+    else:
+        e = gather_from_model(F.embedding(tokens.long(), w), g, -1)
+    return e.to(torch_dtype(cfg.dtype)) * math.sqrt(cfg.d_model)
+
+
+def forward(params: dict, plan: Plan, tokens: torch.Tensor) -> torch.Tensor:
+    """The final-normed hidden state (B, S, d), replicated over "model"."""
+    h = embed(params, plan, tokens)
+    positions = _positions(h.shape[1], h.device)
+    layers = params["layers"]
+    for i in range(_n_layers(layers)):
+        h = layer(_layer(layers, i), h, plan, positions)
+    return rms_norm(h, params["final_norm"], plan.cfg.rms_eps)
+
+
+# --------------------------------------------------------------------------
+# logits / loss
+# --------------------------------------------------------------------------
+
+
+def _head(params: dict, plan: Plan) -> torch.Tensor:
+    return params["embed"].T if plan.cfg.tie_embeddings else params["head"]
+
+
+def _d_slice(h: torch.Tensor, plan: Plan, w: torch.Tensor) -> torch.Tensor:
+    """This rank's columns of ``h`` under a ``d`` split of ``w`` (d/m, V)."""
+    n = w.shape[0]
+    return h[..., plan.model.index * n: (plan.model.index + 1) * n]
+
+
+def logits(params: dict, plan: Plan, h: torch.Tensor) -> torch.Tensor:
+    """Logits of the replicated ``h``: this rank's vocabulary block under a
+    vocab split (the rank's columns, ``index * V/m`` on), else whole."""
+    w, g = _head(params, plan), plan.model
+    if plan.head == "d" and g.size > 1:
+        x = _d_slice(copy_to_model(h, g), plan, w)
+        return reduce_from_model(x @ w.to(h.dtype), g)
+    x = copy_to_model(h, g) if plan.head == "vocab" else h
+    return x @ w.to(h.dtype)
+
+
+def _ce_vocab(lg: torch.Tensor, labels: torch.Tensor, g: AxisGroup):
+    """(sum, count) of the cross-entropy over valid labels from this rank's
+    vocabulary block ``lg``: one MAX and one SUM all-reduce of per-token
+    floats."""
+    lf = lg.to(torch.float32)
+    mx = all_reduce(torch.amax(lf.detach(), dim=-1), g, "max")
+    se = torch.sum(torch.exp(lf - mx[..., None]), dim=-1)
+    lab = labels.long() - g.index * lf.shape[-1]
+    own = (lab >= 0) & (lab < lf.shape[-1])
+    gold = torch.take_along_dim(lf, torch.where(own, lab, 0)[..., None], dim=-1)[..., 0]
+    both = reduce_from_model(torch.stack([se, torch.where(own, gold, 0.0)], dim=-1), g)
+    lse = torch.log(both[..., 0]) + mx
+    valid = labels >= 0
+    ce = torch.where(valid, lse - both[..., 1], 0.0)
+    return ce.sum(), valid.sum()
+
+
+def loss(params: dict, plan: Plan, h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over valid labels (``models.lm_loss``'s chunking)
+    from this rank's head shard."""
+    cfg, g = plan.cfg, plan.model
+    if g.size == 1 or plan.head == "whole":
+        return _lm_loss(params, cfg, h, labels)
+
+    def ce(hc, lc):
+        lg = logits(params, plan, hc)
+        return _ce_vocab(lg, lc, g) if plan.head == "vocab" else _ce(lg, lc)
+
+    chunk, s = cfg.logits_chunk, h.shape[1]
+    if chunk and s % chunk == 0 and s > chunk:
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+        for c0 in range(0, s, chunk):
+            cs, cn = ce(h[:, c0: c0 + chunk], labels[:, c0: c0 + chunk])
+            tot, cnt = tot + cs, cnt + cn
+        return tot / torch.clamp_min(cnt, 1)
+    tot, cnt = ce(h, labels)
+    return tot / torch.clamp_min(cnt, 1)
+
+
+def make_loss_fn(plan: Plan) -> Callable[[Any, dict], torch.Tensor]:
+    """``(local params, local batch) -> loss``, as ``train.make_loss_fn``'s."""
+
+    def loss_fn(params, batch):
+        return loss(params, plan, forward(params, plan, batch["tokens"]), batch["labels"])
+
+    return loss_fn

@@ -186,22 +186,33 @@ def _attn_block(q, k, v, scale, mask_bias):
     s = torch.einsum("bqhrd,bkhd->bhrqk", q, k).to(torch.float32) * scale
     if mask_bias is not None:
         s = s + mask_bias
+    return block_stats(s, v, q.dtype)
+
+
+def block_stats(s, v, dtype):
+    """The online-softmax partials of float32 scores ``s`` (B, Hkv, rep,
+    Cq, Ck) over values ``v`` (B, Ck, Hkv, D), the probabilities cast to
+    ``dtype`` for the product: (m, l, acc) as ``_attn_block`` returns."""
     m = torch.amax(s, dim=-1)
     p = torch.exp(s - m[..., None])
     l = torch.sum(p, dim=-1)
-    acc = torch.einsum("bhrqk,bkhd->bqhrd", p.to(q.dtype), v)
+    acc = torch.einsum("bhrqk,bkhd->bqhrd", p.to(dtype), v)
     return m, l, acc
+
+
+def rescale_block(m, l, acc, to):
+    """Partials (m, l, acc) rescaled from their maxima ``m`` to ``to``:
+    (l, acc), ready to be summed with other blocks'."""
+    e = torch.exp(m - to)
+    # acc axes (B, Cq, Hkv, rep, D) vs stats (B, Hkv, rep, Cq)
+    return l * e, acc * e.permute(0, 3, 1, 2)[..., None].to(acc.dtype)
 
 
 def _merge_blocks(m1, l1, a1, m2, l2, a2):
     m = torch.maximum(m1, m2)
-    e1 = torch.exp(m1 - m)
-    e2 = torch.exp(m2 - m)
-    l = l1 * e1 + l2 * e2
-    # scale accumulators: acc axes (B, Cq, Hkv, rep, D) vs stats (B,Hkv,rep,Cq)
-    s1 = e1.permute(0, 3, 1, 2)[..., None].to(a1.dtype)
-    s2 = e2.permute(0, 3, 1, 2)[..., None].to(a2.dtype)
-    return m, l, a1 * s1 + a2 * s2
+    l1, a1 = rescale_block(m1, l1, a1, m)
+    l2, a2 = rescale_block(m2, l2, a2, m)
+    return m, l1 + l2, a1 + a2
 
 
 def _finalize(m, l, acc):
@@ -306,6 +317,56 @@ def encode_kv(params: Params, enc_out: torch.Tensor, cfg: ModelConfig):
     return k, v
 
 
+def decode_write(
+    params: Params,
+    x: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    pos: torch.Tensor,
+    cfg: ModelConfig,
+    start: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The new token's queries, and its keys and values written into the
+    cache at ``pos``.  x: (B, 1, d); cache_k/v: (B, S, Hkv, D) holding
+    positions ``start`` .. ``start + S`` (the whole cache from 0, or one
+    block of a cache split on its sequence).  Returns (q, new_k, new_v);
+    the caches passed in are not modified."""
+    positions = pos.to(torch.int32).expand(x.shape[0], 1)
+    q, k, v = _qkv(params, x, cfg, positions)
+    ar = start + torch.arange(cache_k.shape[1], device=x.device)
+    slot = (ar == pos)[None, :, None, None]
+    cache_k = torch.where(slot, k.to(cache_k.dtype), cache_k)
+    cache_v = torch.where(slot, v.to(cache_v.dtype), cache_v)
+    return q, cache_k, cache_v
+
+
+def decode_scores(q: torch.Tensor, cache_k: torch.Tensor, pos: torch.Tensor,
+                  start: int = 0) -> torch.Tensor:
+    """The new token's scaled float32 scores over a cache block (positions
+    as ``decode_write``'s), those past ``pos`` at -1e30.  q: (B, 1, H, D),
+    H a multiple of the cache's Hkv; returns (B, Hkv, H / Hkv, 1, S)."""
+    b, _, h, d = q.shape
+    hkv = cache_k.shape[2]
+    qg = q.reshape(b, 1, hkv, h // hkv, d)
+    scores = (
+        torch.einsum("bqhrd,bkhd->bhrqk", qg, cache_k.to(q.dtype)).to(torch.float32)
+        * (1.0 / math.sqrt(d))
+    )
+    ar = start + torch.arange(cache_k.shape[1], device=q.device)
+    valid = (ar <= pos)[None, None, None, None, :]
+    return torch.where(valid, scores, -1e30)
+
+
+def decode_attend(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """The new token's attention output (B, 1, H, D) over a whole cache
+    (written, as ``decode_write`` returns it)."""
+    dt = q.dtype
+    probs = torch.softmax(decode_scores(q, cache_k, pos), dim=-1).to(dt)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", probs, cache_v.to(dt))
+    return out.reshape(q.shape)
+
+
 def attention_decode(
     params: Params,
     x: torch.Tensor,
@@ -320,26 +381,7 @@ def attention_decode(
     (tokens already in cache).  Returns (y, new_k, new_v); the caches
     passed in are not modified.
     """
-    dt = x.dtype
-    b = x.shape[0]
-    positions = pos.to(torch.int32).expand(b, 1)
-    q, k, v = _qkv(params, x, cfg, positions)
-    smax = cache_k.shape[1]
-    ar = torch.arange(smax, device=x.device)
-    slot = (ar == pos)[None, :, None, None]
-    cache_k = torch.where(slot, k.to(cache_k.dtype), cache_k)
-    cache_v = torch.where(slot, v.to(cache_v.dtype), cache_v)
-    hkv = cfg.n_kv_heads
-    rep = cfg.q_rep
-    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
-    qg = q.reshape(b, 1, hkv, rep, q.shape[-1])
-    scores = (
-        torch.einsum("bqhrd,bkhd->bhrqk", qg, cache_k.to(dt)).to(torch.float32) * scale
-    )
-    valid = (ar <= pos)[None, None, None, None, :]
-    scores = torch.where(valid, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(dt)
-    out = torch.einsum("bhrqk,bkhd->bqhrd", probs, cache_v.to(dt))
-    out = out.reshape(b, 1, cfg.n_heads, cfg.resolved_head_dim)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+    q, cache_k, cache_v = decode_write(params, x, cache_k, cache_v, pos, cfg)
+    out = decode_attend(q, cache_k, cache_v, pos)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, cache_k, cache_v

@@ -71,10 +71,14 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves(tree)))
 
 
-def step_scalars(cfg: AdamWConfig, grads: Params, state: OptState) -> dict[str, torch.Tensor]:
-    """The scalars one step shares across leaves: the global norm, the clip
-    scale, the new step, its learning rate and the bias corrections."""
-    gnorm = global_norm(grads)
+def step_scalars(cfg: AdamWConfig, grads: Params, state: OptState,
+                 gnorm: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+    """The scalars one step shares across leaves: the global norm (of
+    ``grads`` unless given: a tensor-parallel step's blocks do not hold the
+    whole gradient), the clip scale, the new step, its learning rate and the
+    bias corrections."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     step = state.step + 1
     return {
         "grad_norm": gnorm,

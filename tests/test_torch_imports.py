@@ -49,7 +49,9 @@ def test_every_port_module_is_listed():
                      "repro_torch.launch", "repro_torch.launch.mesh",
                      "repro_torch.launch.sharding", "repro_torch.launch.specs",
                      "repro_torch.launch.step", "repro_torch.launch.pipeline",
-                     "repro_torch.launch.dryrun", "repro_torch.roofline",
+                     "repro_torch.launch.dryrun", "repro_torch.launch.tp",
+                     "repro_torch.launch.tp_model", "repro_torch.launch.serve",
+                     "repro_torch.roofline",
                      "repro_torch.roofline.analysis", "repro_torch.roofline.collect",
                      "repro_torch._collectives"):
         assert expected in names
@@ -217,8 +219,9 @@ def test_distribution_layer_exports_the_reference_names():
 
 
 def test_distribution_layer_imports_without_jax(tmp_path):
-    """A one-rank gloo group runs the rule-placed step, the sharded link
-    axis, a one-stage pipeline, a roofline record and a meta dry-run cell
+    """A one-rank gloo group runs the rule-placed (tensor-parallel) step,
+    the sharded link axis, a one-stage pipeline, a roofline record, placed
+    greedy generation and meta dry-run cells (one with its collective term)
     with neither JAX nor the reference loaded."""
     code = (
         "import json, sys\n"
@@ -248,6 +251,12 @@ def test_distribution_layer_imports_without_jax(tmp_path):
         "                   torch.ones(3, 2), make_pipe_mesh(1, 'cpu'))\n"
         "assert torch.equal(y, torch.full((3, 2), 2.))\n"
         "assert dryrun.run_cell('mamba2-370m', 'decode_32k', False, verbose=False)['status'] == 'ok'\n"
+        "from repro_torch.launch import serve\n"
+        "g = serve.generate(serve.shard_params(cfg, mesh, init_params(cfg, None, 'meta')), cfg,\n"
+        "                   mesh, torch.zeros((2, 4), dtype=torch.int32, device='meta'), 2)\n"
+        "assert g.tokens.shape == (2, 2)\n"
+        "rec = dryrun.run_cell('internlm2-1.8b', 'decode_32k', False, verbose=False)\n"
+        "assert rec['collectives_modelled'] and rec['collective_ops']\n"
         "dist.destroy_process_group()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(json.dumps(bad))\n"
