@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE, serving, training, distribution and tensor-parallel paths on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE, serving, training, distribution, tensor-parallel and expert-parallel paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -158,6 +158,26 @@ non-zero:
    (1, 2) mesh (gloo carries CUDA tensors through ``all_reduce``, the only
    collective of that step; NCCL refuses two ranks on one device), losses
    within 5e-3 of 3g's;
+3j. expert-parallel path: granite-moe-3b-a800m at full width (d_model
+   1,536, 24 heads, 8 kv heads, 48 experts of which 40 real, top-8, expert
+   d_ff 512, vocabulary 49,155) at 16 of its 32 layers (its training
+   state at 32 passes the card's memory) trained 3 steps on 4 x 256 tokens
+   by ``train()``, then on a new one-rank NCCL group and (1, 1) mesh by the
+   placed step through the expert-parallel plan of
+   ``repro_torch.launch.tp_model`` (every MoE layer counted through it, no
+   collective recorded), every loss and every param leaf's sha256 equal,
+   with step wall, device time and peak of both; the placed greedy
+   ``generate`` at all 32 layers on 4 x 256 prompts + 16 tokens, tokens and
+   log-probabilities equal to ``serve.generate``'s, prefill and decode
+   times of both; ``obs.capture_moe_dispatch`` at batch 4 x 256 (4 groups,
+   capacity 77, 48 experts) as one link under 3f's four points (one
+   ``bt_axes`` launch, equal to the plain version), its ACC / APP
+   reductions beside 3f's weights' and 3g's gradient's; the dry run's MoE
+   cells (qwen3-moe-30b-a3b prefill_32k / decode_32k on 16 x 16, granite's
+   optimized-profile train_4k / prefill_32k on 32 x 8: their collective
+   terms; the others' reasons); then the 16-layer model trained 3 steps by
+   two gloo ranks sharing the card on a (1, 2) mesh (24 of the 48 experts a
+   rank), losses within 5e-3 of ``train()``'s;
 4. scale and times: ``psu_stream`` on 4,194,304 paired packets and on
    Table I's conv input stream (7,350 packets of 64, 16 lanes),
    ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
@@ -1040,6 +1060,11 @@ def _codec_configs() -> tuple[CodecVariant, ...]:
 
 def _sha256(t: torch.Tensor) -> str:
     return hashlib.sha256(t.cpu().to(torch.int32).contiguous().numpy().tobytes()).hexdigest()
+
+
+def _leaf_sha256(t: torch.Tensor) -> str:
+    """The sha256 of a tensor's bytes."""
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
 
 
 def phase_activity(dev: torch.device) -> dict:
@@ -2140,15 +2165,10 @@ def _serve_full(dev: torch.device, lc: _PathLaunches, full: bool,
     decode_fn = serve.make_decode_fn(cfg)
     logits, cache = prefill_fn(params, prompts)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-    out["prefill_ms"] = time_ms(lambda: prefill_fn(params, prompts), reps=3, warmup=1)
-    out["decode_ms_per_token"] = time_ms(lambda: decode_fn(params, cache, tok), reps=5, warmup=1)
+    out.update(_serve_times(lambda: prefill_fn(params, prompts),
+                            lambda: decode_fn(params, cache, tok)))
     out["decode_tokens_per_s"] = nreq / out["decode_ms_per_token"] * 1e3
     out["generate_tokens_per_s"] = nreq * new / out["generate_s"]
-    # the card's busy time inside each (the rest of the wall is host work)
-    out["prefill_device_ms"], out["prefill_device_split"] = _device_total_ms(
-        lambda: prefill_fn(params, prompts))
-    out["decode_device_ms"], out["decode_device_split"] = _device_total_ms(
-        lambda: decode_fn(params, cache, tok))
     del logits, cache
 
     # the captured streams: names, sizes, and the weight bytes leaf by leaf
@@ -3028,16 +3048,20 @@ def _placed_run(dev, lc, mesh, cfg, dcfg, ocfg, handoff: dict, what: str,
         losses.append(float(m["loss"]))
     row = {"losses": losses, "step_wall_ms": walls,
            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
-    want, theirs, mine = handoff.get("losses"), handoff.get("params"), tree_leaves(p)
+    # the one-process run's params: host copies, or each leaf's sha256
+    want, mine = handoff.get("losses"), tree_leaves(p)
+    theirs = handoff.get("params", handoff.get("sha256"))
     if full and (want is None or theirs is None or len(theirs) != len(mine)):
-        fail(f"{what}: phase 3g handed over {len(theirs or [])} param leaves and losses "
-             f"{want}; the placed step has {len(mine)} leaves")
+        fail(f"{what}: the one-process run handed over {len(theirs or [])} param leaves and "
+             f"losses {want}; the placed step has {len(mine)} leaves")
     if want is not None and losses != want:
-        fail(f"{what}: losses {losses} != phase 3g's {want}")
+        fail(f"{what}: losses {losses} != the one-process run's {want}")
     if theirs is not None:
-        differ = sum(int(not torch.equal(a.to_local().cpu(), b)) for a, b in zip(mine, theirs))
+        same = ((lambda a, b: torch.equal(a.to_local().cpu(), b)) if "params" in handoff
+                else (lambda a, b: _leaf_sha256(a.to_local()) == b))
+        differ = sum(int(not same(a, b)) for a, b in zip(mine, theirs))
         if differ:
-            fail(f"{what}: {differ} param leaves differ from phase 3g's after "
+            fail(f"{what}: {differ} param leaves differ from the one-process run's after "
                  f"{TRAIN_FULL['steps']} steps")
     row["equal_to_3g"] = want is not None and theirs is not None
     batch0 = {k: torch.as_tensor(v).to(dev) for k, v in data.global_batch(0).items()}
@@ -3423,13 +3447,16 @@ def _tp_dryrun(dist_path: dict) -> dict:
     return out
 
 
-def tp_rank(rank: int, world: int, port: int, out: str, full: bool, device: str) -> None:
-    """Phase 3i (d), one rank of a ``world``-rank gloo group on ``device``
-    ("cuda": card 0, which must be visible; "cpu" for a rehearsal):
-    SERVE_ARCH trained TRAIN_FULL["steps"] steps by the placed step on a
-    (1, world) mesh; writes its losses, times, device and collectives to
-    ``out``.  The ranks build their state in turn, so the whole weights and
-    moments of one rank at a time stand beside the blocks of the others."""
+def tp_rank(rank: int, world: int, port: int, out: str, full: bool, device: str,
+            arch: str = SERVE_ARCH, layers: int = 0) -> None:
+    """Phase 3i (d) and 3j (e), one rank of a ``world``-rank gloo group on
+    ``device`` ("cuda": card 0, which must be visible; "cpu" for a
+    rehearsal): ``arch`` (at full width with ``layers`` layers, all for 0;
+    its smoke config when not ``full``) trained TRAIN_FULL["steps"] steps by
+    the placed step on a (1, world) mesh; writes its losses, times, device,
+    collectives and a MoE's local expert count to ``out``.  The ranks build
+    their state in turn, so the whole weights and moments of one rank at a
+    time stand beside the blocks of the others."""
     import torch.distributed as dist
 
     from repro_torch.launch.step import make_placed_train_step, place_state
@@ -3443,7 +3470,8 @@ def tp_rank(rank: int, world: int, port: int, out: str, full: bool, device: str)
     try:
         mesh = launch.make_smoke_mesh(device=dev.type)
         tf = TRAIN_FULL
-        cfg = get_config(SERVE_ARCH) if full else smoke_config(SERVE_ARCH)
+        cfg = (get_config(arch, **({"n_layers": layers} if layers else {})) if full
+               else smoke_config(arch))
         seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
         for turn in range(world):
             if turn == rank:
@@ -3475,31 +3503,36 @@ def tp_rank(rank: int, world: int, port: int, out: str, full: bool, device: str)
                "collectives": summarize_collectives(ops),
                "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
                "local_params": int(sum(math.prod(b) for b in blocks)),
-               "params": int(sum(x.numel() for x in tree_leaves(p)))}
+               "params": int(sum(x.numel() for x in tree_leaves(p))),
+               "experts": (p["layers"]["moe"]["gate"].to_local().shape[-3]
+                           if cfg.family == "moe" else None)}
     finally:
         dist.destroy_process_group()
     Path(out).write_text(json.dumps(res))
 
 
-def _tp_two_ranks(dev, full: bool, handoff: dict) -> dict:
-    """(d) Two processes of a gloo group on ``dev``'s type (the one card;
-    the CPU in a rehearsal): gloo carries CUDA tensors through
-    ``all_reduce`` (torch.distributed's backend table), the only collective
-    this dense step issues on a (1, 2) mesh (the TP pair, the loss's MAX and
-    SUM, the norm; the one-rank "data" mean is skipped).  NCCL refuses two
-    ranks on one device.  Each rank reports its device, which must be
-    ``dev``'s, and on the card its peak; losses against phase 3g's."""
+def _tp_two_ranks(dev, full: bool, handoff: dict, arch: str = SERVE_ARCH, layers: int = 0,
+                  tag: str = "tp (d)") -> dict:
+    """3i (d), 3j (e): two processes of a gloo group on ``dev``'s type (the
+    one card; the CPU in a rehearsal) train ``arch`` on a (1, 2) mesh.
+    gloo carries CUDA tensors through ``all_reduce`` and ``all_gather``,
+    the collectives this step issues there (the TP pair, a MoE's router
+    gather, the loss's MAX and SUM, the norm; the one-rank "data" mean is
+    skipped).  NCCL refuses two ranks on one device.  Each rank reports its
+    device, which must be ``dev``'s, and on the card its peak; losses
+    against the one-process run's (``handoff``)."""
     n = TP["ranks"]
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     port = _free_port()
-    outs = [build / f"tp_rank{r}.json" for r in range(n)]
-    logs = [build / f"tp_rank{r}.log" for r in range(n)]
+    stem = tag.split()[0]
+    outs = [build / f"{stem}_rank{r}.json" for r in range(n)]
+    logs = [build / f"{stem}_rank{r}.log" for r in range(n)]
     for f in outs:
         f.unlink(missing_ok=True)
     code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
             "chip_smoke.tp_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), "
-            "sys.argv[5], sys.argv[6] == '1', sys.argv[7])")
+            "sys.argv[5], sys.argv[6] == '1', sys.argv[7], sys.argv[8], int(sys.argv[9]))")
     t1 = time.perf_counter()
     procs = []
     try:
@@ -3507,9 +3540,8 @@ def _tp_two_ranks(dev, full: bool, handoff: dict) -> dict:
             with open(logs[r], "w") as lf:
                 procs.append(subprocess.Popen(
                     [sys.executable, "-c", code, str(ROOT), str(r), str(n), str(port),
-                     str(outs[r]), "1" if full else "0", dev.type], stdout=lf,
-                    stderr=subprocess.STDOUT,
-                    cwd=ROOT))
+                     str(outs[r]), "1" if full else "0", dev.type, arch, str(layers)],
+                    stdout=lf, stderr=subprocess.STDOUT, cwd=ROOT))
         codes = [p.wait(timeout=TP["rank_timeout"]) for p in procs]
     finally:
         for p in procs:
@@ -3519,31 +3551,349 @@ def _tp_two_ranks(dev, full: bool, handoff: dict) -> dict:
     seconds = time.perf_counter() - t1
     if any(codes):
         for r in range(n):
-            log(f"tp (d) rank {r} exited {codes[r]}:\n" + logs[r].read_text()[-3000:])
-        fail(f"tp (d): the {n} ranks exited {codes}")
+            log(f"{tag} rank {r} exited {codes[r]}:\n" + logs[r].read_text()[-3000:])
+        fail(f"{tag}: the {n} ranks exited {codes}")
     ranks = [json.loads(f.read_text()) for f in outs]
     want_dev = "cuda:0" if dev.type == "cuda" else dev.type
     if any(r["device"] != want_dev for r in ranks) or (dev.type == "cuda" and any(
             not r["peak_bytes"] for r in ranks)):
-        fail(f"tp (d): the ranks ran on {[r['device'] for r in ranks]} with peaks "
+        fail(f"{tag}: the ranks ran on {[r['device'] for r in ranks]} with peaks "
              f"{[r['peak_bytes'] for r in ranks]}, not on {want_dev}")
     want = handoff.get("losses")
     if full and want is None:
-        fail("tp (d): phase 3g handed over no losses")
+        fail(f"{tag}: the one-process run handed over no losses")
     errs = [max(abs(a - b) for a, b in zip(r["losses"], want)) for r in ranks] if want else []
     if any(r["losses"] != ranks[0]["losses"] for r in ranks[1:]) or any(
             e > TP["loss_tol"] for e in errs):
-        fail(f"tp (d): losses {[r['losses'] for r in ranks]} against phase 3g's {want}")
+        fail(f"{tag}: losses {[r['losses'] for r in ranks]} against the one-process {want}")
     if not ranks[0]["params"] / n <= ranks[0]["local_params"] < ranks[0]["params"]:
-        fail(f"tp (d): a rank holds {ranks[0]['local_params']} of {ranks[0]['params']} params")
+        fail(f"{tag}: a rank holds {ranks[0]['local_params']} of {ranks[0]['params']} params")
     out = {"ranks": ranks, "loss_max_err": max(errs) if errs else None, "seconds": seconds}
-    log(f"tp (d) {SERVE_ARCH} split over 'model' by {n} gloo ranks on {want_dev}: losses "
+    log(f"{tag} {arch} split over 'model' by {n} gloo ranks on {want_dev}: losses "
         + " ".join(f"{x:.6f}" for x in ranks[0]["losses"])
-        + f" (phase 3g's within {out['loss_max_err']}); a rank holds "
-        f"{ranks[0]['local_params']} of {ranks[0]['params']} params; step wall "
+        + f" (the one-process run's within {out['loss_max_err']}); a rank holds "
+        f"{ranks[0]['local_params']} of {ranks[0]['params']} params"
+        + (f", {ranks[0]['experts']} experts a layer" if ranks[0]["experts"] else "")
+        + "; step wall "
         + " / ".join(" ".join(f"{x:.0f}" for x in r["step_wall_ms"]) for r in ranks)
         + f" ms; peak {[r['peak_bytes'] for r in ranks]} bytes; collectives of a step "
         f"{ranks[0]['collectives']}; {seconds:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------------ phase 3j
+
+# Expert parallelism over "model" for the MoE family: the experts and the
+# router split over "model" (launch/tp_model.py's MoE block), placed
+# serving and the dry run's MoE cells.  granite-moe-3b-a800m at full width
+# (48 experts, 40 of them real, top-8); trained at 16 of its 32 layers:
+# params, gradients, m and v of all 32 take 63.7 GB, and AdamW's
+# temporaries on the largest leaf (4.83 GB) and the activations pass the
+# card's 80 GB.  Served at all 32.  Its dispatch buffers are captured at
+# batch 4 x 256 tokens (4 groups of 256, capacity 77).  The dry run's MoE
+# cells: those the placed schedule models (qwen3-moe-30b-a3b's serving on
+# 16 x 16; granite's optimized-profile cells on 32 x 8) and those it does
+# not, with the reason.
+EP = {"arch": "granite-moe-3b-a800m", "train_layers": 16, "dispatch": (4, 256),
+      "modelled": (("qwen3-moe-30b-a3b", "prefill_32k", False),
+                   ("qwen3-moe-30b-a3b", "decode_32k", False),
+                   ("granite-moe-3b-a800m", "train_4k", True),
+                   ("granite-moe-3b-a800m", "prefill_32k", True)),
+      "unmodelled": (("granite-moe-3b-a800m", "train_4k"), ("granite-moe-3b-a800m", "prefill_32k"),
+                     ("granite-moe-3b-a800m", "decode_32k"), ("qwen3-moe-30b-a3b", "train_4k"))}
+
+
+def _ep_cfg(full: bool, layers: int = 0):
+    """EP["arch"] at full width (``layers`` of its layers, all for 0), or its
+    smoke config."""
+    if not full:
+        return smoke_config(EP["arch"])
+    return get_config(EP["arch"], **({"n_layers": layers} if layers else {}))
+
+
+def phase_ep(dev: torch.device, full: bool = True, serve_path: dict | None = None,
+             train_path: dict | None = None) -> dict:
+    """Phase 3j: (a) EP["arch"] at 16 layers trained by the one-process
+    ``train()``, then by the placed step through the expert-parallel plan
+    on a one-rank NCCL group and a (1, 1) mesh, every loss and param leaf
+    bitwise equal; (b) the placed greedy ``generate`` at 32 layers, tokens
+    and log-probabilities equal to ``serve.generate``'s; (c) its dispatch
+    buffers as one link under the four points, ``bt_axes`` against its
+    plain version, the reductions beside phases 3f's and 3g's; (d) the dry
+    run's MoE cells; (e) (a)'s model split over "model" by two gloo ranks
+    sharing the card, losses within 5e-3 of (a)'s.  Returns rows and
+    launches."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    lc = _PathLaunches()
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    one = _ep_train_one_process(dev, lc, full)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = launch.make_smoke_mesh(device=dev.type)
+        rows = {"ep/train": _ep_step(dev, lc, mesh, full, one),
+                "ep/generate": _ep_generate(dev, lc, mesh, full)}
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    rows["ep/dispatch"] = _ep_dispatch(dev, lc, full, serve_path or {}, train_path or {})
+    rows["ep/dryrun"] = _ep_dryrun()
+    rows["ep/two_ranks"] = _tp_two_ranks(dev, full, one, EP["arch"], EP["train_layers"],
+                                         tag="ep (e)")
+    experts = rows["ep/two_ranks"]["ranks"][0]["experts"]
+    want = _ep_cfg(full).moe.padded_experts // TP["ranks"]
+    if any(r["experts"] != want for r in rows["ep/two_ranks"]["ranks"]):
+        fail(f"ep (e): the ranks hold {experts} experts a layer, not {want}")
+    seconds = time.perf_counter() - t_phase
+    log(f"ep-path launches: {lc.total}; phase 3j {seconds:.1f} s ({backend}, world 1; gloo, "
+        f"world {TP['ranks']})")
+    return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
+
+
+def _ep_train_one_process(dev, lc, full: bool) -> dict:
+    """(a), first half: ``train()`` of EP["arch"] at 16 layers; its losses
+    and each param leaf's sha256, its step's wall, device time and peak.
+    Its state is freed."""
+    tf = TRAIN_FULL
+    cfg = _ep_cfg(full, EP["train_layers"])
+    seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb, seed=tf["seed"])
+    ocfg = optim.AdamWConfig(warmup_steps=1, total_steps=10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = lc.run("ep train()", lambda: train.train(
+        cfg, dcfg, ocfg, train.TrainLoopConfig(steps=tf["steps"], seed=tf["seed"]), device=dev),
+        {})
+    losses = [m["loss"] for m in res["log"]]
+    if not all(np.isfinite(losses)):
+        fail(f"ep (a): train() losses {losses}")
+    params, opt_state = res["params"], res["opt_state"]
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "losses": losses,
+           "step_wall_ms": [1e3 * m["sec"] for m in res["log"]],
+           "sha256": [_leaf_sha256(t) for t in tree_leaves(params)],
+           "n_params": int(sum(t.numel() for t in tree_leaves(params)))}
+    del res
+    step_fn = train.make_train_step(cfg, ocfg, donate=True)
+    batch0 = {k: torch.from_numpy(v).to(dev)
+              for k, v in SyntheticLMDataset(dcfg).global_batch(0).items()}
+
+    def one_step():
+        return step_fn(params, opt_state, batch0)
+
+    out["step_ms"] = time_ms(one_step, reps=2, warmup=1)
+    out["step_device_ms"], out["step_device_split"] = _device_total_ms(one_step, reps=2)
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del params, opt_state, step_fn, one_step
+    torch.cuda.empty_cache()
+    log(f"ep (a) {cfg.name} at {cfg.n_layers} layers ({out['n_params']} params), train() on "
+        f"{gb} x {seq} tokens: losses " + " ".join(f"{x:.6f}" for x in losses)
+        + f"; step {out['step_ms']:.1f} ms wall (CUDA events), {out['step_device_ms']} ms "
+        f"device, peak {out['peak_bytes']} bytes")
+    return out
+
+
+def _ep_step(dev, lc, mesh, full: bool, one: dict) -> dict:
+    """(a), second half: three placed steps through the expert-parallel
+    plan on a (1, 1) mesh, held to ``train()``'s losses and leaf digests;
+    every MoE layer runs the expert-parallel block ``tp_model.moe_block``
+    (on one rank as on many: the plan has no one-rank fork), and a one-rank
+    group issues no collective."""
+    from repro_torch.launch import tp_model
+    from repro_torch.roofline import record_collectives
+
+    tf = TRAIN_FULL
+    cfg = _ep_cfg(full, EP["train_layers"])
+    seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb, seed=tf["seed"])
+    ocfg = optim.AdamWConfig(warmup_steps=1, total_steps=10)
+    plan = tp_model.make_plan(cfg, mesh)
+    if plan.experts != (0, cfg.moe.padded_experts) or plan.split:
+        fail(f"ep (a): the plan of {cfg.name} on (1, 1) is {plan}")
+    calls = [0]
+    moe_block = tp_model.moe_block
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return moe_block(*a, **k)
+
+    tp_model.moe_block = counted
+    try:
+        with record_collectives() as ops:
+            row, p, o, step, batch0 = _placed_run(dev, lc, mesh, cfg, dcfg, ocfg, one, "ep (a)",
+                                                  full)
+    finally:
+        tp_model.moe_block = moe_block
+    if calls[0] != cfg.n_layers * tf["steps"] or ops:
+        fail(f"ep (a): {calls[0]} MoE layers through tp_model.moe_block (want "
+             f"{cfg.n_layers * tf['steps']}), collectives {ops} on a one-rank group")
+
+    def one_step():
+        return step(p, o, batch0)
+
+    row["step_ms"] = time_ms(one_step, reps=2, warmup=1)
+    row["step_device_ms"], row["step_device_split"] = _device_total_ms(one_step, reps=2)
+    row["moe_layers"] = calls[0]
+    row["one_process"] = {k: v for k, v in one.items() if k != "sha256"}
+    log(f"ep (a) {cfg.name} placed step through the expert-parallel plan on (1, 1): losses "
+        + " ".join(f"{x:.6f}" for x in row["losses"])
+        + (" = train()'s, every param leaf's sha256 equal" if row["equal_to_3g"] else "")
+        + f"; {calls[0]} MoE layers through the expert-parallel tp_model.moe_block, no "
+        f"collective; step "
+        f"{row['step_ms']:.1f} ms wall (CUDA events), {row['step_device_ms']} ms device, peak "
+        f"{row['peak_bytes']} bytes (train(): {one['step_ms']:.1f} ms, "
+        f"{one['step_device_ms']} ms, {one['peak_bytes']} bytes)")
+    del p, o, step, one_step, batch0
+    torch.cuda.empty_cache()
+    return row
+
+
+def _ep_generate(dev, lc, mesh, full: bool) -> dict:
+    """(b) EP["arch"] at all its layers: the placed greedy ``generate`` on
+    the (1, 1) mesh against ``serve.generate`` on the same weights and
+    prompts (phase 3f's shapes); prefill and decode times of both."""
+    from repro_torch.launch import serve as placed
+    from repro_torch.launch import tp_model
+
+    sf = SERVE_FULL
+    cfg = _ep_cfg(full)
+    nreq, plen, new = sf["requests"], sf["prompt"] if full else 64, sf["new_tokens"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(sf["seed"])
+    params = init_params(cfg, gen, dev)
+    prompts = torch.randint(0, cfg.vocab, (nreq, plen), generator=gen, device=dev)
+    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "requests": nreq, "prompt": plen,
+                 "new_tokens": new}
+    want = lc.run("ep generate", lambda: serve.generate(params, cfg, prompts, new), {})
+    prefill_fn = serve.make_prefill_fn(cfg, plen + new)
+    decode_fn = serve.make_decode_fn(cfg)
+    logits, cache = prefill_fn(params, prompts)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    out["one_process"] = _serve_times(lambda: prefill_fn(params, prompts),
+                                      lambda: decode_fn(params, cache, tok))
+    del logits, cache
+
+    local = placed.shard_params(cfg, mesh, params)
+    plan = tp_model.make_plan(cfg, mesh, "serve")
+    mode = placed.kv_mode(cfg, mesh, nreq, plen + new)
+    res = lc.run("ep placed generate", lambda: placed.generate(local, cfg, mesh, prompts, new), {})
+    if not torch.equal(res.tokens, want.tokens):
+        fail("ep (b): the placed generate's tokens differ from serve.generate's")
+    if not torch.equal(res.logprobs, want.logprobs):
+        fail("ep (b): the placed generate's log-probabilities differ from serve.generate's")
+    with torch.no_grad():
+        logits, cache = placed.prefill(local, plan, prompts, plen + new, mode)
+        out["placed"] = _serve_times(
+            lambda: placed.prefill(local, plan, prompts, plen + new, mode),
+            lambda: placed.decode_step(local, plan, cache, tok, mode))
+    torch.cuda.synchronize()
+    out.update(cache=mode, tokens_equal=True, logprobs_equal=True,
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    del params, local, logits, cache, res, want
+    torch.cuda.empty_cache()
+    o, pl = out["one_process"], out["placed"]
+    log(f"ep (b) {cfg.name} at {cfg.n_layers} layers, placed greedy generate of {nreq} x {plen} "
+        f"prompts + {new} tokens on (1, 1), cache {mode}: tokens and log-probabilities equal to "
+        f"serve.generate's; prefill {pl['prefill_ms']:.2f} ms ({pl['prefill_device_ms']} ms "
+        f"device), decode {pl['decode_ms_per_token']:.3f} ms/token ({pl['decode_device_ms']} ms "
+        f"device) (serve.generate's: {o['prefill_ms']:.2f} ms ({o['prefill_device_ms']} ms), "
+        f"{o['decode_ms_per_token']:.3f} ms/token ({o['decode_device_ms']} ms)); peak "
+        f"{out['peak_bytes']} bytes")
+    log(f"ep (b) device split: placed decode {pl['decode_device_split']}; serve.generate's "
+        f"decode {o['decode_device_split']}")
+    return out
+
+
+def _serve_times(prefill_fn, decode_fn) -> dict:
+    """Prefill and one decode step: CUDA-event medians and the card's busy
+    time inside each (the rest of the wall is host work)."""
+    out = {"prefill_ms": time_ms(prefill_fn, reps=3, warmup=1),
+           "decode_ms_per_token": time_ms(decode_fn, reps=5, warmup=1)}
+    out["prefill_device_ms"], out["prefill_device_split"] = _device_total_ms(prefill_fn)
+    out["decode_device_ms"], out["decode_device_split"] = _device_total_ms(decode_fn)
+    return out
+
+
+def _ep_dispatch(dev, lc, full: bool, serve_path: dict, train_path: dict) -> dict:
+    """(c) ``obs.capture_moe_dispatch`` of EP["arch"] at full width: its
+    dispatch buffers' int8 bytes as one link under the four points of 3f
+    (one ``bt_axes`` launch), equal to the plain version; the ACC / APP
+    reductions beside 3f's weights' and 3g's gradient's."""
+    cfg = _ep_cfg(full)
+    b, s = EP["dispatch"] if full else (2, 32)
+    sess = obs.capture_moe_dispatch(cfg, batch=b, seq=s, seed=0, device=dev)
+    (st,) = sess.get("moe_dispatch", "expert_in")
+    gs = min(cfg.moe.group_size, b * s)
+    g, c = b * s // gs, min(math.ceil(gs * cfg.moe.top_k * cfg.moe.capacity_factor
+                                      / cfg.moe.num_experts), gs)
+    if tuple(st.source_shape) != (g, cfg.moe.padded_experts, c, cfg.d_model):
+        fail(f"ep (c): dispatch buffers {st.source_shape}, not "
+             f"{(g, cfg.moe.padded_experts, c, cfg.d_model)}")
+    wl = sess.workload("moe_dispatch", elems=SERVE["elems"], lanes=SERVE["lanes"])
+    t1 = time.perf_counter()
+    ev = lc.run("ep dispatch grid", lambda: dse.evaluate_grid(SERVE_POINTS, wl), {"bt_axes": 1})
+    ms = (time.perf_counter() - t1) * 1e3
+    plain = dse.evaluate_grid(SERVE_POINTS, wl, backend="torch", chunk_packets=1 << 20)
+    if [dataclasses.asdict(e) for e in ev] != [dataclasses.asdict(e) for e in plain]:
+        fail("ep (c): the dispatch grid differs from the plain version's")
+    red = {e.label: 100 * e.bt_reduction for e in ev}
+    out = {"shape": list(st.source_shape), "bytes": st.num_bytes, "packets": wl.streams[0].shape[0],
+           "measure_ms": ms, "bt": {e.label: [e.total_bt, e.aux_bt] for e in ev},
+           "red_pct": red}
+    w = serve_path.get("rows", {}).get("serve/full", {}).get("measure", {}).get(
+        "weights_split", {}).get("red_pct", {})
+    gr = train_path.get("rows", {}).get("train/full", {}).get("measure", {}).get("red_pct", {})
+    log(f"ep (c) {cfg.name} dispatch buffers {tuple(st.source_shape)} ({st.num_bytes} int8 bytes, "
+        f"{out['packets']} packets of {SERVE['elems']}) as one link, grid = plain, {ms:.1f} ms; "
+        "reductions " + " ".join(f"{k}={v:.4f}%" for k, v in red.items())
+        + "; beside 3f's weights " + " ".join(f"{k}={v:.4f}%" for k, v in w.items())
+        + " and 3g's gradient " + " ".join(f"{k}={v:.4f}%" for k, v in gr.items()))
+    del sess, wl
+    return out
+
+
+def _ep_dryrun() -> dict:
+    """(d) The collectives one device issues in each MoE cell the placed
+    schedule models, their wire bytes and collective term, and the reason
+    of each cell it does not."""
+    from repro_torch import roofline
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.specs import OPTIMIZED_PROFILES
+
+    out = {}
+    for arch, shape, optimized in EP["modelled"]:
+        over, mesh_shape = (OPTIMIZED_PROFILES[(arch, shape)][:2] if optimized
+                            else ({}, (16, 16)))
+        mesh = AbstractMesh(tuple(mesh_shape), ("data", "model"))
+        desc = "x".join(map(str, mesh_shape)) + (", optimized" if optimized else "")
+        t1 = time.perf_counter()
+        case = launch.build_case(arch, shape, **over)
+        reason = dryrun.collectives_reason(case, mesh)
+        if reason:
+            fail(f"ep (d): {arch} x {shape} [{desc}] is not modelled: {reason}")
+        ops = dryrun.placed_collectives(case, mesh)
+        summary = roofline.summarize_collectives(ops)
+        wire = roofline.wire_bytes(ops)
+        rec = {"mesh": desc, "collectives": summary, "wire_bytes_per_device": wire,
+               "collective_s": wire / roofline.ICI_BW, "host_s": time.perf_counter() - t1}
+        if not ops or wire <= 0:
+            fail(f"ep (d): {arch} x {shape} records no collective")
+        out[f"{arch}/{shape}/{desc}"] = rec
+        log(f"ep (d) dry run {arch} x {shape} [{desc}]: {summary}; wire {wire:.6g} bytes/device, "
+            f"collective {rec['collective_s'] * 1e3:.3f} ms; {rec['host_s']:.1f} s on the host")
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    for arch, shape in EP["unmodelled"]:
+        reason = dryrun.collectives_reason(launch.build_case(arch, shape), mesh)
+        if not reason:
+            fail(f"ep (d): {arch} x {shape} [16x16] gives no reason")
+        out[f"{arch}/{shape}/16x16"] = {"mesh": "16x16", "collectives_reason": reason}
+        log(f"ep (d) dry run {arch} x {shape} [16x16]: not modelled: {reason}")
     return out
 
 
@@ -3887,6 +4237,7 @@ def main() -> int:
     dist_path = phase_dist(dev, handoff=handoff)
     tp_path = phase_tp(dev, handoff=handoff, dist_path=dist_path)
     del handoff
+    ep_path = phase_ep(dev, serve_path=serve_path, train_path=train_path)
     cases = phase_scale(dev)
     record = []
     for name, meta in KERNELS.items():
@@ -3899,16 +4250,16 @@ def main() -> int:
         # psu_stream; the serving path (3f) for psu_sort, bt_count, bt_axes
         # and bt_axes_activity; the training path (3g) for all but
         # quantize_egress; the distribution path (3h) for psu_sort,
-        # bt_count and bt_axes
+        # bt_count and bt_axes; the expert-parallel path (3j) for bt_axes
         paths = {"psu_sort": ("transmit", "egress", "noc", "serve", "train", "dist"),
                  "bt_count": ("transmit", "egress", "noc", "serve", "train", "dist"),
                  "psu_stream": ("transmit", "train"),
-                 "bt_axes": ("codec", "noc", "serve", "train", "dist"),
+                 "bt_axes": ("codec", "noc", "serve", "train", "dist", "ep"),
                  "bt_axes_activity": ("activity", "noc", "serve", "train"),
                  "quantize_egress": ("egress", "noc")}[name]
         runs = {"transmit": main_path, "codec": codec_path, "activity": activity_path,
                 "egress": egress_path, "noc": noc_path, "serve": serve_path,
-                "train": train_path, "dist": dist_path}
+                "train": train_path, "dist": dist_path, "ep": ep_path}
         by_path = {p: runs[p]["launches"][name] for p in paths}
         record.append({
             "name": name, "route": "cuda", **meta,
@@ -3939,7 +4290,7 @@ def main() -> int:
         "card": card, "kernels": record, "main_path": main_path, "codec_path": codec_path,
         "activity_path": activity_path, "egress_path": egress_path, "noc_path": noc_path,
         "serve_path": serve_path, "train_path": train_path, "dist_path": dist_path,
-        "tp_path": tp_path,
+        "tp_path": tp_path, "ep_path": ep_path,
         "scale_cases": cases,
         "seconds": time.perf_counter() - t0,
     }, indent=1, default=str))

@@ -1,4 +1,4 @@
-"""The collective schedule of a dense smoke cell on a 2 x 4 mesh, two ways.
+"""The collective schedule of a dense or MoE smoke cell on a 2 x 4 mesh, two ways.
 
 * The port's: ``repro_torch.launch.dryrun.placed_collectives``, the placed
   step, prefill or decode run on one device's ``meta`` blocks over
@@ -13,6 +13,7 @@ collectives, and the ring wire bytes.  GSPMD picks its own schedule, so the
 two need not agree in kind or count.
 
     PYTHONPATH=src python experiments/tp_schedule.py [--arch internlm2-1.8b] [--shape train_4k ...]
+    PYTHONPATH=src python experiments/tp_schedule.py --arch granite-moe-3b-a800m
 """
 
 from __future__ import annotations
@@ -33,6 +34,9 @@ _REFERENCE = """
     from repro.launch.specs import build_case
     from repro.roofline.collect import collect_from_compiled
     arch, shapes, over = sys.argv[1], sys.argv[2].split(","), json.loads(sys.argv[3])
+    if "moe" in over:
+        from repro.models.config import MoEConfig
+        over["moe"] = MoEConfig(**over["moe"])
     mesh = jax.make_mesh((2, 4), ("data", "model"))
     out = {}
     for shape in shapes:
@@ -70,7 +74,7 @@ def reference_schedule(arch: str, shapes: list[str], over: dict) -> dict:
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu", PYTHONPATH=os.path.join(ROOT, "src"))
     run = subprocess.run([sys.executable, "-c", textwrap.dedent(_REFERENCE), arch,
-                          ",".join(shapes), json.dumps(over)],
+                          ",".join(shapes), json.dumps(over, default=dataclasses.asdict)],
                          capture_output=True, text=True, env=env, check=True)
     return json.loads(run.stdout.strip().splitlines()[-1])
 

@@ -13,7 +13,7 @@ mesh (16x16, or 2x16x16 with ``--multipod``) it records
     tensors, and an even split of them per device;
   * ``model_flops_global`` (``repro_torch.roofline``).
 
-  * for the dense family, the collectives one device issues: the cell's
+  * for the dense and MoE families, the collectives one device issues: the cell's
     placed step (``launch/step.py``'s ``reduce_gradients`` and ZeRO-1's
     gathers) or placed prefill / decode (``launch/serve.py``) runs on the
     ``meta`` blocks of rank 0 over stand-in groups of the mesh's sizes
@@ -23,9 +23,12 @@ mesh (16x16, or 2x16x16 with ``--multipod``) it records
     microbatched there: a microbatched step sends the same bytes in more
     calls.
 
-The other families' tensor-parallel forward is not built yet: their
-records say ``"collectives_modelled": False``, with the reason, and carry
-no collective ops.  The memory floor is the argument bytes alone
+The other families' tensor-parallel forward is not built yet, nor the
+placed step's FSDP gathers (a train cell of an FSDP config; its serving
+cells are not FSDP-placed, as ``param_spec`` applies FSDP in "train" mode
+only), nor attention's contraction split: those records say
+``"collectives_modelled": False``, with the reason, and carry no
+collective ops.  The memory floor is the argument bytes alone
 (activations are not counted).  The stand-in groups need no process group:
 torch's ``fake`` backend would build a 256-rank ``DeviceMesh`` in one
 process, but it lives in ``torch.testing._internal``, a private module
@@ -47,7 +50,8 @@ import os
 import time
 import traceback
 
-__all__ = ["run_cell", "argument_bytes_per_device", "placed_collectives", "main"]
+__all__ = ["run_cell", "argument_bytes_per_device", "placed_collectives", "collectives_reason",
+           "main"]
 
 
 def _split(spec, axes: dict) -> int:
@@ -72,7 +76,7 @@ def argument_bytes_per_device(args, shardings, mesh) -> int:
 
 def placed_collectives(case, mesh) -> list[dict]:
     """The collectives one device of ``mesh`` (a production ``AbstractMesh``)
-    issues in the placed counterpart of ``case``, a dense cell: recorded
+    issues in the placed counterpart of ``case``, a dense or MoE cell: recorded
     while it runs on rank 0's ``meta`` blocks over stand-in groups."""
     from .. import _collectives
     from .._tree import leaves, tree_map
@@ -107,16 +111,26 @@ def placed_collectives(case, mesh) -> list[dict]:
     return ops
 
 
-def _collective_fields(case, mesh) -> dict:
-    """The record's collective keys: the placed schedule of a dense cell,
-    else none, with the reason."""
-    from ..roofline.collect import summarize_collectives
+def collectives_reason(case, mesh) -> str | None:
+    """Why the placed schedule of ``case`` on ``mesh`` is not modelled, or
+    None: the rules' splits the tensor-parallel forward does not run, or
+    the FSDP placement of a train cell (``param_spec`` places an FSDP
+    config's serving cells as any other)."""
     from .tp_model import unsupported
 
     cfg = case.cfg
-    reason = (unsupported(cfg, mesh, "train" if case.kind == "train" else "serve")
-              or (f"{cfg.name}: FSDP placement is not run by the placed step's dry run"
-                  if cfg.fsdp else None))
+    train = case.kind == "train"
+    return (unsupported(cfg, mesh, "train" if train else "serve")
+            or (f"{cfg.name}: FSDP placement is not run by the placed step's dry run"
+                if cfg.fsdp and train else None))
+
+
+def _collective_fields(case, mesh) -> dict:
+    """The record's collective keys: the placed schedule of a dense or MoE
+    cell, else none, with the reason."""
+    from ..roofline.collect import summarize_collectives
+
+    reason = collectives_reason(case, mesh)
     if reason:
         return {"collectives": {}, "collective_ops": [], "collectives_modelled": False,
                 "collectives_reason": reason}

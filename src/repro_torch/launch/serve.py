@@ -1,8 +1,11 @@
 """Placed serving: prefill, decode and greedy generation over a mesh.
 
 Counterparts of ``models.transformer.prefill`` / ``decode_step`` and
-``serve.loop.generate`` for the dense family under the reference's serving
-rules: the weights split over "model" by ``param_spec`` (mode "serve"),
+``serve.loop.generate`` for the dense and MoE families under the
+reference's serving rules: the weights split over "model" by
+``param_spec`` (mode "serve"; a MoE's experts over "model", run by
+``tp_model.moe_block``: capacity-bounded in prefill, dropless in decode,
+as ``models.transformer``'s),
 the requests over the data-parallel axes by ``batch_shardings``, and the
 KV cache by ``cache_shardings``:
 
@@ -135,7 +138,7 @@ def prefill(params: dict, plan: tp_model.Plan, tokens: torch.Tensor, max_len: in
         lp = _layer(layers, i)
         k, v = _cache_kv(lp["attn"], rms_norm(h, lp["attn_norm"], cfg.rms_eps), plan,
                          positions, max_len, mode)
-        h = tp_model.layer(lp, h, plan, positions)
+        h, _aux = tp_model.layer(lp, h, plan, positions)
         ks.append(k)
         vs.append(v)
     cache = {"pos": torch.tensor(s, dtype=torch.int32, device=h.device),
@@ -201,7 +204,12 @@ def decode_step(params: dict, plan: tp_model.Plan, cache: dict, tokens: torch.Te
         y, nk, nv = _attn_decode(lp["attn"], rms_norm(h, lp["attn_norm"], eps), cache["k"][i],
                                  cache["v"][i], pos, plan, mode)
         h = h + y
-        h = h + tp_model.mlp_block(lp["mlp"], rms_norm(h, lp["mlp_norm"], eps), plan)
+        x = rms_norm(h, lp["mlp_norm"], eps)
+        if cfg.family == "moe":
+            m, _ = tp_model.moe_block(lp["moe"], x, plan, dropless=True)
+        else:
+            m = tp_model.mlp_block(lp["mlp"], x, plan)
+        h = h + m
         nks.append(nk)
         nvs.append(nv)
     new = {**cache, "k": torch.stack(nks), "v": torch.stack(nvs), "pos": pos + 1}

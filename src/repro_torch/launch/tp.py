@@ -14,6 +14,10 @@ which inserts the collectives.  Here the tensor-parallel forward
   * ``all_reduce``: a plain in-place reduction (SUM, MAX or MIN) with no
     gradient, for the statistics of the vocab-parallel loss and of a
     split-K decode.
+  * ``batch_mean``: the mean over a data-parallel group of a statistic of
+    each rank's rows (a MoE's load-balance means), made one of the whole
+    batch; identity backward: each rank's loss holds the whole-batch term
+    and the data-parallel mean of the gradients then averages it.
 
 A group is an :class:`AxisGroup`: its size, this rank's index in it and
 its process group.  On a one-rank group every operator returns its input
@@ -37,7 +41,7 @@ from .. import _collectives
 from .mesh import mesh_axes
 
 __all__ = ["AxisGroup", "axis_group", "all_reduce", "copy_to_model", "reduce_from_model",
-           "gather_from_model"]
+           "gather_from_model", "batch_mean"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +133,16 @@ class _ReduceFromModel(torch.autograd.Function):
         return dy, None
 
 
+class _BatchMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        return all_reduce(x.clone(), g).div_(g.size)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g, dim):
@@ -148,6 +162,11 @@ def copy_to_model(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
     """``x`` summed over ``g``; the gradient passes unchanged."""
     return x if g.size == 1 else _ReduceFromModel.apply(x, g)
+
+
+def batch_mean(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
+    """``x`` averaged over ``g``; the gradient passes unchanged."""
+    return x if g.size == 1 else _BatchMean.apply(x, g)
 
 
 def gather_from_model(x: torch.Tensor, g: AxisGroup, dim: int = -1) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""The dense family's forward and loss on one rank's shards of "model".
+"""The dense and MoE families' forward and loss on one rank's shards of
+"model".
 
-The reference's GSPMD splits the dense transformer over the mesh's "model"
-axis by the rules of ``launch.sharding``.  Here one rank runs its part with
+The reference's GSPMD splits the transformer over the mesh's "model" axis
+by the rules of ``launch.sharding``.  Here one rank runs its part with
 the operators of ``launch/tp.py``, and each split is read from the port's
 own ``param_spec`` (:func:`make_plan`), never decided again:
 
@@ -23,6 +24,18 @@ own ``param_spec`` (:func:`make_plan`), never decided again:
     tied embeddings the head is ``embed``'s shard transposed.
   * ``q_norm`` / ``k_norm`` (per head, shared by the heads) and every norm
     stay replicated.
+  * MoE (expert parallelism): ``gate`` / ``up`` / ``down`` split on the
+    expert axis, so a rank holds the experts ``[index E/m, (index+1) E/m)``
+    of the E (padded) experts (:attr:`Plan.experts`); the ``router`` split
+    on its expert columns.  Each rank gathers the router's columns (d x E/m
+    a layer) and computes the one-process routing on the replicated tokens,
+    so its expert choices and capacity slots are bitwise those of
+    ``models.moe``; gathered logits could round otherwise than a column
+    block's product and flip a near tie.  It then dispatches the tokens
+    to its own experts only, runs them, and the partial combines are
+    summed over "model": no all-to-all, as in the reference's schedule
+    (the tokens are replicated over "model").  A padded expert gets no
+    token, so a rank holding only padded experts adds zero.
 
 The gradient of a split leaf is this rank's block.  A replicated leaf has
 one of two kinds of gradient (:attr:`Plan.partial`):
@@ -35,6 +48,24 @@ one of two kinds of gradient (:attr:`Plan.partial`):
     output enters the split products through ``copy_to_model``, whose
     backward already sums the input's gradient.  Summing it again would
     multiply it by m.
+
+The MoE routing is such a replicated region: its outputs ``xg`` (the
+tokens, into the rank's expert buffers) and ``top_p`` (into the rank's
+slice of the combine) enter the split region, so each rank's gradient of
+them covers its own experts only.  Both enter through ``copy_to_model``;
+only then is the gradient of the logits, and so of the gathered router,
+whole on every rank, and ``gather_from_model``'s backward (the rank's
+columns) right.  Without it the router's gradient is silently wrong by the
+other ranks' share.  The load-balance loss is computed from the replicated
+probabilities on every rank: its gradient is whole and is not summed
+again.  No MoE leaf is partial: the router and the experts are split
+leaves, ``mlp_norm`` is whole.
+
+The load-balance loss is a product of two means over the batch's groups.
+The reference's step routes the global batch in one program, so in
+training its means are taken over the data-parallel ranks
+(:func:`tp.batch_mean`, one all-reduce a layer of the stacked pair); each
+rank's own means would give another loss.
 
 On a one-rank group every operator is the identity and each function
 below runs the one-process op sequence of ``models.transformer``.
@@ -51,22 +82,24 @@ import torch.nn.functional as F
 
 from .._tree import leaves_with_path
 from ..models import lm_loss as _lm_loss
+from ..models import moe as _moe
 from ..models import param_shapes
 from ..models.config import ModelConfig
 from ..models.layers import attention, mlp, rms_norm, torch_dtype
 from ..models.transformer import _ce, _layer, _n_layers, _positions, embed_tokens
-from .mesh import mesh_axes
+from .mesh import dp_axes, mesh_axes
 from .sharding import params_shardings
-from .tp import (AxisGroup, all_reduce, axis_group, copy_to_model, gather_from_model,
-                 reduce_from_model)
+from .tp import (AxisGroup, all_reduce, axis_group, batch_mean, copy_to_model,
+                 gather_from_model, reduce_from_model)
 
 __all__ = ["Plan", "make_plan", "unsupported", "embed", "layer", "attention_block",
-           "mlp_block", "forward", "logits", "loss", "make_loss_fn", "take_heads"]
+           "mlp_block", "moe_route", "moe_dispatch", "moe_block", "forward", "logits", "loss",
+           "make_loss_fn", "take_heads"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one rank runs the dense model, read from the specs.
+    """How one rank runs the dense or MoE model, read from the specs.
 
     ``heads``: attention split on heads; ``kv``: "heads" (``wk`` / ``wv``
     split) or "whole" (replicated); ``kv_index``: with a head split and
@@ -74,7 +107,10 @@ class Plan:
     split on ``d_ff``; ``embed`` / ``head``: "vocab", "d" or "whole";
     ``local``: the config attention sees on this rank; ``split``: the leaf
     paths "model" splits; ``partial``: the replicated leaf paths whose
-    gradient is a partial sum over "model"."""
+    gradient is a partial sum over "model"; ``experts``: a MoE rank's
+    range [lo, hi) of the padded experts; ``data``: in training, the
+    data-parallel group over which the load-balance loss's means are taken
+    (one rank when serving)."""
 
     cfg: ModelConfig
     local: ModelConfig
@@ -87,6 +123,8 @@ class Plan:
     head: str
     split: frozenset
     partial: frozenset
+    experts: Optional[tuple[int, int]] = None
+    data: AxisGroup = AxisGroup(1)
 
 
 def _model_dim(spec, rank: int) -> Optional[int]:
@@ -116,23 +154,33 @@ def _why_not(cfg: ModelConfig, dims: dict, m: int) -> Optional[str]:
                 f"{attn['wo']}) on a {m}-rank 'model' axis ({cfg.n_heads} heads), not its heads")
     if set(mlps.values()) - {None} and mlps != {k: (-2 if k == "down" else -1) for k in mlps}:
         return f"{cfg.name}: the rules split the MLP as {mlps}, not on d_ff"
+    moe = {_name(p): d for p, d in dims.items() if "['moe']" in p}
+    if moe and (moe["gate"], moe["up"], moe["down"], moe["router"]) != (-3, -3, -3, -1):
+        how = "split the experts' d_ff" if moe["up"] is not None else "keep the experts whole"
+        return (f"{cfg.name}: the rules {how} (gate, up, down, router: {moe['gate']}, "
+                f"{moe['up']}, {moe['down']}, {moe['router']}) on a {m}-rank 'model' axis "
+                f"({cfg.moe.padded_experts} experts), not the expert axis")
+    if moe and cfg.moe.num_shared_experts:
+        return f"{cfg.name}: the expert-parallel block does not run shared experts"
     return None
 
 
 def unsupported(cfg: ModelConfig, mesh, mode: str = "train") -> Optional[str]:
     """Why the rules' splits of ``cfg`` on ``mesh`` are not ones this forward
-    runs, or None: it takes the dense family, attention split on heads (or
-    whole) and the MLP on ``d_ff`` (or whole)."""
-    if cfg.family != "dense":
-        return (f"{cfg.name}: the tensor-parallel forward covers the dense family, not "
-                f"{cfg.family!r}")
+    runs, or None: it takes the dense family and the MoE family (with no
+    shared experts), attention split on heads (or whole), the MLP on
+    ``d_ff`` (or whole) and the experts and the router on their expert
+    axis."""
+    if cfg.family not in ("dense", "moe"):
+        return (f"{cfg.name}: the tensor-parallel forward covers the dense family and the "
+                f"MoE family, not {cfg.family!r}")
     return _why_not(cfg, _model_dims(cfg, mesh, mode), mesh_axes(mesh)["model"])
 
 
 def make_plan(cfg: ModelConfig, mesh, mode: str = "train") -> Plan:
     """The rank's plan on ``mesh`` (a ``DeviceMesh``, or an ``AbstractMesh``
     for a stand-in group) from ``param_spec`` of every leaf."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(unsupported(cfg, mesh, mode))
     model = axis_group(mesh, "model")
     dims = _model_dims(cfg, mesh, mode)
@@ -160,9 +208,15 @@ def make_plan(cfg: ModelConfig, mesh, mode: str = "train") -> Plan:
         partial = frozenset(p for p in dims if "['attn']" in p and (
             _name(p) in ("q_norm", "k_norm") or (kv == "whole" and _name(p) in ("wk", "wv"))))
     split = frozenset(p for p, d in dims.items() if d is not None and model.size > 1)
+    experts, data = None, AxisGroup(1)
+    if cfg.family == "moe":
+        n = cfg.moe.padded_experts // model.size
+        experts = (model.index * n, (model.index + 1) * n)
+        if mode == "train":  # the batch's rows, as batch_shardings splits them
+            data = axis_group(mesh, dp_axes(mesh))
     return Plan(cfg, local, model, heads, kv, kv_index,
-                dims["['layers']['mlp']['up']"] is not None, embed_mode, head_mode, split,
-                partial)
+                dims.get("['layers']['mlp']['up']") is not None, embed_mode, head_mode, split,
+                partial, experts, data)
 
 
 # --------------------------------------------------------------------------
@@ -202,11 +256,46 @@ def mlp_block(lp: dict, x: torch.Tensor, plan: Plan) -> torch.Tensor:
     return reduce_from_model(mlp(lp, copy_to_model(x, g), plan.cfg), g)
 
 
-def layer(lp: dict, h: torch.Tensor, plan: Plan, positions) -> torch.Tensor:
-    """One dense layer (``models.transformer._attn_layer``'s op order)."""
+def layer(lp: dict, h: torch.Tensor, plan: Plan, positions) -> tuple:
+    """One layer, dense or MoE (``models.transformer._attn_layer``'s or
+    ``_moe_layer``'s op order): (h, the load-balance loss or None)."""
     eps = plan.cfg.rms_eps
     h = h + attention_block(lp["attn"], rms_norm(h, lp["attn_norm"], eps), plan, positions)
-    return h + mlp_block(lp["mlp"], rms_norm(h, lp["mlp_norm"], eps), plan)
+    x = rms_norm(h, lp["mlp_norm"], eps)
+    if "moe" in lp:
+        y, aux = moe_block(lp["moe"], x, plan)
+        return h + y, aux
+    return h + mlp_block(lp["mlp"], x, plan), None
+
+
+def moe_route(lp: dict, x: torch.Tensor, plan: Plan, dropless: bool = False) -> _moe.Routing:
+    """The one-process routing of the normed, replicated ``x``, bitwise, on
+    every rank: the router's columns gathered, then ``models.moe.route``."""
+    router = gather_from_model(lp["router"].to(x.dtype), plan.model, -1)
+    return _moe.route(router, x, plan.cfg, dropless)
+
+
+def moe_dispatch(lp: dict, x: torch.Tensor, plan: Plan, dropless: bool = False) -> tuple:
+    """This rank's dispatch: (the routing; the combine one-hot of its
+    experts (G, gs, E/m, C); their buffers ``expert_in`` (G, E/m, C, d))."""
+    g = plan.model
+    r = moe_route(lp, x, plan, dropless)
+    # the gradient trap (module docstring): each rank's use of xg and top_p
+    # below covers its own experts only, so their gradients are summed
+    r = dataclasses.replace(r, xg=copy_to_model(r.xg, g), top_p=copy_to_model(r.top_p, g))
+    dispatch, combine = _moe.dispatch_combine(r, *plan.experts, x.dtype)
+    return r, combine, torch.einsum("gsec,gsd->gecd", dispatch, r.xg)
+
+
+def moe_block(lp: dict, x: torch.Tensor, plan: Plan,
+              dropless: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel MoE block of the normed, replicated ``x``:
+    (y replicated, the load-balance loss).  It fires no ``moe.dispatch``
+    tap: the reference's jitted step records nothing there."""
+    r, combine, expert_in = moe_dispatch(lp, x, plan, dropless)
+    y = torch.einsum("gsec,gecd->gsd", combine, _moe.expert_ffn(lp, expert_in))
+    aux = _moe.load_balance(r, plan.cfg, lambda t: batch_mean(t, plan.data))
+    return reduce_from_model(y, plan.model).reshape(x.shape), aux
 
 
 def embed(params: dict, plan: Plan, tokens: torch.Tensor) -> torch.Tensor:
@@ -225,14 +314,19 @@ def embed(params: dict, plan: Plan, tokens: torch.Tensor) -> torch.Tensor:
     return e.to(torch_dtype(cfg.dtype)) * math.sqrt(cfg.d_model)
 
 
-def forward(params: dict, plan: Plan, tokens: torch.Tensor) -> torch.Tensor:
-    """The final-normed hidden state (B, S, d), replicated over "model"."""
+def forward(params: dict, plan: Plan, tokens: torch.Tensor) -> tuple:
+    """(the final-normed hidden state (B, S, d), replicated over "model";
+    the summed load-balance loss), as ``models.forward``'s."""
     h = embed(params, plan, tokens)
     positions = _positions(h.shape[1], h.device)
-    layers = params["layers"]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    auxs, layers = [], params["layers"]
     for i in range(_n_layers(layers)):
-        h = layer(_layer(layers, i), h, plan, positions)
-    return rms_norm(h, params["final_norm"], plan.cfg.rms_eps)
+        h, a = layer(_layer(layers, i), h, plan, positions)
+        auxs.append(a)
+    if plan.cfg.family == "moe":
+        aux = aux + torch.stack(auxs).sum()
+    return rms_norm(h, params["final_norm"], plan.cfg.rms_eps), aux
 
 
 # --------------------------------------------------------------------------
@@ -302,9 +396,11 @@ def loss(params: dict, plan: Plan, h: torch.Tensor, labels: torch.Tensor) -> tor
 
 
 def make_loss_fn(plan: Plan) -> Callable[[Any, dict], torch.Tensor]:
-    """``(local params, local batch) -> loss``, as ``train.make_loss_fn``'s."""
+    """``(local params, local batch) -> loss``, as ``train.make_loss_fn``'s:
+    the cross-entropy plus the load-balance loss."""
 
     def loss_fn(params, batch):
-        return loss(params, plan, forward(params, plan, batch["tokens"]), batch["labels"])
+        h, aux = forward(params, plan, batch["tokens"])
+        return loss(params, plan, h, batch["labels"]) + aux
 
     return loss_fn

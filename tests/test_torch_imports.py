@@ -73,6 +73,24 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_expert_parallel_path_imports_no_jax_and_no_reference():
+    """The modules the expert-parallel slice changed, imported alone."""
+    names = ["repro_torch.models.moe", "repro_torch.launch.tp", "repro_torch.launch.tp_model",
+             "repro_torch.launch.step", "repro_torch.launch.serve", "repro_torch.launch.dryrun",
+             "chip_smoke"]
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, timeout=300, cwd=ROOT)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_noc_and_dse_export_the_reference_names():
     """``repro_torch.noc`` / ``repro_torch.dse`` carry the reference's
     ``__all__`` (read from its source: importing it would load JAX here)."""

@@ -57,8 +57,9 @@ and the dry run's collective term).
   buffers over two steps bit-exact with the reference's fed the step's own
   gradients.
 * The meta dry run of each dense smoke cell on a 2 x 4 stand-in mesh has
-  ``collectives_modelled: True``, collective ops and a collective term; the
-  other families' records say why they have none.
+  ``collectives_modelled: True``, collective ops and a collective term; a
+  family the forward does not cover and an FSDP train cell say why they
+  have none.
 """
 
 import copy
@@ -469,7 +470,7 @@ def test_one_rank_is_the_one_process_step_bitwise(one_rank, arch):
     params = params_from_numpy(copy.deepcopy(params_np), "cpu")
     batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
     plan = tp_model.make_plan(cfg, one_rank)
-    h = tp_model.forward(params, plan, batch["tokens"])
+    h, _ = tp_model.forward(params, plan, batch["tokens"])
     want_h, _ = forward(params, cfg, tokens=batch["tokens"])
     assert torch.equal(h, want_h)
     assert torch.equal(tp_model.loss(params, plan, h, batch["labels"]),
@@ -831,9 +832,13 @@ def test_meta_dryrun_dense_smoke_cells_model_collectives(arch, shape):
     assert len(acts) >= (4 if shape == "train_4k" else 2) * cfg.n_layers
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "qwen3-moe-30b-a3b"])
-def test_meta_dryrun_other_families_say_why(arch):
-    rec = dryrun.run_cell(arch, "decode_32k", False, verbose=False,
+@pytest.mark.parametrize("arch,shape,why", [("mamba2-370m", "decode_32k", "dense family"),
+                                            ("qwen3-moe-30b-a3b", "train_4k", "FSDP")])
+def test_meta_dryrun_other_families_say_why(arch, shape, why):
+    """A family the tensor-parallel forward does not cover, and the train
+    cell of an FSDP config (its serving cells are not FSDP-placed and are
+    modelled: tests/test_torch_ep.py)."""
+    rec = dryrun.run_cell(arch, shape, False, verbose=False,
                           cfg_overrides=_smoke_overrides(arch), mesh_shape=(2, 4))
     assert rec["collectives_modelled"] is False and rec["collective_ops"] == []
-    assert "dense family" in rec["collectives_reason"]
+    assert why in rec["collectives_reason"]
