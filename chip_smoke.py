@@ -160,7 +160,7 @@ non-zero:
    within 5e-3 of 3g's;
 3j. expert-parallel path: granite-moe-3b-a800m at full width (d_model
    1,536, 24 heads, 8 kv heads, 48 experts of which 40 real, top-8, expert
-   d_ff 512, vocabulary 49,155) at 16 of its 32 layers (its training
+   d_ff 512, vocabulary 49,155) at 8 of its 32 layers (its training
    state at 32 passes the card's memory) trained 3 steps on 4 x 256 tokens
    by ``train()``, then on a new one-rank NCCL group and (1, 1) mesh by the
    placed step through the expert-parallel plan of
@@ -175,9 +175,22 @@ non-zero:
    reductions beside 3f's weights' and 3g's gradient's; the dry run's MoE
    cells (qwen3-moe-30b-a3b prefill_32k / decode_32k on 16 x 16, granite's
    optimized-profile train_4k / prefill_32k on 32 x 8: their collective
-   terms; the others' reasons); then the 16-layer model trained 3 steps by
+   terms; the others' reasons); then the 8-layer model trained 3 steps by
    two gloo ranks sharing the card on a (1, 2) mesh (24 of the 48 experts a
    rank), losses within 5e-3 of ``train()``'s;
+3k. attention's contraction split: granite-moe-3b-a800m at full width by
+   16 processes of a gloo group sharing the card on a (1, 16) mesh (24
+   heads, d_model 1,536: ``wq`` split on its input d, ``wo`` on its output
+   d, ``wk`` / ``wv`` whole, 3 of the 48 experts a rank; each rank builds
+   its blocks in turn and checks it runs on card 0): every rank's plan; the
+   placed greedy ``generate`` at 32 layers on 3j(b)'s 4 x 256 prompts + 16
+   tokens and weights (split-K cache), its prefill logits and the
+   log-probabilities of 3j(b)'s tokens where it was fed them within
+   ``CP["tol"]`` of 3j(b)'s ``serve.generate``, greedy tokens equal up to a
+   near tie; 3 placed steps at 8 layers, losses within 5e-3 of 3j(a)'s
+   ``train()``; each rank's
+   peak, step wall, a step's and a decode's collectives equal to
+   ``cp_collectives``; the dry run's granite baseline cells on 16 x 16;
 4. scale and times: ``psu_stream`` on 4,194,304 paired packets and on
    Table I's conv input stream (7,350 packets of 64, 16 lanes),
    ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
@@ -251,6 +264,7 @@ from repro_torch.models import (  # noqa: E402
 )
 from repro_torch.kernels import quantize_egress  # noqa: E402
 from repro_torch.models import lenet  # noqa: E402
+from repro_torch.models.layers import torch_dtype  # noqa: E402
 from repro_torch.optim.compress import int8_wire  # noqa: E402
 from repro_torch.train.step import value_and_grad  # noqa: E402
 from repro_torch.kernels.axes import max_partitions  # noqa: E402
@@ -3338,8 +3352,8 @@ def _tp_step(dev, lc, mesh, full: bool, handoff: dict, dist_path: dict) -> dict:
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb, seed=tf["seed"])
     ocfg = optim.AdamWConfig(warmup_steps=1, total_steps=10)
     plan = tp_model.make_plan(cfg, mesh)
-    if (plan.heads, plan.kv, plan.mlp, plan.embed, plan.head) != (
-            True, "heads", True, "vocab", "vocab"):
+    if (plan.attn, plan.kv, plan.mlp, plan.embed, plan.head) != (
+            "heads", "heads", True, "vocab", "vocab"):
         fail(f"tp (a): the plan of {cfg.name} on (1, 1) is {plan}")
     calls = [0]
     layer = tp_model.layer
@@ -3447,68 +3461,174 @@ def _tp_dryrun(dist_path: dict) -> dict:
     return out
 
 
-def tp_rank(rank: int, world: int, port: int, out: str, full: bool, device: str,
-            arch: str = SERVE_ARCH, layers: int = 0) -> None:
+def tp_rank(rank: int, world: int, port: int, out: str, full: str, device: str,
+            arch: str = SERVE_ARCH, layers: str = "0") -> None:
     """Phase 3i (d) and 3j (e), one rank of a ``world``-rank gloo group on
     ``device`` ("cuda": card 0, which must be visible; "cpu" for a
     rehearsal): ``arch`` (at full width with ``layers`` layers, all for 0;
     its smoke config when not ``full``) trained TRAIN_FULL["steps"] steps by
     the placed step on a (1, world) mesh; writes its losses, times, device,
-    collectives and a MoE's local expert count to ``out``.  The ranks build
-    their state in turn, so the whole weights and moments of one rank at a
-    time stand beside the blocks of the others."""
+    collectives and a MoE's local expert count to ``out`` (``full`` "1" or
+    "0" and ``layers`` as strings, from its command line)."""
+    import torch.distributed as dist
+
+    full, layers = full == "1", int(layers)
+    dev = _rank_device(device, "tp (d)", rank)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = launch.make_smoke_mesh(device=dev.type)
+        cfg = (get_config(arch, **({"n_layers": layers} if layers else {})) if full
+               else smoke_config(arch))
+        res = {"rank": rank, "device": str(dev), **_rank_train(dev, mesh, cfg, full)}
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+
+
+def _rank_device(device: str, tag: str, rank: int) -> torch.device:
+    """A rank's device: card 0 for "cuda" (raising when CUDA is not
+    available), else the CPU of a rehearsal."""
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{tag} rank {rank}: asked for the card, but CUDA is not available")
+    return torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+
+
+def _rank_train(dev, mesh, cfg, full: bool) -> dict:
+    """One rank of a gloo group trains ``cfg`` TRAIN_FULL["steps"] steps by
+    the placed step on ``mesh`` from ``train()``'s initial weights and
+    batches; the ranks build their state in turn, so the whole weights and
+    moments of one rank at a time stand beside the blocks of the others.
+    Returns its losses, step walls, step 0's collectives (summarised and
+    listed), peak and parameter blocks."""
     import torch.distributed as dist
 
     from repro_torch.launch.step import make_placed_train_step, place_state
     from repro_torch.roofline import record_collectives, summarize_collectives
 
-    if device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"tp (d) rank {rank}: asked for the card, but CUDA is not available")
-    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=world)
-    try:
-        mesh = launch.make_smoke_mesh(device=dev.type)
-        tf = TRAIN_FULL
-        cfg = (get_config(arch, **({"n_layers": layers} if layers else {})) if full
-               else smoke_config(arch))
-        seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
-        for turn in range(world):
-            if turn == rank:
-                params = init_params(cfg, torch.Generator(device=dev).manual_seed(tf["seed"]), dev)
-                p, o = place_state(cfg, mesh, params, optim.init(params))
-                del params
-                if dev.type == "cuda":
-                    torch.cuda.empty_cache()
-            dist.barrier()
-        step = make_placed_train_step(cfg, optim.AdamWConfig(warmup_steps=1, total_steps=10),
-                                      mesh)
-        data = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb,
-                                             seed=tf["seed"]))
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        losses, walls, ops = [], [], []
-        for i in range(tf["steps"]):
-            batch = {k: torch.as_tensor(v).to(dev) for k, v in data.global_batch(i).items()}
+    tf = TRAIN_FULL
+    seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            host = tree_map(lambda t: t.cpu(), init_params(
+                cfg, torch.Generator(device=dev).manual_seed(tf["seed"]), dev))
+            params = _to_card(host, dev)
+            del host
+            p, o = place_state(cfg, mesh, params, optim.init(params))
+            del params
             if dev.type == "cuda":
-                torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            with record_collectives() as rec:
-                p, o, m = step(p, o, batch)
-                losses.append(float(m["loss"]))
-            walls.append((time.perf_counter() - t1) * 1e3)
-            ops = ops or rec
-        blocks = [tuple(x.to_local().shape) for x in tree_leaves(p)]
-        res = {"rank": rank, "device": str(dev), "losses": losses, "step_wall_ms": walls,
-               "collectives": summarize_collectives(ops),
-               "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
-               "local_params": int(sum(math.prod(b) for b in blocks)),
-               "params": int(sum(x.numel() for x in tree_leaves(p))),
-               "experts": (p["layers"]["moe"]["gate"].to_local().shape[-3]
-                           if cfg.family == "moe" else None)}
+                torch.cuda.empty_cache()
+            _rank_log(f"built its training state: {_card_memory(dev)}")
+        dist.barrier()
+    step = make_placed_train_step(cfg, optim.AdamWConfig(warmup_steps=1, total_steps=10), mesh)
+    data = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb,
+                                         seed=tf["seed"]))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls, ops = [], [], []
+    for i in range(tf["steps"]):
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in data.global_batch(i).items()}
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with record_collectives() as rec:
+            p, o, m = step(p, o, batch)
+            losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t1) * 1e3)
+        ops = ops or rec
+        _rank_log(f"step {i}: loss {losses[-1]:.6f}, {walls[-1]:.0f} ms")
+    blocks = [tuple(x.to_local().shape) for x in tree_leaves(p)]
+    out = {"losses": losses, "step_wall_ms": walls, "collectives": summarize_collectives(ops),
+           "ops": _ops_list(ops),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+           "local_params": int(sum(math.prod(b) for b in blocks)),
+           "params": int(sum(x.numel() for x in tree_leaves(p))),
+           "experts": (p["layers"]["moe"]["gate"].to_local().shape[-3]
+                       if cfg.family == "moe" else None),
+           "attn_blocks": {k: list(v.to_local().shape[1:])
+                           for k, v in p["layers"].get("attn", {}).items()}}
+    del p, o, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _to_card(host, dev):
+    """Host tensors onto ``dev`` after emptying its allocator's cache, once
+    nothing built on the card is alive: a rank keeps its blocks of a whole
+    model built there, and a block left in a segment split from the build's
+    freed temporaries pins the segment (4.5 GiB at granite's width, which
+    ran 16 ranks out of memory)."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return tree_map(lambda t: t.to(dev), host)
+
+
+def _rank_log(msg: str) -> None:
+    """A line in this rank's log, with the time since the group started."""
+    import torch.distributed as dist
+
+    print(f"rank {dist.get_rank()} at {time.perf_counter() - _T0:.1f} s: {msg}", flush=True)
+
+
+_T0 = time.perf_counter()
+
+
+def _card_memory(dev) -> dict:
+    """This process's allocated and reserved bytes and the card's free bytes."""
+    if dev.type != "cuda":
+        return {}
+    return {"allocated": torch.cuda.memory_allocated(dev),
+            "reserved": torch.cuda.memory_reserved(dev),
+            "card_free": torch.cuda.mem_get_info(dev)[0]}
+
+
+def _ops_list(ops: list) -> list:
+    """Recorded collectives as sorted [kind, bytes, group] rows."""
+    return sorted([o["kind"], o["bytes"], o["group"]] for o in ops)
+
+
+def _spawn_ranks(tag: str, n: int, call: str, args: list) -> tuple[list, float]:
+    """``n`` processes of a gloo group, each running ``chip_smoke.<call>(rank,
+    n, port, out, *args)`` (``args`` strings); each writes a JSON result.
+    A rank that exits non-zero or outlives TP["rank_timeout"] fails the
+    phase.  Returns the results in rank order and the wall seconds."""
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    port = _free_port()
+    stem = tag.split()[0]
+    outs = [build / f"{stem}_rank{r}.json" for r in range(n)]
+    logs = [build / f"{stem}_rank{r}.log" for r in range(n)]
+    for f in outs:
+        f.unlink(missing_ok=True)
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            f"chip_smoke.{call}(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), "
+            "*sys.argv[5:])")
+    t1 = time.perf_counter()
+    procs, codes = [], None
+    try:
+        for r in range(n):
+            with open(logs[r], "w") as lf:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code, str(ROOT), str(r), str(n), str(port),
+                     str(outs[r]), *map(str, args)],
+                    stdout=lf, stderr=subprocess.STDOUT, cwd=ROOT))
+        deadline = time.monotonic() + TP["rank_timeout"]
+        codes = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    except subprocess.TimeoutExpired:
+        pass
     finally:
-        dist.destroy_process_group()
-    Path(out).write_text(json.dumps(res))
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t1
+    if codes is None or any(codes):
+        for r in range(n):
+            log(f"{tag} rank {r} exited {procs[r].returncode}:\n" + logs[r].read_text()[-3000:])
+        fail(f"{tag}: the {n} ranks exited {[p.returncode for p in procs]}"
+             + ("" if codes else f" (killed after {TP['rank_timeout']} s)"))
+    return [json.loads(f.read_text()) for f in outs], seconds
 
 
 def _tp_two_ranks(dev, full: bool, handoff: dict, arch: str = SERVE_ARCH, layers: int = 0,
@@ -3522,38 +3642,7 @@ def _tp_two_ranks(dev, full: bool, handoff: dict, arch: str = SERVE_ARCH, layers
     device, which must be ``dev``'s, and on the card its peak; losses
     against the one-process run's (``handoff``)."""
     n = TP["ranks"]
-    build = ROOT / "build"
-    build.mkdir(exist_ok=True)
-    port = _free_port()
-    stem = tag.split()[0]
-    outs = [build / f"{stem}_rank{r}.json" for r in range(n)]
-    logs = [build / f"{stem}_rank{r}.log" for r in range(n)]
-    for f in outs:
-        f.unlink(missing_ok=True)
-    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
-            "chip_smoke.tp_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), "
-            "sys.argv[5], sys.argv[6] == '1', sys.argv[7], sys.argv[8], int(sys.argv[9]))")
-    t1 = time.perf_counter()
-    procs = []
-    try:
-        for r in range(n):
-            with open(logs[r], "w") as lf:
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-c", code, str(ROOT), str(r), str(n), str(port),
-                     str(outs[r]), "1" if full else "0", dev.type, arch, str(layers)],
-                    stdout=lf, stderr=subprocess.STDOUT, cwd=ROOT))
-        codes = [p.wait(timeout=TP["rank_timeout"]) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    seconds = time.perf_counter() - t1
-    if any(codes):
-        for r in range(n):
-            log(f"{tag} rank {r} exited {codes[r]}:\n" + logs[r].read_text()[-3000:])
-        fail(f"{tag}: the {n} ranks exited {codes}")
-    ranks = [json.loads(f.read_text()) for f in outs]
+    ranks, seconds = _spawn_ranks(tag, n, "tp_rank", [int(full), dev.type, arch, layers])
     want_dev = "cuda:0" if dev.type == "cuda" else dev.type
     if any(r["device"] != want_dev for r in ranks) or (dev.type == "cuda" and any(
             not r["peak_bytes"] for r in ranks)):
@@ -3586,21 +3675,22 @@ def _tp_two_ranks(dev, full: bool, handoff: dict, arch: str = SERVE_ARCH, layers
 # Expert parallelism over "model" for the MoE family: the experts and the
 # router split over "model" (launch/tp_model.py's MoE block), placed
 # serving and the dry run's MoE cells.  granite-moe-3b-a800m at full width
-# (48 experts, 40 of them real, top-8); trained at 16 of its 32 layers:
+# (48 experts, 40 of them real, top-8); trained at 8 of its 32 layers:
 # params, gradients, m and v of all 32 take 63.7 GB, and AdamW's
 # temporaries on the largest leaf (4.83 GB) and the activations pass the
-# card's 80 GB.  Served at all 32.  Its dispatch buffers are captured at
+# card's 80 GB; 16 layers fit too, and 8 keep the whole
+# script, phase 3k's 16 ranks included, inside its time limit.
+# Served at all 32.  Its dispatch buffers are captured at
 # batch 4 x 256 tokens (4 groups of 256, capacity 77).  The dry run's MoE
 # cells: those the placed schedule models (qwen3-moe-30b-a3b's serving on
 # 16 x 16; granite's optimized-profile cells on 32 x 8) and those it does
-# not, with the reason.
-EP = {"arch": "granite-moe-3b-a800m", "train_layers": 16, "dispatch": (4, 256),
+# not, with the reason (granite's baseline cells are phase 3k's).
+EP = {"arch": "granite-moe-3b-a800m", "train_layers": 8, "dispatch": (4, 256),
       "modelled": (("qwen3-moe-30b-a3b", "prefill_32k", False),
                    ("qwen3-moe-30b-a3b", "decode_32k", False),
                    ("granite-moe-3b-a800m", "train_4k", True),
                    ("granite-moe-3b-a800m", "prefill_32k", True)),
-      "unmodelled": (("granite-moe-3b-a800m", "train_4k"), ("granite-moe-3b-a800m", "prefill_32k"),
-                     ("granite-moe-3b-a800m", "decode_32k"), ("qwen3-moe-30b-a3b", "train_4k"))}
+      "unmodelled": (("qwen3-moe-30b-a3b", "train_4k"),)}
 
 
 def _ep_cfg(full: bool, layers: int = 0):
@@ -3612,8 +3702,8 @@ def _ep_cfg(full: bool, layers: int = 0):
 
 
 def phase_ep(dev: torch.device, full: bool = True, serve_path: dict | None = None,
-             train_path: dict | None = None) -> dict:
-    """Phase 3j: (a) EP["arch"] at 16 layers trained by the one-process
+             train_path: dict | None = None, handoff: dict | None = None) -> dict:
+    """Phase 3j: (a) EP["arch"] at EP["train_layers"] layers trained by the one-process
     ``train()``, then by the placed step through the expert-parallel plan
     on a one-rank NCCL group and a (1, 1) mesh, every loss and param leaf
     bitwise equal; (b) the placed greedy ``generate`` at 32 layers, tokens
@@ -3621,8 +3711,9 @@ def phase_ep(dev: torch.device, full: bool = True, serve_path: dict | None = Non
     buffers as one link under the four points, ``bt_axes`` against its
     plain version, the reductions beside phases 3f's and 3g's; (d) the dry
     run's MoE cells; (e) (a)'s model split over "model" by two gloo ranks
-    sharing the card, losses within 5e-3 of (a)'s.  Returns rows and
-    launches."""
+    sharing the card, losses within 5e-3 of (a)'s.  (a)'s ``train()`` and
+    (b)'s one-process serving outputs go to ``handoff["train"]`` and
+    ``handoff["serve"]`` for phase 3k.  Returns rows and launches."""
     import torch.distributed as dist
 
     t_phase = time.perf_counter()
@@ -3630,18 +3721,21 @@ def phase_ep(dev: torch.device, full: bool = True, serve_path: dict | None = Non
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     one = _ep_train_one_process(dev, lc, full)
+    if handoff is not None:
+        handoff["train"] = {k: one[k] for k in ("arch", "layers", "losses")}
     backend = "nccl" if dev.type == "cuda" else "gloo"
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
                             world_size=1)
     try:
         mesh = launch.make_smoke_mesh(device=dev.type)
         rows = {"ep/train": _ep_step(dev, lc, mesh, full, one),
-                "ep/generate": _ep_generate(dev, lc, mesh, full)}
+                "ep/generate": _ep_generate(dev, lc, mesh, full,
+                                            handoff if handoff is not None else {})}
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
     rows["ep/dispatch"] = _ep_dispatch(dev, lc, full, serve_path or {}, train_path or {})
-    rows["ep/dryrun"] = _ep_dryrun()
+    rows["ep/dryrun"] = _dryrun_cells("ep (d)", EP["modelled"], EP["unmodelled"])
     rows["ep/two_ranks"] = _tp_two_ranks(dev, full, one, EP["arch"], EP["train_layers"],
                                          tag="ep (e)")
     experts = rows["ep/two_ranks"]["ranks"][0]["experts"]
@@ -3655,9 +3749,10 @@ def phase_ep(dev: torch.device, full: bool = True, serve_path: dict | None = Non
 
 
 def _ep_train_one_process(dev, lc, full: bool) -> dict:
-    """(a), first half: ``train()`` of EP["arch"] at 16 layers; its losses
-    and each param leaf's sha256, its step's wall, device time and peak.
-    Its state is freed."""
+    """(a), first half (and phase 3k (c)'s reference): ``train()`` of
+    EP["arch"] at EP["train_layers"] layers; its losses and each param
+    leaf's sha256, its step's wall, device time and peak.  Its state is
+    freed."""
     tf = TRAIN_FULL
     cfg = _ep_cfg(full, EP["train_layers"])
     seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
@@ -3752,10 +3847,14 @@ def _ep_step(dev, lc, mesh, full: bool, one: dict) -> dict:
     return row
 
 
-def _ep_generate(dev, lc, mesh, full: bool) -> dict:
+def _ep_generate(dev, lc, mesh, full: bool, handoff: dict) -> dict:
     """(b) EP["arch"] at all its layers: the placed greedy ``generate`` on
     the (1, 1) mesh against ``serve.generate`` on the same weights and
-    prompts (phase 3f's shapes); prefill and decode times of both."""
+    prompts (phase 3f's shapes); prefill and decode times of both.
+    ``handoff["serve"]`` gets the one-process run for phase 3k: prompts,
+    tokens, log-probabilities, the prefill's last-position logits and the
+    top-2 logit margin at each generated position (the one-process tokens
+    fed back in)."""
     from repro_torch.launch import serve as placed
     from repro_torch.launch import tp_model
 
@@ -3776,7 +3875,18 @@ def _ep_generate(dev, lc, mesh, full: bool) -> dict:
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
     out["one_process"] = _serve_times(lambda: prefill_fn(params, prompts),
                                       lambda: decode_fn(params, cache, tok))
-    del logits, cache
+    margins, lg, tf_cache = [], logits, cache
+    with torch.no_grad():
+        for t in range(new):
+            top2 = torch.topk(lg[:, -1].to(torch.float32), 2, dim=-1).values
+            margins.append(top2[:, 0] - top2[:, 1])
+            if t + 1 < new:
+                lg, tf_cache = decode_fn(params, tf_cache, want.tokens[:, t: t + 1].to(torch.int32))
+    handoff["serve"] = {"prompts": prompts.cpu(), "tokens": want.tokens.cpu(),
+                        "logprobs": want.logprobs.cpu(),
+                        "prefill_logits": logits[:, -1].to(torch.float32).cpu(),
+                        "margins": torch.stack(margins, dim=1).cpu()}
+    del logits, cache, lg, tf_cache
 
     local = placed.shard_params(cfg, mesh, params)
     plan = tp_model.make_plan(cfg, mesh, "serve")
@@ -3857,17 +3967,18 @@ def _ep_dispatch(dev, lc, full: bool, serve_path: dict, train_path: dict) -> dic
     return out
 
 
-def _ep_dryrun() -> dict:
-    """(d) The collectives one device issues in each MoE cell the placed
-    schedule models, their wire bytes and collective term, and the reason
-    of each cell it does not."""
+def _dryrun_cells(tag: str, modelled, unmodelled) -> dict:
+    """3j (d), 3k (e): the collectives one device issues in each cell the
+    placed schedule models ((arch, shape, optimized profile?)), their wire
+    bytes and collective term, and the reason of each cell it does not
+    ((arch, shape) on 16 x 16)."""
     from repro_torch import roofline
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.launch.specs import OPTIMIZED_PROFILES
 
     out = {}
-    for arch, shape, optimized in EP["modelled"]:
+    for arch, shape, optimized in modelled:
         over, mesh_shape = (OPTIMIZED_PROFILES[(arch, shape)][:2] if optimized
                             else ({}, (16, 16)))
         mesh = AbstractMesh(tuple(mesh_shape), ("data", "model"))
@@ -3876,24 +3987,391 @@ def _ep_dryrun() -> dict:
         case = launch.build_case(arch, shape, **over)
         reason = dryrun.collectives_reason(case, mesh)
         if reason:
-            fail(f"ep (d): {arch} x {shape} [{desc}] is not modelled: {reason}")
+            fail(f"{tag}: {arch} x {shape} [{desc}] is not modelled: {reason}")
         ops = dryrun.placed_collectives(case, mesh)
         summary = roofline.summarize_collectives(ops)
         wire = roofline.wire_bytes(ops)
         rec = {"mesh": desc, "collectives": summary, "wire_bytes_per_device": wire,
                "collective_s": wire / roofline.ICI_BW, "host_s": time.perf_counter() - t1}
         if not ops or wire <= 0:
-            fail(f"ep (d): {arch} x {shape} records no collective")
+            fail(f"{tag}: {arch} x {shape} records no collective")
         out[f"{arch}/{shape}/{desc}"] = rec
-        log(f"ep (d) dry run {arch} x {shape} [{desc}]: {summary}; wire {wire:.6g} bytes/device, "
+        log(f"{tag} dry run {arch} x {shape} [{desc}]: {summary}; wire {wire:.6g} bytes/device, "
             f"collective {rec['collective_s'] * 1e3:.3f} ms; {rec['host_s']:.1f} s on the host")
     mesh = AbstractMesh((16, 16), ("data", "model"))
-    for arch, shape in EP["unmodelled"]:
+    for arch, shape in unmodelled:
         reason = dryrun.collectives_reason(launch.build_case(arch, shape), mesh)
         if not reason:
-            fail(f"ep (d): {arch} x {shape} [16x16] gives no reason")
+            fail(f"{tag}: {arch} x {shape} [16x16] gives no reason")
         out[f"{arch}/{shape}/16x16"] = {"mesh": "16x16", "collectives_reason": reason}
-        log(f"ep (d) dry run {arch} x {shape} [16x16]: not modelled: {reason}")
+        log(f"{tag} dry run {arch} x {shape} [16x16]: not modelled: {reason}")
+    return out
+
+
+# ------------------------------------------------------------------ phase 3k
+
+# Attention's contraction split over "model" (launch/tp_model.py's
+# contracted_qkv / contracted_out): where "model" divides d_model but not
+# the heads, wq splits on its input d and wo on its output d.  granite-moe-
+# 3b-a800m (24 heads, d_model 1,536, 8 kv heads) takes it on the baseline
+# 16 x 16 mesh, and 16 is the smallest "model" axis that divides 1,536 and
+# not 24, so 16 processes of a gloo group share the card on a (1, 16) mesh
+# (8 with the smoke config of a CPU rehearsal: its 4 heads on 8 ranks).
+# Serving at all 32 layers: a rank holds 1/16 of wq, wo, the router and the
+# embedding and head (split on d: 16 does not divide 49,155), wk / wv whole
+# and 3 of the 48 experts, ~296 M elements (1.18 GB f32); training at
+# EP["train_layers"] = 8 layers, against phase 3j (a)'s ``train()`` (~81 M
+# elements a rank, ~1.3 GB of params, gradients, m and v, where the whole
+# 8-layer state one rank builds at a time is ~13.3 GB; at 16 layers the 16
+# ranks' state and the whole build would near the card's 80 GB).
+# ``tol`` holds the placed bf16 forward against the one-process one (logits
+# and log-probabilities, absolute): bf16 keeps 8 significant bits, and the
+# 16 ranks sum the head's partial logits and the MoE combine in bf16 where
+# the one-process products round once, so a routing near-tie can flip one of
+# a token's 8 experts; a top-2 margin under 2 tol is a near tie (two logits
+# each within tol can swap there).
+CP = {"arch": "granite-moe-3b-a800m", "ranks": 16, "rehearsal_ranks": 8,
+      "tol": 0.25, "loss_tol": 5e-3,  # losses: as 3i(d) and 3j(e)
+      "modelled": tuple(("granite-moe-3b-a800m", s, False)
+                        for s in ("train_4k", "prefill_32k", "decode_32k"))}
+
+
+def cp_collectives(cfg, plan, rows: int, seq: int, mode: str | None = None) -> list:
+    """The "model"-axis collectives one rank issues under attention's
+    contraction split on a mesh with one data rank, as sorted (kind, bytes,
+    group) rows: a placed train step of ``rows`` x ``seq`` tokens (``mode``
+    None), or a decode step of ``rows`` requests with the cache placed by
+    ``mode`` ("seq" or "whole").  Per layer: the queries' float32 sum and
+    the output's gather (backward: the sums of ``do`` and of the query
+    columns' ``dx``); split-K's MAX and SUM; the MLP's pair, or the MoE's
+    router gather and combine (backward: the sums of ``xg`` and
+    ``top_p``).  Then the embedding's sum or gather (of the float32
+    params), the head's (vocab: the loss's MAX and SUM; d: the partial
+    logits; backward: its input's sum, per loss chunk) and the norm's split
+    squares."""
+    m = plan.model.size
+    c = torch_dtype(cfg.dtype).itemsize
+    p = torch_dtype(cfg.param_dtype).itemsize
+    d, hd, h = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads
+    train = mode is None
+    t = rows * (seq if train else 1)
+    act = ("all-reduce", t * d * c, m)
+    layer = [("all-reduce", t * h * hd * 4, m), ("all-gather", t * d * c, m)]
+    if train:
+        layer += [("all-reduce", t * h * hd * c, m), act]
+    elif mode == "seq":
+        layer += [("all-reduce", rows * h * 4, m), ("all-reduce", rows * h * (hd + 1) * 4, m)]
+    if cfg.family == "moe":
+        layer += [("all-gather", d * cfg.moe.padded_experts * c, m), act]
+        if train:
+            layer += [act, ("all-reduce", t * cfg.moe.top_k * 4, m)]
+    elif plan.mlp:
+        layer += [act] * (2 if train else 1)
+    ops = layer * cfg.n_layers
+    ops += {"vocab": [("all-reduce", t * d * p, m)], "d": [("all-gather", t * d * p, m)],
+            "whole": []}[plan.embed]
+    chunk = cfg.logits_chunk
+    n = seq // chunk if train and chunk and seq % chunk == 0 and seq > chunk else 1
+    ct = t // n
+    if plan.head == "vocab" and train:
+        ops += [("all-reduce", ct * 4, m), ("all-reduce", 2 * ct * 4, m),
+                ("all-reduce", ct * d * c, m)] * n
+    elif plan.head == "d":
+        ops += [("all-reduce", ct * cfg.vocab * c, m)] * n
+        if train:
+            ops += [("all-reduce", ct * d * c, m)] * n
+    if train:
+        ops.append(("all-reduce", 4, m))
+    return sorted(ops)
+
+
+def phase_cp(dev: torch.device, full: bool = True, handoff: dict | None = None) -> dict:
+    """Phase 3k: CP["arch"] served at 32 layers and trained at
+    EP["train_layers"] by CP["ranks"] processes of a gloo group sharing the
+    card on a (1, CP["ranks"]) mesh, through attention's contraction split:
+    (a) the plan on every rank; (b) the placed prefill's last-position
+    logits, the log-probabilities of the one-process tokens and the greedy
+    tokens against phase 3j(b)'s ``serve.generate`` (``handoff["serve"]``);
+    (c) 3 placed steps against 3j(a)'s one-process ``train()`` at the same
+    depth (``handoff["train"]``); (d) each rank's peak, step wall, and a
+    step's and a decode's collectives equal to :func:`cp_collectives`;
+    (e) the dry run's granite baseline cells on 16 x 16.  Returns rows and
+    launches."""
+    from repro_torch.launch import tp_model
+    from repro_torch.launch.mesh import AbstractMesh
+
+    t_phase = time.perf_counter()
+    lc = _PathLaunches()
+    ref, one = (handoff or {}).get("serve"), (handoff or {}).get("train")
+    if ref is None or one is None:
+        fail("cp: phase 3j handed over no one-process serving run or train() losses")
+    n = CP["ranks"] if full else CP["rehearsal_ranks"]
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    ref_path = build / "cp_serve_ref.npz"
+    np.savez(ref_path, **{k: v.numpy() for k, v in ref.items()})
+    torch.cuda.empty_cache()
+    log(f"cp: before the ranks start, {_card_memory(dev)}")
+    ranks, seconds = _spawn_ranks("cp (b)", n, "cp_rank", [int(full), dev.type, ref_path])
+    want_dev = "cuda:0" if dev.type == "cuda" else dev.type
+    if any(r["device"] != want_dev for r in ranks) or (dev.type == "cuda" and any(
+            not (r["serve"]["peak_bytes"] and r["train"]["peak_bytes"]) for r in ranks)):
+        fail(f"cp: the ranks ran on {[r['device'] for r in ranks]}, not on {want_dev}")
+    cfg, tcfg = _ep_cfg(full), _ep_cfg(full, EP["train_layers"])
+    mesh = AbstractMesh((1, n), ("data", "model"))
+    rows = {"cp/plan": _cp_plan(ranks, cfg, tcfg, n),
+            "cp/serve": _cp_serve(ranks, ref, n),
+            "cp/train": _cp_train(ranks, one),
+            "cp/records": _cp_records(ranks, cfg, tcfg, tp_model.make_plan(cfg, mesh, "serve"),
+                                      tp_model.make_plan(tcfg, mesh), ref, full),
+            "cp/seconds": seconds}
+    rows["cp/dryrun"] = _dryrun_cells("cp (e)", CP["modelled"], ())
+    seconds = time.perf_counter() - t_phase
+    log(f"cp-path launches: {lc.total}; phase 3k {seconds:.1f} s (gloo, world {n})")
+    return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
+
+
+def cp_rank(rank: int, world: int, port: int, out: str, full: str, device: str,
+            ref_path: str) -> None:
+    """Phase 3k, one rank of a ``world``-rank gloo group on ``device``
+    ("cuda": card 0; "cpu" for a rehearsal) and a (1, world) mesh: its plans,
+    the placed serving of CP["arch"] against the one-process run in
+    ``ref_path`` (its weights rebuilt from the same seed), then its placed
+    training at EP["train_layers"] layers; writes the results to ``out``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import tp_model
+
+    full = full == "1"
+    dev = _rank_device(device, "cp", rank)
+    torch.set_num_threads(1)  # 16 processes share the host's cores
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = launch.make_smoke_mesh(device=dev.type)
+        cfg, tcfg = _ep_cfg(full), _ep_cfg(full, EP["train_layers"])
+        plans = {"serve": tp_model.make_plan(cfg, mesh, "serve"),
+                 "train": tp_model.make_plan(tcfg, mesh)}
+        res = {"rank": rank, "device": str(dev),
+               "plan": {k: {"attn": pl.attn, "kv": pl.kv, "experts": list(pl.experts),
+                            "partial": sorted(pl.partial)} for k, pl in plans.items()},
+               "serve": _cp_rank_serve(dev, mesh, cfg, plans["serve"], ref_path)}
+        res["train"] = _rank_train(dev, mesh, tcfg, full)
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+
+
+def _cp_rank_serve(dev, mesh, cfg, plan, ref_path: str) -> dict:
+    """One rank's placed serving: the weights built from SERVE_FULL["seed"]
+    in turn (each rank keeps its blocks), then the prefill, one decode step
+    fed the one-process run's first token (its collectives; the log-
+    probabilities of the one-process tokens 0 and 1), and the greedy
+    ``generate``.  A decode step is ~194 collectives, each tens of ms among
+    16 gloo processes here, so no second, teacher-forced pass is run:
+    ``generate``'s own inputs are the one-process tokens up to a request's
+    first divergence."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve as placed
+    from repro_torch.launch.tp import gather_from_model
+    from repro_torch.roofline import record_collectives
+
+    def whole(lg):  # the last position's logits of every vocabulary block, float32
+        lg = lg[:, -1].to(torch.float32)
+        return gather_from_model(lg, plan.model, -1) if plan.head == "vocab" else lg
+
+    ref = {k: torch.from_numpy(v) for k, v in np.load(ref_path).items()}
+    prompts, want = ref["prompts"].to(dev), ref["tokens"].to(dev)
+    nreq, plen = prompts.shape
+    new = want.shape[1]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            gen = torch.Generator(device=dev).manual_seed(SERVE_FULL["seed"])
+            params = init_params(cfg, gen, dev)
+            drawn = torch.randint(0, cfg.vocab, (nreq, plen), generator=gen, device=dev)
+            if not torch.equal(drawn, prompts):
+                raise RuntimeError("cp (b): the rebuilt weights' generator draws other prompts")
+            host = tree_map(lambda t: t.cpu(), placed.shard_params(cfg, mesh, params))
+            del params, drawn
+            local = _to_card(host, dev)
+            del host
+            _rank_log(f"built its serving blocks: {_card_memory(dev)}")
+        dist.barrier()
+    _rank_log("every rank has built its serving blocks")
+    build_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    mode = placed.kv_mode(cfg, mesh, nreq, plen + new)
+    out = {"cache": mode, "blocks": {k: list(v.shape[1:]) for k, v in local["layers"]["attn"].items()},
+           "local_params": int(sum(t.numel() for t in tree_leaves(local)))}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    with torch.no_grad():
+        sync()
+        t1 = time.perf_counter()
+        logits, cache = placed.prefill(local, plan, prompts, plen + new, mode)
+        sync()
+        out["prefill_ms"] = (time.perf_counter() - t1) * 1e3
+        first = whole(logits)
+        out["prefill_err"] = float((first.cpu() - ref["prefill_logits"]).abs().max())
+        sync()
+        t1 = time.perf_counter()
+        with record_collectives() as ops:
+            logits, _ = placed.decode_step(local, plan, cache, want[:, :1].to(torch.int32), mode)
+        sync()
+        out["decode_ms"] = (time.perf_counter() - t1) * 1e3
+        out["decode_ops"] = _ops_list(ops)
+        tf = [torch.take_along_dim(torch.log_softmax(lg, dim=-1), want[:, t: t + 1].long(),
+                                   dim=-1)[:, 0] for t, lg in enumerate((first, whole(logits)))]
+        out["tf_logprobs"] = torch.stack(tf, dim=1).cpu().tolist()
+        _rank_log(f"prefill {out['prefill_ms']:.0f} ms, a decode step {out['decode_ms']:.0f} ms")
+        del logits, cache, first
+        sync()
+        t1 = time.perf_counter()
+        res = placed.generate(local, cfg, mesh, prompts, new)
+        sync()
+        out["generate_s"] = time.perf_counter() - t1
+        out["tokens"] = res.tokens.cpu().tolist()
+        out["logprobs"] = res.logprobs.cpu().tolist()
+        _rank_log(f"generate {out['generate_s']:.1f} s")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    out["build_peak_bytes"] = build_peak
+    del local, res
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _range(xs: list, fmt: str = "{:.1f}") -> str:
+    """``min-max`` of the ranks' values, or "not measured"."""
+    xs = [x for x in xs if x is not None]
+    return f"{fmt.format(min(xs))}-{fmt.format(max(xs))}" if xs else "not measured"
+
+
+def _cp_plan(ranks: list, cfg, tcfg, n: int) -> dict:
+    """(a) Every rank's plan: the contraction split, whole kv and no partial
+    attention leaf, E/n experts, wq / wo blocks of 1/n, whole wk / wv."""
+    e = cfg.moe.padded_experts // n
+    d, h, hd, hkv = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim, cfg.n_kv_heads
+    want = {"wq": [d // n, h, hd], "wo": [h, hd, d // n], "wk": [d, hkv, hd], "wv": [d, hkv, hd]}
+    for r in ranks:
+        for mode, pl in r["plan"].items():
+            if (pl["attn"], pl["kv"], pl["experts"][1] - pl["experts"][0]) != (
+                    "contraction", "whole", e) or any("['attn']" in x for x in pl["partial"]):
+                fail(f"cp (a): rank {r['rank']}'s {mode} plan is {pl}")
+            if pl["experts"][0] != r["rank"] * e:
+                fail(f"cp (a): rank {r['rank']} holds experts {pl['experts']}")
+        for what, blocks in (("serving", r["serve"]["blocks"]), ("training", r["train"]["attn_blocks"])):
+            if {k: blocks[k] for k in want} != want:
+                fail(f"cp (a): rank {r['rank']}'s {what} attention blocks are {blocks}, not {want}")
+    log(f"cp (a) {cfg.name} on (1, {n}), every rank: attention split on its contraction "
+        f"(wq {want['wq']}, wo {want['wo']} of {cfg.n_layers} and {tcfg.n_layers} layers; wk / wv "
+        f"whole {want['wk']}; no partial attention leaf), {e} of "
+        f"{cfg.moe.padded_experts} experts a layer")
+    return {"attn": "contraction", "experts": e, "blocks": want}
+
+
+def _cp_serve(ranks: list, ref: dict, n: int) -> dict:
+    """(b) The placed serving against the one-process run: the prefill's
+    logits within CP["tol"] on every rank; the greedy tokens equal up to
+    each request's first divergence, which must sit at a near tie
+    (one-process top-2 margin under 2 tol); the log-probabilities of the
+    one-process tokens within CP["tol"] where the placed run was fed them
+    (positions 0 and 1 on their own, and ``generate``'s up to a request's
+    first divergence); the near ties counted."""
+    tol = CP["tol"]
+    want, margins = ref["tokens"].tolist(), ref["margins"]
+    sv = [r["serve"] for r in ranks]
+    if any(s["tokens"] != sv[0]["tokens"] for s in sv[1:]):
+        fail("cp (b): the ranks' greedy tokens differ")
+    ties = int((margins < 2 * tol).sum())
+    diverged, fed = [], []
+    for b, (got, w) in enumerate(zip(sv[0]["tokens"], want)):
+        t = next((i for i, (x, y) in enumerate(zip(got, w)) if x != y), len(w))
+        if t < len(w):
+            if float(margins[b, t]) >= 2 * tol:
+                fail(f"cp (b): request {b}'s greedy token {t} is {got[t]}, the one-process {w[t]}, "
+                     f"at a top-2 margin of {float(margins[b, t])}")
+            diverged.append([b, t])
+        fed.append(t)
+    lp = ref["logprobs"]
+    errs = {"prefill_err": max(s["prefill_err"] for s in sv),
+            "logprob_err": max(max(abs(x - float(lp[b, t])) for b, row in enumerate(s["tf_logprobs"])
+                                   for t, x in enumerate(row)) for s in sv)}
+    gen_errs = [abs(s["logprobs"][b][t] - float(lp[b, t])) for s in sv
+                for b in range(len(want)) for t in range(fed[b])]
+    errs["logprob_err"] = max([errs["logprob_err"]] + gen_errs)
+    if any(e > tol for e in errs.values()):
+        fail(f"cp (b): prefill logits / log-probabilities of the one-process tokens off by "
+             f"{errs} (tolerance {tol})")
+    out = {"cache": sv[0]["cache"], "tol": tol, **errs, "near_ties": ties,
+           "diverged": diverged, "generate_s": [s["generate_s"] for s in sv],
+           "prefill_ms": [s["prefill_ms"] for s in sv],
+           "decode_ms": [s["decode_ms"] for s in sv],
+           "peak_bytes": [s["peak_bytes"] for s in sv],
+           "build_peak_bytes": [s["build_peak_bytes"] for s in sv],
+           "local_params": sv[0]["local_params"]}
+    log(f"cp (b) placed greedy generate of {len(want)} x {ref['prompts'].shape[1]} prompts + "
+        f"{len(want[0])} tokens by {n} ranks, cache {out['cache']}: prefill logits within "
+        f"{errs['prefill_err']:.6g}, the one-process tokens' log-probabilities within "
+        f"{errs['logprob_err']:.6g} (tolerance {tol}); tokens equal"
+        + (f" up to near ties at (request, position) {diverged}" if diverged else "")
+        + f"; {ties} of {margins.numel()} positions are near ties (margin < {2 * tol}); a rank "
+        f"holds {out['local_params']} params; prefill {_range(out['prefill_ms'])} ms, a decode "
+        f"step {_range(out['decode_ms'])} ms, generate "
+        f"{_range(out['generate_s'], '{:.2f}')} s; peak {_range(out['peak_bytes'], '{:.0f}')} "
+        f"bytes serving, {_range(out['build_peak_bytes'], '{:.0f}')} bytes in its build turn")
+    return out
+
+
+def _cp_train(ranks: list, one: dict) -> dict:
+    """(c) The ranks' losses equal across ranks and within CP["loss_tol"] of
+    the one-process ``train()``'s."""
+    tr = [r["train"] for r in ranks]
+    want = one["losses"]
+    if any(t["losses"] != tr[0]["losses"] for t in tr[1:]):
+        fail(f"cp (c): the ranks' losses differ: {[t['losses'] for t in tr]}")
+    err = max(abs(a - b) for a, b in zip(tr[0]["losses"], want))
+    if err > CP["loss_tol"]:
+        fail(f"cp (c): losses {tr[0]['losses']} against train()'s {want}")
+    out = {"losses": tr[0]["losses"], "one_process": want, "loss_max_err": err,
+           "step_wall_ms": [t["step_wall_ms"] for t in tr],
+           "peak_bytes": [t["peak_bytes"] for t in tr], "local_params": tr[0]["local_params"],
+           "params": tr[0]["params"], "collectives": tr[0]["collectives"]}
+    walls = [w for t in tr for w in t["step_wall_ms"][1:]]
+    log(f"cp (c) {one['arch']} at {one['layers']} layers trained by {len(tr)} ranks: losses "
+        + " ".join(f"{x:.6f}" for x in out["losses"]) + f" (train()'s within {err:.3g}); a rank "
+        f"holds {out['local_params']} of {out['params']} params; step wall {_range(walls)} ms "
+        f"(first {_range([t['step_wall_ms'][0] for t in tr])}); peak "
+        f"{_range(out['peak_bytes'], '{:.0f}')} bytes")
+    return out
+
+
+def _cp_records(ranks: list, cfg, tcfg, splan, tplan, ref: dict, full: bool) -> dict:
+    """(d) A decode step's and a train step's recorded collectives on every
+    rank equal to :func:`cp_collectives`."""
+    tf = TRAIN_FULL
+    seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
+    nreq = ref["prompts"].shape[0]
+    want = {"decode": [list(o) for o in cp_collectives(cfg, splan, nreq, 1,
+                                                          ranks[0]["serve"]["cache"])],
+            "step": [list(o) for o in cp_collectives(tcfg, tplan, gb, seq)]}
+    for r in ranks:
+        for k, got in (("decode", r["serve"]["decode_ops"]), ("step", r["train"]["ops"])):
+            if got != want[k]:
+                fail(f"cp (d): rank {r['rank']}'s {k} collectives differ from the closed form: "
+                     f"{len(got)} recorded, {len(want[k])} expected")
+    out = {k: {"count": len(v), "bytes": sum(o[1] for o in v)} for k, v in want.items()}
+    log(f"cp (d) recorded collectives = the closed form on every rank: a decode step "
+        f"{out['decode']['count']} ({out['decode']['bytes']} bytes), a train step "
+        f"{out['step']['count']} ({out['step']['bytes']} bytes); step 0's "
+        f"{ranks[0]['train']['collectives']}")
     return out
 
 
@@ -4237,7 +4715,10 @@ def main() -> int:
     dist_path = phase_dist(dev, handoff=handoff)
     tp_path = phase_tp(dev, handoff=handoff, dist_path=dist_path)
     del handoff
-    ep_path = phase_ep(dev, serve_path=serve_path, train_path=train_path)
+    cp_ref: dict = {}
+    ep_path = phase_ep(dev, serve_path=serve_path, train_path=train_path, handoff=cp_ref)
+    cp_path = phase_cp(dev, handoff=cp_ref)
+    del cp_ref
     cases = phase_scale(dev)
     record = []
     for name, meta in KERNELS.items():
@@ -4290,7 +4771,7 @@ def main() -> int:
         "card": card, "kernels": record, "main_path": main_path, "codec_path": codec_path,
         "activity_path": activity_path, "egress_path": egress_path, "noc_path": noc_path,
         "serve_path": serve_path, "train_path": train_path, "dist_path": dist_path,
-        "tp_path": tp_path, "ep_path": ep_path,
+        "tp_path": tp_path, "ep_path": ep_path, "cp_path": cp_path,
         "scale_cases": cases,
         "seconds": time.perf_counter() - t0,
     }, indent=1, default=str))

@@ -23,10 +23,12 @@ mesh (16x16, or 2x16x16 with ``--multipod``) it records
     microbatched there: a microbatched step sends the same bytes in more
     calls.
 
-The other families' tensor-parallel forward is not built yet, nor the
-placed step's FSDP gathers (a train cell of an FSDP config; its serving
-cells are not FSDP-placed, as ``param_spec`` applies FSDP in "train" mode
-only), nor attention's contraction split: those records say
+The dense and MoE cells include those whose rules split attention's
+contraction (granite-moe-3b-a800m's 24 heads on the 16 x 16 mesh).  The
+other families' tensor-parallel forward is not built yet (ssm, hybrid,
+audio, vlm), nor the placed step's FSDP gathers (a train cell of an FSDP
+config, qwen3-moe-30b-a3b's; its serving cells are not FSDP-placed, as
+``param_spec`` applies FSDP in "train" mode only): those records say
 ``"collectives_modelled": False``, with the reason, and carry no
 collective ops.  The memory floor is the argument bytes alone
 (activations are not counted).  The stand-in groups need no process group:

@@ -13,15 +13,24 @@ KV cache by ``cache_shardings``:
     attention is ``models.layers.attention_decode`` on its own heads;
   * otherwise, with the cache's length divisible by m, its **sequence** is
     split over "model" (the reference's split-K rule).  Each rank keeps
-    every kv head for its block of positions, the query heads are
-    all-gathered, each rank attends its keys (``layers.decode_scores`` and
-    ``block_stats``), and the partial results are merged across the group
-    as ``layers._merge_blocks`` merges blocks: a MAX all-reduce of the
-    score maxima, ``rescale_block``, one SUM all-reduce of the sums and
-    accumulators.  The new token's keys are written by the rank whose
-    block holds its position;
+    every kv head for its block of positions and attends its keys with
+    every query head (``layers.decode_scores`` and ``block_stats``), and
+    the partial results are merged across the group as
+    ``layers._merge_blocks`` merges blocks: a MAX all-reduce of the score
+    maxima, ``rescale_block``, one SUM all-reduce of the sums and
+    accumulators.  Under a head split the query heads are all-gathered
+    first and each rank keeps its own heads of the result; under
+    attention's contraction split (``tp_model``: heads the axis does not
+    divide) every rank already holds every query head.  The new token's
+    keys are written by the rank whose block holds its position;
   * otherwise the cache is whole on every rank, and each rank attends
-    (``layers.decode_attend``) over the kv heads its query heads use.
+    (``layers.decode_attend``) over the kv heads its query heads use (all
+    of them under the contraction split).
+
+Under the contraction split the whole queries come from the partial sum
+of ``tp_model.contracted_qkv`` and the output from
+``tp_model.contracted_out``, in prefill (through ``tp_model.layer``) as
+in decode; the prompt's cache is built from the whole ``wk`` / ``wv``.
 
 The logits come out as ``DryrunCase.shardings`` places them: this rank's
 vocabulary block when "model" divides the vocabulary, else whole.  Greedy
@@ -45,8 +54,9 @@ import torch.nn.functional as F
 
 from .. import _obs_hooks
 from .._tree import tree_map
-from ..models.layers import (_finalize, _qkv, attention_decode, block_stats, decode_attend,
-                             decode_scores, decode_write, rescale_block, rms_norm, torch_dtype)
+from ..models.layers import (_finalize, attention_decode, block_stats, decode_attend,
+                             decode_scores, decode_write, norm_rope, project_kv, rescale_block,
+                             rms_norm, torch_dtype, write_kv)
 from ..models.transformer import _layer, _n_layers, _positions, init_cache
 from ..serve.loop import GenerateResult
 from . import tp_model
@@ -103,12 +113,12 @@ def _cache_kv(lp, x, plan, positions, max_len: int, mode: str):
     dt = torch_dtype(plan.cfg.dtype)
     s = x.shape[1]
     if mode == "heads":
-        _, k, v = _qkv(lp, x, plan.local, positions)
         a, b, length = 0, s, max_len
     else:
         a, b = _span(plan, max_len) if mode == "seq" else (0, max_len)
         length, a, b = b - a, min(a, s), min(b, s)
-        _, k, v = _qkv(lp, x[:, a:b], plan.cfg, positions[:, a:b])
+    k, v = project_kv(lp, x[:, a:b])
+    _, k = norm_rope(lp, None, k, plan.cfg, positions[:, a:b])
 
     def pad(t):  # (B, b - a, H, D) -> (B, length, H, D)
         return F.pad(t, (0, 0, 0, 0, 0, length - (b - a))).to(dt)
@@ -169,13 +179,21 @@ def _attn_decode(lp, x, ck, cv, pos, plan, mode: str):
     if mode == "heads":
         y, ck, cv = attention_decode(lp, x, ck, cv, pos, plan.local)
         return reduce_from_model(y, g), ck, cv
-    if not plan.heads:
+    if plan.attn == "whole":
         if mode == "seq":
-            raise ValueError(f"{cfg.name}: a split-K cache needs attention split on heads")
+            raise ValueError(f"{cfg.name}: a split-K cache needs attention split over 'model'")
         return attention_decode(lp, x, ck, cv, pos, cfg)
     # "whole" or "seq": this rank's cache holds every kv head, so every kv
-    # head's new keys are written; q holds this rank's query heads
+    # head's new keys are written
     start = _span(plan, ck.shape[1] * g.size)[0] if mode == "seq" else 0
+    if plan.attn == "contraction":  # q holds every query head
+        positions = pos.to(torch.int32).expand(x.shape[0], 1)
+        q, k, v = tp_model.contracted_qkv(lp, x, plan, positions)
+        ck, cv = write_kv(ck, cv, k, v, pos, start)
+        out = (_attend_split(q, ck, cv, pos, start, g) if mode == "seq"
+               else decode_attend(q, ck, cv, pos))
+        return tp_model.contracted_out(lp, out, plan), ck, cv
+    # a head split: q holds this rank's query heads
     q, ck, cv = decode_write(lp, x, ck, cv, pos, cfg, start)
     if mode == "seq":
         hpl = q.shape[2]

@@ -11,14 +11,14 @@ m/v leaves over "data".  The step (:func:`make_placed_train_step`):
 
   1. takes this rank's rows of the global batch by ``batch_shardings``;
   2. takes each leaf's block for the compute: a dense or MoE config keeps
-     its "model" split (``tp_model.py`` runs each product on the block, a
-     MoE's experts on the rank's range of experts) and all-gathers a leaf
-     only over another split axis with more than one rank (FSDP's "data",
+     its "model" split (``tp_model.py`` runs each product on the block:
+     attention on its heads or on its contraction, a MoE's experts on the
+     rank's range of experts) and all-gathers a leaf only over another
+     split axis with more than one rank (FSDP's "data",
      qwen3-moe-30b-a3b's; skipped when "data" has one rank); where
-     ``tp_model.unsupported`` names a reason (the other families, or rules
-     that split attention's contraction because "model" does not divide
-     the heads) it gathers every axis, so every rank of a "model" group
-     computes the whole product;
+     ``tp_model.unsupported`` names a reason (the other families, experts
+     split on their ``d_ff``, shared experts) it gathers every axis, so
+     every rank of a "model" group computes the whole product;
   3. runs the loss (with a MoE's load-balance loss, as ``train.step``'s,
      its means taken over the data-parallel ranks as over the reference's
      global batch) and its backward on the local rows (``train.step``'s
@@ -226,8 +226,8 @@ def make_placed_train_step(
     (updated in place) and the whole global ``batch`` on every rank.  A
     dense or MoE config runs tensor-parallel over "model"."""
     # the forward on "model" blocks where it runs the rules' splits (the dense
-    # and MoE families, attention split on heads); else every leaf gathered
-    # at use
+    # and MoE families, attention split on heads or on its contraction);
+    # else every leaf gathered at use
     plan = tp_model.make_plan(cfg, mesh) if tp_model.unsupported(cfg, mesh) is None else None
     keep = list(mesh_axes(mesh)).index("model") if plan is not None else None
     groups: dict[tuple, AxisGroup] = {}

@@ -6,13 +6,24 @@ by the rules of ``launch.sharding``.  Here one rank runs its part with
 the operators of ``launch/tp.py``, and each split is read from the port's
 own ``param_spec`` (:func:`make_plan`), never decided again:
 
-  * ``wq`` / ``wo`` split on heads: a column / row pair.  Attention runs
-    ``models.layers.attention`` on the rank's heads with a local config
-    (``n_heads / m``); its input enters through ``copy_to_model`` and its
-    output leaves through ``reduce_from_model``.
+  * ``wq`` / ``wo`` split on heads (:attr:`Plan.attn` "heads"): a column /
+    row pair.  Attention runs ``models.layers.attention`` on the rank's
+    heads with a local config (``n_heads / m``); its input enters through
+    ``copy_to_model`` and its output leaves through ``reduce_from_model``.
   * ``wk`` / ``wv`` split on kv-heads when ``hkv % m == 0``; otherwise they
     are replicated (the reference's GQA rule) and each rank takes the kv
     heads its query heads read.
+  * ``wq`` split on its input ``d`` and ``wo`` on its output ``d``, where
+    "model" divides ``d_model`` but not the heads (attention's
+    **contraction** split, "contraction"; ``wk`` / ``wv`` replicated).
+    Each rank forms the partial queries of its ``d / m`` columns of ``x``
+    and ``reduce_from_model`` sums them; every rank then holds the whole
+    ``q`` and runs the whole attention core (qk-norm, rope, every head) on
+    it with the whole ``k`` / ``v``; its ``wo`` block gives the output's
+    ``d / m`` columns, which ``gather_from_model`` makes whole.  The
+    partial queries are formed and summed in float32 and cast to the
+    compute dtype once, so ``q`` rounds once, as the one-process product
+    does (the reference's CPU compile reduces bf16 in float32 too).
   * MLP: ``gate`` / ``up`` column-split, ``down`` row-split, the same pair.
   * ``embed`` split on the vocabulary: a masked lookup summed over the
     group; split on ``d`` (a vocabulary the axis does not divide): the
@@ -47,7 +58,19 @@ one of two kinds of gradient (:attr:`Plan.partial`):
   * **whole**, when it is used whole before a split region: a norm whose
     output enters the split products through ``copy_to_model``, whose
     backward already sums the input's gradient.  Summing it again would
-    multiply it by m.
+    multiply it by m.  Under attention's contraction split ``wk``, ``wv``,
+    ``q_norm`` and ``k_norm`` are whole too: every rank runs the whole
+    core on the whole ``q``, so their gradients are whole on every rank.
+
+The gradient kinds of the contraction split's tensors: the core's ``dq``,
+``dk`` and ``dv`` are whole on every rank.  ``do``, the gradient of the
+core's output, is partial (each rank's ``wo`` block sees its own output
+columns only), so ``o`` enters ``wo`` through ``copy_to_model``, whose
+backward sums it; without it ``dq`` / ``dk`` / ``dv`` would be 1/m-ish
+shares and the step silently wrong.  ``dx`` of the query columns is
+partial (this rank's columns only) and is summed by the backward of the
+``copy_to_model`` that ``x`` enters before its columns are taken; ``x``
+reaches ``wk`` / ``wv`` directly, since their use is whole.
 
 The MoE routing is such a replicated region: its outputs ``xg`` (the
 tokens, into the rank's expert buffers) and ``top_p`` (into the rank's
@@ -85,7 +108,8 @@ from ..models import lm_loss as _lm_loss
 from ..models import moe as _moe
 from ..models import param_shapes
 from ..models.config import ModelConfig
-from ..models.layers import attention, mlp, rms_norm, torch_dtype
+from ..models.layers import (attend, attention, mlp, norm_rope, project_kv, rms_norm,
+                             torch_dtype)
 from ..models.transformer import _ce, _layer, _n_layers, _positions, embed_tokens
 from .mesh import dp_axes, mesh_axes
 from .sharding import params_shardings
@@ -93,6 +117,7 @@ from .tp import (AxisGroup, all_reduce, axis_group, batch_mean, copy_to_model,
                  gather_from_model, reduce_from_model)
 
 __all__ = ["Plan", "make_plan", "unsupported", "embed", "layer", "attention_block",
+           "contracted_qkv", "contracted_out",
            "mlp_block", "moe_route", "moe_dispatch", "moe_block", "forward", "logits", "loss",
            "make_loss_fn", "take_heads"]
 
@@ -101,11 +126,13 @@ __all__ = ["Plan", "make_plan", "unsupported", "embed", "layer", "attention_bloc
 class Plan:
     """How one rank runs the dense or MoE model, read from the specs.
 
-    ``heads``: attention split on heads; ``kv``: "heads" (``wk`` / ``wv``
-    split) or "whole" (replicated); ``kv_index``: with a head split and
-    whole kv, the kv heads this rank's query heads read; ``mlp``: the MLP
-    split on ``d_ff``; ``embed`` / ``head``: "vocab", "d" or "whole";
-    ``local``: the config attention sees on this rank; ``split``: the leaf
+    ``attn``: attention split on its "heads", on its "contraction"
+    (``wq``'s input and ``wo``'s output ``d``) or "whole"; ``kv``: "heads"
+    (``wk`` / ``wv`` split) or "whole" (replicated); ``kv_index``: with a
+    head split and whole kv, the kv heads this rank's query heads read;
+    ``mlp``: the MLP split on ``d_ff``; ``embed`` / ``head``: "vocab", "d"
+    or "whole"; ``local``: the config attention sees on this rank (every
+    head under the contraction split); ``split``: the leaf
     paths "model" splits; ``partial``: the replicated leaf paths whose
     gradient is a partial sum over "model"; ``experts``: a MoE rank's
     range [lo, hi) of the padded experts; ``data``: in training, the
@@ -115,7 +142,7 @@ class Plan:
     cfg: ModelConfig
     local: ModelConfig
     model: AxisGroup
-    heads: bool
+    attn: str
     kv: str
     kv_index: Optional[tuple[int, ...]]
     mlp: bool
@@ -146,12 +173,16 @@ def _model_dims(cfg: ModelConfig, mesh, mode: str) -> dict[str, Optional[int]]:
         leaves_with_path(shapes), leaves_with_path(params_shardings(cfg, mesh, shapes, mode)))}
 
 
+# (wq, wo)'s "model" dims, from the end -> the attention mode
+_ATTN = {(None, None): "whole", (-2, -3): "heads", (-3, -1): "contraction"}
+
+
 def _why_not(cfg: ModelConfig, dims: dict, m: int) -> Optional[str]:
     attn = {_name(p): d for p, d in dims.items() if "['attn']" in p}
     mlps = {_name(p): d for p, d in dims.items() if "['mlp']" in p}
-    if (attn["wq"], attn["wo"]) not in ((None, None), (-2, -3)):
-        return (f"{cfg.name}: the rules split attention's contraction ({attn['wq']}, "
-                f"{attn['wo']}) on a {m}-rank 'model' axis ({cfg.n_heads} heads), not its heads")
+    if (attn["wq"], attn["wo"]) not in _ATTN:
+        return (f"{cfg.name}: the rules split attention as (wq, wo: {attn['wq']}, "
+                f"{attn['wo']}) on a {m}-rank 'model' axis, neither on heads nor on d")
     if set(mlps.values()) - {None} and mlps != {k: (-2 if k == "down" else -1) for k in mlps}:
         return f"{cfg.name}: the rules split the MLP as {mlps}, not on d_ff"
     moe = {_name(p): d for p, d in dims.items() if "['moe']" in p}
@@ -168,9 +199,9 @@ def _why_not(cfg: ModelConfig, dims: dict, m: int) -> Optional[str]:
 def unsupported(cfg: ModelConfig, mesh, mode: str = "train") -> Optional[str]:
     """Why the rules' splits of ``cfg`` on ``mesh`` are not ones this forward
     runs, or None: it takes the dense family and the MoE family (with no
-    shared experts), attention split on heads (or whole), the MLP on
-    ``d_ff`` (or whole) and the experts and the router on their expert
-    axis."""
+    shared experts), attention split on heads or on its contraction (or
+    whole), the MLP on ``d_ff`` (or whole) and the experts and the router
+    on their expert axis."""
     if cfg.family not in ("dense", "moe"):
         return (f"{cfg.name}: the tensor-parallel forward covers the dense family and the "
                 f"MoE family, not {cfg.family!r}")
@@ -187,13 +218,13 @@ def make_plan(cfg: ModelConfig, mesh, mode: str = "train") -> Plan:
     reason = _why_not(cfg, dims, model.size)
     if reason:
         raise ValueError(reason)
-    heads = dims["['layers']['attn']['wq']"] is not None
+    attn = _ATTN[dims["['layers']['attn']['wq']"], dims["['layers']['attn']['wo']"]]
     kv = "heads" if dims["['layers']['attn']['wk']"] is not None else "whole"
     embed_mode = {-2: "vocab", -1: "d", None: "whole"}[dims["['embed']"]]
     head_mode = embed_mode if cfg.tie_embeddings else {-1: "vocab", -2: "d", None: "whole"}[
         dims["['head']"]]
     local, kv_index, partial = cfg, None, frozenset()
-    if heads and model.size > 1:
+    if attn == "heads" and model.size > 1:
         hpl, rep = cfg.n_heads // model.size, cfg.q_rep
         if kv == "heads":
             kvl = cfg.n_kv_heads // model.size
@@ -204,7 +235,8 @@ def make_plan(cfg: ModelConfig, mesh, mode: str = "train") -> Plan:
             kvl = len(kv_index)
         local = dataclasses.replace(cfg, n_heads=hpl, n_kv_heads=kvl,
                                     head_dim=cfg.resolved_head_dim)
-        # replicated leaves whose use is split over the heads
+        # replicated leaves whose use is split over the heads; under the
+        # contraction split none: wk, wv, q_norm, k_norm are used whole
         partial = frozenset(p for p in dims if "['attn']" in p and (
             _name(p) in ("q_norm", "k_norm") or (kv == "whole" and _name(p) in ("wk", "wv"))))
     split = frozenset(p for p, d in dims.items() if d is not None and model.size > 1)
@@ -214,7 +246,7 @@ def make_plan(cfg: ModelConfig, mesh, mode: str = "train") -> Plan:
         experts = (model.index * n, (model.index + 1) * n)
         if mode == "train":  # the batch's rows, as batch_shardings splits them
             data = axis_group(mesh, dp_axes(mesh))
-    return Plan(cfg, local, model, heads, kv, kv_index,
+    return Plan(cfg, local, model, attn, kv, kv_index,
                 dims.get("['layers']['mlp']['up']") is not None, embed_mode, head_mode, split,
                 partial, experts, data)
 
@@ -240,13 +272,37 @@ def _kv_view(lp: dict, plan: Plan) -> dict:
             "wv": take_heads(lp["wv"], plan.kv_index, -2)}
 
 
+def contracted_qkv(lp: dict, x: torch.Tensor, plan: Plan, positions) -> tuple:
+    """Under the contraction split, the whole roped ``q``, ``k`` and ``v``
+    of the normed, replicated ``x``: the partial queries of this rank's
+    ``d / m`` columns summed over "model" in float32, then cast; the keys
+    and values from the whole ``wk`` / ``wv``."""
+    g, dt = plan.model, x.dtype
+    xq = _d_slice(copy_to_model(x, g), plan, lp["wq"]).to(torch.float32)
+    q = torch.einsum("bsd,dhk->bshk", xq, lp["wq"].to(dt).to(torch.float32))
+    q = reduce_from_model(q, g).to(dt)
+    k, v = project_kv(lp, x)
+    q, k = norm_rope(lp, q, k, plan.cfg, positions)
+    return q, k, v
+
+
+def contracted_out(lp: dict, o: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """Under the contraction split, the whole output of the core's heads
+    ``o`` (B, S, H, D): this rank's ``d / m`` output columns, gathered."""
+    g = plan.model
+    y = torch.einsum("bshk,hkd->bsd", copy_to_model(o, g), lp["wo"].to(o.dtype))
+    return gather_from_model(y, g, -1)
+
+
 def attention_block(lp: dict, x: torch.Tensor, plan: Plan, positions) -> torch.Tensor:
     """Attention of the normed, replicated ``x``; the result replicated."""
-    if not plan.heads:
+    if plan.attn == "whole":
         return attention(lp, x, plan.cfg, positions)
     g = plan.model
-    y = attention(_kv_view(lp, plan), copy_to_model(x, g), plan.local, positions)
-    return reduce_from_model(y, g)
+    if plan.attn == "heads":
+        y = attention(_kv_view(lp, plan), copy_to_model(x, g), plan.local, positions)
+        return reduce_from_model(y, g)
+    return contracted_out(lp, attend(*contracted_qkv(lp, x, plan, positions), plan.cfg), plan)
 
 
 def mlp_block(lp: dict, x: torch.Tensor, plan: Plan) -> torch.Tensor:
@@ -339,7 +395,8 @@ def _head(params: dict, plan: Plan) -> torch.Tensor:
 
 
 def _d_slice(h: torch.Tensor, plan: Plan, w: torch.Tensor) -> torch.Tensor:
-    """This rank's columns of ``h`` under a ``d`` split of ``w`` (d/m, V)."""
+    """This rank's columns of ``h`` under a split of ``w``'s first dim, its
+    ``d`` (the head's (d/m, V), ``wq``'s (d/m, H, D))."""
     n = w.shape[0]
     return h[..., plan.model.index * n: (plan.model.index + 1) * n]
 

@@ -146,18 +146,30 @@ def init_attention(gen, cfg: ModelConfig, lead: tuple = (), device=None) -> Para
     return p
 
 
-def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    """Project + (optional) qk-norm + rope.  x: (B, S, d)."""
+def project_kv(params: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The key and value projections of x (B, S, d): (B, S, Hkv, D) each."""
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    return k, v
+
+
+def norm_rope(params: Params, q, k: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """The (optional) qk-norm, then rope, of projected queries ``q`` and keys
+    ``k`` (B, S, H, D); ``q`` may be None (the keys alone)."""
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"], cfg.rms_eps)
+        if q is not None:
+            q = rms_norm(q, params["q_norm"], cfg.rms_eps)
         k = rms_norm(k, params["k_norm"], cfg.rms_eps)
     cos, sin = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    return (None if q is None else apply_rope(q, cos, sin)), apply_rope(k, cos, sin)
+
+
+def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """Project + (optional) qk-norm + rope.  x: (B, S, d)."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    k, v = project_kv(params, x)
+    q, k = norm_rope(params, q, k, cfg, positions)
     return q, k, v
 
 
@@ -269,6 +281,21 @@ def _sdpa_chunked(q, k, v, scale: float, chunk: int, skip: bool) -> torch.Tensor
     return out.reshape(b, sq, h, d)
 
 
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+           causal: bool = True) -> torch.Tensor:
+    """The attention core of roped queries ``q`` (B, S, H, D) over keys and
+    values (B, S, Hkv, D) by ``cfg.attn_impl``: the heads' output (B, S, H, D)."""
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    s = q.shape[1]
+    if not causal or cfg.attn_impl == "dense" or s <= cfg.attn_chunk:
+        return _sdpa_dense(q, k, v, scale, causal)
+    skip = cfg.attn_impl == "chunked_skip"
+    # the reference floors the skip form's chunk at S/8 to bound its
+    # unrolled HLO; kept so both packages take the same blocks
+    chunk = max(cfg.attn_chunk, s // 8) if skip else cfg.attn_chunk
+    return _sdpa_chunked(q, k, v, scale, chunk, skip=skip)
+
+
 def attention(
     params: Params,
     x: torch.Tensor,
@@ -278,15 +305,7 @@ def attention(
 ) -> torch.Tensor:
     """Full-sequence attention (training / prefill).  x: (B, S, d)."""
     q, k, v = _qkv(params, x, cfg, positions)
-    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
-    if not causal or cfg.attn_impl == "dense" or x.shape[1] <= cfg.attn_chunk:
-        out = _sdpa_dense(q, k, v, scale, causal)
-    else:
-        skip = cfg.attn_impl == "chunked_skip"
-        # the reference floors the skip form's chunk at S/8 to bound its
-        # unrolled HLO; kept so both packages take the same blocks
-        chunk = max(cfg.attn_chunk, x.shape[1] // 8) if skip else cfg.attn_chunk
-        out = _sdpa_chunked(q, k, v, scale, chunk, skip=skip)
+    out = attend(q, k, v, cfg, causal)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
 
 
@@ -333,11 +352,17 @@ def decode_write(
     the caches passed in are not modified."""
     positions = pos.to(torch.int32).expand(x.shape[0], 1)
     q, k, v = _qkv(params, x, cfg, positions)
-    ar = start + torch.arange(cache_k.shape[1], device=x.device)
+    return (q, *write_kv(cache_k, cache_v, k, v, pos, start))
+
+
+def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             pos: torch.Tensor, start: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The new token's keys and values (B, 1, Hkv, D) written into a cache
+    block (positions as ``decode_write``'s) at ``pos``: new caches."""
+    ar = start + torch.arange(cache_k.shape[1], device=k.device)
     slot = (ar == pos)[None, :, None, None]
-    cache_k = torch.where(slot, k.to(cache_k.dtype), cache_k)
-    cache_v = torch.where(slot, v.to(cache_v.dtype), cache_v)
-    return q, cache_k, cache_v
+    return (torch.where(slot, k.to(cache_k.dtype), cache_k),
+            torch.where(slot, v.to(cache_v.dtype), cache_v))
 
 
 def decode_scores(q: torch.Tensor, cache_k: torch.Tensor, pos: torch.Tensor,

@@ -9,8 +9,8 @@ family's plan and block (``launch/tp_model.py``), the placed step
   ``train.make_train_step``'s two steps and ``serve.generate``.
 * The plan read from the rules (an ``AbstractMesh``, no group): the expert
   range and the router split at m = 2, 4, 8, the padded experts of each
-  rank, and the reasons given for a ``d_ff`` split of the experts and for
-  attention's contraction split.
+  rank, the reason given for a ``d_ff`` split of the experts, and
+  attention's contraction split of granite's baseline 16 x 16.
 * gloo groups of 2 and 4 ranks (separate processes, ``_run_ranks`` of
   ``test_torch_distributed.py``): the smoke granite on (1, 2) (kv heads
   split), (2, 2) and (1, 4) (kv heads replicated; rank 3 holds only padded
@@ -474,8 +474,10 @@ def test_padded_experts_by_rank_and_the_reasons():
         _plan(five, (1, 2))
     # granite's 24 heads on the baseline 16 x 16: attention's contraction;
     # on the optimized profile's 32 x 8 the heads split
-    assert "contraction" in tp_model.unsupported(get_config(GRANITE), _abstract((16, 16)))
+    assert tp_model.unsupported(get_config(GRANITE), _abstract((16, 16))) is None
+    assert _plan(get_config(GRANITE), (16, 16)).attn == "contraction"
     assert tp_model.unsupported(get_config(GRANITE), _abstract((32, 8))) is None
+    assert _plan(get_config(GRANITE), (32, 8)).attn == "heads"
     assert tp_model.unsupported(get_config(QWEN), _abstract((16, 16)), "serve") is None
 
 

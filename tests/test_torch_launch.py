@@ -302,7 +302,10 @@ def test_meta_dryrun_smoke_cells(arch, shape):
     assert rec["status"] == "ok" and rec["num_devices"] == 256
     assert math.isfinite(rec["global_flops"]) and rec["global_flops"] > 0
     assert abs(rec["global_flops"] / rec["model_flops_global"] - 1) < 0.10
-    assert rec["collectives_modelled"] is False and rec["collective_ops"] == []
+    # the smoke internlm2's 4 heads split attention's contraction on 16 x 16
+    # (modelled); zamba2's hybrid family has no tensor-parallel forward
+    modelled = arch == "internlm2-1.8b"
+    assert rec["collectives_modelled"] is modelled and bool(rec["collective_ops"]) is modelled
     # argument bytes: the reference's shard shapes of the same cell
     jm = JAbstractMesh((16, 16), ("data", "model"))
     case = rbuild_case(arch, shape, **over)
@@ -315,7 +318,7 @@ def test_meta_dryrun_smoke_cells(arch, shape):
     assert rec["argument_bytes_per_device"] == want
     terms = roofline.analyse(rec, SHAPES[shape].seq_len, SHAPES[shape].global_batch,
                              launch.build_case(arch, shape, **over).cfg)
-    assert terms.collective_s == 0.0 and terms.memory_hlo_s is None
+    assert (terms.collective_s > 0) is modelled and terms.memory_hlo_s is None
 
 
 def test_dryrun_cli_and_skips(tmp_path, monkeypatch, capsys):

@@ -10,8 +10,9 @@ and the dry run's collective term).
   ``serve.generate``.
 * The plan read from the rules (an ``AbstractMesh``, no group): head and
   kv-head splits, the replicated kv of GQA, the partial leaves, the ``d``
-  split of a vocabulary the axis does not divide, and the reasons given
-  for what the forward does not run.
+  split of a vocabulary the axis does not divide, attention's contraction
+  split on a wide axis, and the reasons given for what the forward does
+  not run.
 * gloo groups of 2 and 4 ranks (separate processes, ``_run_ranks`` of
   ``test_torch_distributed.py``): meshes (1, 2), (2, 2) and (1, 4) on the
   smoke internlm2-1.8b (kv heads split at m = 2, replicated at m = 4),
@@ -40,10 +41,12 @@ and the dry run's collective term).
     head's backward; the vocab-parallel loss's MAX and SUM; the partial
     leaves; the norm; the data-parallel mean).
 
-  Internlm2-1.8b with 3 heads on (1, 2), where the rules split attention's
-  contraction: the step gathers every leaf at use (an all-gather is
+  The smoke mamba2-370m on (1, 2), a family the tensor-parallel forward
+  does not run: the step gathers every leaf at use (an all-gather is
   recorded), each rank's gradient is the whole one-process gradient, the
-  storage stays placed, losses and params as above.
+  storage stays placed, losses and params as above.  (Attention's
+  contraction split, where the heads do not divide "model", is
+  ``tests/test_torch_cp.py``'s.)
 
   The placed greedy ``generate`` on (1, 2) and (1, 4): tokens equal to the
   one-process port's, log-probabilities and the prefill's and a decode
@@ -116,9 +119,9 @@ SERVE_CASES = [("internlm2-1.8b", (1, 2), 4, "heads"), ("gemma-7b", (1, 4), 4, "
                ("internlm2-1.8b", (1, 4), 4, "seq"), ("qwen3-4b", (1, 4), 4, "seq"),
                ("internlm2-1.8b", (1, 4), 3, "whole")]
 SERVE_BATCH, SERVE_PROMPT = 2, 8
-# 3 heads on a 2-rank "model" axis: the rules split attention's contraction,
-# which the tensor-parallel forward does not run, so the step gathers
-GATHER_CASE = ("internlm2-1.8b", (1, 2), {"n_heads": 3, "n_kv_heads": 1, "d_model": 48})
+# a family the tensor-parallel forward does not run (the rules split the SSD's
+# in_proj / out_proj and the tied embedding), so the step gathers
+GATHER_CASE = ("mamba2-370m", (1, 2), {})
 POD_STEP = ("internlm2-1.8b", {"d_model": 64, "n_heads": 4, "n_kv_heads": 4})
 POD_BLOCK = 64
 MESHES = {2: ((1, 2),), 4: ((2, 2), (1, 4))}
@@ -504,8 +507,8 @@ def test_plan_reads_the_rules():
         return sorted(p.rsplit("['", 1)[-1].rstrip("']") for p in paths)
 
     p = plan("internlm2-1.8b", (1, 2))
-    assert (p.heads, p.kv, p.kv_index, p.mlp, p.embed, p.head) == (
-        True, "heads", None, True, "vocab", "vocab")
+    assert (p.attn, p.kv, p.kv_index, p.mlp, p.embed, p.head) == (
+        "heads", "heads", None, True, "vocab", "vocab")
     assert p.partial == frozenset() and (p.local.n_heads, p.local.n_kv_heads) == (2, 1)
     p = plan("internlm2-1.8b", (1, 4))
     assert (p.kv, p.kv_index, names(p.partial)) == ("whole", (0,), ["wk", "wv"])
@@ -520,8 +523,10 @@ def test_plan_reads_the_rules():
     assert p.kv_index == (0, 0, 0, 0, 1, 1) and p.local.n_kv_heads == 6
     p = plan("internlm2-1.8b", (1, 4), vocab=258)
     assert (p.embed, p.head) == ("d", "d")
-    assert "contraction" in tp_model.unsupported(smoke_config("internlm2-1.8b"),
-                                                 _abstract((16, 16)))
+    # 4 heads on 16 ranks, d_model 64: attention splits on its contraction
+    assert tp_model.unsupported(smoke_config("internlm2-1.8b"), _abstract((16, 16))) is None
+    p = plan("internlm2-1.8b", (1, 16))
+    assert (p.attn, p.kv, p.local, p.partial) == ("contraction", "whole", p.cfg, frozenset())
     with pytest.raises(ValueError, match="dense family"):
         plan("mamba2-370m", (1, 2))
     assert plan("internlm2-1.8b", (2, 1)).split == frozenset()
@@ -595,21 +600,20 @@ def test_tp_step_update_follows_its_gradient(ranks, arch, shape, over):
 
 
 def test_step_gathers_where_the_forward_does_not_split(ranks):
-    """Rules that split attention's contraction are not ones the
-    tensor-parallel forward runs: the step gathers every leaf at use and
-    each rank of the "model" group computes the whole product, its storage
-    still placed by the rules."""
+    """A family the tensor-parallel forward does not run (the SSM): the step
+    gathers every leaf at use and each rank of the "model" group computes
+    the whole product, its storage still placed by the rules."""
     from repro_torch.models import param_shapes
 
     arch, shape, over = GATHER_CASE
     tag = _tag(arch, shape, over)
     cfg, params_np, batch_np = step_inputs(arch, over)
-    assert "contraction" in tp_model.unsupported(cfg, _abstract(shape))
+    assert "dense family" in tp_model.unsupported(cfg, _abstract(shape))
     want, losses, norms = _one_process_steps(cfg, params_np, batch_np)
     g = _grads_np(cfg, params_np, batch_np, slice(None))
     whole = [tuple(x.shape) for x in leaves(param_shapes(cfg))]
     specs = _specs(cfg, shape)
-    assert sum("model" in tuple(sp) for sp in specs) >= 5  # wq, wo, the MLP, embed, head
+    assert sum("model" in tuple(sp) for sp in specs) >= 3  # embed, in_proj, out_proj
     for r in _rank_results(ranks, shape):
         assert _rel(r[f"{tag}/losses"], losses) < TOL
         assert _rel(r[f"{tag}/grad_norms"], norms) < TOL
