@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE, serving, training, distribution, tensor-parallel and expert-parallel paths on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE, serving, training, distribution, tensor-parallel, expert-parallel and SSD / sequence-parallel paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -183,14 +183,44 @@ non-zero:
    heads, d_model 1,536: ``wq`` split on its input d, ``wo`` on its output
    d, ``wk`` / ``wv`` whole, 3 of the 48 experts a rank; each rank builds
    its blocks in turn and checks it runs on card 0): every rank's plan; the
-   placed greedy ``generate`` at 32 layers on 3j(b)'s 4 x 256 prompts + 16
-   tokens and weights (split-K cache), its prefill logits and the
-   log-probabilities of 3j(b)'s tokens where it was fed them within
-   ``CP["tol"]`` of 3j(b)'s ``serve.generate``, greedy tokens equal up to a
-   near tie; 3 placed steps at 8 layers, losses within 5e-3 of 3j(a)'s
-   ``train()``; each rank's
-   peak, step wall, a step's and a decode's collectives equal to
+   placed greedy ``generate`` at 8 of the 32 layers and float32 compute on
+   4 x 256 prompts + 16 tokens (split-K cache), its prefill logits and the
+   log-probabilities of the one-process tokens where it was fed them within
+   ``CP["tol"]`` of a float32 ``serve.generate`` at the same depth and
+   weights, greedy tokens equal up to a near tie; 3 placed steps at 8
+   layers in bf16, losses within 5e-3 of ``train()``'s at the same depth;
+   each rank's peak, step wall, a step's and a decode's collectives equal to
    ``cp_collectives``; the dry run's granite baseline cells on 16 x 16;
+3l. the SSD split over "model" and long_500k's sequence-split cache:
+   mamba2-370m (48 layers, d_model 1,024, 32 SSM heads) and zamba2-1.2b
+   (38 SSM layers, 64 SSM heads, the shared attention and MLP block of 32
+   heads and d_ff 8,192) at full width: their plans on 16 x 16 (the SSM
+   heads split, ``in_proj`` on d_model, ``out_proj`` on d_inner, the conv
+   tail's channel blocks, the partial leaves); each trained 3 steps on 4 x
+   256 tokens by ``train()`` and by the placed step on a one-rank NCCL group
+   and a (1, 1) mesh (every SSD layer through ``tp_model.ssd_block``),
+   losses and every param leaf's sha256 equal, and its placed greedy
+   ``generate`` of 4 x 256 prompts + 16 tokens equal to ``serve.generate``
+   (and how far its bf16 logits lie from float32 compute); then both, at
+   16 and 14 layers, by two gloo ranks sharing the card on (1, 2) at
+   float32 compute, losses within 5e-3 of a float32 ``train()``'s at the
+   same depth, prefill logits and the one-process tokens'
+   log-probabilities within ``SSD["tol"]`` of a float32
+   ``serve.generate``'s, tokens equal up to near ties, a step's and a
+   decode step's collectives equal to ``ssd_collectives``; long_500k at
+   its published size (one request, 524,288 positions, a bf16 cache,
+   positions [0, 262,140) drawn chunk by chunk from seeded generators):
+   the one-process ``decode_step`` for 8 greedy steps in bf16, then fed
+   those tokens at float32 compute on the same bf16 cache, then zamba2 by
+   four gloo ranks on (2, 2) (its 25.77 GB KV cache's sequence over
+   "data", 6.44 GB a rank; the writes cross the data ranks' blocks) and
+   mamba2 by two on (1, 2), at float32 compute and fed the same tokens,
+   logits and written rows within ``SSD["tol"]`` of the float32
+   one-process run's, greedy tokens equal up to near ties, collectives
+   equal to the closed form; mamba2's long_500k
+   SSM-state stream as one link under 3f's four points (one ``bt_axes``
+   launch, equal to the plain version); the dry run's eight mamba2 /
+   zamba2 cells on 16 x 16;
 4. scale and times: ``psu_stream`` on 4,194,304 paired packets and on
    Table I's conv input stream (7,350 packets of 64, 16 lanes),
    ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
@@ -224,6 +254,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -235,6 +266,7 @@ import torch  # noqa: E402
 from benchmarks.datagen import conv_streams, im2col, synth_images, uniform_pairs  # noqa: E402
 from repro_torch import _obs_hooks, dse, kernels, launch, noc, obs, optim, serve, train  # noqa: E402
 from repro_torch._tree import leaves as tree_leaves  # noqa: E402
+from repro_torch._tree import leaves_with_path as tree_leaves_with_path  # noqa: E402
 from repro_torch._tree import tree_map  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.codec import compare_streams, demo_workloads, format_table  # noqa: E402
@@ -257,6 +289,7 @@ from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     decode_step,
     forward,
+    init_cache,
     init_params,
     param_shapes,
     prefill,
@@ -264,7 +297,7 @@ from repro_torch.models import (  # noqa: E402
 )
 from repro_torch.kernels import quantize_egress  # noqa: E402
 from repro_torch.models import lenet  # noqa: E402
-from repro_torch.models.layers import torch_dtype  # noqa: E402
+from repro_torch.models.layers import decode_attend, torch_dtype  # noqa: E402
 from repro_torch.optim.compress import int8_wire  # noqa: E402
 from repro_torch.train.step import value_and_grad  # noqa: E402
 from repro_torch.kernels.axes import max_partitions  # noqa: E402
@@ -3331,8 +3364,8 @@ def phase_tp(dev: torch.device, full: bool = True, handoff: dict | None = None,
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
-    rows["tp/dryrun"] = _tp_dryrun(dist_path or {})
-    rows["tp/two_ranks"] = _tp_two_ranks(dev, full, handoff)
+    rows["tp/two_ranks"] = _tp_two_ranks(dev, full, handoff, meanwhile=lambda: rows.update(
+        {"tp/dryrun": _tp_dryrun(dist_path or {})}))
     seconds = time.perf_counter() - t_phase
     log(f"tp-path launches: {lc.total}; phase 3i {seconds:.1f} s ({backend}, world 1; gloo, "
         f"world {TP['ranks']})")
@@ -3588,11 +3621,13 @@ def _ops_list(ops: list) -> list:
     return sorted([o["kind"], o["bytes"], o["group"]] for o in ops)
 
 
-def _spawn_ranks(tag: str, n: int, call: str, args: list) -> tuple[list, float]:
+def _spawn_ranks(tag: str, n: int, call: str, args: list, meanwhile=None) -> tuple[list, float]:
     """``n`` processes of a gloo group, each running ``chip_smoke.<call>(rank,
     n, port, out, *args)`` (``args`` strings); each writes a JSON result.
-    A rank that exits non-zero or outlives TP["rank_timeout"] fails the
-    phase.  Returns the results in rank order and the wall seconds."""
+    ``meanwhile()``, host work that needs no card (a dry run on meta
+    tensors), runs here while they do.  A rank that exits non-zero or
+    outlives TP["rank_timeout"] fails the phase.  Returns the results in
+    rank order and the wall seconds."""
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     port = _free_port()
@@ -3614,6 +3649,8 @@ def _spawn_ranks(tag: str, n: int, call: str, args: list) -> tuple[list, float]:
                      str(outs[r]), *map(str, args)],
                     stdout=lf, stderr=subprocess.STDOUT, cwd=ROOT))
         deadline = time.monotonic() + TP["rank_timeout"]
+        if meanwhile is not None:
+            meanwhile()
         codes = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
     except subprocess.TimeoutExpired:
         pass
@@ -3632,7 +3669,7 @@ def _spawn_ranks(tag: str, n: int, call: str, args: list) -> tuple[list, float]:
 
 
 def _tp_two_ranks(dev, full: bool, handoff: dict, arch: str = SERVE_ARCH, layers: int = 0,
-                  tag: str = "tp (d)") -> dict:
+                  tag: str = "tp (d)", meanwhile=None) -> dict:
     """3i (d), 3j (e): two processes of a gloo group on ``dev``'s type (the
     one card; the CPU in a rehearsal) train ``arch`` on a (1, 2) mesh.
     gloo carries CUDA tensors through ``all_reduce`` and ``all_gather``,
@@ -3640,9 +3677,11 @@ def _tp_two_ranks(dev, full: bool, handoff: dict, arch: str = SERVE_ARCH, layers
     gather, the loss's MAX and SUM, the norm; the one-rank "data" mean is
     skipped).  NCCL refuses two ranks on one device.  Each rank reports its
     device, which must be ``dev``'s, and on the card its peak; losses
-    against the one-process run's (``handoff``)."""
+    against the one-process run's (``handoff``); ``meanwhile`` as
+    :func:`_spawn_ranks`'."""
     n = TP["ranks"]
-    ranks, seconds = _spawn_ranks(tag, n, "tp_rank", [int(full), dev.type, arch, layers])
+    ranks, seconds = _spawn_ranks(tag, n, "tp_rank", [int(full), dev.type, arch, layers],
+                                  meanwhile)
     want_dev = "cuda:0" if dev.type == "cuda" else dev.type
     if any(r["device"] != want_dev for r in ranks) or (dev.type == "cuda" and any(
             not r["peak_bytes"] for r in ranks)):
@@ -3702,7 +3741,7 @@ def _ep_cfg(full: bool, layers: int = 0):
 
 
 def phase_ep(dev: torch.device, full: bool = True, serve_path: dict | None = None,
-             train_path: dict | None = None, handoff: dict | None = None) -> dict:
+             train_path: dict | None = None) -> dict:
     """Phase 3j: (a) EP["arch"] at EP["train_layers"] layers trained by the one-process
     ``train()``, then by the placed step through the expert-parallel plan
     on a one-rank NCCL group and a (1, 1) mesh, every loss and param leaf
@@ -3711,9 +3750,8 @@ def phase_ep(dev: torch.device, full: bool = True, serve_path: dict | None = Non
     buffers as one link under the four points, ``bt_axes`` against its
     plain version, the reductions beside phases 3f's and 3g's; (d) the dry
     run's MoE cells; (e) (a)'s model split over "model" by two gloo ranks
-    sharing the card, losses within 5e-3 of (a)'s.  (a)'s ``train()`` and
-    (b)'s one-process serving outputs go to ``handoff["train"]`` and
-    ``handoff["serve"]`` for phase 3k.  Returns rows and launches."""
+    sharing the card, losses within 5e-3 of (a)'s.  Returns rows and
+    launches."""
     import torch.distributed as dist
 
     t_phase = time.perf_counter()
@@ -3721,23 +3759,21 @@ def phase_ep(dev: torch.device, full: bool = True, serve_path: dict | None = Non
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     one = _ep_train_one_process(dev, lc, full)
-    if handoff is not None:
-        handoff["train"] = {k: one[k] for k in ("arch", "layers", "losses")}
     backend = "nccl" if dev.type == "cuda" else "gloo"
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
                             world_size=1)
     try:
         mesh = launch.make_smoke_mesh(device=dev.type)
         rows = {"ep/train": _ep_step(dev, lc, mesh, full, one),
-                "ep/generate": _ep_generate(dev, lc, mesh, full,
-                                            handoff if handoff is not None else {})}
+                "ep/generate": _ep_generate(dev, lc, mesh, full)}
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
     rows["ep/dispatch"] = _ep_dispatch(dev, lc, full, serve_path or {}, train_path or {})
-    rows["ep/dryrun"] = _dryrun_cells("ep (d)", EP["modelled"], EP["unmodelled"])
-    rows["ep/two_ranks"] = _tp_two_ranks(dev, full, one, EP["arch"], EP["train_layers"],
-                                         tag="ep (e)")
+    rows["ep/two_ranks"] = _tp_two_ranks(
+        dev, full, one, EP["arch"], EP["train_layers"], tag="ep (e)",
+        meanwhile=lambda: rows.update({"ep/dryrun": _dryrun_cells("ep (d)", EP["modelled"],
+                                                                  EP["unmodelled"])}))
     experts = rows["ep/two_ranks"]["ranks"][0]["experts"]
     want = _ep_cfg(full).moe.padded_experts // TP["ranks"]
     if any(r["experts"] != want for r in rows["ep/two_ranks"]["ranks"]):
@@ -3749,46 +3785,54 @@ def phase_ep(dev: torch.device, full: bool = True, serve_path: dict | None = Non
 
 
 def _ep_train_one_process(dev, lc, full: bool) -> dict:
-    """(a), first half (and phase 3k (c)'s reference): ``train()`` of
-    EP["arch"] at EP["train_layers"] layers; its losses and each param
-    leaf's sha256, its step's wall, device time and peak.  Its state is
-    freed."""
+    """(a), first half: ``train()`` of EP["arch"] at EP["train_layers"]
+    layers."""
+    return train_one_process(dev, lc, _ep_cfg(full, EP["train_layers"]), full, "ep (a)")
+
+
+def train_one_process(dev, lc, cfg, full: bool, what: str, timed: bool = True,
+                      digests: bool = True) -> dict:
+    """``train()`` of ``cfg`` for TRAIN_FULL["steps"] steps: its losses, with
+    ``digests`` each param leaf's sha256, with ``timed`` its step's wall and
+    device time; its peak.  Its state is freed."""
     tf = TRAIN_FULL
-    cfg = _ep_cfg(full, EP["train_layers"])
     seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb, seed=tf["seed"])
     ocfg = optim.AdamWConfig(warmup_steps=1, total_steps=10)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    res = lc.run("ep train()", lambda: train.train(
-        cfg, dcfg, ocfg, train.TrainLoopConfig(steps=tf["steps"], seed=tf["seed"]), device=dev),
-        {})
+    res = lc.run(f"{what} train()", lambda: train.train(
+        cfg, dcfg, ocfg, train.TrainLoopConfig(steps=tf["steps"], seed=tf["seed"]),
+        device=dev), {})
     losses = [m["loss"] for m in res["log"]]
     if not all(np.isfinite(losses)):
-        fail(f"ep (a): train() losses {losses}")
+        fail(f"{what}: train() losses {losses}")
     params, opt_state = res["params"], res["opt_state"]
     out = {"arch": cfg.name, "layers": cfg.n_layers, "losses": losses,
            "step_wall_ms": [1e3 * m["sec"] for m in res["log"]],
-           "sha256": [_leaf_sha256(t) for t in tree_leaves(params)],
+           "sha256": [_leaf_sha256(t) for t in tree_leaves(params)] if digests else None,
            "n_params": int(sum(t.numel() for t in tree_leaves(params)))}
     del res
-    step_fn = train.make_train_step(cfg, ocfg, donate=True)
-    batch0 = {k: torch.from_numpy(v).to(dev)
-              for k, v in SyntheticLMDataset(dcfg).global_batch(0).items()}
+    out["step_ms"], out["step_device_ms"] = None, None
+    if timed:
+        step_fn = train.make_train_step(cfg, ocfg, donate=True)
+        batch0 = {k: torch.from_numpy(v).to(dev)
+                  for k, v in SyntheticLMDataset(dcfg).global_batch(0).items()}
 
-    def one_step():
-        return step_fn(params, opt_state, batch0)
+        def one_step():
+            return step_fn(params, opt_state, batch0)
 
-    out["step_ms"] = time_ms(one_step, reps=2, warmup=1)
-    out["step_device_ms"], out["step_device_split"] = _device_total_ms(one_step, reps=2)
+        out["step_ms"] = time_ms(one_step, reps=2, warmup=1)
+        out["step_device_ms"], out["step_device_split"] = _device_total_ms(one_step, reps=2)
+        del step_fn, one_step
     torch.cuda.synchronize()
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-    del params, opt_state, step_fn, one_step
+    del params, opt_state
     torch.cuda.empty_cache()
-    log(f"ep (a) {cfg.name} at {cfg.n_layers} layers ({out['n_params']} params), train() on "
+    log(f"{what} {cfg.name} at {cfg.n_layers} layers ({out['n_params']} params), train() on "
         f"{gb} x {seq} tokens: losses " + " ".join(f"{x:.6f}" for x in losses)
-        + f"; step {out['step_ms']:.1f} ms wall (CUDA events), {out['step_device_ms']} ms "
-        f"device, peak {out['peak_bytes']} bytes")
+        + (f"; step {out['step_ms']:.1f} ms wall (CUDA events), {out['step_device_ms']} ms "
+           f"device" if timed else "") + f", peak {out['peak_bytes']} bytes")
     return out
 
 
@@ -3847,34 +3891,29 @@ def _ep_step(dev, lc, mesh, full: bool, one: dict) -> dict:
     return row
 
 
-def _ep_generate(dev, lc, mesh, full: bool, handoff: dict) -> dict:
-    """(b) EP["arch"] at all its layers: the placed greedy ``generate`` on
-    the (1, 1) mesh against ``serve.generate`` on the same weights and
-    prompts (phase 3f's shapes); prefill and decode times of both.
-    ``handoff["serve"]`` gets the one-process run for phase 3k: prompts,
-    tokens, log-probabilities, the prefill's last-position logits and the
-    top-2 logit margin at each generated position (the one-process tokens
-    fed back in)."""
-    from repro_torch.launch import serve as placed
-    from repro_torch.launch import tp_model
-
+def serve_reference(dev, lc, cfg, what: str, full: bool = True, timed: bool = True,
+                    floor: bool = False) -> tuple:
+    """``serve.generate`` of ``cfg`` on SERVE_FULL's requests, prompts and
+    new tokens (weights and prompts from its seed), greedy: (the run a
+    placed one is held to: prompts, tokens, log-probabilities, the
+    prefill's last-position logits and the top-2 logit margin at each
+    generated position with the one-process tokens fed back in, and with
+    ``floor`` how far the same prefill and teacher-forced log-probabilities
+    at float32 compute lie from them, the bf16 noise floor; the weights;
+    the one-process times of a prefill and a decode step when ``timed``)."""
     sf = SERVE_FULL
-    cfg = _ep_cfg(full)
-    nreq, plen, new = sf["requests"], sf["prompt"] if full else 64, sf["new_tokens"]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
+    nreq, new = sf["requests"], sf["new_tokens"]
+    plen = sf["prompt"] if full else 64
     gen = torch.Generator(device=dev).manual_seed(sf["seed"])
     params = init_params(cfg, gen, dev)
     prompts = torch.randint(0, cfg.vocab, (nreq, plen), generator=gen, device=dev)
-    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "requests": nreq, "prompt": plen,
-                 "new_tokens": new}
-    want = lc.run("ep generate", lambda: serve.generate(params, cfg, prompts, new), {})
+    want = lc.run(f"{what} generate", lambda: serve.generate(params, cfg, prompts, new), {})
     prefill_fn = serve.make_prefill_fn(cfg, plen + new)
     decode_fn = serve.make_decode_fn(cfg)
     logits, cache = prefill_fn(params, prompts)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-    out["one_process"] = _serve_times(lambda: prefill_fn(params, prompts),
-                                      lambda: decode_fn(params, cache, tok))
+    times = _serve_times(lambda: prefill_fn(params, prompts),
+                         lambda: decode_fn(params, cache, tok)) if timed else None
     margins, lg, tf_cache = [], logits, cache
     with torch.no_grad():
         for t in range(new):
@@ -3882,11 +3921,52 @@ def _ep_generate(dev, lc, mesh, full: bool, handoff: dict) -> dict:
             margins.append(top2[:, 0] - top2[:, 1])
             if t + 1 < new:
                 lg, tf_cache = decode_fn(params, tf_cache, want.tokens[:, t: t + 1].to(torch.int32))
-    handoff["serve"] = {"prompts": prompts.cpu(), "tokens": want.tokens.cpu(),
-                        "logprobs": want.logprobs.cpu(),
-                        "prefill_logits": logits[:, -1].to(torch.float32).cpu(),
-                        "margins": torch.stack(margins, dim=1).cpu()}
+    ref = {"prompts": prompts.cpu(), "tokens": want.tokens.cpu(), "logprobs": want.logprobs.cpu(),
+           "prefill_logits": logits[:, -1].to(torch.float32).cpu(),
+           "margins": torch.stack(margins, dim=1).cpu()}
     del logits, cache, lg, tf_cache
+    if floor:
+        ref["floor"] = torch.tensor(_serve_floor(params, dataclasses.replace(cfg, dtype="float32"),
+                                                 prompts, ref, plen + new))
+    return ref, params, times
+
+
+@torch.no_grad()
+def _serve_floor(params, cfg32, prompts, ref: dict, max_len: int) -> float:
+    """The largest difference between a bf16 run's prefill logits and
+    log-probabilities of its own tokens (``ref``) and the same at float32
+    compute, its tokens fed back in: the bf16 noise floor of that run."""
+    logits, cache = serve.make_prefill_fn(cfg32, max_len)(params, prompts)
+    decode_fn = serve.make_decode_fn(cfg32)
+    toks = ref["tokens"].to(prompts.device)
+    err = float((logits[:, -1].to(torch.float32).cpu() - ref["prefill_logits"]).abs().max())
+    for t in range(toks.shape[1]):
+        lp = torch.log_softmax(logits[:, -1].to(torch.float32), dim=-1)
+        got = torch.take_along_dim(lp, toks[:, t: t + 1].long(), dim=-1)[:, 0].cpu()
+        err = max(err, float((got - ref["logprobs"][:, t]).abs().max()))
+        if t + 1 < toks.shape[1]:
+            logits, cache = decode_fn(params, cache, toks[:, t: t + 1].to(torch.int32))
+    return err
+
+
+def _ep_generate(dev, lc, mesh, full: bool) -> dict:
+    """(b) EP["arch"] at all its layers: the placed greedy ``generate`` on
+    the (1, 1) mesh against ``serve.generate`` on the same weights and
+    prompts (phase 3f's shapes); prefill and decode times of both."""
+    from repro_torch.launch import serve as placed
+    from repro_torch.launch import tp_model
+
+    cfg = _ep_cfg(full)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref, params, times = serve_reference(dev, lc, cfg, "ep", full)
+    prompts = ref["prompts"].to(dev)
+    want = SimpleNamespace(tokens=ref["tokens"].to(dev), logprobs=ref["logprobs"].to(dev))
+    nreq, plen = prompts.shape
+    new = want.tokens.shape[1]
+    tok = want.tokens[:, :1].to(torch.int32)
+    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "requests": nreq, "prompt": plen,
+                 "new_tokens": new, "one_process": times}
 
     local = placed.shard_params(cfg, mesh, params)
     plan = tp_model.make_plan(cfg, mesh, "serve")
@@ -4017,21 +4097,23 @@ def _dryrun_cells(tag: str, modelled, unmodelled) -> dict:
 # 16 x 16 mesh, and 16 is the smallest "model" axis that divides 1,536 and
 # not 24, so 16 processes of a gloo group share the card on a (1, 16) mesh
 # (8 with the smoke config of a CPU rehearsal: its 4 heads on 8 ranks).
-# Serving at all 32 layers: a rank holds 1/16 of wq, wo, the router and the
-# embedding and head (split on d: 16 does not divide 49,155), wk / wv whole
-# and 3 of the 48 experts, ~296 M elements (1.18 GB f32); training at
-# EP["train_layers"] = 8 layers, against phase 3j (a)'s ``train()`` (~81 M
-# elements a rank, ~1.3 GB of params, gradients, m and v, where the whole
-# 8-layer state one rank builds at a time is ~13.3 GB; at 16 layers the 16
-# ranks' state and the whole build would near the card's 80 GB).
-# ``tol`` holds the placed bf16 forward against the one-process one (logits
-# and log-probabilities, absolute): bf16 keeps 8 significant bits, and the
-# 16 ranks sum the head's partial logits and the MoE combine in bf16 where
-# the one-process products round once, so a routing near-tie can flip one of
-# a token's 8 experts; a top-2 margin under 2 tol is a near tie (two logits
-# each within tol can swap there).
-CP = {"arch": "granite-moe-3b-a800m", "ranks": 16, "rehearsal_ranks": 8,
-      "tol": 0.25, "loss_tol": 5e-3,  # losses: as 3i(d) and 3j(e)
+# Served and trained at CP["layers"] = 8 of the 32 layers (each gloo
+# collective among 16 processes takes ~70-90 ms, so 16 tokens at 32 layers
+# took 228 s), against a one-process ``serve.generate`` and ``train()`` at
+# the same depth: a rank holds 1/16 of wq, wo, the router and the embedding
+# and head (split on d: 16 does not divide 49,155), wk / wv whole and 3 of
+# the 48 experts.  Training runs the config's bf16, its losses held to
+# ``loss_tol``.  Serving computes in float32 (CP["serve_dtype"]) against a
+# float32 ``serve.generate``: in bf16 the 16 ranks sum the head's partial
+# logits and the MoE combine where the one-process products round once, so
+# a routing near-tie can flip one of a token's 8 experts, and bf16 rounding
+# alone put the one-process run's logits at 4 layers 0.876 from the same
+# run at float32 compute, wider than any gate that would catch a wrong
+# share.  ``tol`` holds the placed forward against the
+# one-process one (logits and log-probabilities, absolute); a top-2 margin
+# under 2 tol is a near tie (two logits each within tol can swap there).
+CP = {"arch": "granite-moe-3b-a800m", "ranks": 16, "rehearsal_ranks": 8, "layers": 8,
+      "serve_dtype": "float32", "tol": 0.25, "loss_tol": 5e-3,  # losses: as 3i(d) and 3j(e)
       "modelled": tuple(("granite-moe-3b-a800m", s, False)
                         for s in ("train_4k", "prefill_32k", "decode_32k"))}
 
@@ -4085,16 +4167,91 @@ def cp_collectives(cfg, plan, rows: int, seq: int, mode: str | None = None) -> l
     return sorted(ops)
 
 
-def phase_cp(dev: torch.device, full: bool = True, handoff: dict | None = None) -> dict:
-    """Phase 3k: CP["arch"] served at 32 layers and trained at
-    EP["train_layers"] by CP["ranks"] processes of a gloo group sharing the
-    card on a (1, CP["ranks"]) mesh, through attention's contraction split:
-    (a) the plan on every rank; (b) the placed prefill's last-position
-    logits, the log-probabilities of the one-process tokens and the greedy
-    tokens against phase 3j(b)'s ``serve.generate`` (``handoff["serve"]``);
-    (c) 3 placed steps against 3j(a)'s one-process ``train()`` at the same
-    depth (``handoff["train"]``); (d) each rank's peak, step wall, and a
-    step's and a decode's collectives equal to :func:`cp_collectives`;
+def ssd_collectives(cfg, plan, rows: int, seq: int, mode: str | None = None,
+                    sp: int = 1) -> list:
+    """The collectives one rank issues running the ssm or hybrid family's
+    SSD split (``launch/tp_model.py``) on a mesh with one data rank, as
+    sorted (kind, bytes, group) rows: a placed train step of ``rows`` x
+    ``seq`` tokens (``mode`` None), or a decode step of ``rows`` requests
+    with the KV cache placed by ``mode`` ("heads" or "whole"; "none" with no
+    KV cache) and its sequence split over ``sp`` data ranks.  Per SSD layer,
+    under "heads": the projection's and the output's float32 sums, the
+    gated norm's squares (summed forward and backward; backward: the
+    projection's and the input's sums); under "whole" with the projections
+    split: the projection's and the output's float32 sums (backward: the
+    core output's and the input's sums); in decode, the activated conv row's
+    gather when the cache splits the conv tail.  Per use of a hybrid's
+    shared block: attention split on heads and the MLP on ``d_ff``, each one
+    sum forward and one backward (in decode, SP's MAX and SUM over the data
+    ranks).  Then the embedding's sum or gather (of the params), the
+    head's (vocab: the loss's MAX and SUM; d: the partial logits; backward:
+    its input's sum, per loss chunk), the partial leaves' gradient sums and
+    the norm's split squares."""
+    from repro_torch.models.ssd import ssm_dims
+
+    m = plan.model.size
+    c = torch_dtype(cfg.dtype).itemsize
+    p = torch_dtype(cfg.param_dtype).itemsize
+    d = cfg.d_model
+    d_inner, n_heads, _, g, n = ssm_dims(cfg)
+    width = 2 * d_inner + 2 * g * n + n_heads
+    train = mode is None
+    t = rows * (seq if train else 1)
+    act = ("all-reduce", t * d * c, m)
+    ssd = []
+    if plan.ssd_split:
+        ssd += [("all-reduce", t * width * 4, m), ("all-reduce", t * d * 4, m)]
+        if plan.ssd == "heads":
+            ssd += [("all-reduce", t * 4, m)] * (2 if train else 1)
+        if train:
+            ssd += [act, ("all-reduce", t * (width if plan.ssd == "heads" else d_inner) * c, m)]
+    if not train and plan.conv:
+        ssd.append(("all-gather", t * (d_inner + 2 * g * n) * c, m))
+    ops = ssd * cfg.n_layers
+    if cfg.family == "hybrid":
+        if plan.attn not in ("heads", "whole") or plan.kv_index is not None or mode == "seq":
+            raise ValueError(f"{cfg.name}: the closed form covers attention split on its heads "
+                             f"with its kv heads, not {plan.attn} / {plan.kv} / {mode}")
+        shared = [act] * ((plan.attn == "heads") + plan.mlp) * (2 if train else 1)
+        if sp > 1:
+            hl = plan.local.n_heads
+            shared += [("all-reduce", rows * hl * 4, sp),
+                       ("all-reduce", rows * hl * (cfg.resolved_head_dim + 1) * 4, sp)]
+        ops += shared * (cfg.n_layers // cfg.shared_attn_every)
+    ops += {"vocab": [("all-reduce", t * d * p, m)], "d": [("all-gather", t * d * p, m)],
+            "whole": []}[plan.embed]
+    chunk = cfg.logits_chunk
+    nc = seq // chunk if train and chunk and seq % chunk == 0 and seq > chunk else 1
+    ct = t // nc
+    if plan.head == "vocab" and train:
+        ops += [("all-reduce", ct * 4, m), ("all-reduce", 2 * ct * 4, m),
+                ("all-reduce", ct * d * c, m)] * nc
+    elif plan.head == "d":
+        ops += [("all-reduce", ct * cfg.vocab * c, m)] * nc
+        if train:
+            ops += [("all-reduce", ct * d * c, m)] * nc
+    if train:
+        ops += [("all-reduce", x.numel() * p, m)
+                for path, x in tree_leaves_with_path(param_shapes(cfg)) if path in plan.partial]
+        ops.append(("all-reduce", 4, m))
+    return sorted(o for o in ops if o[2] > 1)
+
+
+def _cp_serve_cfg(full: bool):
+    """The config 3k serves: CP["layers"] of EP["arch"] at CP["serve_dtype"]."""
+    return dataclasses.replace(_ep_cfg(full, CP["layers"]), dtype=CP["serve_dtype"])
+
+
+def phase_cp(dev: torch.device, full: bool = True) -> dict:
+    """Phase 3k: CP["arch"] served and trained at CP["layers"] layers by
+    CP["ranks"] processes of a gloo group sharing the card on a
+    (1, CP["ranks"]) mesh, through attention's contraction split: (a) the
+    plan on every rank; (b) at CP["serve_dtype"] compute, the placed
+    prefill's last-position logits, the log-probabilities of the one-process
+    tokens and the greedy tokens against ``serve.generate`` at the same
+    depth and compute (run here first); (c) 3 placed steps against a
+    one-process ``train()`` at the same depth (run here first); (d) each rank's peak, step wall, and
+    a step's and a decode's collectives equal to :func:`cp_collectives`;
     (e) the dry run's granite baseline cells on 16 x 16.  Returns rows and
     launches."""
     from repro_torch.launch import tp_model
@@ -4102,9 +4259,10 @@ def phase_cp(dev: torch.device, full: bool = True, handoff: dict | None = None) 
 
     t_phase = time.perf_counter()
     lc = _PathLaunches()
-    ref, one = (handoff or {}).get("serve"), (handoff or {}).get("train")
-    if ref is None or one is None:
-        fail("cp: phase 3j handed over no one-process serving run or train() losses")
+    cfg, scfg = _ep_cfg(full, CP["layers"]), _cp_serve_cfg(full)
+    one = train_one_process(dev, lc, cfg, full, "cp", timed=False, digests=False)
+    ref, params, _ = serve_reference(dev, lc, scfg, f"cp {scfg.dtype}", full, timed=False)
+    del params
     n = CP["ranks"] if full else CP["rehearsal_ranks"]
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
@@ -4112,20 +4270,22 @@ def phase_cp(dev: torch.device, full: bool = True, handoff: dict | None = None) 
     np.savez(ref_path, **{k: v.numpy() for k, v in ref.items()})
     torch.cuda.empty_cache()
     log(f"cp: before the ranks start, {_card_memory(dev)}")
-    ranks, seconds = _spawn_ranks("cp (b)", n, "cp_rank", [int(full), dev.type, ref_path])
+    dry = {}
+    ranks, seconds = _spawn_ranks("cp (b)", n, "cp_rank", [int(full), dev.type, ref_path],
+                                  lambda: dry.update(rows=_dryrun_cells("cp (e)", CP["modelled"],
+                                                                        ())))
     want_dev = "cuda:0" if dev.type == "cuda" else dev.type
     if any(r["device"] != want_dev for r in ranks) or (dev.type == "cuda" and any(
             not (r["serve"]["peak_bytes"] and r["train"]["peak_bytes"]) for r in ranks)):
         fail(f"cp: the ranks ran on {[r['device'] for r in ranks]}, not on {want_dev}")
-    cfg, tcfg = _ep_cfg(full), _ep_cfg(full, EP["train_layers"])
     mesh = AbstractMesh((1, n), ("data", "model"))
-    rows = {"cp/plan": _cp_plan(ranks, cfg, tcfg, n),
+    rows = {"cp/plan": _cp_plan(ranks, scfg, cfg, n),
             "cp/serve": _cp_serve(ranks, ref, n),
             "cp/train": _cp_train(ranks, one),
-            "cp/records": _cp_records(ranks, cfg, tcfg, tp_model.make_plan(cfg, mesh, "serve"),
-                                      tp_model.make_plan(tcfg, mesh), ref, full),
+            "cp/records": _cp_records(ranks, scfg, cfg, tp_model.make_plan(scfg, mesh, "serve"),
+                                      tp_model.make_plan(cfg, mesh), ref, full),
             "cp/seconds": seconds}
-    rows["cp/dryrun"] = _dryrun_cells("cp (e)", CP["modelled"], ())
+    rows["cp/dryrun"] = dry["rows"]
     seconds = time.perf_counter() - t_phase
     log(f"cp-path launches: {lc.total}; phase 3k {seconds:.1f} s (gloo, world {n})")
     return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
@@ -4135,9 +4295,10 @@ def cp_rank(rank: int, world: int, port: int, out: str, full: str, device: str,
             ref_path: str) -> None:
     """Phase 3k, one rank of a ``world``-rank gloo group on ``device``
     ("cuda": card 0; "cpu" for a rehearsal) and a (1, world) mesh: its plans,
-    the placed serving of CP["arch"] against the one-process run in
-    ``ref_path`` (its weights rebuilt from the same seed), then its placed
-    training at EP["train_layers"] layers; writes the results to ``out``."""
+    the placed serving of CP["arch"] at CP["layers"] layers and
+    CP["serve_dtype"] compute against the one-process run in ``ref_path``
+    (its weights rebuilt from the same seed), then its placed training at
+    the same depth; writes the results to ``out``."""
     import torch.distributed as dist
 
     from repro_torch.launch import tp_model
@@ -4149,7 +4310,7 @@ def cp_rank(rank: int, world: int, port: int, out: str, full: str, device: str,
                             world_size=world)
     try:
         mesh = launch.make_smoke_mesh(device=dev.type)
-        cfg, tcfg = _ep_cfg(full), _ep_cfg(full, EP["train_layers"])
+        cfg, tcfg = _cp_serve_cfg(full), _ep_cfg(full, CP["layers"])
         plans = {"serve": tp_model.make_plan(cfg, mesh, "serve"),
                  "train": tp_model.make_plan(tcfg, mesh)}
         res = {"rank": rank, "device": str(dev),
@@ -4205,7 +4366,8 @@ def _cp_rank_serve(dev, mesh, cfg, plan, ref_path: str) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     mode = placed.kv_mode(cfg, mesh, nreq, plen + new)
-    out = {"cache": mode, "blocks": {k: list(v.shape[1:]) for k, v in local["layers"]["attn"].items()},
+    out = {"cache": mode, "blocks": {k: list(v.shape[1:]) for k, v in local["layers"].get(
+               "attn", local["layers"].get("ssd", {})).items()},
            "local_params": int(sum(t.numel() for t in tree_leaves(local)))}
 
     def sync():
@@ -4277,26 +4439,27 @@ def _cp_plan(ranks: list, cfg, tcfg, n: int) -> dict:
     return {"attn": "contraction", "experts": e, "blocks": want}
 
 
-def _cp_serve(ranks: list, ref: dict, n: int) -> dict:
+def _cp_serve(ranks: list, ref: dict, n: int, tol: float = CP["tol"],
+              tag: str = "cp (b)") -> dict:
     """(b) The placed serving against the one-process run: the prefill's
     logits within CP["tol"] on every rank; the greedy tokens equal up to
     each request's first divergence, which must sit at a near tie
     (one-process top-2 margin under 2 tol); the log-probabilities of the
     one-process tokens within CP["tol"] where the placed run was fed them
     (positions 0 and 1 on their own, and ``generate``'s up to a request's
-    first divergence); the near ties counted."""
-    tol = CP["tol"]
+    first divergence); the near ties counted.  ``tol``: CP["tol"], or
+    another phase's."""
     want, margins = ref["tokens"].tolist(), ref["margins"]
     sv = [r["serve"] for r in ranks]
     if any(s["tokens"] != sv[0]["tokens"] for s in sv[1:]):
-        fail("cp (b): the ranks' greedy tokens differ")
+        fail(f"{tag}: the ranks' greedy tokens differ")
     ties = int((margins < 2 * tol).sum())
     diverged, fed = [], []
     for b, (got, w) in enumerate(zip(sv[0]["tokens"], want)):
         t = next((i for i, (x, y) in enumerate(zip(got, w)) if x != y), len(w))
         if t < len(w):
             if float(margins[b, t]) >= 2 * tol:
-                fail(f"cp (b): request {b}'s greedy token {t} is {got[t]}, the one-process {w[t]}, "
+                fail(f"{tag}: request {b}'s greedy token {t} is {got[t]}, the one-process {w[t]}, "
                      f"at a top-2 margin of {float(margins[b, t])}")
             diverged.append([b, t])
         fed.append(t)
@@ -4308,7 +4471,7 @@ def _cp_serve(ranks: list, ref: dict, n: int) -> dict:
                 for b in range(len(want)) for t in range(fed[b])]
     errs["logprob_err"] = max([errs["logprob_err"]] + gen_errs)
     if any(e > tol for e in errs.values()):
-        fail(f"cp (b): prefill logits / log-probabilities of the one-process tokens off by "
+        fail(f"{tag}: prefill logits / log-probabilities of the one-process tokens off by "
              f"{errs} (tolerance {tol})")
     out = {"cache": sv[0]["cache"], "tol": tol, **errs, "near_ties": ties,
            "diverged": diverged, "generate_s": [s["generate_s"] for s in sv],
@@ -4317,7 +4480,7 @@ def _cp_serve(ranks: list, ref: dict, n: int) -> dict:
            "peak_bytes": [s["peak_bytes"] for s in sv],
            "build_peak_bytes": [s["build_peak_bytes"] for s in sv],
            "local_params": sv[0]["local_params"]}
-    log(f"cp (b) placed greedy generate of {len(want)} x {ref['prompts'].shape[1]} prompts + "
+    log(f"{tag} placed greedy generate of {len(want)} x {ref['prompts'].shape[1]} prompts + "
         f"{len(want[0])} tokens by {n} ranks, cache {out['cache']}: prefill logits within "
         f"{errs['prefill_err']:.6g}, the one-process tokens' log-probabilities within "
         f"{errs['logprob_err']:.6g} (tolerance {tol}); tokens equal"
@@ -4372,6 +4535,743 @@ def _cp_records(ranks: list, cfg, tcfg, splan, tplan, ref: dict, full: bool) -> 
         f"{out['decode']['count']} ({out['decode']['bytes']} bytes), a train step "
         f"{out['step']['count']} ({out['step']['bytes']} bytes); step 0's "
         f"{ranks[0]['train']['collectives']}")
+    return out
+
+
+# ------------------------------------------------------------------ phase 3l
+
+# The SSD split over "model" (launch/tp_model.py's ssd_block / ssd_decode:
+# in_proj split on d_model, out_proj on d_inner, the SSM core on a rank's
+# heads) and long_500k's sequence-split cache (launch/serve.py: the KV
+# sequence over "data", merged as split-K merges over "model").  Both
+# models at full width: mamba2-370m (48 layers, d_model 1,024, 32 SSM
+# heads, vocabulary 50,280, ~368 M params) and zamba2-1.2b (38 SSM layers,
+# 64 SSM heads, the shared block of 32 heads and d_ff 8,192, vocabulary
+# 32,000, ~1.17 B params, ~19 GB of training state).  long_500k at its
+# published size: one request, 524,288 positions; zamba2's KV cache, k and
+# v of (6, 1, 524,288, 32, 64) bf16, is 25.77 GB whole and 6.44 GB a rank
+# on (2, 2).  Positions [0, fill) are drawn chunk by chunk from seeded
+# generators, so a rank draws only its own block; the decode steps start
+# at fill, and their writes cross from data rank 0's block to rank 1's.
+# The gloo ranks' train and serve runs of (b), (c) compute in float32, at
+# SSD["pair_layers"] layers (the script's time limit: the pair's gloo
+# collectives through host memory took ~130 s at full depth), against a
+# float32 ``train()`` and ``serve.generate`` at the same depth, with fixed
+# gates: losses within ``loss_tol``, logits and log-probabilities within
+# ``tol``.  At bf16 and full depth the pair lay further off (losses 3.8e-2
+# and 8.0e-2, prefill logits 0.80 and 1.68) than these gates allow; bf16
+# rounding alone moves these random-weight stacks far (zamba2's step-0 loss
+# 10.818048 in bf16, 10.827139 in float32; (b) logs how far the one-process
+# bf16 serving lies from float32 compute at full depth), but how much of
+# the pair's bf16 gap is rounding was not measured.  long_500k keeps its
+# published bf16 cache (a float32 one would not fit twice); the one-process
+# decode and the ranks compute in float32 on it, fed the same tokens, and
+# are held to ``tol`` (logits and written rows, absolute).  With keys and
+# values drawn at random, a decode query's softmax over 262,140 positions
+# is near uniform and its output near zero, so the logits would barely
+# move if the SP merge dropped a data rank's block.  So the merge is also
+# held directly, before the decode steps: a seeded unit-normal query over
+# all 524,288 positions of layer 0's cache (data rank 0's block holds the
+# drawn rows, data rank 1's only zero rows, which carry ~38 % of the
+# softmax's weight), each rank's merged output against the one-process
+# attention over the whole cache, the largest difference over the largest
+# output within ``merge_tol`` (float32 on both sides, only the summation
+# order differs; dropping a block moves it by ~0.6 or 1).
+SSD = {"archs": ("mamba2-370m", "zamba2-1.2b"), "ranks": 2, "tol": 0.25, "loss_tol": 5e-3,
+       "merge_tol": 1e-3,
+       "compare_dtype": "float32", "pair_layers": {"mamba2-370m": 16, "zamba2-1.2b": 14},
+       "long": {"len": 524_288, "fill": 262_140, "steps": 8, "chunk": 4096, "seed": 7,
+                "mesh": {"mamba2-370m": (1, 2), "zamba2-1.2b": (2, 2)}},
+       "rehearsal_long": {"len": 64, "fill": 30, "steps": 4, "chunk": 8, "seed": 7,
+                          "mesh": {"mamba2-370m": (1, 2), "zamba2-1.2b": (2, 2)}},
+       "modelled": tuple((a, s, False) for a in ("mamba2-370m", "zamba2-1.2b")
+                         for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k"))}
+
+
+def _ssd_cfg(arch: str, full: bool, **over):
+    return get_config(arch, **over) if full else smoke_config(arch, **over)
+
+
+def _ssd_pair_cfg(arch: str, full: bool):
+    """The config the gloo pair runs and its one-process runs are held to:
+    float32 compute, at SSD["pair_layers"] layers at full width (zamba2's 14
+    keep two groups of six SSM layers, two uses of the shared block and two
+    trailing layers)."""
+    over = {"n_layers": SSD["pair_layers"][arch]} if full else {}
+    return _ssd_cfg(arch, full, dtype=SSD["compare_dtype"], **over)
+
+
+def _ssd_long(full: bool) -> dict:
+    return SSD["long"] if full else SSD["rehearsal_long"]
+
+
+def phase_ssd(dev: torch.device, full: bool = True, serve_path: dict | None = None,
+              train_path: dict | None = None) -> dict:
+    """Phase 3l: (a) both models' plans on 16 x 16; (b), (c) each model at
+    full width trained 3 steps by ``train()`` and by the placed step on a
+    one-rank NCCL group and a (1, 1) mesh (every SSD layer through
+    ``tp_model.ssd_block``), losses and every param leaf's sha256 equal, and
+    its placed greedy ``generate`` equal to ``serve.generate``; then split
+    over "model" by two gloo ranks sharing the card on (1, 2), at float32
+    compute against float32 one-process runs: losses within
+    SSD["loss_tol"], prefill logits and the one-process tokens'
+    log-probabilities within SSD["tol"], greedy tokens equal up to near
+    ties, a step's and a decode step's collectives equal to
+    :func:`ssd_collectives`; (d) long_500k: the one-process ``decode_step``
+    at 524,288 positions in bf16, then fed its tokens at float32 compute,
+    then zamba2 by four gloo ranks on (2, 2) (the KV sequence over "data")
+    and mamba2 by two on (1, 2) at float32 compute, logits, written rows
+    and tokens against the float32 run; (e) mamba2's long_500k SSM-state stream as one
+    link under 3f's four points (one ``bt_axes`` launch); (f) the dry run's
+    eight mamba2 / zamba2 cells on 16 x 16.  Returns rows and launches."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    lc = _PathLaunches()
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    rows: dict = {"ssd/plan": _ssd_plans()}
+
+    def mark(what: str) -> None:
+        log(f"ssd: {what} done at {time.perf_counter() - t_phase:.1f} s")
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    refs = {}
+    try:
+        mesh = launch.make_smoke_mesh(device=dev.type)
+        for arch in SSD["archs"]:
+            cfg = _ssd_cfg(arch, full)
+            # train() runs the (1, 1) step's op sequence (bitwise), so only
+            # the placed step is timed
+            one = train_one_process(dev, lc, cfg, full, "ssd (b)", timed=False)
+            rows[f"ssd/{arch}/train"] = _ssd_step(dev, lc, mesh, cfg, full, one)
+            rows[f"ssd/{arch}/generate"] = _ssd_generate(dev, lc, mesh, cfg, full)
+            mark(f"{arch} on (1, 1)")
+    finally:
+        dist.destroy_process_group()
+    for arch in SSD["archs"]:  # the float32 runs the gloo ranks are held to
+        cfg = _ssd_pair_cfg(arch, full)
+        one = train_one_process(dev, lc, cfg, full, f"ssd (b) {SSD['compare_dtype']}",
+                                timed=False, digests=False)
+        ref, params, _ = serve_reference(dev, lc, cfg, "ssd", full, timed=False)
+        del params
+        refs[arch] = {"train": one, "serve": ref}
+        np.savez(build / f"ssd_serve_{arch}.npz", **{k: v.numpy() for k, v in ref.items()})
+        mark(f"{arch}'s float32 runs")
+    long = {arch: _ssd_long_reference(dev, lc, arch, full) for arch in SSD["archs"]}
+    mark("the long_500k one-process runs")
+    rows["ssd/state_stream"] = _ssd_state_stream(lc, long["mamba2-370m"].pop("session"),
+                                                 serve_path or {}, train_path or {})
+    torch.cuda.empty_cache()
+    log(f"ssd: before the ranks start, {_card_memory(dev)}")
+    def dry_run():
+        rows["ssd/dryrun"] = _dryrun_cells("ssd (f)", SSD["modelled"], ())
+
+    pair, seconds = _spawn_ranks("ssd (b)", SSD["ranks"], "ssd_rank",
+                                 [int(full), dev.type, "pair"], dry_run)
+    rows["ssd/pair_seconds"] = seconds
+    mark("the pair of ranks")
+    for arch in SSD["archs"]:
+        rows[f"ssd/{arch}/two_ranks"] = _ssd_two_ranks(pair, arch, refs[arch], full)
+    dn, mn = _ssd_long(full)["mesh"]["zamba2-1.2b"]
+    quad, seconds = _spawn_ranks("ssd (d)", dn * mn, "ssd_rank", [int(full), dev.type, "long"])
+    rows["ssd/quad_seconds"] = seconds
+    mark("the four ranks")
+    for arch, ranks in (("mamba2-370m", pair), ("zamba2-1.2b", quad)):
+        rows[f"ssd/{arch}/long"] = _ssd_long_check(ranks, arch, long[arch], full)
+    seconds = time.perf_counter() - t_phase
+    log(f"ssd-path launches: {lc.total}; phase 3l {seconds:.1f} s ({backend}, world 1; gloo, "
+        f"worlds {SSD['ranks']} and {dn * mn})")
+    return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
+
+
+def _ssd_plans() -> dict:
+    """(a) Both full configs' plans on the baseline 16 x 16 mesh: the SSM
+    heads split ("heads", 2 and 4 a rank), the conv tail's channel blocks,
+    the partial leaves; zamba2's shared block on its heads and d_ff."""
+    from repro_torch.launch import tp_model
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.ssd import ssm_dims
+
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    out = {}
+    for arch in SSD["archs"]:
+        cfg = get_config(arch)
+        d_inner, heads, hd, g, n = ssm_dims(cfg)
+        for mode in ("train", "serve"):
+            pl = tp_model.make_plan(cfg, mesh, mode)
+            want = (pl.ssd, pl.ssd_heads, pl.conv) == ("heads", (0, heads // 16), True) and (
+                {p.rsplit("['", 1)[-1].rstrip("']") for p in pl.partial}
+                == {"conv_w", "conv_b", "a_log", "dt_bias", "d_skip", "norm_w"})
+            if cfg.family == "hybrid":
+                want = want and (pl.attn, pl.kv, pl.mlp) == ("heads", "heads", True)
+            if not want:
+                fail(f"ssd (a): the {mode} plan of {arch} on 16 x 16 is {pl}")
+        out[arch] = {"heads": heads // 16, "d_inner_block": d_inner // 16,
+                     "conv_block": (d_inner + 2 * g * n) // 16, "partial": sorted(pl.partial),
+                     "attn": pl.attn if cfg.family == "hybrid" else None}
+        log(f"ssd (a) {arch} on 16 x 16: SSD split on heads, {heads // 16} of {heads} heads a "
+            f"rank (out_proj rows {d_inner // 16} = {heads // 16} x {hd}), the conv tail's "
+            f"{out[arch]['conv_block']} of {d_inner + 2 * g * n} channels a rank, "
+            f"{len(pl.partial)} partial leaves"
+            + (f"; the shared block's {cfg.n_heads // 16} heads and "
+               f"{cfg.d_ff // 16} of d_ff {cfg.d_ff} a rank" if cfg.family == "hybrid" else ""))
+    return out
+
+
+def _ssd_step(dev, lc, mesh, cfg, full: bool, one: dict) -> dict:
+    """(b), (c): three placed steps on the (1, 1) mesh, held to
+    ``train()``'s losses and leaf digests; every SSD layer runs through
+    ``tp_model.ssd_block``, and a one-rank group issues no collective."""
+    from repro_torch.launch import tp_model
+    from repro_torch.roofline import record_collectives
+
+    tf = TRAIN_FULL
+    seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb, seed=tf["seed"])
+    ocfg = optim.AdamWConfig(warmup_steps=1, total_steps=10)
+    plan = tp_model.make_plan(cfg, mesh)
+    if plan.ssd != "heads" or plan.split:
+        fail(f"ssd (b): the plan of {cfg.name} on (1, 1) is {plan}")
+    calls = [0]
+    ssd_block = tp_model.ssd_block
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return ssd_block(*a, **k)
+
+    tp_model.ssd_block = counted
+    try:
+        with record_collectives() as ops:
+            row, p, o, step, batch0 = _placed_run(dev, lc, mesh, cfg, dcfg, ocfg, one,
+                                                  "ssd (b)", full)
+    finally:
+        tp_model.ssd_block = ssd_block
+    if calls[0] != cfg.n_layers * tf["steps"] or ops:
+        fail(f"ssd (b): {calls[0]} SSD layers through tp_model.ssd_block (want "
+             f"{cfg.n_layers * tf['steps']}), collectives {ops} on a one-rank group")
+
+    def one_step():
+        return step(p, o, batch0)
+
+    row["step_ms"] = time_ms(one_step, reps=2, warmup=1)
+    row["step_device_ms"], row["step_device_split"] = _device_total_ms(one_step, reps=2)
+    row["ssd_layers"] = calls[0]
+    row["one_process"] = {k: v for k, v in one.items() if k != "sha256"}
+    log(f"ssd (b) {cfg.name} placed step through the SSD plan on (1, 1): losses "
+        + " ".join(f"{x:.6f}" for x in row["losses"])
+        + (" = train()'s, every param leaf's sha256 equal" if row["equal_to_3g"] else "")
+        + f"; {calls[0]} SSD layers through tp_model.ssd_block, no collective; step "
+        f"{row['step_ms']:.1f} ms wall (CUDA events), {row['step_device_ms']} ms device, peak "
+        f"{row['peak_bytes']} bytes (train(): peak {one['peak_bytes']} bytes)")
+    del p, o, step, one_step, batch0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def _ssd_generate(dev, lc, mesh, cfg, full: bool) -> dict:
+    """(b), (c): the placed greedy ``generate`` on the (1, 1) mesh against
+    ``serve.generate`` (phase 3f's shapes): tokens and log-probabilities
+    equal; prefill and decode times of the placed run (``serve.generate``
+    runs the same op sequence on one rank); how far ``serve.generate``'s
+    prefill logits and log-probabilities lie from the same at float32
+    compute (the bf16 noise floor of the one-process run)."""
+    from repro_torch.launch import serve as placed
+    from repro_torch.launch import tp_model
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    ref, params, _ = serve_reference(dev, lc, cfg, "ssd", full, timed=False, floor=True)
+    prompts, want = ref["prompts"].to(dev), ref["tokens"].to(dev)
+    nreq, plen = prompts.shape
+    new = want.shape[1]
+    local = placed.shard_params(cfg, mesh, params)
+    plan = tp_model.make_plan(cfg, mesh, "serve")
+    mode = placed.kv_mode(cfg, mesh, nreq, plen + new)
+    res = lc.run("ssd placed generate", lambda: placed.generate(local, cfg, mesh, prompts, new),
+                 {})
+    if not torch.equal(res.tokens, want):
+        fail(f"ssd (b): {cfg.name}'s placed generate's tokens differ from serve.generate's")
+    if not torch.equal(res.logprobs.cpu(), ref["logprobs"]):
+        fail(f"ssd (b): {cfg.name}'s placed log-probabilities differ from serve.generate's")
+    tok = want[:, :1].to(torch.int32)
+    with torch.no_grad():
+        logits, cache = placed.prefill(local, plan, prompts, plen + new, mode)
+        pl = _serve_times(lambda: placed.prefill(local, plan, prompts, plen + new, mode),
+                          lambda: placed.decode_step(local, plan, cache, tok, mode))
+    out = {"arch": cfg.name, "requests": nreq, "prompt": plen, "new_tokens": new, "cache": mode,
+           "tokens_equal": True, "logprobs_equal": True, "placed": pl,
+           "bf16_floor": float(ref["floor"]),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None}
+    del params, local, logits, cache, res
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"ssd (b) {cfg.name} placed greedy generate of {nreq} x {plen} prompts + {new} tokens "
+        f"on (1, 1): tokens and log-probabilities equal to serve.generate's; prefill "
+        f"{pl['prefill_ms']:.2f} ms ({pl['prefill_device_ms']} ms device), decode "
+        f"{pl['decode_ms_per_token']:.3f} ms/token ({pl['decode_device_ms']} ms device); peak "
+        f"{out['peak_bytes']} bytes; serve.generate's prefill logits and log-probabilities lie "
+        f"{out['bf16_floor']:.4g} from the same at float32 compute")
+    return out
+
+
+def long_cache(cfg, dev, L: dict, mesh=None) -> dict:
+    """The long_500k decode cache of ``cfg`` (one request, ``L["len"]``
+    positions) holding positions [0, ``L["fill"]``): the whole cache, or
+    with ``mesh`` this rank's blocks by ``cache_shardings``.  The keys and
+    values are drawn chunk by chunk of ``L["chunk"]`` positions, chunk i
+    from a generator seeded ``L["seed"]`` + i (every kv head; the rank
+    keeps its own), so a rank draws only the chunks of its block; the SSM
+    states and conv tails are drawn whole (they are small) and cut."""
+    from repro_torch.launch.sharding import cache_shardings
+    from repro_torch.launch.step import _region
+
+    shapes = init_cache(cfg, 1, L["len"], device="meta")
+    sh = cache_shardings(cfg, mesh, shapes) if mesh is not None else None
+    out: dict = {"pos": torch.tensor(L["fill"], dtype=torch.int32, device=dev)}
+    for j, (path, meta) in enumerate(tree_leaves_with_path(
+            {k: v for k, v in shapes.items() if k != "pos"})):
+        spec = dict(tree_leaves_with_path({k: v for k, v in sh.items() if k != "pos"}))[path] \
+            if sh is not None else None
+        region = (_region(meta.shape, spec.placements(), mesh) if spec is not None
+                  else tuple(slice(0, n) for n in meta.shape))
+        if path in ("['k']", "['v']"):
+            continue
+        gen = torch.Generator(device=dev).manual_seed(L["seed"] * 1000 + j)
+        t = torch.randn(meta.shape, generator=gen, device=dev, dtype=torch.float32)
+        _set(out, path, t[region].to(meta.dtype).contiguous())
+        del t
+    if "k" in shapes:
+        meta = shapes["k"]
+        kv_sh = sh["k"] if sh is not None else None
+        region = (_region(meta.shape, kv_sh.placements(), mesh) if kv_sh is not None
+                  else tuple(slice(0, n) for n in meta.shape))
+        a, b = region[2].start, region[2].stop
+        k = torch.zeros(tuple(r.stop - r.start for r in region), dtype=meta.dtype, device=dev)
+        v = torch.zeros_like(k)
+        c = L["chunk"]
+        for i in range(a // c, -(-min(b, L["fill"]) // c)):
+            gen = torch.Generator(device=dev).manual_seed(L["seed"] + i)
+            kv = torch.randn((2, *meta.shape[:2], c, *meta.shape[3:]), generator=gen,
+                             device=dev, dtype=torch.float32)
+            kv[:, :, :, max(0, L["fill"] - i * c):] = 0
+            kv = kv[:, region[0], region[1], :, region[3], region[4]].to(meta.dtype)
+            k[:, :, i * c - a: (i + 1) * c - a] = kv[0]
+            v[:, :, i * c - a: (i + 1) * c - a] = kv[1]
+            del kv
+        out["k"], out["v"] = k, v
+    return out
+
+
+def _set(tree: dict, path: str, t: torch.Tensor) -> None:
+    """``tree`` at keystr ``path`` (created on the way) set to ``t``."""
+    keys = [k.strip("'") for k in path[1:-1].split("][")]
+    for k in keys[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[keys[-1]] = t
+
+
+def _long_tokens(cfg, dev, L: dict) -> torch.Tensor:
+    """The first token of the long_500k decode, from its seed."""
+    gen = torch.Generator(device=dev).manual_seed(L["seed"])
+    return torch.randint(0, cfg.vocab, (1, 1), generator=gen, device=dev).to(torch.int32)
+
+
+def _long_weights(cfg, dev):
+    """The serving weights of the long_500k decode (SERVE_FULL's seed)."""
+    return init_params(cfg, torch.Generator(device=dev).manual_seed(SERVE_FULL["seed"]), dev)
+
+
+def _merge_probe(cfg, dev, L: dict) -> tuple:
+    """The seeded float32 unit-normal query (1, 1, heads, head_dim) that
+    holds the SP merge at long_500k's size, and its position: the cache's
+    last, so every position is attended."""
+    gen = torch.Generator(device=dev).manual_seed(L["seed"] + 1)
+    q = torch.randn((1, 1, cfg.n_heads, cfg.resolved_head_dim), generator=gen, device=dev)
+    return q, torch.tensor(L["len"] - 1, device=dev)
+
+
+@torch.no_grad()
+def _long_decode(dev, lc, cfg, ccfg, L: dict, params, tokens=None, probe: bool = False) -> dict:
+    """L["steps"] one-process ``decode_step`` s of ``cfg`` from position
+    L["fill"] of a fresh ``long_cache`` of ``ccfg`` (its dtype), greedy or
+    fed ``tokens``: tokens, logits (float32, host), top-2 margins, the keys
+    and values written at each position (host), step times, the cache's
+    bytes, peak; for the ssm family the capture session of the SSM-state
+    stream after the first step; with ``probe`` and a KV cache, the
+    attention output of :func:`_merge_probe` over layer 0 of the cache as
+    drawn.  The cache is freed."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    cache = long_cache(ccfg, dev, L)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out: dict = {"fill_s": time.perf_counter() - t1, "tokens": [], "logits": [], "margins": [],
+                 "rows_k": [], "rows_v": [], "step_ms": [], "session": None}
+    out["kv_bytes"] = sum(cache[k].numel() * cache[k].element_size() for k in ("k", "v")
+                          if k in cache)
+    out["ssm_bytes"] = sum(t.numel() * t.element_size() for key in ("ssm", "ssm_trailing")
+                           if key in cache for t in tree_leaves(cache[key]))
+    if probe and "k" in cache:
+        q, at = _merge_probe(cfg, dev, L)
+        out["probe"] = decode_attend(q, cache["k"][0], cache["v"][0], at).cpu()
+    tok = _long_tokens(cfg, dev, L)
+    for s in range(L["steps"]):
+        if tokens is not None:
+            tok = torch.tensor([[int(tokens[s])]], dtype=torch.int32, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = lc.run(f"ssd (d) {cfg.name} decode_step {s}",
+                               lambda: decode_step(params, cfg, cache, tok), {})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t1) * 1e3)
+        lf = logits[:, -1].to(torch.float32)
+        top2 = torch.topk(lf, 2, dim=-1).values
+        out["tokens"].append(tok[0, 0].item())
+        out["logits"].append(lf.cpu())
+        out["margins"].append(float(top2[0, 0] - top2[0, 1]))
+        if "k" in cache:
+            at = L["fill"] + s
+            out["rows_k"].append(cache["k"][:, :, at].to(torch.float32).cpu())
+            out["rows_v"].append(cache["v"][:, :, at].to(torch.float32).cpu())
+        if s == 0 and cfg.family == "ssm" and tokens is None:
+            with obs.capture() as out["session"]:
+                _obs_hooks.tap("serve.kv", cache=cache, step=0)
+        tok = torch.argmax(lf, dim=-1)[:, None].to(torch.int32)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    del cache, logits
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ssd_long_reference(dev, lc, arch: str, full: bool) -> dict:
+    """(d) The one-process ``decode_step`` of ``arch`` at long_500k's size,
+    greedy in bf16, L["steps"] steps from position L["fill"]; then the same
+    steps fed its tokens at float32 compute on a fresh bf16 cache of the
+    same draws, the run the ranks are held to: its logits, written rows,
+    greedy tokens and top-2 margins saved to ``build/ssd_long_<arch>.npz``,
+    and how far the bf16 run lies from it.  For the ssm family, the capture
+    session of the SSM-state stream after the bf16 run's first step (phase
+    (e)).  Each whole cache and its new copy are freed before the next."""
+    cfg = _ssd_cfg(arch, full)
+    L = _ssd_long(full)
+    params = _long_weights(cfg, dev)
+    one = _long_decode(dev, lc, cfg, cfg, L, params)
+    f32 = _long_decode(dev, lc, _ssd_cfg(arch, full, dtype="float32"), cfg, L, params,
+                       tokens=one["tokens"], probe=True)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    logits = torch.cat(f32["logits"])
+    ref = {"tokens": np.array(one["tokens"]), "logits": logits.numpy(),
+           "greedy": torch.argmax(logits, dim=-1).numpy(), "margins": np.array(f32["margins"])}
+    bf16_gap = {"logits": float((torch.cat(one["logits"]) - logits).abs().max())}
+    if one["rows_k"]:
+        ref.update(rows_k=torch.stack(f32["rows_k"]).numpy(),
+                   rows_v=torch.stack(f32["rows_v"]).numpy(), probe=f32["probe"].numpy())
+        bf16_gap["rows"] = max(float((torch.stack(one[k]) - torch.stack(f32[k])).abs().max())
+                               for k in ("rows_k", "rows_v"))
+    np.savez(ROOT / "build" / f"ssd_long_{arch}.npz", **ref)
+    row = {"arch": arch, "len": L["len"], "fill": L["fill"], "steps": L["steps"],
+           "kv_bytes": one["kv_bytes"], "ssm_bytes": one["ssm_bytes"], "fill_s": one["fill_s"],
+           "step_ms": one["step_ms"], "f32_step_ms": f32["step_ms"],
+           "peak_bytes": one["peak_bytes"], "f32_peak_bytes": f32["peak_bytes"],
+           "tokens": one["tokens"], "margins": f32["margins"], "bf16_gap": bf16_gap, "ref": ref,
+           "session": one["session"]}
+    log(f"ssd (d) {arch} one-process decode_step at {L['len']} positions from {L['fill']}: "
+        f"cache {one['kv_bytes']} KV bytes + {one['ssm_bytes']} SSM bytes (filled in "
+        f"{one['fill_s']:.1f} s), {L['steps']} bf16 steps of "
+        + " ".join(f"{x:.1f}" for x in one["step_ms"])
+        + f" ms, tokens {one['tokens']}, peak {one['peak_bytes']} bytes; fed them at float32 "
+        f"compute, steps " + " ".join(f"{x:.1f}" for x in f32["step_ms"])
+        + f" ms, peak {f32['peak_bytes']} bytes, greedy {ref['greedy'].tolist()}; the bf16 "
+        f"run's logits lie {bf16_gap['logits']:.4g} from it"
+        + (f", its written rows {bf16_gap['rows']:.4g}" if "rows" in bf16_gap else ""))
+    return row
+
+
+def _ssd_state_stream(lc, sess, serve_path: dict, train_path: dict) -> dict:
+    """(e) mamba2's long_500k SSM-state stream (``serve.kv``'s capture of the
+    cache's ``ssm`` leaves after a decode step) as one link under 3f's four
+    points (one ``bt_axes`` launch), equal to the plain version; its ACC /
+    APP reductions beside 3f's weights' and 3g's gradient's."""
+    (st,) = sess.get("serve_decode", "kv")
+    wl = sess.workload("serve_decode", elems=SERVE["elems"], lanes=SERVE["lanes"], names=["kv"])
+    t1 = time.perf_counter()
+    ev = lc.run("ssd state grid", lambda: dse.evaluate_grid(SERVE_POINTS, wl),
+                {"bt_axes": 1} if st.data.is_cuda else {})
+    ms = (time.perf_counter() - t1) * 1e3
+    plain = dse.evaluate_grid(SERVE_POINTS, wl, backend="torch", chunk_packets=1 << 20)
+    if [dataclasses.asdict(e) for e in ev] != [dataclasses.asdict(e) for e in plain]:
+        fail("ssd (e): the state-stream grid differs from the plain version's")
+    red = {e.label: 100 * e.bt_reduction for e in ev}
+    out = {"bytes": st.num_bytes, "packets": wl.streams[0].shape[0], "measure_ms": ms,
+           "bt": {e.label: [e.total_bt, e.aux_bt] for e in ev}, "red_pct": red}
+    w = serve_path.get("rows", {}).get("serve/full", {}).get("measure", {}).get(
+        "weights_split", {}).get("red_pct", {})
+    gr = train_path.get("rows", {}).get("train/full", {}).get("measure", {}).get("red_pct", {})
+    log(f"ssd (e) mamba2-370m long_500k SSM-state stream ({st.num_bytes} int8 bytes, "
+        f"{out['packets']} packets of {SERVE['elems']}) as one link, grid = plain, {ms:.1f} ms; "
+        "reductions " + " ".join(f"{k}={v:.4f}%" for k, v in red.items())
+        + "; beside 3f's weights " + " ".join(f"{k}={v:.4f}%" for k, v in w.items())
+        + " and 3g's gradient " + " ".join(f"{k}={v:.4f}%" for k, v in gr.items()))
+    return out
+
+
+def ssd_rank(rank: int, world: int, port: int, out: str, full: str, device: str,
+             job: str) -> None:
+    """Phase 3l, one rank of a ``world``-rank gloo group on ``device``
+    ("cuda": card 0; "cpu" for a rehearsal).  ``job`` "pair": on a (1, 2)
+    mesh, each model trained 3 steps and served against its one-process
+    run (``build/ssd_serve_<arch>.npz``), then mamba2's long_500k decode;
+    "long": zamba2's long_500k decode on the (data, model) mesh of
+    SSD["long"].  Writes the results to ``out``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import tp_model
+    from repro_torch.launch.mesh import _device_mesh
+
+    full = full == "1"
+    dev = _rank_device(device, "ssd", rank)
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    res: dict = {"rank": rank, "device": str(dev)}
+    try:
+        if job == "pair":
+            mesh = launch.make_smoke_mesh(device=dev.type)
+            for arch in SSD["archs"]:
+                cfg = _ssd_pair_cfg(arch, full)
+                plan = tp_model.make_plan(cfg, mesh, "serve")
+                res[arch] = {"train": _rank_train(dev, mesh, cfg, full),
+                             "serve": _cp_rank_serve(dev, mesh, cfg, plan,
+                                                     ROOT / "build" / f"ssd_serve_{arch}.npz"),
+                             "plan": {"ssd": plan.ssd, "heads": list(plan.ssd_heads),
+                                      "conv": plan.conv}}
+            res["mamba2-370m"]["long"] = _rank_long(dev, mesh, "mamba2-370m", full)
+        else:
+            shape = _ssd_long(full)["mesh"]["zamba2-1.2b"]
+            mesh = _device_mesh(shape, ("data", "model"), dev.type)
+            res["zamba2-1.2b"] = {"long": _rank_long(dev, mesh, "zamba2-1.2b", full)}
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+
+
+@torch.no_grad()
+def _rank_long(dev, mesh, arch: str, full: bool) -> dict:
+    """One rank's long_500k decode: its weight blocks and bf16 cache blocks
+    built in turn, then L["steps"] placed decode steps at float32 compute
+    fed the one-process tokens; the whole logits (every vocabulary block)
+    of each step against the one-process float32 run's, the rows it writes
+    against its, its greedy tokens, the first step's collectives, times and
+    peak."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve as placed
+    from repro_torch.launch import tp_model
+    from repro_torch.launch.tp import gather_from_model
+    from repro_torch.roofline import record_collectives
+
+    cfg, cfg32 = _ssd_cfg(arch, full), _ssd_cfg(arch, full, dtype="float32")
+    L = _ssd_long(full)
+    ref = dict(np.load(ROOT / "build" / f"ssd_long_{arch}.npz"))
+    plan = tp_model.make_plan(cfg32, mesh, "serve")
+    mode, sp = placed.kv_mode(cfg, mesh, 1, L["len"]), placed.sp_group(cfg, mesh, 1, L["len"])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            host = tree_map(lambda t: t.cpu(), placed.shard_params(cfg, mesh,
+                                                                   _long_weights(cfg, dev)))
+            local = _to_card(host, dev)
+            del host
+            cache = long_cache(cfg, dev, L, mesh)
+            _rank_log(f"built its {arch} long_500k blocks: {_card_memory(dev)}")
+        dist.barrier()
+    build_s = time.perf_counter() - t1
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    out: dict = {"mode": mode, "sp": sp.size, "cache_shapes": {
+        k: list(v.shape) for k, v in tree_leaves_with_path({k: v for k, v in cache.items()
+                                                             if k != "pos"})},
+                 "build_s": build_s, "step_ms": [], "logit_err": [], "tokens": [],
+                 "row_err": [], "rows_written": 0}
+    kv_blocks = None
+    if "k" in cache:
+        kv_blocks = (sp.index * cache["k"].shape[2], (sp.index + 1) * cache["k"].shape[2])
+        hk = cache["k"].shape[3]
+        h0 = plan.model.index * hk if mode == "heads" else 0
+    if kv_blocks is not None and sp.size > 1:  # the SP merge itself, on the cache as drawn
+        r = cfg.n_heads // cfg.n_kv_heads
+        q, at = _merge_probe(cfg32, dev, L)
+        got = placed._attend_split(q[:, :, h0 * r: (h0 + hk) * r], cache["k"][0], cache["v"][0],
+                                   at, kv_blocks[0], sp).cpu()
+        want = torch.from_numpy(ref["probe"])[:, :, h0 * r: (h0 + hk) * r]
+        out["merge_err"] = float((got - want).abs().max() / want.abs().max())
+    for s in range(L["steps"]):
+        tok = torch.tensor([[int(ref["tokens"][s])]], dtype=torch.int32, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with record_collectives() as ops:
+            logits, cache = placed.decode_step(local, plan, cache, tok, mode, sp)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t1) * 1e3)
+        if s == 0:
+            out["ops"] = _ops_list(ops)
+        lf = logits[:, -1].to(torch.float32)
+        if plan.head == "vocab":
+            lf = gather_from_model(lf, plan.model, -1)
+        out["logit_err"].append(float((lf.cpu() - torch.from_numpy(ref["logits"][s: s + 1]))
+                                      .abs().max()))
+        out["tokens"].append(int(torch.argmax(lf, dim=-1)[0]))
+        at = L["fill"] + s
+        if kv_blocks is not None and kv_blocks[0] <= at < kv_blocks[1]:
+            for key in ("k", "v"):
+                got = cache[key][:, :, at - kv_blocks[0]].to(torch.float32).cpu()
+                want = torch.from_numpy(ref[f"rows_{key}"][s])[:, :, h0: h0 + hk]
+                out["row_err"].append(float((got - want).abs().max()))
+            out["rows_written"] += 1
+        _rank_log(f"{arch} long_500k step {s}: {out['step_ms'][-1]:.0f} ms, logits within "
+                  f"{out['logit_err'][-1]:.4g}")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    del local, cache, logits
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ssd_two_ranks(ranks: list, arch: str, ref: dict, full: bool) -> dict:
+    """(b), (c), the gloo half: two ranks on (1, 2) against the one-process
+    runs: losses, the placed serving (as 3k's ``_cp_serve``), and a train
+    step's and a decode step's collectives equal to the closed form."""
+    from repro_torch.launch import tp_model
+    from repro_torch.launch.mesh import AbstractMesh
+
+    cfg = _ssd_pair_cfg(arch, full)
+    mesh = AbstractMesh((1, SSD["ranks"]), ("data", "model"))
+    tf = TRAIN_FULL
+    seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
+    tr = [r[arch]["train"] for r in ranks]
+    want = ref["train"]["losses"]
+    if any(t["losses"] != tr[0]["losses"] for t in tr[1:]):
+        fail(f"ssd (b) {arch}: the ranks' losses differ: {[t['losses'] for t in tr]}")
+    loss_err = max(abs(a - b) for a, b in zip(tr[0]["losses"], want))
+    if loss_err > SSD["loss_tol"]:
+        fail(f"ssd (b) {arch}: losses {tr[0]['losses']} against train()'s {want} (tolerance "
+             f"{SSD['loss_tol']})")
+    plan = tp_model.make_plan(cfg, mesh, "serve")
+    nreq = ref["serve"]["prompts"].shape[0]
+    mode = ranks[0][arch]["serve"]["cache"]
+    closed = {"decode": [list(o) for o in ssd_collectives(cfg, plan, nreq, 1, mode)],
+              "step": [list(o) for o in ssd_collectives(cfg, tp_model.make_plan(cfg, mesh),
+                                                        gb, seq)]}
+    for r in ranks:
+        for k, got in (("decode", r[arch]["serve"]["decode_ops"]),
+                       ("step", r[arch]["train"]["ops"])):
+            if got != closed[k]:
+                fail(f"ssd (b) {arch}: rank {r['rank']}'s {k} collectives differ from the closed "
+                     f"form: {len(got)} recorded, {len(closed[k])} expected")
+    serving = _cp_serve([r[arch] for r in ranks], ref["serve"], SSD["ranks"], SSD["tol"],
+                        f"ssd (b) {arch}")
+    walls = [w for t in tr for w in t["step_wall_ms"][1:]]
+    out = {"losses": tr[0]["losses"], "one_process": want, "loss_max_err": loss_err,
+           "loss_tol": SSD["loss_tol"],
+           "step_wall_ms": [t["step_wall_ms"] for t in tr],
+           "peak_bytes": [t["peak_bytes"] for t in tr], "local_params": tr[0]["local_params"],
+           "params": tr[0]["params"], "serve": serving,
+           "collectives": {k: {"count": len(v), "bytes": sum(o[1] for o in v)}
+                           for k, v in closed.items()}}
+    log(f"ssd (b) {arch} at {cfg.n_layers} layers, float32, split over 'model' by "
+        f"{SSD['ranks']} gloo ranks: losses "
+        + " ".join(f"{x:.6f}" for x in out["losses"]) + f" (train()'s within {loss_err:.3g}, "
+        f"tolerance {SSD['loss_tol']}); "
+        f"a rank holds {out['local_params']} of {out['params']} params; step wall "
+        f"{_range(walls)} ms; peak {_range(out['peak_bytes'], '{:.0f}')} bytes; collectives = "
+        f"the closed form: a train step {out['collectives']['step']}, a decode step "
+        f"{out['collectives']['decode']}")
+    return out
+
+
+def _ssd_long_check(ranks: list, arch: str, one: dict, full: bool) -> dict:
+    """(d) The ranks' long_500k decode against the one-process run, both at
+    float32 compute: every step's logits within SSD["tol"], the written
+    rows within it, the greedy tokens equal up to near ties (a top-2 margin
+    under 2 SSD["tol"]), the first step's collectives equal to the closed
+    form; the writes must have crossed the data ranks' blocks."""
+    from repro_torch.launch import tp_model
+    from repro_torch.launch.mesh import AbstractMesh
+
+    cfg = _ssd_cfg(arch, full, dtype="float32")
+    L = _ssd_long(full)
+    shape = L["mesh"][arch]
+    lg = [r[arch]["long"] for r in ranks]
+    tol = SSD["tol"]
+    errs = [max(x["logit_err"]) for x in lg]
+    rows = [max(x["row_err"]) if x["row_err"] else 0.0 for x in lg]
+    if max(errs) > tol or max(rows) > tol:
+        fail(f"ssd (d) {arch}: logits within {errs}, written rows within {rows} (tolerance "
+             f"{tol})")
+    merge = [x["merge_err"] for x in lg if "merge_err" in x]
+    if lg[0]["sp"] > 1 and (len(merge) != len(lg) or max(merge) > SSD["merge_tol"]):
+        fail(f"ssd (d) {arch}: the SP merge of the probe query lies {merge} of the largest "
+             f"output from the one-process attention (tolerance {SSD['merge_tol']})")
+    ties = []
+    for x in lg:
+        for s, (got, w) in enumerate(zip(x["tokens"], one["ref"]["greedy"].tolist())):
+            if got != w:
+                if one["margins"][s] >= 2 * tol:
+                    fail(f"ssd (d) {arch}: step {s}'s greedy token {got}, the one-process {w}, "
+                         f"at a top-2 margin of {one['margins'][s]}")
+                ties.append(s)
+    mesh = AbstractMesh(shape, ("data", "model"))
+    mode = lg[0]["mode"]
+    closed = [list(o) for o in ssd_collectives(cfg, tp_model.make_plan(cfg, mesh, "serve"), 1, 1,
+                                               mode, sp=lg[0]["sp"])]
+    for r, x in zip(ranks, lg):
+        if x["ops"] != closed:
+            fail(f"ssd (d) {arch}: rank {r['rank']}'s decode collectives differ from the closed "
+                 f"form: {len(x['ops'])} recorded, {len(closed)} expected")
+    written = [x["rows_written"] for x in lg]
+    if "k" in init_cache(cfg, 1, 1, device="meta") and (
+            not all(written) or sum(written) != L["steps"] * shape[1]):
+        fail(f"ssd (d) {arch}: the ranks wrote {written} rows; the writes must cross the data "
+             f"ranks' blocks")
+    out = {"mesh": list(shape), "mode": mode, "sp": lg[0]["sp"], "tol": tol,
+           "logit_err": max(errs), "row_err": max(rows),
+           "merge_err": max(merge) if merge else None, "near_ties": sorted(set(ties)),
+           "rows_written": written, "step_ms": [x["step_ms"] for x in lg],
+           "build_s": [x["build_s"] for x in lg], "peak_bytes": [x["peak_bytes"] for x in lg],
+           "cache_shapes": lg[0]["cache_shapes"],
+           "collectives": {"count": len(closed), "bytes": sum(o[1] for o in closed)},
+           "one_process": {k: v for k, v in one.items() if k not in ("ref", "session")}}
+    steps = [s for x in lg for s in x["step_ms"][1:]]
+    log(f"ssd (d) {arch} long_500k on {tuple(shape)} ({len(ranks)} gloo ranks, KV {mode}"
+        + (f", its sequence over {lg[0]['sp']} data ranks" if lg[0]["sp"] > 1 else "")
+        + f"): {L['steps']} steps from {L['fill']} at float32 compute, logits within "
+        f"{max(errs):.4g}, written rows within {max(rows):.4g} of the one-process float32 run's "
+        f"(tolerance {tol}), rows written per rank {written}"
+        + (f", the SP merge of the probe query within {max(merge):.4g} of its largest output "
+           f"(tolerance {SSD['merge_tol']})" if merge else "") + "; tokens "
+        f"equal" + (f" up to near ties at steps {sorted(set(ties))}" if ties else "")
+        + f"; a step {_range(steps)} ms (first {_range([x['step_ms'][0] for x in lg])}); "
+        f"builds {_range(out['build_s'])} s; peak {_range(out['peak_bytes'], '{:.0f}')} bytes "
+        f"a rank; a step's collectives = the closed form ({len(closed)})")
     return out
 
 
@@ -4715,10 +5615,9 @@ def main() -> int:
     dist_path = phase_dist(dev, handoff=handoff)
     tp_path = phase_tp(dev, handoff=handoff, dist_path=dist_path)
     del handoff
-    cp_ref: dict = {}
-    ep_path = phase_ep(dev, serve_path=serve_path, train_path=train_path, handoff=cp_ref)
-    cp_path = phase_cp(dev, handoff=cp_ref)
-    del cp_ref
+    ep_path = phase_ep(dev, serve_path=serve_path, train_path=train_path)
+    cp_path = phase_cp(dev)
+    ssd_path = phase_ssd(dev, serve_path=serve_path, train_path=train_path)
     cases = phase_scale(dev)
     record = []
     for name, meta in KERNELS.items():
@@ -4731,16 +5630,17 @@ def main() -> int:
         # psu_stream; the serving path (3f) for psu_sort, bt_count, bt_axes
         # and bt_axes_activity; the training path (3g) for all but
         # quantize_egress; the distribution path (3h) for psu_sort,
-        # bt_count and bt_axes; the expert-parallel path (3j) for bt_axes
+        # bt_count and bt_axes; the expert-parallel path (3j) and the SSD
+        # path (3l) for bt_axes
         paths = {"psu_sort": ("transmit", "egress", "noc", "serve", "train", "dist"),
                  "bt_count": ("transmit", "egress", "noc", "serve", "train", "dist"),
                  "psu_stream": ("transmit", "train"),
-                 "bt_axes": ("codec", "noc", "serve", "train", "dist", "ep"),
+                 "bt_axes": ("codec", "noc", "serve", "train", "dist", "ep", "ssd"),
                  "bt_axes_activity": ("activity", "noc", "serve", "train"),
                  "quantize_egress": ("egress", "noc")}[name]
         runs = {"transmit": main_path, "codec": codec_path, "activity": activity_path,
                 "egress": egress_path, "noc": noc_path, "serve": serve_path,
-                "train": train_path, "dist": dist_path, "ep": ep_path}
+                "train": train_path, "dist": dist_path, "ep": ep_path, "ssd": ssd_path}
         by_path = {p: runs[p]["launches"][name] for p in paths}
         record.append({
             "name": name, "route": "cuda", **meta,
@@ -4771,7 +5671,7 @@ def main() -> int:
         "card": card, "kernels": record, "main_path": main_path, "codec_path": codec_path,
         "activity_path": activity_path, "egress_path": egress_path, "noc_path": noc_path,
         "serve_path": serve_path, "train_path": train_path, "dist_path": dist_path,
-        "tp_path": tp_path, "ep_path": ep_path, "cp_path": cp_path,
+        "tp_path": tp_path, "ep_path": ep_path, "cp_path": cp_path, "ssd_path": ssd_path,
         "scale_cases": cases,
         "seconds": time.perf_counter() - t0,
     }, indent=1, default=str))

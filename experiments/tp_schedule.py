@@ -1,4 +1,4 @@
-"""The collective schedule of a dense or MoE smoke cell on a small mesh, two ways.
+"""The collective schedule of a smoke cell on a small mesh, two ways.
 
 * The port's: ``repro_torch.launch.dryrun.placed_collectives``, the placed
   step, prefill or decode run on one device's ``meta`` blocks over
@@ -21,6 +21,7 @@ two need not agree in kind or count.
     PYTHONPATH=src python experiments/tp_schedule.py [--arch internlm2-1.8b] [--shape train_4k ...]
     PYTHONPATH=src python experiments/tp_schedule.py --arch granite-moe-3b-a800m
     PYTHONPATH=src python experiments/tp_schedule.py --arch granite-moe-3b-a800m --mesh 2x8
+    PYTHONPATH=src python experiments/tp_schedule.py --arch zamba2-1.2b --shape decode_32k long_500k
 """
 
 from __future__ import annotations
@@ -45,6 +46,9 @@ _REFERENCE = """
     if "moe" in over:
         from repro.models.config import MoEConfig
         over["moe"] = MoEConfig(**over["moe"])
+    if "ssm" in over:
+        from repro.models.config import SSMConfig
+        over["ssm"] = SSMConfig(**over["ssm"])
     mesh = jax.make_mesh(dims, ("data", "model"))
     out = {}
     for shape in shapes:

@@ -13,24 +13,27 @@ mesh (16x16, or 2x16x16 with ``--multipod``) it records
     tensors, and an even split of them per device;
   * ``model_flops_global`` (``repro_torch.roofline``).
 
-  * for the dense and MoE families, the collectives one device issues: the cell's
-    placed step (``launch/step.py``'s ``reduce_gradients`` and ZeRO-1's
-    gathers) or placed prefill / decode (``launch/serve.py``) runs on the
-    ``meta`` blocks of rank 0 over stand-in groups of the mesh's sizes
-    (``launch/tp.py``: recorded, not issued), so ``collective_ops`` holds
-    the port's own schedule and the roofline its collective term
-    (``"collectives_modelled": True``).  The train step is not
-    microbatched there: a microbatched step sends the same bytes in more
-    calls.
+  * for the dense, MoE, ssm and hybrid families, the collectives one device
+    issues: the cell's placed step (``launch/step.py``'s
+    ``reduce_gradients`` and ZeRO-1's gathers) or placed prefill / decode
+    (``launch/serve.py``) runs on the ``meta`` blocks of rank 0 over
+    stand-in groups of the mesh's sizes (``launch/tp.py``: recorded, not
+    issued), so ``collective_ops`` holds the port's own schedule and the
+    roofline its collective term (``"collectives_modelled": True``).  The
+    train step is not microbatched there: a microbatched step sends the
+    same bytes in more calls.
 
 The dense and MoE cells include those whose rules split attention's
-contraction (granite-moe-3b-a800m's 24 heads on the 16 x 16 mesh).  The
-other families' tensor-parallel forward is not built yet (ssm, hybrid,
-audio, vlm), nor the placed step's FSDP gathers (a train cell of an FSDP
-config, qwen3-moe-30b-a3b's; its serving cells are not FSDP-placed, as
-``param_spec`` applies FSDP in "train" mode only): those records say
-``"collectives_modelled": False``, with the reason, and carry no
-collective ops.  The memory floor is the argument bytes alone
+contraction (granite-moe-3b-a800m's 24 heads on the 16 x 16 mesh); the
+ssm and hybrid cells (mamba2-370m, zamba2-1.2b) split the SSD projections
+on their contraction and the SSM heads over "model", and ``long_500k``'s
+one request splits zamba2's KV sequence over "data" (SP: its decode merges
+attention over the data ranks).  The other families' tensor-parallel
+forward is not built yet (audio, vlm), nor the placed step's FSDP gathers
+(a train cell of an FSDP config, qwen3-moe-30b-a3b's; its serving cells
+are not FSDP-placed, as ``param_spec`` applies FSDP in "train" mode only):
+those records say ``"collectives_modelled": False``, with the reason, and
+carry no collective ops.  The memory floor is the argument bytes alone
 (activations are not counted).  The stand-in groups need no process group:
 torch's ``fake`` backend would build a 256-rank ``DeviceMesh`` in one
 process, but it lives in ``torch.testing._internal``, a private module
@@ -78,7 +81,8 @@ def argument_bytes_per_device(args, shardings, mesh) -> int:
 
 def placed_collectives(case, mesh) -> list[dict]:
     """The collectives one device of ``mesh`` (a production ``AbstractMesh``)
-    issues in the placed counterpart of ``case``, a dense or MoE cell: recorded
+    issues in the placed counterpart of ``case``, a dense, MoE, ssm or hybrid
+    cell: recorded
     while it runs on rank 0's ``meta`` blocks over stand-in groups."""
     from .. import _collectives
     from .._tree import leaves, tree_map
@@ -106,10 +110,11 @@ def placed_collectives(case, mesh) -> list[dict]:
         else:
             plan = tp_model.make_plan(cfg, mesh, "serve")
             mode = serve.kv_mode(cfg, mesh, s.global_batch, s.seq_len)
+            sp = serve.sp_group(cfg, mesh, s.global_batch, s.seq_len)
             if case.kind == "prefill":
-                serve.prefill(args[0], plan, args[1]["tokens"], s.seq_len, mode)
+                serve.prefill(args[0], plan, args[1]["tokens"], s.seq_len, mode, sp)
             else:
-                serve.decode_step(args[0], plan, args[1], args[2], mode)
+                serve.decode_step(args[0], plan, args[1], args[2], mode, sp)
     return ops
 
 
@@ -128,8 +133,8 @@ def collectives_reason(case, mesh) -> str | None:
 
 
 def _collective_fields(case, mesh) -> dict:
-    """The record's collective keys: the placed schedule of a dense or MoE
-    cell, else none, with the reason."""
+    """The record's collective keys: the placed schedule of a cell the
+    tensor-parallel forward runs, else none, with the reason."""
     from ..roofline.collect import summarize_collectives
 
     reason = collectives_reason(case, mesh)

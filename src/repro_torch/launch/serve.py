@@ -1,13 +1,20 @@
 """Placed serving: prefill, decode and greedy generation over a mesh.
 
 Counterparts of ``models.transformer.prefill`` / ``decode_step`` and
-``serve.loop.generate`` for the dense and MoE families under the
-reference's serving rules: the weights split over "model" by
+``serve.loop.generate`` for the dense, MoE, ssm and hybrid families under
+the reference's serving rules: the weights split over "model" by
 ``param_spec`` (mode "serve"; a MoE's experts over "model", run by
 ``tp_model.moe_block``: capacity-bounded in prefill, dropless in decode,
-as ``models.transformer``'s),
-the requests over the data-parallel axes by ``batch_shardings``, and the
-KV cache by ``cache_shardings``:
+as ``models.transformer``'s; the SSD projections on their contraction, run
+by ``tp_model.ssd_block`` / ``ssd_decode``), the requests over the
+data-parallel axes by ``batch_shardings``, and the cache by
+``cache_shardings``.  An SSM layer's cache holds the state of the rank's
+heads (all of them when "model" does not divide the heads) and, when the
+rules split it, a contiguous ``d_xbc / m`` block of the conv tail's
+channels, which does not line up with ``[x heads | B | C]``: the conv is
+depthwise, so a rank convolves the new row's channels of its own block
+with its own tail and all-gathers the activated row.  The KV cache (of
+the dense, MoE and hybrid families):
 
   * ``hkv % m == 0``: the cache is split on its kv heads, and each rank's
     attention is ``models.layers.attention_decode`` on its own heads;
@@ -26,6 +33,17 @@ KV cache by ``cache_shardings``:
   * otherwise the cache is whole on every rank, and each rank attends
     (``layers.decode_attend``) over the kv heads its query heads use (all
     of them under the contraction split).
+
+With a batch that the data-parallel axes do not divide (``long_500k``'s
+one request), the rules split the KV cache's **sequence** over them
+(sequence parallelism, SP) and its kv heads over "model": each rank
+attends its heads over its block of positions, and the ranks merge over
+the data-parallel group as split-K merges over "model" (a MAX, then one
+SUM all-reduce).  The new token's keys and values are written by the data
+rank whose block holds its position; the tokens and the SSM state are
+replicated over the data-parallel axes, as GSPMD runs them.  A prompt
+whose sequence the rules split (SP prefill) is refused by
+:func:`shard_batch`: ``long_500k`` is a decode cell.
 
 Under the contraction split the whole queries come from the partial sum
 of ``tp_model.contracted_qkv`` and the output from
@@ -57,14 +75,17 @@ from .._tree import tree_map
 from ..models.layers import (_finalize, attention_decode, block_stats, decode_attend,
                              decode_scores, decode_write, norm_rope, project_kv, rescale_block,
                              rms_norm, torch_dtype, write_kv)
-from ..models.transformer import _layer, _n_layers, _positions, init_cache
+from ..models.transformer import (SSM_STATE, _layer, _n_layers, _positions, _stack,
+                                  init_cache, ssm_schedule)
 from ..serve.loop import GenerateResult
 from . import tp_model
+from .mesh import dp_axes
 from .sharding import batch_shardings, cache_shardings, params_shardings
 from .step import block
-from .tp import AxisGroup, all_reduce, gather_from_model, reduce_from_model
+from .tp import AxisGroup, all_reduce, axis_group, gather_from_model, reduce_from_model
 
-__all__ = ["shard_params", "shard_batch", "kv_mode", "prefill", "decode_step", "generate"]
+__all__ = ["shard_params", "shard_batch", "kv_mode", "sp_group", "prefill", "decode_step",
+           "generate"]
 
 
 def shard_params(cfg, mesh, params: Any) -> Any:
@@ -82,16 +103,33 @@ def shard_batch(cfg, mesh, tensors: dict) -> dict:
     return {k: block(v, sh[k]) for k, v in tensors.items()}
 
 
+def _kv_spec(cfg, mesh, batch: int, max_len: int):
+    """The rules' spec of the KV cache's keys, padded to 5 dims, or None for
+    a family with no KV cache."""
+    shapes = init_cache(cfg, batch, max_len, device="meta")
+    if "k" not in shapes:
+        return None
+    spec = cache_shardings(cfg, mesh, shapes)["k"].spec
+    return tuple(spec) + (None,) * (5 - len(spec))
+
+
 def kv_mode(cfg, mesh, batch: int, max_len: int) -> str:
     """How ``cache_shardings`` places the KV cache over "model": "heads",
-    "seq" (split-K) or "whole"."""
-    shapes = init_cache(cfg, batch, max_len, device="meta")
-    spec = cache_shardings(cfg, mesh, shapes)["k"].spec
-    spec = tuple(spec) + (None,) * (5 - len(spec))
-    if spec[2] is not None and spec[2] != "model":
-        raise ValueError(f"cache spec {spec}: its sequence is split over the data-parallel axes "
-                         f"(sequence parallelism), which placed serving does not run")
+    "seq" (split-K) or "whole"; "none" for a family with no KV cache."""
+    spec = _kv_spec(cfg, mesh, batch, max_len)
+    if spec is None:
+        return "none"
     return "heads" if spec[3] == "model" else "seq" if spec[2] == "model" else "whole"
+
+
+def sp_group(cfg, mesh, batch: int, max_len: int) -> AxisGroup:
+    """The data-parallel group over which ``cache_shardings`` splits the KV
+    cache's sequence (SP: a batch the data-parallel axes do not divide);
+    one rank when it does not."""
+    spec = _kv_spec(cfg, mesh, batch, max_len)
+    if spec is None or spec[2] in (None, "model"):
+        return AxisGroup(1)
+    return axis_group(mesh, dp_axes(mesh))
 
 
 # --------------------------------------------------------------------------
@@ -99,24 +137,28 @@ def kv_mode(cfg, mesh, batch: int, max_len: int) -> str:
 # --------------------------------------------------------------------------
 
 
-def _span(plan, length: int) -> tuple[int, int]:
-    """The positions [a, b) of a "seq" cache of ``length`` this rank holds."""
-    n = length // plan.model.size
-    return plan.model.index * n, (plan.model.index + 1) * n
+def _split(plan, mode: str, sp: AxisGroup) -> AxisGroup:
+    """The group whose ranks hold the cache's blocks of positions: "model"
+    under split-K, the data-parallel group under SP, else one rank."""
+    return plan.model if mode == "seq" else sp
 
 
-def _cache_kv(lp, x, plan, positions, max_len: int, mode: str):
+def _span(g: AxisGroup, length: int) -> tuple[int, int]:
+    """The positions [a, b) of a cache of ``length`` split over ``g`` that
+    this rank holds."""
+    n = length // g.size
+    return g.index * n, (g.index + 1) * n
+
+
+def _cache_kv(lp, x, plan, positions, max_len: int, mode: str, sp: AxisGroup):
     """The prompt's keys and values for this rank's cache (from the normed
     ``x``, as ``models.prefill`` re-projects them), padded to its length:
-    its own kv heads ("heads"), or every kv head of its block of positions
-    ("seq") or of all of them ("whole")."""
+    its own kv heads ("heads") or every kv head, of its block of positions
+    (split-K, SP) or of all of them."""
     dt = torch_dtype(plan.cfg.dtype)
     s = x.shape[1]
-    if mode == "heads":
-        a, b, length = 0, s, max_len
-    else:
-        a, b = _span(plan, max_len) if mode == "seq" else (0, max_len)
-        length, a, b = b - a, min(a, s), min(b, s)
+    a, b = _span(_split(plan, mode, sp), max_len)
+    length, a, b = b - a, min(a, s), min(b, s)
     k, v = project_kv(lp, x[:, a:b])
     _, k = norm_rope(lp, None, k, plan.cfg, positions[:, a:b])
 
@@ -132,28 +174,48 @@ def _cache_kv(lp, x, plan, positions, max_len: int, mode: str):
 
 
 def prefill(params: dict, plan: tp_model.Plan, tokens: torch.Tensor, max_len: int,
-            mode: str) -> tuple[torch.Tensor, dict]:
+            mode: str, sp: AxisGroup = AxisGroup(1)) -> tuple[torch.Tensor, dict]:
     """This rank's prompt rows ``tokens`` through its weight blocks:
     (last-position logits, placed as the module says; this rank's cache
-    placed by ``mode``)."""
+    placed by ``mode`` and ``sp``)."""
     cfg = plan.cfg
+    eps = cfg.rms_eps
     h = tp_model.embed(params, plan, tokens)
     s = h.shape[1]
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds cache capacity {max_len}")
     positions = _positions(s, h.device)
+    cache = {"pos": torch.tensor(s, dtype=torch.int32, device=h.device)}
     ks, vs = [], []
-    layers = params["layers"]
-    for i in range(_n_layers(layers)):
-        lp = _layer(layers, i)
-        k, v = _cache_kv(lp["attn"], rms_norm(h, lp["attn_norm"], cfg.rms_eps), plan,
-                         positions, max_len, mode)
-        h, _aux = tp_model.layer(lp, h, plan, positions)
+
+    def attn_layer(lp, h):
+        k, v = _cache_kv(lp["attn"], rms_norm(h, lp["attn_norm"], eps), plan, positions,
+                         max_len, mode, sp)
         ks.append(k)
         vs.append(v)
-    cache = {"pos": torch.tensor(s, dtype=torch.int32, device=h.device),
-             "k": torch.stack(ks), "v": torch.stack(vs)}
-    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+        return tp_model.layer(lp, h, plan, positions)[0]
+
+    def ssm_layer(lp, h, caches):
+        y, c = tp_model.ssd_block(lp["ssd"], rms_norm(h, lp["norm"], eps), plan,
+                                  return_cache=True)
+        caches.append(c)
+        return h + y
+
+    layers = params["layers"]
+    if cfg.family in ("ssm", "hybrid"):  # models.transformer.prefill's order
+        scs = {"layers": [], "trailing": []}
+        for tree, i in ssm_schedule(cfg):
+            if tree == "shared":
+                h = attn_layer(params["shared"], h)
+            else:
+                h = ssm_layer(_layer(params[tree], i), h, scs[tree])
+        cache.update({SSM_STATE[t]: _stack(x) for t, x in scs.items() if x})
+    else:
+        for i in range(_n_layers(layers)):
+            h = attn_layer(_layer(layers, i), h)
+    if ks:
+        cache.update(k=torch.stack(ks), v=torch.stack(vs))
+    h = rms_norm(h, params["final_norm"], eps)
     return tp_model.logits(params, plan, h[:, -1:, :]), cache
 
 
@@ -172,65 +234,94 @@ def _attend_split(q, ck, cv, pos, start: int, g: AxisGroup):
     return _finalize(top, l, acc).reshape(q.shape).to(q.dtype)
 
 
-def _attn_decode(lp, x, ck, cv, pos, plan, mode: str):
+def _attn_decode(lp, x, ck, cv, pos, plan, mode: str, sp: AxisGroup):
     """One layer's decode attention of the normed, replicated ``x`` with
     this rank's cache blocks: (output, replicated; new cache blocks)."""
     cfg, g = plan.cfg, plan.model
-    if mode == "heads":
-        y, ck, cv = attention_decode(lp, x, ck, cv, pos, plan.local)
-        return reduce_from_model(y, g), ck, cv
-    if plan.attn == "whole":
+    split = _split(plan, mode, sp)
+    start = _span(split, ck.shape[1] * split.size)[0]
+
+    def attend(q, k, v):  # over this rank's positions, merged across the split
+        return (_attend_split(q, k, v, pos, start, split) if split.size > 1
+                else decode_attend(q, k, v, pos))
+
+    if mode == "heads" or plan.attn == "whole":
         if mode == "seq":
             raise ValueError(f"{cfg.name}: a split-K cache needs attention split over 'model'")
-        return attention_decode(lp, x, ck, cv, pos, cfg)
+        if split.size == 1:
+            y, ck, cv = attention_decode(lp, x, ck, cv, pos,
+                                         plan.local if mode == "heads" else cfg)
+        else:
+            q, ck, cv = decode_write(lp, x, ck, cv, pos,
+                                     plan.local if mode == "heads" else cfg, start)
+            y = torch.einsum("bshk,hkd->bsd", attend(q, ck, cv), lp["wo"].to(x.dtype))
+        return (reduce_from_model(y, g) if mode == "heads" else y), ck, cv
     # "whole" or "seq": this rank's cache holds every kv head, so every kv
     # head's new keys are written
-    start = _span(plan, ck.shape[1] * g.size)[0] if mode == "seq" else 0
     if plan.attn == "contraction":  # q holds every query head
         positions = pos.to(torch.int32).expand(x.shape[0], 1)
         q, k, v = tp_model.contracted_qkv(lp, x, plan, positions)
         ck, cv = write_kv(ck, cv, k, v, pos, start)
-        out = (_attend_split(q, ck, cv, pos, start, g) if mode == "seq"
-               else decode_attend(q, ck, cv, pos))
-        return tp_model.contracted_out(lp, out, plan), ck, cv
+        return tp_model.contracted_out(lp, attend(q, ck, cv), plan), ck, cv
     # a head split: q holds this rank's query heads
     q, ck, cv = decode_write(lp, x, ck, cv, pos, cfg, start)
     if mode == "seq":
         hpl = q.shape[2]
-        out = _attend_split(gather_from_model(q, g, 2), ck, cv, pos, start, g)
+        out = attend(gather_from_model(q, g, 2), ck, cv)
         out = out[:, :, g.index * hpl: (g.index + 1) * hpl]
     else:
-        out = decode_attend(q, tp_model.take_heads(ck, plan.kv_index, 2),
-                            tp_model.take_heads(cv, plan.kv_index, 2), pos)
+        out = attend(q, tp_model.take_heads(ck, plan.kv_index, 2),
+                     tp_model.take_heads(cv, plan.kv_index, 2))
     y = torch.einsum("bshk,hkd->bsd", out, lp["wo"].to(x.dtype))
     return reduce_from_model(y, g), ck, cv
 
 
 def decode_step(params: dict, plan: tp_model.Plan, cache: dict, tokens: torch.Tensor,
-                mode: str) -> tuple[torch.Tensor, dict]:
+                mode: str, sp: AxisGroup = AxisGroup(1)) -> tuple[torch.Tensor, dict]:
     """One decode step of this rank's requests ``tokens`` (B, 1) with its
     cache blocks: (logits, placed as the module says; the new cache
-    blocks).  The cache passed in is not modified."""
+    blocks).  The cache passed in is not modified; the new keys and values
+    are written layer by layer into one stacked copy."""
     cfg = plan.cfg
     eps = cfg.rms_eps
     h = tp_model.embed(params, plan, tokens)
     pos = cache["pos"]
-    nks, nvs = [], []
+    new = {**cache, "pos": pos + 1}
+    if "k" in cache:
+        new["k"], new["v"] = torch.empty_like(cache["k"]), torch.empty_like(cache["v"])
+
+    def attn(lp, h, i):
+        y, new["k"][i], new["v"][i] = _attn_decode(
+            lp["attn"], rms_norm(h, lp["attn_norm"], eps), cache["k"][i], cache["v"][i], pos,
+            plan, mode, sp)
+        return h + y
+
     layers = params["layers"]
-    for i in range(_n_layers(layers)):
-        lp = _layer(layers, i)
-        y, nk, nv = _attn_decode(lp["attn"], rms_norm(h, lp["attn_norm"], eps), cache["k"][i],
-                                 cache["v"][i], pos, plan, mode)
-        h = h + y
-        x = rms_norm(h, lp["mlp_norm"], eps)
-        if cfg.family == "moe":
-            m, _ = tp_model.moe_block(lp["moe"], x, plan, dropless=True)
-        else:
-            m = tp_model.mlp_block(lp["mlp"], x, plan)
-        h = h + m
-        nks.append(nk)
-        nvs.append(nv)
-    new = {**cache, "k": torch.stack(nks), "v": torch.stack(nvs), "pos": pos + 1}
+    if cfg.family in ("ssm", "hybrid"):  # models.transformer.decode_step's order
+        states = {"layers": [], "trailing": []}
+        for tree, i in ssm_schedule(cfg):
+            if tree == "shared":
+                shared = params["shared"]
+                h = attn(shared, h, i)
+                h = h + tp_model.mlp_block(shared["mlp"], rms_norm(h, shared["mlp_norm"], eps),
+                                           plan)
+                continue
+            lp = _layer(params[tree], i)
+            y, c = tp_model.ssd_decode(lp["ssd"], rms_norm(h, lp["norm"], eps),
+                                       _layer(cache[SSM_STATE[tree]], i), plan)
+            h = h + y
+            states[tree].append(c)
+        new.update({SSM_STATE[t]: _stack(x) for t, x in states.items() if x})
+    else:
+        for i in range(_n_layers(layers)):
+            lp = _layer(layers, i)
+            h = attn(lp, h, i)
+            x = rms_norm(h, lp["mlp_norm"], eps)
+            if cfg.family == "moe":
+                m, _ = tp_model.moe_block(lp["moe"], x, plan, dropless=True)
+            else:
+                m = tp_model.mlp_block(lp["mlp"], x, plan)
+            h = h + m
     h = rms_norm(h, params["final_norm"], eps)
     return tp_model.logits(params, plan, h), new
 
@@ -261,14 +352,15 @@ def generate(params: dict, cfg, mesh, prompts: torch.Tensor, max_new_tokens: int
     plan = tp_model.make_plan(cfg, mesh, "serve")
     max_len = prompts.shape[1] + max_new_tokens
     mode = kv_mode(cfg, mesh, prompts.shape[0], max_len)
+    sp = sp_group(cfg, mesh, prompts.shape[0], max_len)
     prompts = shard_batch(cfg, mesh, {"tokens": prompts})["tokens"]
     out_toks, out_lp = [], []
     with _obs_hooks.muted():
-        logits, cache = prefill(params, plan, prompts, max_len, mode)
+        logits, cache = prefill(params, plan, prompts, max_len, mode, sp)
         for _ in range(max_new_tokens):
             tok, lp = _greedy(logits, plan)
             out_toks.append(tok[:, 0])
             out_lp.append(lp)
-            logits, cache = decode_step(params, plan, cache, tok.to(torch.int32), mode)
+            logits, cache = decode_step(params, plan, cache, tok.to(torch.int32), mode, sp)
     return GenerateResult(tokens=torch.stack(out_toks, dim=1),
                           logprobs=torch.stack(out_lp, dim=1))

@@ -1,5 +1,5 @@
-"""The dense and MoE families' forward and loss on one rank's shards of
-"model".
+"""The dense, MoE, ssm and hybrid families' forward and loss on one rank's
+shards of "model".
 
 The reference's GSPMD splits the transformer over the mesh's "model" axis
 by the rules of ``launch.sharding``.  Here one rank runs its part with
@@ -48,13 +48,33 @@ own ``param_spec`` (:func:`make_plan`), never decided again:
     (the tokens are replicated over "model").  A padded expert gets no
     token, so a rank holding only padded experts adds zero.
 
+  * SSD (the ssm and hybrid families; :attr:`Plan.ssd`): ``in_proj`` split
+    on its ``d_model`` rows and ``out_proj`` on its ``d_inner`` rows (the
+    rules' contraction split; the small leaves replicated).  Each rank
+    forms the partial projection of its ``d / m`` columns of ``x`` in
+    float32, and ``reduce_from_model`` sums it, cast once, so every rank
+    holds the whole projection.  Under "heads" ("model" divides the SSM
+    heads) a rank then takes its heads' ``z``, ``x`` and ``dt`` columns and
+    the whole ``B`` and ``C`` (every head of a group reads them), runs the
+    conv on those channels and the chunk scan on its heads (the scan is
+    per head), sums the gated norm's squares over "model", and its
+    ``out_proj`` rows (its heads' ``d_inner`` block) give a partial output
+    that ``reduce_from_model`` sums, in float32 and cast once too.  Under "whole" (heads the axis does
+    not divide) the core runs whole on every rank between the two split
+    contractions; with neither projection split, it is
+    ``models.ssd.ssd_block``.  zamba2's shared attention and MLP block runs
+    through :func:`layer`, once a group of SSM layers, on the same leaves.
+
 The gradient of a split leaf is this rank's block.  A replicated leaf has
 one of two kinds of gradient (:attr:`Plan.partial`):
 
   * **partial**, when its use is split across the group: each rank's
     gradient covers its own heads only and must be summed over "model".
-    These are ``wk`` / ``wv`` when replicated, and ``q_norm`` / ``k_norm``
-    under a head split.
+    These are ``wk`` / ``wv`` when replicated, ``q_norm`` / ``k_norm``
+    under a head split, and under the SSD head split ``conv_w``,
+    ``conv_b``, ``a_log``, ``dt_bias``, ``d_skip`` and ``norm_w``: a rank
+    uses its heads' entries only, and the ``B`` / ``C`` conv channels that
+    every rank uses carry only its own heads' share.
   * **whole**, when it is used whole before a split region: a norm whose
     output enters the split products through ``copy_to_model``, whose
     backward already sums the input's gradient.  Summing it again would
@@ -71,6 +91,18 @@ shares and the step silently wrong.  ``dx`` of the query columns is
 partial (this rank's columns only) and is summed by the backward of the
 ``copy_to_model`` that ``x`` enters before its columns are taken; ``x``
 reaches ``wk`` / ``wv`` directly, since their use is whole.
+
+The SSD head split has three more such places.  The summed projection is
+replicated, but each rank's use of it covers its own heads' columns and
+its heads' share of ``B`` / ``C``: it enters the split region through
+``copy_to_model``, or ``in_proj``'s gradient misses the other ranks'
+share.  The gated norm's sum of squares is summed over "model" forward,
+and its gradient is summed backward as well (each rank's gradient of the
+whole sum covers its own columns), so it passes ``reduce_from_model`` and
+then ``copy_to_model``.  Under "whole" the core runs whole on the summed
+projection, so its gradient is whole and needs no sum; the core's output
+enters ``out_proj``'s rows through ``copy_to_model``, as attention's
+output does under its contraction split.
 
 The MoE routing is such a replicated region: its outputs ``xg`` (the
 tokens, into the rank's expert buffers) and ``top_p`` (into the rank's
@@ -91,7 +123,8 @@ training its means are taken over the data-parallel ranks
 rank's own means would give another loss.
 
 On a one-rank group every operator is the identity and each function
-below runs the one-process op sequence of ``models.transformer``.
+below runs the one-process op sequence of ``models.transformer`` (the SSD
+block is ``models.ssd.ssd_block`` itself).
 """
 
 from __future__ import annotations
@@ -106,25 +139,27 @@ import torch.nn.functional as F
 from .._tree import leaves_with_path
 from ..models import lm_loss as _lm_loss
 from ..models import moe as _moe
+from ..models import ssd as _ssd
 from ..models import param_shapes
 from ..models.config import ModelConfig
 from ..models.layers import (attend, attention, mlp, norm_rope, project_kv, rms_norm,
                              torch_dtype)
-from ..models.transformer import _ce, _layer, _n_layers, _positions, embed_tokens
+from ..models.transformer import (_ce, _layer, _n_layers, _positions, embed_tokens,
+                                 init_cache, ssm_schedule)
 from .mesh import dp_axes, mesh_axes
-from .sharding import params_shardings
+from .sharding import cache_shardings, params_shardings
 from .tp import (AxisGroup, all_reduce, axis_group, batch_mean, copy_to_model,
                  gather_from_model, reduce_from_model)
 
 __all__ = ["Plan", "make_plan", "unsupported", "embed", "layer", "attention_block",
            "contracted_qkv", "contracted_out",
-           "mlp_block", "moe_route", "moe_dispatch", "moe_block", "forward", "logits", "loss",
-           "make_loss_fn", "take_heads"]
+           "mlp_block", "moe_route", "moe_dispatch", "moe_block", "ssd_project", "ssd_block",
+           "ssd_decode", "forward", "logits", "loss", "make_loss_fn", "take_heads"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one rank runs the dense or MoE model, read from the specs.
+    """How one rank runs the model, read from the specs.
 
     ``attn``: attention split on its "heads", on its "contraction"
     (``wq``'s input and ``wo``'s output ``d``) or "whole"; ``kv``: "heads"
@@ -137,7 +172,11 @@ class Plan:
     gradient is a partial sum over "model"; ``experts``: a MoE rank's
     range [lo, hi) of the padded experts; ``data``: in training, the
     data-parallel group over which the load-balance loss's means are taken
-    (one rank when serving)."""
+    (one rank when serving); ``ssd``: the SSD core split on "heads" or run
+    "whole" (None without SSD layers); ``ssd_heads``: under "heads", this
+    rank's range [h0, h1) of the SSM heads; ``conv``: whether a decode
+    cache's conv tail is split over "model" on its channels (a contiguous
+    ``d_xbc / m`` block a rank, by ``cache_shardings``)."""
 
     cfg: ModelConfig
     local: ModelConfig
@@ -152,6 +191,14 @@ class Plan:
     partial: frozenset
     experts: Optional[tuple[int, int]] = None
     data: AxisGroup = AxisGroup(1)
+    ssd: Optional[str] = None
+    ssd_heads: Optional[tuple[int, int]] = None
+    conv: bool = False
+
+    @property
+    def ssd_split(self) -> bool:
+        """Whether the SSD projections are split on their contraction."""
+        return any(p.endswith("['ssd']['in_proj']") for p in self.split)
 
 
 def _model_dim(spec, rank: int) -> Optional[int]:
@@ -175,17 +222,33 @@ def _model_dims(cfg: ModelConfig, mesh, mode: str) -> dict[str, Optional[int]]:
 
 # (wq, wo)'s "model" dims, from the end -> the attention mode
 _ATTN = {(None, None): "whole", (-2, -3): "heads", (-3, -1): "contraction"}
+# the SSD leaves the rules keep replicated, used in parts under "heads"
+_SSD_SMALL = ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip", "norm_w")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def _leaf_dims(dims: dict, block: str) -> dict[str, set]:
+    """name -> the "model" dims of every leaf of ``block`` (``['attn']``,
+    ``['mlp']``, ``['moe']``, ``['ssd']``), whichever subtree holds it."""
+    out: dict[str, set] = {}
+    for p, d in dims.items():
+        if f"['{block}']" in p:
+            out.setdefault(_name(p), set()).add(d)
+    return out
+
+
+def _one(dims: dict, block: str) -> dict:
+    return {k: next(iter(v)) for k, v in _leaf_dims(dims, block).items()}
 
 
 def _why_not(cfg: ModelConfig, dims: dict, m: int) -> Optional[str]:
-    attn = {_name(p): d for p, d in dims.items() if "['attn']" in p}
-    mlps = {_name(p): d for p, d in dims.items() if "['mlp']" in p}
-    if (attn["wq"], attn["wo"]) not in _ATTN:
+    attn, mlps = _one(dims, "attn"), _one(dims, "mlp")
+    if attn and (attn["wq"], attn["wo"]) not in _ATTN:
         return (f"{cfg.name}: the rules split attention as (wq, wo: {attn['wq']}, "
                 f"{attn['wo']}) on a {m}-rank 'model' axis, neither on heads nor on d")
     if set(mlps.values()) - {None} and mlps != {k: (-2 if k == "down" else -1) for k in mlps}:
         return f"{cfg.name}: the rules split the MLP as {mlps}, not on d_ff"
-    moe = {_name(p): d for p, d in dims.items() if "['moe']" in p}
+    moe = _one(dims, "moe")
     if moe and (moe["gate"], moe["up"], moe["down"], moe["router"]) != (-3, -3, -3, -1):
         how = "split the experts' d_ff" if moe["up"] is not None else "keep the experts whole"
         return (f"{cfg.name}: the rules {how} (gate, up, down, router: {moe['gate']}, "
@@ -193,33 +256,51 @@ def _why_not(cfg: ModelConfig, dims: dict, m: int) -> Optional[str]:
                 f"({cfg.moe.padded_experts} experts), not the expert axis")
     if moe and cfg.moe.num_shared_experts:
         return f"{cfg.name}: the expert-parallel block does not run shared experts"
+    ssd = _leaf_dims(dims, "ssd")
+    if ssd:
+        inout = (ssd["in_proj"], ssd["out_proj"])
+        if inout not in (({None}, {None}), ({-2}, {-2})) or any(
+                ssd[k] != {None} for k in _SSD_SMALL):
+            return (f"{cfg.name}: the rules split the SSD block as {ssd} on a {m}-rank "
+                    f"'model' axis, not in_proj and out_proj both on their contraction")
     return None
 
 
 def unsupported(cfg: ModelConfig, mesh, mode: str = "train") -> Optional[str]:
     """Why the rules' splits of ``cfg`` on ``mesh`` are not ones this forward
-    runs, or None: it takes the dense family and the MoE family (with no
-    shared experts), attention split on heads or on its contraction (or
-    whole), the MLP on ``d_ff`` (or whole) and the experts and the router
-    on their expert axis."""
-    if cfg.family not in ("dense", "moe"):
-        return (f"{cfg.name}: the tensor-parallel forward covers the dense family and the "
-                f"MoE family, not {cfg.family!r}")
+    runs, or None: it takes the dense, MoE (with no shared experts), ssm
+    and hybrid families, attention split on heads or on its contraction
+    (or whole), the MLP on ``d_ff`` (or whole), the experts and the router
+    on their expert axis, and the SSD projections on their contraction
+    (or whole)."""
+    if cfg.family not in _FAMILIES:
+        return (f"{cfg.name}: the tensor-parallel forward covers the dense, MoE, ssm and "
+                f"hybrid families, not {cfg.family!r}")
     return _why_not(cfg, _model_dims(cfg, mesh, mode), mesh_axes(mesh)["model"])
+
+
+def _conv_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether ``cache_shardings`` splits a decode cache's conv tail over
+    "model" (on its channels)."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return False
+    spec = cache_shardings(cfg, mesh, init_cache(cfg, 1, 1, device="meta"))["ssm"]["conv"].spec
+    return len(spec) > 3 and spec[3] == "model"
 
 
 def make_plan(cfg: ModelConfig, mesh, mode: str = "train") -> Plan:
     """The rank's plan on ``mesh`` (a ``DeviceMesh``, or an ``AbstractMesh``
     for a stand-in group) from ``param_spec`` of every leaf."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in _FAMILIES:
         raise ValueError(unsupported(cfg, mesh, mode))
     model = axis_group(mesh, "model")
     dims = _model_dims(cfg, mesh, mode)
     reason = _why_not(cfg, dims, model.size)
     if reason:
         raise ValueError(reason)
-    attn = _ATTN[dims["['layers']['attn']['wq']"], dims["['layers']['attn']['wo']"]]
-    kv = "heads" if dims["['layers']['attn']['wk']"] is not None else "whole"
+    attn_dims = _one(dims, "attn")
+    attn = _ATTN[attn_dims.get("wq"), attn_dims.get("wo")]
+    kv = "heads" if attn_dims.get("wk") is not None else "whole"
     embed_mode = {-2: "vocab", -1: "d", None: "whole"}[dims["['embed']"]]
     head_mode = embed_mode if cfg.tie_embeddings else {-1: "vocab", -2: "d", None: "whole"}[
         dims["['head']"]]
@@ -239,6 +320,17 @@ def make_plan(cfg: ModelConfig, mesh, mode: str = "train") -> Plan:
         # contraction split none: wk, wv, q_norm, k_norm are used whole
         partial = frozenset(p for p in dims if "['attn']" in p and (
             _name(p) in ("q_norm", "k_norm") or (kv == "whole" and _name(p) in ("wk", "wv"))))
+    ssd, ssd_heads = None, None
+    if cfg.family in ("ssm", "hybrid"):
+        n_heads = _ssd.ssm_dims(cfg)[1]
+        split_in = _one(dims, "ssd")["in_proj"] is not None
+        ssd = "heads" if split_in and n_heads % model.size == 0 else "whole"
+        if ssd == "heads" and model.size > 1:
+            n = n_heads // model.size
+            ssd_heads = (model.index * n, (model.index + 1) * n)
+            # the small SSD leaves, used in parts (the B / C conv channels by
+            # every rank, each for its own heads): partial gradients
+            partial |= frozenset(p for p in dims if "['ssd']" in p and _name(p) in _SSD_SMALL)
     split = frozenset(p for p, d in dims.items() if d is not None and model.size > 1)
     experts, data = None, AxisGroup(1)
     if cfg.family == "moe":
@@ -247,8 +339,9 @@ def make_plan(cfg: ModelConfig, mesh, mode: str = "train") -> Plan:
         if mode == "train":  # the batch's rows, as batch_shardings splits them
             data = axis_group(mesh, dp_axes(mesh))
     return Plan(cfg, local, model, attn, kv, kv_index,
-                dims.get("['layers']['mlp']['up']") is not None, embed_mode, head_mode, split,
-                partial, experts, data)
+                _one(dims, "mlp").get("up") is not None, embed_mode, head_mode, split,
+                partial, experts, data, ssd, ssd_heads,
+                model.size > 1 and _conv_split(cfg, mesh))
 
 
 # --------------------------------------------------------------------------
@@ -354,6 +447,107 @@ def moe_block(lp: dict, x: torch.Tensor, plan: Plan,
     return reduce_from_model(y, plan.model).reshape(x.shape), aux
 
 
+def ssd_project(p: dict, x: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """The whole input projection of the normed, replicated ``x`` on every
+    rank: the partial products of this rank's ``d / m`` columns summed over
+    "model" in float32, then cast (one rounding, as the one-process
+    product).  Under "heads" it then enters the split region through
+    ``copy_to_model``: each rank's use covers its own heads only."""
+    g, dt = plan.model, x.dtype
+    xq = _d_slice(copy_to_model(x, g), plan, p["in_proj"]).to(torch.float32)
+    proj = reduce_from_model(xq @ p["in_proj"].to(dt).to(torch.float32), g).to(dt)
+    return copy_to_model(proj, g) if plan.ssd == "heads" else proj
+
+
+def _ssd_norm(p: dict, y: torch.Tensor, z: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """The gated norm of this rank's heads' ``y`` / ``z`` (whole under
+    "whole"): under "heads" the squares of the rank's ``d_inner`` columns
+    are summed over "model" forward and backward."""
+    cfg, g, heads = plan.cfg, plan.model, plan.ssd_heads
+    if heads is None:
+        return _ssd.gated_norm(y, z, p["norm_w"], cfg.rms_eps)
+    d_inner, _, hd, _, _ = _ssd.ssm_dims(cfg)
+    w = p["norm_w"][..., heads[0] * hd: heads[1] * hd]
+    return _ssd.gated_norm(y, z, w, cfg.rms_eps,
+                           lambda ss: copy_to_model(reduce_from_model(ss, g), g) / d_inner)
+
+
+def _ssd_out(p: dict, y: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """The output of the core's ``y`` through this rank's ``out_proj`` rows,
+    summed over "model" in float32 and cast once, as the projection's
+    partial products: under "heads" ``y`` is already the rank's ``d_inner``
+    block; under "whole" the block is cut from the whole ``y``, which
+    enters through ``copy_to_model``."""
+    g, dt = plan.model, y.dtype
+    if plan.ssd == "whole":
+        n = p["out_proj"].shape[-2]
+        y = copy_to_model(y, g)[..., g.index * n: (g.index + 1) * n]
+    out = y.to(torch.float32) @ p["out_proj"].to(dt).to(torch.float32)
+    return reduce_from_model(out, g).to(dt)
+
+
+def _conv_block(plan: Plan, c: int) -> tuple[int, int]:
+    """This rank's channels [c0, c1) of a conv tail split over "model"."""
+    n = c // plan.model.size
+    return plan.model.index * n, (plan.model.index + 1) * n
+
+
+def ssd_block(p: dict, x: torch.Tensor, plan: Plan, return_cache: bool = False):
+    """The SSD block of the normed, replicated ``x``; the result replicated.
+    With ``return_cache``, also this rank's decode cache: the final state of
+    its heads (all under "whole") and the last ``d_conv - 1`` raw rows of
+    its conv channel block (all when the cache's tail is whole)."""
+    cfg, heads = plan.cfg, plan.ssd_heads
+    if not plan.ssd_split:
+        return _ssd.ssd_block(p, x, cfg, return_cache)
+    dt_ = x.dtype
+    proj = ssd_project(p, x, plan)
+    z, xbc_raw, dt_raw = _ssd.split_proj(proj, cfg, heads)
+    xs, bmat, cmat = _ssd._split_xbc(_ssd.conv(xbc_raw, p, cfg, heads), cfg, heads)
+    y, hlast = _ssd.scan(p, xs, bmat, cmat, dt_raw, cfg, heads)
+    out = _ssd_out(p, _ssd_norm(p, y, z, plan), plan)
+    if not return_cache:
+        return out
+    d_inner, n_heads, _, _, _ = _ssd.ssm_dims(cfg)
+    tail = proj[:, -(cfg.ssm.d_conv - 1):, d_inner:-n_heads]
+    if plan.conv:
+        tail = tail[..., slice(*_conv_block(plan, tail.shape[-1]))]
+    return out, {"state": hlast, "conv": tail.to(dt_)}
+
+
+def ssd_decode(p: dict, x: torch.Tensor, cache: dict, plan: Plan) -> tuple:
+    """One token of the SSD block of the normed, replicated ``x`` (B, 1, d)
+    with this rank's cache blocks: (output, replicated; new cache blocks).
+    A conv tail split on its channels convolves the new row's channels of
+    its own block (the conv is depthwise), and the activated row is
+    all-gathered over "model"; the recurrence runs on the rank's heads."""
+    cfg, g, heads = plan.cfg, plan.model, plan.ssd_heads
+    if not (plan.ssd_split or plan.conv):
+        return _ssd.ssd_decode(p, x, cache, cfg)
+    dt_ = x.dtype
+    d_inner, n_heads, _, _, _ = _ssd.ssm_dims(cfg)
+    proj = ssd_project(p, x, plan) if plan.ssd_split else _ssd.project(p, x)
+    z, _, dt_raw = _ssd.split_proj(proj, cfg, heads)
+    row = proj[..., d_inner:-n_heads]  # the new raw row, every channel
+    w, b = p["conv_w"].to(dt_), p["conv_b"].to(dt_)
+    if plan.conv:
+        c = slice(*_conv_block(plan, row.shape[-1]))
+        act, tail = _ssd.conv_step(cache["conv"], row[..., c], w[:, c], b[c])
+        act = gather_from_model(act, g, -1)
+    else:
+        act, tail = _ssd.conv_step(cache["conv"], row, w, b)
+    xs, bmat, cmat = _ssd._split_xbc(_ssd.xbc_part(act, cfg, heads), cfg, heads)
+    y, state = _ssd.state_step(p, xs, bmat, cmat, dt_raw, cache["state"], heads)
+    y = _ssd_norm(p, y, z, plan)
+    out = _ssd_out(p, y, plan) if plan.ssd_split else y @ p["out_proj"].to(dt_)
+    return out, {"state": state, "conv": tail}
+
+
+def ssd_layer(lp: dict, h: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """One SSM layer (``models.transformer._ssm_layer``'s op order)."""
+    return h + ssd_block(lp["ssd"], rms_norm(h, lp["norm"], plan.cfg.rms_eps), plan)
+
+
 def embed(params: dict, plan: Plan, tokens: torch.Tensor) -> torch.Tensor:
     """The replicated embedding of ``tokens`` from this rank's shard."""
     cfg, g = plan.cfg, plan.model
@@ -376,13 +570,21 @@ def forward(params: dict, plan: Plan, tokens: torch.Tensor) -> tuple:
     h = embed(params, plan, tokens)
     positions = _positions(h.shape[1], h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    auxs, layers = [], params["layers"]
-    for i in range(_n_layers(layers)):
-        h, a = layer(_layer(layers, i), h, plan, positions)
-        auxs.append(a)
-    if plan.cfg.family == "moe":
-        aux = aux + torch.stack(auxs).sum()
-    return rms_norm(h, params["final_norm"], plan.cfg.rms_eps), aux
+    cfg, layers = plan.cfg, params["layers"]
+    if cfg.family in ("ssm", "hybrid"):
+        for tree, i in ssm_schedule(cfg):
+            if tree == "shared":
+                h, _ = layer(params["shared"], h, plan, positions)  # the shared leaves
+            else:
+                h = ssd_layer(_layer(params[tree], i), h, plan)
+    else:
+        auxs = []
+        for i in range(_n_layers(layers)):
+            h, a = layer(_layer(layers, i), h, plan, positions)
+            auxs.append(a)
+        if cfg.family == "moe":
+            aux = aux + torch.stack(auxs).sum()
+    return rms_norm(h, params["final_norm"], cfg.rms_eps), aux
 
 
 # --------------------------------------------------------------------------

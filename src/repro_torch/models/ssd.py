@@ -69,16 +69,75 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return out + b[None, None, :]
 
 
-def _split_xbc(xbc: torch.Tensor, cfg: ModelConfig):
+def _heads(t: torch.Tensor, heads, width: int = 1) -> torch.Tensor:
+    """The last-dim entries of heads ``heads`` = [h0, h1) of ``t`` (``width``
+    entries a head); ``t`` itself for every head (None)."""
+    if heads is None:
+        return t
+    return t[..., heads[0] * width: heads[1] * width]
+
+
+def xbc_part(t: torch.Tensor, cfg: ModelConfig, heads=None) -> torch.Tensor:
+    """The channels of ``t``, whose last dim is laid out as xbc ([x | B |
+    C], ``d_xbc`` wide), that heads [h0, h1) read: their x channels and the
+    whole B and C (every head of a group reads its group's).  ``t`` itself
+    for every head (None)."""
+    if heads is None:
+        return t
+    d_inner, _, hd, _, _ = ssm_dims(cfg)
+    return torch.cat([t[..., heads[0] * hd: heads[1] * hd], t[..., d_inner:]], dim=-1)
+
+
+def project(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The input projection (B, S, 2 d_inner + 2 G N + H) of x (B, S, d)."""
+    return x @ params["in_proj"].to(x.dtype)
+
+
+def split_proj(proj: torch.Tensor, cfg: ModelConfig, heads=None) -> tuple:
+    """(z, xbc_raw, dt_raw) of the projection for heads [h0, h1) (every head
+    for None): their z and dt columns, and their x channels of xbc with the
+    whole B and C (:func:`xbc_part`)."""
+    d_inner, n_heads, hd, _, _ = ssm_dims(cfg)
+    z = _heads(proj[..., :d_inner], heads, hd)
+    xbc_raw = xbc_part(proj[..., d_inner:-n_heads], cfg, heads)
+    return z, xbc_raw, _heads(proj[..., -n_heads:], heads)
+
+
+def conv(xbc_raw: torch.Tensor, params: Params, cfg: ModelConfig, heads=None) -> torch.Tensor:
+    """The activated depthwise causal conv of the channels heads [h0, h1)
+    read (:func:`xbc_part`), from the whole ``conv_w`` / ``conv_b``."""
+    dt_ = xbc_raw.dtype
+    w = xbc_part(params["conv_w"].to(dt_), cfg, heads)
+    b = xbc_part(params["conv_b"].to(dt_), cfg, heads)
+    return F.silu(_causal_conv(xbc_raw, w, b))
+
+
+def conv_step(tail: torch.Tensor, row: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of the causal conv on a channel range: the rolling
+    window [``tail`` (B, K-1, C), ``row`` (B, 1, C)] against ``w`` (K, C)
+    and ``b`` (C,) of the same channels.  Returns (the activated row
+    (B, 1, C), the new tail)."""
+    win = torch.cat([tail, row], dim=1)  # (B, K, C)
+    conv_out = torch.einsum("bkc,kc->bc", win, w) + b
+    return F.silu(conv_out)[:, None, :], win[:, 1:, :]
+
+
+def _split_xbc(xbc: torch.Tensor, cfg: ModelConfig, heads=None):
+    """(x (B, S, h, P), B, C (B, S, h, N)) of heads [h0, h1) (every head for
+    None) from their xbc channels (:func:`xbc_part`)."""
     d_inner, n_heads, hd, n_groups, d_state = ssm_dims(cfg)
-    x = xbc[..., :d_inner]
-    bmat = xbc[..., d_inner: d_inner + n_groups * d_state]
-    cmat = xbc[..., d_inner + n_groups * d_state:]
+    nx = d_inner if heads is None else (heads[1] - heads[0]) * hd
+    x = xbc[..., :nx]
+    bmat = xbc[..., nx: nx + n_groups * d_state]
+    cmat = xbc[..., nx + n_groups * d_state:]
     bsz, s = x.shape[:2]
-    x = x.reshape(bsz, s, n_heads, hd)
+    x = x.reshape(bsz, s, nx // hd, hd)
     rep = n_heads // n_groups
     bmat = bmat.reshape(bsz, s, n_groups, d_state).repeat_interleave(rep, dim=2)
     cmat = cmat.reshape(bsz, s, n_groups, d_state).repeat_interleave(rep, dim=2)
+    if heads is not None:
+        bmat, cmat = bmat[:, :, heads[0]: heads[1]], cmat[:, :, heads[0]: heads[1]]
     return x, bmat, cmat
 
 
@@ -129,26 +188,49 @@ def ssd_scan(
     return y.to(x.dtype), hstate
 
 
+def scan(params: Params, xs: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+         dt_raw: torch.Tensor, cfg: ModelConfig, heads=None) -> tuple:
+    """The chunked scan of heads [h0, h1) (every head for None) with their
+    skip term: (y (B, S, h P), the final state (B, h, N, P))."""
+    dt_ = xs.dtype
+    dt = F.softplus(dt_raw.to(torch.float32) + _heads(params["dt_bias"], heads).to(torch.float32))
+    a = -torch.exp(_heads(params["a_log"], heads).to(torch.float32))
+    y, hlast = ssd_scan(xs, dt, a, bmat, cmat, cfg.ssm.chunk)
+    y = y + xs * _heads(params["d_skip"], heads).to(dt_)[None, None, :, None]
+    return y.reshape(*xs.shape[:2], -1), hlast
+
+
+def gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, eps: float,
+               mean_sq=None) -> torch.Tensor:
+    """``rms_norm(y * silu(z), w)``.  With ``mean_sq`` the mean of squares
+    is ``mean_sq`` of the float32 sum of squares of this part of the row
+    (a norm whose row is split across ranks: the caller sums the parts and
+    divides by the whole width)."""
+    g = y * F.silu(z)
+    if mean_sq is None:
+        return rms_norm(g, w, eps)
+    dt = g.dtype
+    gf = g.to(torch.float32)
+    var = mean_sq(torch.sum(torch.square(gf), dim=-1, keepdim=True))
+    return ((gf * torch.rsqrt(var + eps)) * w.to(torch.float32)).to(dt)
+
+
 def ssd_block(params: Params, x: torch.Tensor, cfg: ModelConfig, return_cache: bool = False):
     """Full-sequence Mamba-2 block (training / prefill).  x: (B, S, d).
 
     With ``return_cache`` also returns the decode cache (final SSM state +
-    causal-conv tail) so prefill can hand off to ``ssd_decode``.
+    causal-conv tail) so prefill can hand off to ``ssd_decode``.  Its steps
+    (:func:`project`, :func:`split_proj`, :func:`conv`, :func:`_split_xbc`,
+    :func:`scan`, :func:`gated_norm`, the output projection) take a head
+    range, which the tensor-parallel block (``launch/tp_model.py``) runs
+    on one rank's heads.
     """
     dt_ = x.dtype
-    d_inner, n_heads, hd, n_groups, d_state = ssm_dims(cfg)
-    proj = x @ params["in_proj"].to(dt_)
-    z = proj[..., :d_inner]
-    xbc_raw = proj[..., d_inner:-n_heads]
-    dt_raw = proj[..., -n_heads:]
-    xbc = F.silu(_causal_conv(xbc_raw, params["conv_w"].to(dt_), params["conv_b"].to(dt_)))
-    xs, bmat, cmat = _split_xbc(xbc, cfg)
-    dt = F.softplus(dt_raw.to(torch.float32) + params["dt_bias"].to(torch.float32))
-    a = -torch.exp(params["a_log"].to(torch.float32))
-    y, hlast = ssd_scan(xs, dt, a, bmat, cmat, cfg.ssm.chunk)
-    y = y + xs * params["d_skip"].to(dt_)[None, None, :, None]
-    y = y.reshape(*x.shape[:2], d_inner)
-    y = rms_norm(y * F.silu(z), params["norm_w"], cfg.rms_eps)
+    proj = project(params, x)
+    z, xbc_raw, dt_raw = split_proj(proj, cfg)
+    xs, bmat, cmat = _split_xbc(conv(xbc_raw, params, cfg), cfg)
+    y, hlast = scan(params, xs, bmat, cmat, dt_raw, cfg)
+    y = gated_norm(y, z, params["norm_w"], cfg.rms_eps)
     out = y @ params["out_proj"].to(dt_)
     if not return_cache:
         return out
@@ -168,38 +250,37 @@ def init_ssd_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> Params:
     }
 
 
+def state_step(params: Params, xs: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+               dt_raw: torch.Tensor, state: torch.Tensor, heads=None) -> tuple:
+    """One token of the exact recurrence for heads [h0, h1) (every head for
+    None), from their state (B, h, N, P): (y (B, 1, h P), the new state)."""
+    dt_ = xs.dtype
+    dt = F.softplus(
+        dt_raw.to(torch.float32) + _heads(params["dt_bias"], heads).to(torch.float32)
+    )[:, 0]  # (B,h)
+    a = -torch.exp(_heads(params["a_log"], heads).to(torch.float32))
+    decay = torch.exp(dt * a[None, :])  # (B,h)
+    xs32 = xs.to(torch.float32)[:, 0]
+    b32 = bmat.to(torch.float32)[:, 0]
+    c32 = cmat.to(torch.float32)[:, 0]
+    state = state * decay[..., None, None] + torch.einsum(
+        "bh,bhn,bhp->bhnp", dt, b32, xs32
+    )
+    y = torch.einsum("bhn,bhnp->bhp", c32, state).to(dt_)
+    y = y + xs[:, 0] * _heads(params["d_skip"], heads).to(dt_)[None, :, None]
+    return y.reshape(xs.shape[0], 1, -1), state
+
+
 def ssd_decode(
     params: Params, x: torch.Tensor, cache: Params, cfg: ModelConfig
 ) -> tuple[torch.Tensor, Params]:
     """Single-token decode.  x: (B, 1, d); O(1) state update."""
     dt_ = x.dtype
-    d_inner, n_heads, hd, n_groups, d_state = ssm_dims(cfg)
-    proj = x @ params["in_proj"].to(dt_)
-    z = proj[..., :d_inner]
-    xbc = proj[..., d_inner:-n_heads]
-    dt_raw = proj[..., -n_heads:]
-
+    z, xbc, dt_raw = split_proj(project(params, x), cfg)
     # rolling causal-conv cache: window = [conv_cache, xbc_t]
-    win = torch.cat([cache["conv"], xbc], dim=1)  # (B, K, d_xbc)
-    w = params["conv_w"].to(dt_)
-    conv_out = torch.einsum("bkc,kc->bc", win, w) + params["conv_b"].to(dt_)
-    xbc_t = F.silu(conv_out)[:, None, :]
-    new_conv = win[:, 1:, :]
-
+    xbc_t, new_conv = conv_step(cache["conv"], xbc, params["conv_w"].to(dt_),
+                                params["conv_b"].to(dt_))
     xs, bmat, cmat = _split_xbc(xbc_t, cfg)  # (B,1,H,P), (B,1,H,N)
-    dt = F.softplus(
-        dt_raw.to(torch.float32) + params["dt_bias"].to(torch.float32)
-    )[:, 0]  # (B,H)
-    a = -torch.exp(params["a_log"].to(torch.float32))
-    decay = torch.exp(dt * a[None, :])  # (B,H)
-    xs32 = xs.to(torch.float32)[:, 0]
-    b32 = bmat.to(torch.float32)[:, 0]
-    c32 = cmat.to(torch.float32)[:, 0]
-    state = cache["state"] * decay[..., None, None] + torch.einsum(
-        "bh,bhn,bhp->bhnp", dt, b32, xs32
-    )
-    y = torch.einsum("bhn,bhnp->bhp", c32, state).to(dt_)
-    y = y + xs[:, 0] * params["d_skip"].to(dt_)[None, :, None]
-    y = y.reshape(x.shape[0], 1, d_inner)
-    y = rms_norm(y * F.silu(z), params["norm_w"], cfg.rms_eps)
+    y, state = state_step(params, xs, bmat, cmat, dt_raw, cache["state"])
+    y = gated_norm(y, z, params["norm_w"], cfg.rms_eps)
     return y @ params["out_proj"].to(dt_), {"state": state, "conv": new_conv}

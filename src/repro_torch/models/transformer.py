@@ -231,28 +231,39 @@ def forward(
             h, a = _moe_layer(_layer(layers, i), h, cfg, positions)
             auxs.append(a)
         aux = aux + torch.stack(auxs).sum()
-    elif fam == "ssm":
-        for i in range(_n_layers(layers)):
-            h = _ssm_layer(_layer(layers, i), h, cfg)
-    elif fam == "hybrid":
-        h = _hybrid_forward(params, cfg, h, positions)
+    elif fam in ("ssm", "hybrid"):
+        for tree, i in ssm_schedule(cfg):
+            if tree == "shared":
+                h = _attn_layer(params["shared"], h, cfg, positions)  # shared weights
+            else:
+                h = _ssm_layer(_layer(params[tree], i), h, cfg)
     else:
         raise ValueError(f"forward() does not handle family {fam}; use encdec_forward")
     return rms_norm(h, params["final_norm"], cfg.rms_eps), aux
 
 
-def _hybrid_forward(params: Params, cfg: ModelConfig, h, positions):
+# the cache's SSM state tree of each stacked tree of SSM layers
+SSM_STATE = {"layers": "ssm", "trailing": "ssm_trailing"}
+
+
+def ssm_schedule(cfg: ModelConfig):
+    """The ssm and hybrid families' layer order, one step at a time:
+    ("layers", i) for each SSM layer; in the hybrid family, after each group
+    of ``shared_attn_every`` of them ("shared", g), the shared block's g-th
+    use (its KV cache slot), and after the last group ("trailing", i) for
+    each of the ``n_layers % shared_attn_every`` SSM layers left.  The first
+    of each pair names the tree of ``params`` the layer lives in;
+    ``SSM_STATE`` names its cache's state tree."""
+    if cfg.family == "ssm":
+        yield from (("layers", i) for i in range(cfg.n_layers))
+        return
     per = cfg.shared_attn_every
-    groups = cfg.n_layers // per
-    shared = params["shared"]
-    for g in range(groups):
+    for g in range(cfg.n_layers // per):
         for j in range(per):
-            h = _ssm_layer(_layer(params["layers"], g * per + j), h, cfg)
-        h = _attn_layer(shared, h, cfg, positions)  # shared weights
-    if "trailing" in params:
-        for i in range(_n_layers(params["trailing"])):
-            h = _ssm_layer(_layer(params["trailing"], i), h, cfg)
-    return h
+            yield "layers", g * per + j
+        yield "shared", g
+    for i in range(cfg.n_layers % per):
+        yield "trailing", i
 
 
 def _encode(params: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
@@ -416,41 +427,22 @@ def prefill(
             vs.append(v)
         cache.update(k=torch.stack(ks), v=torch.stack(vs), pos=pos)
 
-    elif fam == "ssm":
-        caches = []
-        for i in range(_n_layers(params["layers"])):
-            lp = _layer(params["layers"], i)
-            y, c = ssd_block(lp["ssd"], rms_norm(h, lp["norm"], eps), cfg, return_cache=True)
+    elif fam in ("ssm", "hybrid"):
+        scs, ks, vs = {"layers": [], "trailing": []}, [], []
+        for tree, i in ssm_schedule(cfg):
+            if tree == "shared":
+                k, v = kv_of(params["shared"], h)
+                h = _attn_layer(params["shared"], h, cfg, positions)
+                ks.append(k)
+                vs.append(v)
+                continue
+            lp = _layer(params[tree], i)
+            y, sc = ssd_block(lp["ssd"], rms_norm(h, lp["norm"], eps), cfg, return_cache=True)
             h = h + y
-            caches.append(c)
-        cache.update(ssm=_stack(caches), pos=pos)
-
-    elif fam == "hybrid":
-        per = cfg.shared_attn_every
-        groups = cfg.n_layers // per
-        shared = params["shared"]
-        scs, ks, vs = [], [], []
-        for g in range(groups):
-            for j in range(per):
-                lp = _layer(params["layers"], g * per + j)
-                y, sc = ssd_block(lp["ssd"], rms_norm(h, lp["norm"], eps), cfg,
-                                  return_cache=True)
-                h = h + y
-                scs.append(sc)
-            k, v = kv_of(shared, h)
-            h = _attn_layer(shared, h, cfg, positions)
-            ks.append(k)
-            vs.append(v)
-        cache.update(ssm=_stack(scs), k=torch.stack(ks), v=torch.stack(vs), pos=pos)
-        if "trailing" in params:
-            trail = []
-            for i in range(_n_layers(params["trailing"])):
-                lp = _layer(params["trailing"], i)
-                y, sc = ssd_block(lp["ssd"], rms_norm(h, lp["norm"], eps), cfg,
-                                  return_cache=True)
-                h = h + y
-                trail.append(sc)
-            cache["ssm_trailing"] = _stack(trail)
+            scs[tree].append(sc)
+        cache.update({SSM_STATE[t]: _stack(x) for t, x in scs.items() if x}, pos=pos)
+        if ks:
+            cache.update(k=torch.stack(ks), v=torch.stack(vs))
 
     elif fam in ("encdec", "audio"):
         enc = _encode(params, cfg, frames)
@@ -488,14 +480,9 @@ def decode_step(
                                      pos, cfg)
         return h + y, nk, nv
 
-    def ssm_steps(tree, states, h):
-        new = []
-        for i in range(_n_layers(tree)):
-            lp = _layer(tree, i)
-            y, nsc = ssd_decode(lp["ssd"], rms_norm(h, lp["norm"], eps), _layer(states, i), cfg)
-            h = h + y
-            new.append(nsc)
-        return h, _stack(new)
+    def ssm_step(lp, state, h):
+        y, nsc = ssd_decode(lp["ssd"], rms_norm(h, lp["norm"], eps), state, cfg)
+        return h + y, nsc
 
     if fam in ("dense", "vlm", "moe"):
         nks, nvs = [], []
@@ -512,33 +499,24 @@ def decode_step(
             nvs.append(nv)
         new_cache = {**cache, "k": torch.stack(nks), "v": torch.stack(nvs), "pos": pos + 1}
 
-    elif fam == "ssm":
-        h, nstate = ssm_steps(params["layers"], cache["ssm"], h)
-        new_cache = {**cache, "ssm": nstate, "pos": pos + 1}
-
-    elif fam == "hybrid":
-        per = cfg.shared_attn_every
-        groups = cfg.n_layers // per
-        shared = params["shared"]
-        nscs, nks, nvs = [], [], []
-        for g in range(groups):
-            sl = slice(g * per, (g + 1) * per)
-            h, nsc = ssm_steps(_slice(params["layers"], sl), _slice(cache["ssm"], sl), h)
-            h, nk, nv = attn_step(shared, h, cache["k"][g], cache["v"][g])
-            h = h + mlp(shared["mlp"], rms_norm(h, shared["mlp_norm"], eps), cfg)
-            nscs.append(nsc)
-            nks.append(nk)
-            nvs.append(nv)
-        new_cache = {
-            **cache,
-            "ssm": {k: torch.cat([t[k] for t in nscs]) for k in nscs[0]},
-            "k": torch.stack(nks),
-            "v": torch.stack(nvs),
-            "pos": pos + 1,
-        }
-        if "ssm_trailing" in cache:
-            h, ntrail = ssm_steps(params["trailing"], cache["ssm_trailing"], h)
-            new_cache["ssm_trailing"] = ntrail
+    elif fam in ("ssm", "hybrid"):
+        new_cache = {**cache, "pos": pos + 1}
+        if fam == "hybrid":
+            # each use's new keys and values go straight into one stacked
+            # copy: the cache passed in, that copy and one use's new rows are
+            # alive at once (long_500k's cache is 25.8 GB)
+            new_cache.update(k=torch.empty_like(cache["k"]), v=torch.empty_like(cache["v"]))
+        nscs = {"layers": [], "trailing": []}
+        for tree, i in ssm_schedule(cfg):
+            if tree == "shared":
+                shared = params["shared"]
+                h, new_cache["k"][i], new_cache["v"][i] = attn_step(shared, h, cache["k"][i],
+                                                                    cache["v"][i])
+                h = h + mlp(shared["mlp"], rms_norm(h, shared["mlp_norm"], eps), cfg)
+            else:
+                h, nsc = ssm_step(_layer(params[tree], i), _layer(cache[SSM_STATE[tree]], i), h)
+                nscs[tree].append(nsc)
+        new_cache.update({SSM_STATE[t]: _stack(x) for t, x in nscs.items() if x})
 
     elif fam in ("encdec", "audio"):
         nks, nvs = [], []
@@ -557,8 +535,3 @@ def decode_step(
 
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     return unembed(params, cfg, h), new_cache
-
-
-def _slice(tree: Params, sl: slice) -> Params:
-    """Leading-axis slice of every leaf of a stacked tree (views)."""
-    return {k: _slice(v, sl) if isinstance(v, dict) else v[sl] for k, v in tree.items()}

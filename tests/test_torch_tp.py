@@ -41,8 +41,9 @@ and the dry run's collective term).
     head's backward; the vocab-parallel loss's MAX and SUM; the partial
     leaves; the norm; the data-parallel mean).
 
-  The smoke mamba2-370m on (1, 2), a family the tensor-parallel forward
-  does not run: the step gathers every leaf at use (an all-gather is
+  The smoke granite-moe-3b-a800m with 5 unpadded experts on (1, 2), whose
+  experts the rules split on their d_ff, a split the tensor-parallel
+  forward does not run: the step gathers every leaf at use (an all-gather is
   recorded), each rank's gradient is the whole one-process gradient, the
   storage stays placed, losses and params as above.  (Attention's
   contraction split, where the heads do not divide "model", is
@@ -86,6 +87,7 @@ from repro_torch.configs.shapes import SHAPES
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import build_case, dryrun, tp_model
 from repro_torch.launch.mesh import AbstractMesh
+from repro_torch.models.config import MoEConfig
 from repro_torch.launch.tp import (AxisGroup, all_reduce, copy_to_model, gather_from_model,
                                    reduce_from_model)
 from repro_torch.train import make_train_step
@@ -121,7 +123,11 @@ SERVE_CASES = [("internlm2-1.8b", (1, 2), 4, "heads"), ("gemma-7b", (1, 4), 4, "
 SERVE_BATCH, SERVE_PROMPT = 2, 8
 # a family the tensor-parallel forward does not run (the rules split the SSD's
 # in_proj / out_proj and the tied embedding), so the step gathers
-GATHER_CASE = ("mamba2-370m", (1, 2), {})
+# experts the axis does not divide (5, unpadded, on 2 ranks): the rules
+# split the experts' d_ff, which the tensor-parallel forward does not run
+GATHER_CASE = ("granite-moe-3b-a800m", (1, 2),
+               {"moe": MoEConfig(num_experts=5, top_k=2, d_ff_expert=64, capacity_factor=2.0,
+                                 group_size=32, pad_experts_to=None)})
 POD_STEP = ("internlm2-1.8b", {"d_model": 64, "n_heads": 4, "n_kv_heads": 4})
 POD_BLOCK = 64
 MESHES = {2: ((1, 2),), 4: ((2, 2), (1, 4))}
@@ -527,8 +533,8 @@ def test_plan_reads_the_rules():
     assert tp_model.unsupported(smoke_config("internlm2-1.8b"), _abstract((16, 16))) is None
     p = plan("internlm2-1.8b", (1, 16))
     assert (p.attn, p.kv, p.local, p.partial) == ("contraction", "whole", p.cfg, frozenset())
-    with pytest.raises(ValueError, match="dense family"):
-        plan("mamba2-370m", (1, 2))
+    with pytest.raises(ValueError, match="ssm and hybrid families"):
+        plan("whisper-medium", (1, 2))
     assert plan("internlm2-1.8b", (2, 1)).split == frozenset()
 
 
@@ -600,20 +606,21 @@ def test_tp_step_update_follows_its_gradient(ranks, arch, shape, over):
 
 
 def test_step_gathers_where_the_forward_does_not_split(ranks):
-    """A family the tensor-parallel forward does not run (the SSM): the step
-    gathers every leaf at use and each rank of the "model" group computes
-    the whole product, its storage still placed by the rules."""
+    """A split the tensor-parallel forward does not run (experts split on
+    their d_ff): the step gathers every leaf at use and each rank of the
+    "model" group computes the whole product, its storage still placed by
+    the rules."""
     from repro_torch.models import param_shapes
 
     arch, shape, over = GATHER_CASE
     tag = _tag(arch, shape, over)
     cfg, params_np, batch_np = step_inputs(arch, over)
-    assert "dense family" in tp_model.unsupported(cfg, _abstract(shape))
+    assert "experts' d_ff" in tp_model.unsupported(cfg, _abstract(shape))
     want, losses, norms = _one_process_steps(cfg, params_np, batch_np)
     g = _grads_np(cfg, params_np, batch_np, slice(None))
     whole = [tuple(x.shape) for x in leaves(param_shapes(cfg))]
     specs = _specs(cfg, shape)
-    assert sum("model" in tuple(sp) for sp in specs) >= 3  # embed, in_proj, out_proj
+    assert sum("model" in tuple(sp) for sp in specs) >= 3  # embed, attention, experts
     for r in _rank_results(ranks, shape):
         assert _rel(r[f"{tag}/losses"], losses) < TOL
         assert _rel(r[f"{tag}/grad_norms"], norms) < TOL
@@ -836,7 +843,7 @@ def test_meta_dryrun_dense_smoke_cells_model_collectives(arch, shape):
     assert len(acts) >= (4 if shape == "train_4k" else 2) * cfg.n_layers
 
 
-@pytest.mark.parametrize("arch,shape,why", [("mamba2-370m", "decode_32k", "dense family"),
+@pytest.mark.parametrize("arch,shape,why", [("whisper-medium", "decode_32k", "hybrid families"),
                                             ("qwen3-moe-30b-a3b", "train_4k", "FSDP")])
 def test_meta_dryrun_other_families_say_why(arch, shape, why):
     """A family the tensor-parallel forward does not cover, and the train
