@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE, serving, training, distribution, tensor-parallel, expert-parallel and SSD / sequence-parallel paths on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE, serving, training, distribution, tensor-parallel, expert-parallel, SSD / sequence-parallel and encoder-decoder paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -221,6 +221,25 @@ non-zero:
    SSM-state stream as one link under 3f's four points (one ``bt_axes``
    launch, equal to the plain version); the dry run's eight mamba2 /
    zamba2 cells on 16 x 16;
+3m. the encoder-decoder over "model": whisper-medium's plans on 16 x 16
+   and 32 x 8 (the encoder's, the decoder's and the cross-attention's
+   heads, ``d_ff``, embed and head on d), then whisper-medium at full
+   width and depth (24 + 24 layers, 1,500 stub frames a request drawn from
+   a seed) trained 3 steps of 4 x 256 decoder tokens by ``train()`` and by
+   the placed step on a one-rank NCCL group and a (1, 1) mesh (every
+   encoder layer through ``tp_model.layer``, every decoder layer through
+   ``tp_model.dec_layer``), losses and every param leaf's sha256 equal,
+   and its placed greedy ``generate`` with frames (4 x 256 prompts + 16
+   tokens) equal to ``serve.generate``'s; then at 8 + 8 layers and
+   float32 compute, a batch of 2, by two gloo ranks sharing the card on
+   (1, 2): losses within 5e-3 of a float32 ``train()``'s, prefill logits
+   and the one-process tokens' log-probabilities within ``AUDIO["tol"]``,
+   tokens equal up to near ties, each rank's cross cache within
+   ``AUDIO["cross_tol"]`` of the one-process cache's heads, a step's and a
+   decode step's collectives equal to ``audio_collectives``; the
+   full-width prefill's cross K/V cache as one link under 3f's four points
+   (one ``bt_axes`` launch, equal to the plain version); the dry run of
+   whisper-medium's three cells on 16 x 16, equal to the CPU's;
 4. scale and times: ``psu_stream`` on 4,194,304 paired packets and on
    Table I's conv input stream (7,350 packets of 64, 16 lanes),
    ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
@@ -3073,10 +3092,11 @@ def phase_dist(dev: torch.device, full: bool = True, handoff: dict | None = None
 
 
 def _placed_run(dev, lc, mesh, cfg, dcfg, ocfg, handoff: dict, what: str,
-                full: bool) -> tuple:
-    """Three placed steps from ``train()``'s initial weights and batches,
-    held to phase 3g's losses and params; returns (row, params, opt
-    state, step, step 0's batch)."""
+                full: bool, extra: dict | None = None) -> tuple:
+    """Three placed steps from ``train()``'s initial weights and batches
+    (``extra`` joins each, as in :func:`train_one_process`), held to phase
+    3g's losses and params; returns (row, params, opt state, step, step 0's
+    batch)."""
     from repro_torch.launch.step import make_placed_train_step, place_state
 
     torch.cuda.synchronize()
@@ -3087,8 +3107,13 @@ def _placed_run(dev, lc, mesh, cfg, dcfg, ocfg, handoff: dict, what: str,
     step = make_placed_train_step(cfg, ocfg, mesh)
     data = SyntheticLMDataset(dcfg)
     losses, walls = [], []
+
+    def batch_of(i):
+        return {k: torch.as_tensor(v).to(dev)
+                for k, v in {**data.global_batch(i), **(extra or {})}.items()}
+
     for i in range(TRAIN_FULL["steps"]):
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in data.global_batch(i).items()}
+        batch = batch_of(i)
         t1 = time.perf_counter()
         p, o, m = lc.run(f"{what} step {i}", lambda: step(p, o, batch), {})
         walls.append((time.perf_counter() - t1) * 1e3)
@@ -3111,8 +3136,7 @@ def _placed_run(dev, lc, mesh, cfg, dcfg, ocfg, handoff: dict, what: str,
             fail(f"{what}: {differ} param leaves differ from the one-process run's after "
                  f"{TRAIN_FULL['steps']} steps")
     row["equal_to_3g"] = want is not None and theirs is not None
-    batch0 = {k: torch.as_tensor(v).to(dev) for k, v in data.global_batch(0).items()}
-    return row, p, o, step, batch0
+    return row, p, o, step, batch_of(0)
 
 
 def _dist_path(dev, lc, mesh, group, full: bool, handoff: dict) -> dict:
@@ -3527,13 +3551,15 @@ def _rank_device(device: str, tag: str, rank: int) -> torch.device:
     return torch.device("cuda", 0) if device == "cuda" else torch.device(device)
 
 
-def _rank_train(dev, mesh, cfg, full: bool) -> dict:
+def _rank_train(dev, mesh, cfg, full: bool, extra: dict | None = None,
+                batch: int | None = None) -> dict:
     """One rank of a gloo group trains ``cfg`` TRAIN_FULL["steps"] steps by
     the placed step on ``mesh`` from ``train()``'s initial weights and
-    batches; the ranks build their state in turn, so the whole weights and
-    moments of one rank at a time stand beside the blocks of the others.
-    Returns its losses, step walls, step 0's collectives (summarised and
-    listed), peak and parameter blocks."""
+    batches (``extra`` and ``batch`` as :func:`train_one_process`'s); the
+    ranks build their state in turn, so the whole weights and moments of
+    one rank at a time stand beside the blocks of the others.  Returns its
+    losses, step walls, step 0's collectives (summarised and listed), peak
+    and parameter blocks."""
     import torch.distributed as dist
 
     from repro_torch.launch.step import make_placed_train_step, place_state
@@ -3541,6 +3567,7 @@ def _rank_train(dev, mesh, cfg, full: bool) -> dict:
 
     tf = TRAIN_FULL
     seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
+    gb = batch or gb
     for turn in range(dist.get_world_size()):
         if turn == dist.get_rank():
             host = tree_map(lambda t: t.cpu(), init_params(
@@ -3560,7 +3587,8 @@ def _rank_train(dev, mesh, cfg, full: bool) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     losses, walls, ops = [], [], []
     for i in range(tf["steps"]):
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in data.global_batch(i).items()}
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in {**data.global_batch(i), **(extra or {})}.items()}
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -3791,19 +3819,23 @@ def _ep_train_one_process(dev, lc, full: bool) -> dict:
 
 
 def train_one_process(dev, lc, cfg, full: bool, what: str, timed: bool = True,
-                      digests: bool = True) -> dict:
+                      digests: bool = True, extra: dict | None = None,
+                      batch: int | None = None) -> dict:
     """``train()`` of ``cfg`` for TRAIN_FULL["steps"] steps: its losses, with
     ``digests`` each param leaf's sha256, with ``timed`` its step's wall and
-    device time; its peak.  Its state is freed."""
+    device time; its peak.  ``extra`` (tensors, an encoder-decoder's
+    ``frames``) joins every batch; ``batch`` overrides the global batch.
+    Its state is freed."""
     tf = TRAIN_FULL
     seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
+    gb = batch or gb
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb, seed=tf["seed"])
     ocfg = optim.AdamWConfig(warmup_steps=1, total_steps=10)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     res = lc.run(f"{what} train()", lambda: train.train(
         cfg, dcfg, ocfg, train.TrainLoopConfig(steps=tf["steps"], seed=tf["seed"]),
-        device=dev), {})
+        batch_transform=(lambda b: {**b, **extra}) if extra else None, device=dev), {})
     losses = [m["loss"] for m in res["log"]]
     if not all(np.isfinite(losses)):
         fail(f"{what}: train() losses {losses}")
@@ -3816,8 +3848,8 @@ def train_one_process(dev, lc, cfg, full: bool, what: str, timed: bool = True,
     out["step_ms"], out["step_device_ms"] = None, None
     if timed:
         step_fn = train.make_train_step(cfg, ocfg, donate=True)
-        batch0 = {k: torch.from_numpy(v).to(dev)
-                  for k, v in SyntheticLMDataset(dcfg).global_batch(0).items()}
+        batch0 = {k: torch.as_tensor(v).to(dev)
+                  for k, v in {**SyntheticLMDataset(dcfg).global_batch(0), **(extra or {})}.items()}
 
         def one_step():
             return step_fn(params, opt_state, batch0)
@@ -3892,7 +3924,8 @@ def _ep_step(dev, lc, mesh, full: bool, one: dict) -> dict:
 
 
 def serve_reference(dev, lc, cfg, what: str, full: bool = True, timed: bool = True,
-                    floor: bool = False) -> tuple:
+                    floor: bool = False, frames: torch.Tensor | None = None,
+                    requests: int | None = None) -> tuple:
     """``serve.generate`` of ``cfg`` on SERVE_FULL's requests, prompts and
     new tokens (weights and prompts from its seed), greedy: (the run a
     placed one is held to: prompts, tokens, log-probabilities, the
@@ -3900,19 +3933,22 @@ def serve_reference(dev, lc, cfg, what: str, full: bool = True, timed: bool = Tr
     generated position with the one-process tokens fed back in, and with
     ``floor`` how far the same prefill and teacher-forced log-probabilities
     at float32 compute lie from them, the bf16 noise floor; the weights;
-    the one-process times of a prefill and a decode step when ``timed``)."""
+    the one-process times of a prefill and a decode step when ``timed``).
+    An encoder-decoder's ``frames`` go with the prompts; ``requests``
+    overrides SERVE_FULL's."""
     sf = SERVE_FULL
-    nreq, new = sf["requests"], sf["new_tokens"]
+    nreq, new = requests or sf["requests"], sf["new_tokens"]
     plen = sf["prompt"] if full else 64
     gen = torch.Generator(device=dev).manual_seed(sf["seed"])
     params = init_params(cfg, gen, dev)
     prompts = torch.randint(0, cfg.vocab, (nreq, plen), generator=gen, device=dev)
-    want = lc.run(f"{what} generate", lambda: serve.generate(params, cfg, prompts, new), {})
+    want = lc.run(f"{what} generate",
+                  lambda: serve.generate(params, cfg, prompts, new, frames=frames), {})
     prefill_fn = serve.make_prefill_fn(cfg, plen + new)
     decode_fn = serve.make_decode_fn(cfg)
-    logits, cache = prefill_fn(params, prompts)
+    logits, cache = prefill_fn(params, prompts, frames=frames)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-    times = _serve_times(lambda: prefill_fn(params, prompts),
+    times = _serve_times(lambda: prefill_fn(params, prompts, frames=frames),
                          lambda: decode_fn(params, cache, tok)) if timed else None
     margins, lg, tf_cache = [], logits, cache
     with torch.no_grad():
@@ -4323,7 +4359,8 @@ def cp_rank(rank: int, world: int, port: int, out: str, full: str, device: str,
     Path(out).write_text(json.dumps(res))
 
 
-def _cp_rank_serve(dev, mesh, cfg, plan, ref_path: str) -> dict:
+def _cp_rank_serve(dev, mesh, cfg, plan, ref_path: str,
+                   frames: torch.Tensor | None = None) -> dict:
     """One rank's placed serving: the weights built from SERVE_FULL["seed"]
     in turn (each rank keeps its blocks), then the prefill, one decode step
     fed the one-process run's first token (its collectives; the log-
@@ -4331,7 +4368,10 @@ def _cp_rank_serve(dev, mesh, cfg, plan, ref_path: str) -> dict:
     ``generate``.  A decode step is ~194 collectives, each tens of ms among
     16 gloo processes here, so no second, teacher-forced pass is run:
     ``generate``'s own inputs are the one-process tokens up to a request's
-    first divergence."""
+    first divergence.  An encoder-decoder's ``frames`` go with the prompts,
+    and the prefill's cross cache (the rank's kv heads) is held to the
+    one-process cache's heads of the layers ``ref_path`` keeps
+    (``cross_layers``, ``cross_k``, ``cross_v``)."""
     import torch.distributed as dist
 
     from repro_torch.launch import serve as placed
@@ -4377,11 +4417,18 @@ def _cp_rank_serve(dev, mesh, cfg, plan, ref_path: str) -> dict:
     with torch.no_grad():
         sync()
         t1 = time.perf_counter()
-        logits, cache = placed.prefill(local, plan, prompts, plen + new, mode)
+        logits, cache = placed.prefill(local, plan, prompts, plen + new, mode, frames=frames)
         sync()
         out["prefill_ms"] = (time.perf_counter() - t1) * 1e3
         first = whole(logits)
         out["prefill_err"] = float((first.cpu() - ref["prefill_logits"]).abs().max())
+        if "cross_layers" in ref:  # the rank's kv heads of the one-process cross cache
+            hk = cache["cross_k"].shape[3]
+            h0 = plan.model.index * hk
+            out["cross_err"] = max(float((cache[key][ref["cross_layers"]].to(torch.float32).cpu()
+                                          - ref[key][..., h0: h0 + hk, :]).abs().max())
+                                   for key in ("cross_k", "cross_v"))
+            out["cross_shape"] = list(cache["cross_k"].shape)
         sync()
         t1 = time.perf_counter()
         with record_collectives() as ops:
@@ -4396,7 +4443,7 @@ def _cp_rank_serve(dev, mesh, cfg, plan, ref_path: str) -> dict:
         del logits, cache, first
         sync()
         t1 = time.perf_counter()
-        res = placed.generate(local, cfg, mesh, prompts, new)
+        res = placed.generate(local, cfg, mesh, prompts, new, frames=frames)
         sync()
         out["generate_s"] = time.perf_counter() - t1
         out["tokens"] = res.tokens.cpu().tolist()
@@ -5275,6 +5322,490 @@ def _ssd_long_check(ranks: list, arch: str, one: dict, full: bool) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 3m
+
+# GSPMD's "model" axis for the audio family (launch/tp_model.py's encode /
+# cross_kv / cross_block / dec_layer): whisper-medium's bidirectional
+# encoder, its decoder's self-attention and its cross-attention split on
+# heads, every MLP on d_ff, embed and head on d (16 heads a layer; the
+# vocabulary of 51,865 divides no "model" axis).  At full width and depth
+# (24 + 24 layers, d_model 1,024, 0.81 B params, ~13 GB with float32 AdamW
+# state) it trains whole on the card, so (b) runs it uncut.  The gloo
+# pair (c) runs AUDIO["pair_layers"] encoder and decoder layers at float32
+# compute and a batch of AUDIO["pair_batch"] (the time limit).  Each
+# request carries ENC_FRAMES stub frame embeddings (the conv frontend is a
+# stub, as in the reference), drawn on the card from AUDIO["frames_seed"].
+# ``dryrun`` pins one device's collectives of whisper-medium's three cells
+# on 16 x 16 as the CPU's meta run records them (count and result bytes
+# per kind).
+AUDIO = {"arch": "whisper-medium", "frames_seed": 11, "ranks": 2, "pair_layers": 8,
+         "pair_batch": 2, "compare_dtype": "float32", "tol": 0.25, "loss_tol": 5e-3,
+         "cross_tol": 1e-3, "rehearsal_frames": 48,
+         "modelled": tuple(("whisper-medium", s, False)
+                           for s in ("train_4k", "prefill_32k", "decode_32k")),
+         "dryrun": {"train_4k": {"all-reduce": [270, 31_230_579_208],
+                                 "all-gather": [1, 268_435_456]},
+                    "prefill_32k": {"all-reduce": [121, 9_958_795_876],
+                                    "all-gather": [1, 134_217_728]},
+                    "decode_32k": {"all-reduce": [73, 2_009_488], "all-gather": [1, 16_384]}}}
+
+
+def _audio_cfg(full: bool, layers: int = 0, **over):
+    """whisper-medium (with ``layers`` encoder and decoder layers, all for
+    0), or its smoke config in a rehearsal."""
+    if not full:
+        return smoke_config(AUDIO["arch"], **over)
+    return get_config(AUDIO["arch"], **({"n_layers": layers, "n_enc_layers": layers}
+                                        if layers else {}), **over)
+
+
+def _audio_pair_cfg(full: bool):
+    """The config the gloo pair runs and its one-process runs are held to."""
+    return _audio_cfg(full, AUDIO["pair_layers"], dtype=AUDIO["compare_dtype"])
+
+
+def audio_frames(cfg, rows: int, full: bool, dev) -> torch.Tensor:
+    """``rows`` requests' stub frame embeddings (rows, ENC_FRAMES, d_model),
+    float32 unit normals drawn on ``dev`` from AUDIO["frames_seed"] (48
+    frames in a rehearsal)."""
+    from repro_torch.launch.specs import ENC_FRAMES
+
+    gen = torch.Generator(device=dev).manual_seed(AUDIO["frames_seed"])
+    n = ENC_FRAMES if full else AUDIO["rehearsal_frames"]
+    return torch.randn((rows, n, cfg.d_model), generator=gen, device=dev)
+
+
+def audio_collectives(cfg, plan, rows: int, seq: int, enc: int, kind: str = "train") -> list:
+    """The "model"-axis collectives one rank issues running the
+    encoder-decoder split on heads (``launch/tp_model.py``) on a mesh with
+    one data rank, as sorted (kind, bytes, group) rows: a placed train step
+    of ``rows`` x ``seq`` decoder tokens, a prefill of them, or a decode
+    step of ``rows`` requests, with ``enc`` frames a request.  Per encoder
+    layer (``rows`` x ``enc`` tokens) and per decoder layer: each split
+    block's output sum (attention, cross-attention, MLP), and in training
+    its input's gradient sum; in training the encoder output's gradient
+    sum once (``encode``'s ``copy_to_model``).  Then the embedding's sum or
+    gather (of the params), the head's (vocab: the loss's MAX and SUM and
+    its input's gradient sum; d: the partial logits, of the last position
+    in serving, and in training its input's gradient sum), the partial
+    leaves' gradient sums and the norm's split squares."""
+    m = plan.model.size
+    c = torch_dtype(cfg.dtype).itemsize
+    p = torch_dtype(cfg.param_dtype).itemsize
+    d = cfg.d_model
+    train = kind == "train"
+    n = 2 if train else 1
+    t = rows * (1 if kind == "decode" else seq)
+    heads = plan.attn == "heads"
+    ops = [("all-reduce", t * d * c, m)] * ((2 * heads + plan.mlp) * n * cfg.n_layers)
+    if kind != "decode":
+        te = rows * enc
+        ops += [("all-reduce", te * d * c, m)] * ((heads + plan.mlp) * n * cfg.n_enc_layers)
+        if train and heads:
+            ops.append(("all-reduce", te * d * c, m))
+    ops += {"vocab": [("all-reduce", t * d * p, m)], "d": [("all-gather", t * d * p, m)],
+            "whole": []}[plan.embed]
+    chunk = cfg.logits_chunk
+    nc = seq // chunk if train and chunk and seq % chunk == 0 and seq > chunk else 1
+    ct = t // nc if train else rows
+    if plan.head == "vocab" and train:
+        ops += [("all-reduce", ct * 4, m), ("all-reduce", 2 * ct * 4, m),
+                ("all-reduce", ct * d * c, m)] * nc
+    elif plan.head == "d":
+        ops += [("all-reduce", ct * cfg.vocab * c, m)] * nc
+        if train:
+            ops += [("all-reduce", ct * d * c, m)] * nc
+    if train:
+        ops += [("all-reduce", x.numel() * p, m)
+                for path, x in tree_leaves_with_path(param_shapes(cfg)) if path in plan.partial]
+        ops.append(("all-reduce", 4, m))
+    return sorted(o for o in ops if o[2] > 1)
+
+
+def phase_audio(dev: torch.device, full: bool = True, serve_path: dict | None = None,
+                train_path: dict | None = None) -> dict:
+    """Phase 3m: (a) whisper-medium's plans on 16 x 16 and 32 x 8; (b)
+    whisper-medium at full width and depth trained 3 steps of 4 x 256
+    decoder tokens (1,500 frames a request) by ``train()`` and by the
+    placed step on a one-rank NCCL group and a (1, 1) mesh (every encoder
+    layer through ``tp_model.layer``, every decoder layer through
+    ``tp_model.dec_layer``), losses and every param leaf's sha256 equal,
+    and its placed greedy ``generate`` with frames equal to
+    ``serve.generate``'s (tokens and log-probabilities); (c) then split
+    over "model" by two gloo ranks sharing the card on (1, 2), at
+    AUDIO["pair_layers"] + AUDIO["pair_layers"] layers and float32 compute
+    against float32 one-process runs: losses within AUDIO["loss_tol"],
+    prefill logits and the one-process tokens' log-probabilities within
+    AUDIO["tol"], greedy tokens equal up to near ties, each rank's cross
+    cache within AUDIO["cross_tol"] of the one-process cache's heads, a
+    step's and a decode step's collectives equal to
+    :func:`audio_collectives`; (d) (b)'s prefill cross K/V cache as one
+    link under 3f's four points (one ``bt_axes`` launch); (e) the dry run
+    of whisper-medium's three cells on 16 x 16, run while (c)'s ranks do,
+    equal to the CPU's.  Returns rows and launches."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    lc = _PathLaunches()
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    rows: dict = {"audio/plan": _audio_plans()}
+
+    def mark(what: str) -> None:
+        log(f"audio: {what} done at {time.perf_counter() - t_phase:.1f} s")
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = launch.make_smoke_mesh(device=dev.type)
+        cfg = _audio_cfg(full)
+        gb = TRAIN_FULL["global_batch"] if full else 4
+        extra = {"frames": audio_frames(cfg, gb, full, dev)}
+        # train() runs the (1, 1) step's op sequence (bitwise), so only the
+        # placed step is timed
+        one = train_one_process(dev, lc, cfg, full, "audio (b)", timed=False, extra=extra)
+        rows["audio/train"] = _audio_step(dev, lc, mesh, cfg, full, one, extra)
+        del extra
+        rows["audio/generate"], cross = _audio_generate(dev, lc, mesh, cfg, full)
+        mark("whisper-medium on (1, 1)")
+    finally:
+        dist.destroy_process_group()
+    rows["audio/cross_stream"] = _audio_cross_stream(lc, cross, serve_path or {},
+                                                     train_path or {})
+    del cross
+    pcfg = _audio_pair_cfg(full)
+    nb = AUDIO["pair_batch"]
+    frames = audio_frames(pcfg, nb, full, dev)
+    one = train_one_process(dev, lc, pcfg, full, f"audio (c) {AUDIO['compare_dtype']}",
+                            timed=False, digests=False, extra={"frames": frames}, batch=nb)
+    ref = _audio_pair_reference(dev, lc, pcfg, full, frames)
+    del frames
+    mark("the float32 one-process runs")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    def dry_run():
+        rows["audio/dryrun"] = _audio_dryrun()
+
+    pair, seconds = _spawn_ranks("audio (c)", AUDIO["ranks"], "audio_rank",
+                                 [int(full), dev.type], dry_run)
+    rows["audio/pair_seconds"] = seconds
+    mark("the pair of ranks")
+    rows["audio/two_ranks"] = _audio_two_ranks(pair, {"train": one, "serve": ref}, full, dev)
+    seconds = time.perf_counter() - t_phase
+    log(f"audio-path launches: {lc.total}; phase 3m {seconds:.1f} s ({backend}, world 1; gloo, "
+        f"world {AUDIO['ranks']})")
+    return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
+
+
+def _audio_plans() -> dict:
+    """(a) whisper-medium's train and serve plans on 16 x 16 and 32 x 8:
+    the encoder's, the decoder's and the cross-attention's heads split (a
+    rank's share of the 16), ``d_ff`` a rank, embed and head on "d", no
+    partial leaf; the cross leaves among the split ones."""
+    from repro_torch.launch import tp_model
+    from repro_torch.launch.mesh import AbstractMesh
+
+    cfg = get_config(AUDIO["arch"])
+    out = {}
+    for shape in ((16, 16), (32, 8)):
+        m = shape[1]
+        mesh = AbstractMesh(shape, ("data", "model"))
+        for mode in ("train", "serve"):
+            pl = tp_model.make_plan(cfg, mesh, mode)
+            names = {p.rsplit("['", 1)[-1].rstrip("']") for p in pl.split
+                     if "['cross_attn']" in p}
+            if ((pl.attn, pl.kv, pl.mlp, pl.embed, pl.head, pl.partial,
+                 pl.local.n_heads, pl.local.n_kv_heads) != (
+                    "heads", "heads", True, "d", "d", frozenset(), cfg.n_heads // m,
+                    cfg.n_kv_heads // m) or names != {"wq", "wk", "wv", "wo"}
+                    or not any(p.startswith("['enc_layers']") for p in pl.split)):
+                fail(f"audio (a): the {mode} plan of {cfg.name} on {shape} is {pl}")
+        out["x".join(map(str, shape))] = {"heads": cfg.n_heads // m, "d_ff": cfg.d_ff // m,
+                                          "embed": pl.embed, "head": pl.head,
+                                          "partial": sorted(pl.partial)}
+        log(f"audio (a) {cfg.name} on {shape[0]} x {m}: the encoder's, the decoder's and the "
+            f"cross-attention's {cfg.n_heads // m} of {cfg.n_heads} heads a rank, "
+            f"{cfg.d_ff // m} of d_ff {cfg.d_ff}, embed and head on d ({cfg.d_model // m} of "
+            f"{cfg.d_model}; vocab {cfg.vocab}), no partial leaf")
+    return out
+
+
+def _audio_step(dev, lc, mesh, cfg, full: bool, one: dict, extra: dict) -> dict:
+    """(b): three placed steps on the (1, 1) mesh, held to ``train()``'s
+    losses and leaf digests; every encoder layer runs through
+    ``tp_model.layer`` (bidirectional), every decoder layer through
+    ``tp_model.dec_layer``, and a one-rank group issues no collective."""
+    from repro_torch.launch import tp_model
+    from repro_torch.roofline import record_collectives
+
+    tf = TRAIN_FULL
+    seq, gb = (tf["seq_len"], tf["global_batch"]) if full else (64, 4)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb, seed=tf["seed"])
+    ocfg = optim.AdamWConfig(warmup_steps=1, total_steps=10)
+    plan = tp_model.make_plan(cfg, mesh)
+    if plan.attn != "heads" or plan.split:
+        fail(f"audio (b): the plan of {cfg.name} on (1, 1) is {plan}")
+    calls = {"layer": 0, "dec_layer": 0}
+    fns = {k: getattr(tp_model, k) for k in calls}
+
+    def counted(name):
+        def fn(*a, **k):
+            calls[name] += 1
+            return fns[name](*a, **k)
+        return fn
+
+    for k in calls:
+        setattr(tp_model, k, counted(k))
+    try:
+        with record_collectives() as ops:
+            row, p, o, step, batch0 = _placed_run(dev, lc, mesh, cfg, dcfg, ocfg, one,
+                                                  "audio (b)", full, extra)
+    finally:
+        for k, fn in fns.items():
+            setattr(tp_model, k, fn)
+    want = {"layer": cfg.n_enc_layers * tf["steps"], "dec_layer": cfg.n_layers * tf["steps"]}
+    if calls != want or ops:
+        fail(f"audio (b): {calls} layers through tp_model (want {want}), collectives {ops} on a "
+             f"one-rank group")
+
+    def one_step():
+        return step(p, o, batch0)
+
+    row["step_ms"] = time_ms(one_step, reps=2, warmup=1)
+    row["step_device_ms"], row["step_device_split"] = _device_total_ms(one_step, reps=2)
+    row["layers"] = calls
+    row["frames"] = list(batch0["frames"].shape)
+    row["one_process"] = {k: v for k, v in one.items() if k != "sha256"}
+    log(f"audio (b) {cfg.name} placed step through the encoder-decoder plan on (1, 1), {gb} x "
+        f"{seq} decoder tokens and {row['frames'][1]} frames a request: losses "
+        + " ".join(f"{x:.6f}" for x in row["losses"])
+        + (" = train()'s, every param leaf's sha256 equal" if row["equal_to_3g"] else "")
+        + f"; {calls['layer']} encoder layers through tp_model.layer, {calls['dec_layer']} "
+        f"decoder layers through tp_model.dec_layer, no collective; step {row['step_ms']:.1f} ms "
+        f"wall (CUDA events), {row['step_device_ms']} ms device, peak {row['peak_bytes']} bytes "
+        f"(train(): peak {one['peak_bytes']} bytes)")
+    del p, o, step, one_step, batch0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def _audio_generate(dev, lc, mesh, cfg, full: bool) -> tuple[dict, torch.Tensor]:
+    """(b): the placed greedy ``generate`` with frames on the (1, 1) mesh
+    against ``serve.generate`` with the same frames (phase 3f's requests,
+    prompts and new tokens): tokens and log-probabilities equal; prefill
+    and decode times and peak.  Also returns the placed prefill's cross
+    K/V cache, flat (``cross_k`` then ``cross_v``), for (d)."""
+    from repro_torch.launch import serve as placed
+    from repro_torch.launch import tp_model
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    frames = audio_frames(cfg, SERVE_FULL["requests"], full, dev)
+    ref, params, _ = serve_reference(dev, lc, cfg, "audio", full, timed=False, frames=frames)
+    prompts, want = ref["prompts"].to(dev), ref["tokens"].to(dev)
+    nreq, plen = prompts.shape
+    new = want.shape[1]
+    local = placed.shard_params(cfg, mesh, params)
+    plan = tp_model.make_plan(cfg, mesh, "serve")
+    mode = placed.kv_mode(cfg, mesh, nreq, plen + new)
+    cross = placed.cross_mode(cfg, mesh, nreq, frames.shape[1])
+    res = lc.run("audio placed generate",
+                 lambda: placed.generate(local, cfg, mesh, prompts, new, frames=frames), {})
+    if not torch.equal(res.tokens, want):
+        fail(f"audio (b): {cfg.name}'s placed generate's tokens differ from serve.generate's")
+    if not torch.equal(res.logprobs.cpu(), ref["logprobs"]):
+        fail(f"audio (b): {cfg.name}'s placed log-probabilities differ from serve.generate's")
+    tok = want[:, :1].to(torch.int32)
+    with torch.no_grad():
+        logits, cache = placed.prefill(local, plan, prompts, plen + new, mode, frames=frames)
+        pl = _serve_times(lambda: placed.prefill(local, plan, prompts, plen + new, mode,
+                                                 frames=frames),
+                          lambda: placed.decode_step(local, plan, cache, tok, mode))
+    out = {"arch": cfg.name, "requests": nreq, "prompt": plen, "frames": frames.shape[1],
+           "new_tokens": new, "cache": mode, "cross_cache": cross,
+           "cross_shape": list(cache["cross_k"].shape), "tokens_equal": True,
+           "logprobs_equal": True, "placed": pl,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None}
+    kv = torch.cat([cache["cross_k"].reshape(-1), cache["cross_v"].reshape(-1)])
+    del params, local, logits, cache, res
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"audio (b) {cfg.name} placed greedy generate of {nreq} x {plen} prompts + {new} tokens "
+        f"with {frames.shape[1]} frames a request on (1, 1): tokens and log-probabilities equal "
+        f"to serve.generate's; cross cache {out['cross_shape']} ({cross}); prefill "
+        f"{pl['prefill_ms']:.2f} ms ({pl['prefill_device_ms']} ms device), decode "
+        f"{pl['decode_ms_per_token']:.3f} ms/token ({pl['decode_device_ms']} ms device); peak "
+        f"{out['peak_bytes']} bytes")
+    return out, kv
+
+
+def _audio_cross_stream(lc, kv: torch.Tensor, serve_path: dict, train_path: dict) -> dict:
+    """(d) (b)'s prefill cross K/V cache (every decoder layer's keys, then
+    values) as one link, its int8 view under 3f's four points (one
+    ``bt_axes`` launch), equal to the plain version; its ACC / APP
+    reductions beside 3f's weights' and 3g's gradient's."""
+    sess = obs.CaptureSession("audio")
+    st = sess.add("serve_prefill", "cross_kv", kv)
+    wl = sess.workload("serve_prefill", elems=SERVE["elems"], lanes=SERVE["lanes"])
+    t1 = time.perf_counter()
+    ev = lc.run("audio cross grid", lambda: dse.evaluate_grid(SERVE_POINTS, wl),
+                {"bt_axes": 1} if st.data.is_cuda else {})
+    ms = (time.perf_counter() - t1) * 1e3
+    plain = dse.evaluate_grid(SERVE_POINTS, wl, backend="torch", chunk_packets=1 << 20)
+    if [dataclasses.asdict(e) for e in ev] != [dataclasses.asdict(e) for e in plain]:
+        fail("audio (d): the cross-cache grid differs from the plain version's")
+    red = {e.label: 100 * e.bt_reduction for e in ev}
+    out = {"bytes": st.num_bytes, "packets": wl.streams[0].shape[0], "measure_ms": ms,
+           "bt": {e.label: [e.total_bt, e.aux_bt] for e in ev}, "red_pct": red}
+    w = serve_path.get("rows", {}).get("serve/full", {}).get("measure", {}).get(
+        "weights_split", {}).get("red_pct", {})
+    gr = train_path.get("rows", {}).get("train/full", {}).get("measure", {}).get("red_pct", {})
+    log(f"audio (d) the cross K/V cache ({st.num_bytes} int8 bytes, {out['packets']} packets of "
+        f"{SERVE['elems']}) as one link, grid = plain, {ms:.1f} ms; reductions "
+        + " ".join(f"{k}={v:.4f}%" for k, v in red.items())
+        + "; beside 3f's weights " + " ".join(f"{k}={v:.4f}%" for k, v in w.items())
+        + " and 3g's gradient " + " ".join(f"{k}={v:.4f}%" for k, v in gr.items()))
+    del sess, wl
+    return out
+
+
+@torch.no_grad()
+def _audio_pair_reference(dev, lc, cfg, full: bool, frames: torch.Tensor) -> dict:
+    """(c) The one-process serving the pair is held to (``serve_reference``
+    of ``cfg`` with ``frames``, AUDIO["pair_batch"] requests) and its
+    prefill's cross cache at the first and the last decoder layer, all
+    saved to ``build/audio_serve.npz``."""
+    ref, params, _ = serve_reference(dev, lc, cfg, "audio (c)", full, timed=False,
+                                     frames=frames, requests=frames.shape[0])
+    plen, new = ref["prompts"].shape[1], ref["tokens"].shape[1]
+    _, cache = serve.make_prefill_fn(cfg, plen + new)(params, ref["prompts"].to(dev),
+                                                      frames=frames)
+    keep = torch.tensor([0, cfg.n_layers - 1])
+    saved = {k: v.numpy() for k, v in ref.items()}
+    saved["cross_layers"] = keep.numpy()
+    for key in ("cross_k", "cross_v"):
+        saved[key] = cache[key][keep.to(dev)].to(torch.float32).cpu().numpy()
+    np.savez(ROOT / "build" / "audio_serve.npz", **saved)
+    del params, cache
+    return ref
+
+
+def audio_rank(rank: int, world: int, port: int, out: str, full: str, device: str) -> None:
+    """Phase 3m (c), one rank of a ``world``-rank gloo group on ``device``
+    ("cuda": card 0; "cpu" for a rehearsal) and a (1, world) mesh: the
+    pair's config trained 3 steps by the placed step, then served against
+    the one-process run in ``build/audio_serve.npz`` (its weights rebuilt
+    from the same seed, the frames redrawn); writes the results to
+    ``out``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import tp_model
+
+    full = full == "1"
+    dev = _rank_device(device, "audio", rank)
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = launch.make_smoke_mesh(device=dev.type)
+        cfg = _audio_pair_cfg(full)
+        plan = tp_model.make_plan(cfg, mesh, "serve")
+        frames = audio_frames(cfg, AUDIO["pair_batch"], full, dev)
+        res = {"rank": rank, "device": str(dev),
+               "plan": {"attn": plan.attn, "kv": plan.kv, "heads": plan.local.n_heads,
+                        "embed": plan.embed, "head": plan.head, "partial": sorted(plan.partial)},
+               "train": _rank_train(dev, mesh, cfg, full, extra={"frames": frames},
+                                    batch=AUDIO["pair_batch"]),
+               "serve": _cp_rank_serve(dev, mesh, cfg, plan, ROOT / "build" / "audio_serve.npz",
+                                       frames=frames)}
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+
+
+def _audio_two_ranks(ranks: list, ref: dict, full: bool, dev) -> dict:
+    """(c), the gloo half: two ranks on (1, 2) against the float32
+    one-process runs: each rank on the card, losses, the placed serving (as
+    3k's ``_cp_serve``), each rank's cross cache against the one-process
+    cache's heads, and a train step's and a decode step's collectives equal
+    to the closed form."""
+    from repro_torch.launch import tp_model
+    from repro_torch.launch.mesh import AbstractMesh
+
+    n = AUDIO["ranks"]
+    cfg = _audio_pair_cfg(full)
+    mesh = AbstractMesh((1, n), ("data", "model"))
+    tf = TRAIN_FULL
+    seq, nb = (tf["seq_len"] if full else 64), AUDIO["pair_batch"]
+    want_dev = "cuda:0" if dev.type == "cuda" else dev.type
+    if any(r["device"] != want_dev for r in ranks) or (dev.type == "cuda" and any(
+            not t["train"]["peak_bytes"] for t in ranks)):
+        fail(f"audio (c): the ranks ran on {[r['device'] for r in ranks]}, not on {want_dev}")
+    if any(r["plan"]["heads"] != cfg.n_heads // n or r["plan"]["partial"] for r in ranks):
+        fail(f"audio (c): the ranks' plans are {[r['plan'] for r in ranks]}")
+    tr = [r["train"] for r in ranks]
+    want = ref["train"]["losses"]
+    if any(t["losses"] != tr[0]["losses"] for t in tr[1:]):
+        fail(f"audio (c): the ranks' losses differ: {[t['losses'] for t in tr]}")
+    loss_err = max(abs(a - b) for a, b in zip(tr[0]["losses"], want))
+    if loss_err > AUDIO["loss_tol"]:
+        fail(f"audio (c): losses {tr[0]['losses']} against train()'s {want} (tolerance "
+             f"{AUDIO['loss_tol']})")
+    enc = ranks[0]["serve"]["cross_shape"][2]
+    closed = {"decode": [list(o) for o in audio_collectives(
+                  cfg, tp_model.make_plan(cfg, mesh, "serve"), nb, 1, enc, "decode")],
+              "step": [list(o) for o in audio_collectives(
+                  cfg, tp_model.make_plan(cfg, mesh), nb, seq, enc, "train")]}
+    for r in ranks:
+        for k, got in (("decode", r["serve"]["decode_ops"]), ("step", r["train"]["ops"])):
+            if got != closed[k]:
+                fail(f"audio (c): rank {r['rank']}'s {k} collectives differ from the closed "
+                     f"form: {len(got)} recorded, {len(closed[k])} expected")
+    cross = [r["serve"]["cross_err"] for r in ranks]
+    if max(cross) > AUDIO["cross_tol"] or any(
+            r["serve"]["cross_shape"][3] != cfg.n_kv_heads // n for r in ranks):
+        fail(f"audio (c): the ranks' cross caches {[r['serve']['cross_shape'] for r in ranks]} "
+             f"lie {cross} from the one-process cache's heads (tolerance {AUDIO['cross_tol']})")
+    serving = _cp_serve(ranks, ref["serve"], n, AUDIO["tol"], "audio (c)")
+    walls = [w for t in tr for w in t["step_wall_ms"][1:]]
+    out = {"layers": cfg.n_layers, "losses": tr[0]["losses"], "one_process": want,
+           "loss_max_err": loss_err, "loss_tol": AUDIO["loss_tol"], "cross_err": max(cross),
+           "cross_shape": ranks[0]["serve"]["cross_shape"],
+           "step_wall_ms": [t["step_wall_ms"] for t in tr],
+           "peak_bytes": [t["peak_bytes"] for t in tr], "local_params": tr[0]["local_params"],
+           "params": tr[0]["params"], "serve": serving,
+           "collectives": {k: {"count": len(v), "bytes": sum(o[1] for o in v)}
+                           for k, v in closed.items()}}
+    log(f"audio (c) {cfg.name} at {cfg.n_enc_layers} + {cfg.n_layers} layers, float32, a batch "
+        f"of {nb}, split over 'model' by {n} gloo ranks: losses "
+        + " ".join(f"{x:.6f}" for x in out["losses"]) + f" (train()'s within {loss_err:.3g}, "
+        f"tolerance {AUDIO['loss_tol']}); the cross cache {out['cross_shape']} a rank within "
+        f"{max(cross):.3g} of the one-process cache's heads; a rank holds "
+        f"{out['local_params']} of {out['params']} params; step wall {_range(walls)} ms; peak "
+        f"{_range(out['peak_bytes'], '{:.0f}')} bytes; collectives = the closed form: a train "
+        f"step {out['collectives']['step']}, a decode step {out['collectives']['decode']}")
+    return out
+
+
+def _audio_dryrun() -> dict:
+    """(e) The dry run of whisper-medium's three cells on 16 x 16; each
+    cell's collectives (count and result bytes per kind) equal to the CPU's
+    meta run (AUDIO["dryrun"])."""
+    out = _dryrun_cells("audio (e)", AUDIO["modelled"], ())
+    for arch, shape, _ in AUDIO["modelled"]:
+        got = out[f"{arch}/{shape}/16x16"]["collectives"]
+        want = AUDIO["dryrun"][shape]
+        if {k: [v["count"], v["bytes"]] for k, v in got.items()} != want:
+            fail(f"audio (e): {arch} x {shape} [16x16] records {got}, the CPU's meta run {want}")
+    return out
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -5618,6 +6149,7 @@ def main() -> int:
     ep_path = phase_ep(dev, serve_path=serve_path, train_path=train_path)
     cp_path = phase_cp(dev)
     ssd_path = phase_ssd(dev, serve_path=serve_path, train_path=train_path)
+    audio_path = phase_audio(dev, serve_path=serve_path, train_path=train_path)
     cases = phase_scale(dev)
     record = []
     for name, meta in KERNELS.items():
@@ -5630,17 +6162,18 @@ def main() -> int:
         # psu_stream; the serving path (3f) for psu_sort, bt_count, bt_axes
         # and bt_axes_activity; the training path (3g) for all but
         # quantize_egress; the distribution path (3h) for psu_sort,
-        # bt_count and bt_axes; the expert-parallel path (3j) and the SSD
-        # path (3l) for bt_axes
+        # bt_count and bt_axes; the expert-parallel path (3j), the SSD
+        # path (3l) and the encoder-decoder path (3m) for bt_axes
         paths = {"psu_sort": ("transmit", "egress", "noc", "serve", "train", "dist"),
                  "bt_count": ("transmit", "egress", "noc", "serve", "train", "dist"),
                  "psu_stream": ("transmit", "train"),
-                 "bt_axes": ("codec", "noc", "serve", "train", "dist", "ep", "ssd"),
+                 "bt_axes": ("codec", "noc", "serve", "train", "dist", "ep", "ssd", "audio"),
                  "bt_axes_activity": ("activity", "noc", "serve", "train"),
                  "quantize_egress": ("egress", "noc")}[name]
         runs = {"transmit": main_path, "codec": codec_path, "activity": activity_path,
                 "egress": egress_path, "noc": noc_path, "serve": serve_path,
-                "train": train_path, "dist": dist_path, "ep": ep_path, "ssd": ssd_path}
+                "train": train_path, "dist": dist_path, "ep": ep_path, "ssd": ssd_path,
+                "audio": audio_path}
         by_path = {p: runs[p]["launches"][name] for p in paths}
         record.append({
             "name": name, "route": "cuda", **meta,
@@ -5672,7 +6205,7 @@ def main() -> int:
         "activity_path": activity_path, "egress_path": egress_path, "noc_path": noc_path,
         "serve_path": serve_path, "train_path": train_path, "dist_path": dist_path,
         "tp_path": tp_path, "ep_path": ep_path, "cp_path": cp_path, "ssd_path": ssd_path,
-        "scale_cases": cases,
+        "audio_path": audio_path, "scale_cases": cases,
         "seconds": time.perf_counter() - t0,
     }, indent=1, default=str))
     log(f"total {time.perf_counter() - t0:.1f} s")

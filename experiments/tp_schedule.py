@@ -22,6 +22,12 @@ two need not agree in kind or count.
     PYTHONPATH=src python experiments/tp_schedule.py --arch granite-moe-3b-a800m
     PYTHONPATH=src python experiments/tp_schedule.py --arch granite-moe-3b-a800m --mesh 2x8
     PYTHONPATH=src python experiments/tp_schedule.py --arch zamba2-1.2b --shape decode_32k long_500k
+    PYTHONPATH=src python experiments/tp_schedule.py --arch whisper-medium \
+        --shape decode_32k prefill_32k
+
+An encoder-decoder cell's frames come from ``build_case`` in both packages
+(the stub frontend's 1,500 frames a request), so whisper-medium's smoke
+overrides are passed as they are.
 """
 
 from __future__ import annotations

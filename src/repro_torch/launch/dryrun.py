@@ -13,8 +13,8 @@ mesh (16x16, or 2x16x16 with ``--multipod``) it records
     tensors, and an even split of them per device;
   * ``model_flops_global`` (``repro_torch.roofline``).
 
-  * for the dense, MoE, ssm and hybrid families, the collectives one device
-    issues: the cell's placed step (``launch/step.py``'s
+  * for the dense, MoE, ssm, hybrid and encoder-decoder families, the
+    collectives one device issues: the cell's placed step (``launch/step.py``'s
     ``reduce_gradients`` and ZeRO-1's gathers) or placed prefill / decode
     (``launch/serve.py``) runs on the ``meta`` blocks of rank 0 over
     stand-in groups of the mesh's sizes (``launch/tp.py``: recorded, not
@@ -28,8 +28,11 @@ contraction (granite-moe-3b-a800m's 24 heads on the 16 x 16 mesh); the
 ssm and hybrid cells (mamba2-370m, zamba2-1.2b) split the SSD projections
 on their contraction and the SSM heads over "model", and ``long_500k``'s
 one request splits zamba2's KV sequence over "data" (SP: its decode merges
-attention over the data ranks).  The other families' tensor-parallel
-forward is not built yet (audio, vlm), nor the placed step's FSDP gathers
+attention over the data ranks); whisper-medium's cells split the encoder's
+and the decoder's self- and cross-attention on heads, its prefill encoding
+the frames and its decode reading the cross cache on the rank's kv heads.
+The vlm family's tensor-parallel forward is not built yet, nor the placed
+step's FSDP gathers
 (a train cell of an FSDP config, qwen3-moe-30b-a3b's; its serving cells
 are not FSDP-placed, as ``param_spec`` applies FSDP in "train" mode only):
 those records say ``"collectives_modelled": False``, with the reason, and
@@ -81,8 +84,8 @@ def argument_bytes_per_device(args, shardings, mesh) -> int:
 
 def placed_collectives(case, mesh) -> list[dict]:
     """The collectives one device of ``mesh`` (a production ``AbstractMesh``)
-    issues in the placed counterpart of ``case``, a dense, MoE, ssm or hybrid
-    cell: recorded
+    issues in the placed counterpart of ``case``, a dense, MoE, ssm, hybrid or
+    encoder-decoder cell: recorded
     while it runs on rank 0's ``meta`` blocks over stand-in groups."""
     from .. import _collectives
     from .._tree import leaves, tree_map
@@ -112,7 +115,8 @@ def placed_collectives(case, mesh) -> list[dict]:
             mode = serve.kv_mode(cfg, mesh, s.global_batch, s.seq_len)
             sp = serve.sp_group(cfg, mesh, s.global_batch, s.seq_len)
             if case.kind == "prefill":
-                serve.prefill(args[0], plan, args[1]["tokens"], s.seq_len, mode, sp)
+                serve.prefill(args[0], plan, args[1]["tokens"], s.seq_len, mode, sp,
+                              args[1].get("frames"))
             else:
                 serve.decode_step(args[0], plan, args[1], args[2], mode, sp)
     return ops

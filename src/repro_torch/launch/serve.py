@@ -1,14 +1,14 @@
 """Placed serving: prefill, decode and greedy generation over a mesh.
 
 Counterparts of ``models.transformer.prefill`` / ``decode_step`` and
-``serve.loop.generate`` for the dense, MoE, ssm and hybrid families under
-the reference's serving rules: the weights split over "model" by
-``param_spec`` (mode "serve"; a MoE's experts over "model", run by
-``tp_model.moe_block``: capacity-bounded in prefill, dropless in decode,
-as ``models.transformer``'s; the SSD projections on their contraction, run
-by ``tp_model.ssd_block`` / ``ssd_decode``), the requests over the
-data-parallel axes by ``batch_shardings``, and the cache by
-``cache_shardings``.  An SSM layer's cache holds the state of the rank's
+``serve.loop.generate`` for the dense, MoE, ssm, hybrid and
+encoder-decoder families under the reference's serving rules: the weights
+split over "model" by ``param_spec`` (mode "serve"; a MoE's experts over
+"model", run by ``tp_model.moe_block``: capacity-bounded in prefill,
+dropless in decode, as ``models.transformer``'s; the SSD projections on
+their contraction, run by ``tp_model.ssd_block`` / ``ssd_decode``), the
+requests over the data-parallel axes by ``batch_shardings``, and the cache
+by ``cache_shardings``.  An SSM layer's cache holds the state of the rank's
 heads (all of them when "model" does not divide the heads) and, when the
 rules split it, a contiguous ``d_xbc / m`` block of the conv tail's
 channels, which does not line up with ``[x heads | B | C]``: the conv is
@@ -44,6 +44,19 @@ rank whose block holds its position; the tokens and the SSM state are
 replicated over the data-parallel axes, as GSPMD runs them.  A prompt
 whose sequence the rules split (SP prefill) is refused by
 :func:`shard_batch`: ``long_500k`` is a decode cell.
+
+The encoder-decoder (whisper): prefill runs ``tp_model.encode`` on the
+frames once (the frames split over the data-parallel axes by their rows,
+as the prompts are), then, for each decoder layer, writes
+``tp_model.cross_kv``'s keys and values of the rank's kv heads into the
+cross cache (``cross_k`` / ``cross_v``, which ``cache_shardings`` places
+on their kv heads as it places ``k`` / ``v``), fills the self-attention
+cache as the other families do and runs ``tp_model.dec_layer``
+(``models.transformer.prefill``'s order).  Decode runs the
+self-attention as above, then ``tp_model.cross_block`` against the
+rank's cross cache, then the MLP (``decode_step``'s order).  A cross
+cache that the rules split any other way than on its kv heads is refused
+(:func:`cross_mode`).
 
 Under the contraction split the whole queries come from the partial sum
 of ``tp_model.contracted_qkv`` and the output from
@@ -84,8 +97,8 @@ from .sharding import batch_shardings, cache_shardings, params_shardings
 from .step import block
 from .tp import AxisGroup, all_reduce, axis_group, gather_from_model, reduce_from_model
 
-__all__ = ["shard_params", "shard_batch", "kv_mode", "sp_group", "prefill", "decode_step",
-           "generate"]
+__all__ = ["shard_params", "shard_batch", "kv_mode", "cross_mode", "sp_group", "prefill",
+           "decode_step", "generate"]
 
 
 def shard_params(cfg, mesh, params: Any) -> Any:
@@ -120,6 +133,22 @@ def kv_mode(cfg, mesh, batch: int, max_len: int) -> str:
     if spec is None:
         return "none"
     return "heads" if spec[3] == "model" else "seq" if spec[2] == "model" else "whole"
+
+
+def cross_mode(cfg, mesh, batch: int, enc_len: int) -> str:
+    """How ``cache_shardings`` places an encoder-decoder's cross cache over
+    "model": "heads", the one placement served here; raises naming any
+    other split.  "none" for a family with no cross cache."""
+    shapes = init_cache(cfg, batch, 1, enc_len=enc_len, device="meta")
+    if "cross_k" not in shapes:
+        return "none"
+    spec = cache_shardings(cfg, mesh, shapes)["cross_k"].spec
+    spec = tuple(spec) + (None,) * (5 - len(spec))
+    if spec[3] != "model" or spec[2] is not None:
+        raise ValueError(f"{cfg.name}: the rules place the cross cache "
+                         f"{tuple(shapes['cross_k'].shape)} as {spec}; placed serving takes it "
+                         f"split on its kv heads only")
+    return "heads"
 
 
 def sp_group(cfg, mesh, batch: int, max_len: int) -> AxisGroup:
@@ -174,10 +203,12 @@ def _cache_kv(lp, x, plan, positions, max_len: int, mode: str, sp: AxisGroup):
 
 
 def prefill(params: dict, plan: tp_model.Plan, tokens: torch.Tensor, max_len: int,
-            mode: str, sp: AxisGroup = AxisGroup(1)) -> tuple[torch.Tensor, dict]:
-    """This rank's prompt rows ``tokens`` through its weight blocks:
-    (last-position logits, placed as the module says; this rank's cache
-    placed by ``mode`` and ``sp``)."""
+            mode: str, sp: AxisGroup = AxisGroup(1),
+            frames: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+    """This rank's prompt rows ``tokens`` (and, for the encoder-decoder, the
+    same rows of ``frames``) through its weight blocks: (last-position
+    logits, placed as the module says; this rank's cache placed by ``mode``
+    and ``sp``, its cross cache on the rank's kv heads)."""
     cfg = plan.cfg
     eps = cfg.rms_eps
     h = tp_model.embed(params, plan, tokens)
@@ -202,7 +233,24 @@ def prefill(params: dict, plan: tp_model.Plan, tokens: torch.Tensor, max_len: in
         return h + y
 
     layers = params["layers"]
-    if cfg.family in ("ssm", "hybrid"):  # models.transformer.prefill's order
+    if cfg.family in ("encdec", "audio"):  # models.transformer.prefill's order
+        if frames is None:
+            raise ValueError(f"{cfg.name}: the encoder-decoder's prefill needs frames")
+        dt = torch_dtype(cfg.dtype)
+        enc = tp_model.encode(params, plan, frames)
+        cks, cvs = [], []
+        for i in range(_n_layers(layers)):
+            lp = _layer(layers, i)
+            ek, ev = tp_model.cross_kv(lp["cross_attn"], enc, plan)
+            k, v = _cache_kv(lp["attn"], rms_norm(h, lp["attn_norm"], eps), plan, positions,
+                             max_len, mode, sp)
+            h = tp_model.dec_layer(lp, h, ek, ev, plan, positions)
+            ks.append(k)
+            vs.append(v)
+            cks.append(ek.to(dt))
+            cvs.append(ev.to(dt))
+        cache.update(cross_k=torch.stack(cks), cross_v=torch.stack(cvs))
+    elif cfg.family in ("ssm", "hybrid"):  # models.transformer.prefill's order
         scs = {"layers": [], "trailing": []}
         for tree, i in ssm_schedule(cfg):
             if tree == "shared":
@@ -316,6 +364,9 @@ def decode_step(params: dict, plan: tp_model.Plan, cache: dict, tokens: torch.Te
         for i in range(_n_layers(layers)):
             lp = _layer(layers, i)
             h = attn(lp, h, i)
+            if "cross_attn" in lp:  # the encoder-decoder, against the rank's cross cache
+                h = h + tp_model.cross_block(lp["cross_attn"], rms_norm(h, lp["cross_norm"], eps),
+                                             cache["cross_k"][i], cache["cross_v"][i], plan)
             x = rms_norm(h, lp["mlp_norm"], eps)
             if cfg.family == "moe":
                 m, _ = tp_model.moe_block(lp["moe"], x, plan, dropless=True)
@@ -344,19 +395,26 @@ def _greedy(logits: torch.Tensor, plan: tp_model.Plan) -> tuple[torch.Tensor, to
 
 
 @torch.no_grad()
-def generate(params: dict, cfg, mesh, prompts: torch.Tensor, max_new_tokens: int) -> GenerateResult:
+def generate(params: dict, cfg, mesh, prompts: torch.Tensor, max_new_tokens: int,
+             frames: torch.Tensor | None = None) -> GenerateResult:
     """Greedy generation over ``mesh``: ``params`` are this rank's blocks
     (:func:`shard_params`), ``prompts`` the whole (B, S) batch on every
-    rank.  Returns this rank's requests' tokens and log-probabilities, as
+    rank (and for the encoder-decoder its whole (B, S_enc, d) ``frames``).
+    Returns this rank's requests' tokens and log-probabilities, as
     ``serve.loop.generate`` at temperature 0."""
     plan = tp_model.make_plan(cfg, mesh, "serve")
     max_len = prompts.shape[1] + max_new_tokens
     mode = kv_mode(cfg, mesh, prompts.shape[0], max_len)
     sp = sp_group(cfg, mesh, prompts.shape[0], max_len)
-    prompts = shard_batch(cfg, mesh, {"tokens": prompts})["tokens"]
+    batch = {"tokens": prompts}
+    if frames is not None:
+        cross_mode(cfg, mesh, prompts.shape[0], frames.shape[1])
+        batch["frames"] = frames
+    batch = shard_batch(cfg, mesh, batch)
     out_toks, out_lp = [], []
     with _obs_hooks.muted():
-        logits, cache = prefill(params, plan, prompts, max_len, mode, sp)
+        logits, cache = prefill(params, plan, batch["tokens"], max_len, mode, sp,
+                                batch.get("frames"))
         for _ in range(max_new_tokens):
             tok, lp = _greedy(logits, plan)
             out_toks.append(tok[:, 0])

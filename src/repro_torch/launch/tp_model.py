@@ -1,5 +1,5 @@
-"""The dense, MoE, ssm and hybrid families' forward and loss on one rank's
-shards of "model".
+"""The dense, MoE, ssm, hybrid and encoder-decoder families' forward and
+loss on one rank's shards of "model".
 
 The reference's GSPMD splits the transformer over the mesh's "model" axis
 by the rules of ``launch.sharding``.  Here one rank runs its part with
@@ -35,6 +35,17 @@ own ``param_spec`` (:func:`make_plan`), never decided again:
     tied embeddings the head is ``embed``'s shard transposed.
   * ``q_norm`` / ``k_norm`` (per head, shared by the heads) and every norm
     stay replicated.
+  * Encoder-decoder (the encdec and audio families, whisper): the
+    encoder's self-attention (bidirectional), the decoder's self-attention
+    and its cross-attention all split on heads by the one attention rule,
+    and each MLP on ``d_ff``.  :func:`encode` runs ``_encode``'s order on
+    the rank's blocks; :func:`cross_kv` projects the encoder output with
+    the rank's ``wk`` / ``wv`` heads (``encode_kv``), and
+    :func:`cross_block` runs ``cross_attention`` on the rank's ``wq`` /
+    ``wo`` heads, entered through ``copy_to_model`` and left through
+    ``reduce_from_model`` as self-attention is.  Attention's contraction
+    split is refused here: the encoder-decoder runs attention split on
+    heads only.
   * MoE (expert parallelism): ``gate`` / ``up`` / ``down`` split on the
     expert axis, so a rank holds the experts ``[index E/m, (index+1) E/m)``
     of the E (padded) experts (:attr:`Plan.experts`); the ``router`` split
@@ -71,7 +82,7 @@ one of two kinds of gradient (:attr:`Plan.partial`):
   * **partial**, when its use is split across the group: each rank's
     gradient covers its own heads only and must be summed over "model".
     These are ``wk`` / ``wv`` when replicated, ``q_norm`` / ``k_norm``
-    under a head split, and under the SSD head split ``conv_w``,
+    under a head split (self- and cross-attention's alike), and under the SSD head split ``conv_w``,
     ``conv_b``, ``a_log``, ``dt_bias``, ``d_skip`` and ``norm_w``: a rank
     uses its heads' entries only, and the ``B`` / ``C`` conv channels that
     every rank uses carry only its own heads' share.
@@ -103,6 +114,18 @@ then ``copy_to_model``.  Under "whole" the core runs whole on the summed
 projection, so its gradient is whole and needs no sum; the core's output
 enters ``out_proj``'s rows through ``copy_to_model``, as attention's
 output does under its contraction split.
+
+The encoder-decoder has one such place.  The encoder's output ``enc`` is
+replicated over "model", but each rank uses it only through its own
+``wk`` / ``wv`` heads, in every decoder layer's cross K/V, so a rank's
+gradient of ``enc`` is a partial sum.  :func:`encode` passes ``enc``
+through ``copy_to_model`` once, after ``enc_norm`` and before the decoder
+loop, whose backward sums that gradient over "model": one all-reduce of
+``dEnc`` a step instead of one a decoder layer, the same sum in another
+order.  Without it every encoder parameter's gradient misses the other
+ranks' share and the step is silently wrong.  ``enc_norm`` and
+``cross_norm`` are whole leaves: their outputs enter the split products
+through ``copy_to_model``, so their gradients are not summed again.
 
 The MoE routing is such a replicated region: its outputs ``xg`` (the
 tokens, into the rank's expert buffers) and ``top_p`` (into the rank's
@@ -142,8 +165,8 @@ from ..models import moe as _moe
 from ..models import ssd as _ssd
 from ..models import param_shapes
 from ..models.config import ModelConfig
-from ..models.layers import (attend, attention, mlp, norm_rope, project_kv, rms_norm,
-                             torch_dtype)
+from ..models.layers import (attend, attention, cross_attention, encode_kv, mlp, norm_rope,
+                             project_kv, rms_norm, torch_dtype)
 from ..models.transformer import (_ce, _layer, _n_layers, _positions, embed_tokens,
                                  init_cache, ssm_schedule)
 from .mesh import dp_axes, mesh_axes
@@ -152,7 +175,7 @@ from .tp import (AxisGroup, all_reduce, axis_group, batch_mean, copy_to_model,
                  gather_from_model, reduce_from_model)
 
 __all__ = ["Plan", "make_plan", "unsupported", "embed", "layer", "attention_block",
-           "contracted_qkv", "contracted_out",
+           "contracted_qkv", "contracted_out", "encode", "cross_kv", "cross_block", "dec_layer",
            "mlp_block", "moe_route", "moe_dispatch", "moe_block", "ssd_project", "ssd_block",
            "ssd_decode", "forward", "logits", "loss", "make_loss_fn", "take_heads"]
 
@@ -169,7 +192,9 @@ class Plan:
     or "whole"; ``local``: the config attention sees on this rank (every
     head under the contraction split); ``split``: the leaf
     paths "model" splits; ``partial``: the replicated leaf paths whose
-    gradient is a partial sum over "model"; ``experts``: a MoE rank's
+    gradient is a partial sum over "model" (the self- and cross-attention's
+    ``q_norm`` / ``k_norm`` under a head split: whisper has neither, so its
+    ``partial`` is empty); ``experts``: a MoE rank's
     range [lo, hi) of the padded experts; ``data``: in training, the
     data-parallel group over which the load-balance loss's means are taken
     (one rank when serving); ``ssd``: the SSD core split on "heads" or run
@@ -224,7 +249,8 @@ def _model_dims(cfg: ModelConfig, mesh, mode: str) -> dict[str, Optional[int]]:
 _ATTN = {(None, None): "whole", (-2, -3): "heads", (-3, -1): "contraction"}
 # the SSD leaves the rules keep replicated, used in parts under "heads"
 _SSD_SMALL = ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip", "norm_w")
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "audio")
+_ENCDEC = ("encdec", "audio")
 
 
 def _leaf_dims(dims: dict, block: str) -> dict[str, set]:
@@ -246,6 +272,14 @@ def _why_not(cfg: ModelConfig, dims: dict, m: int) -> Optional[str]:
     if attn and (attn["wq"], attn["wo"]) not in _ATTN:
         return (f"{cfg.name}: the rules split attention as (wq, wo: {attn['wq']}, "
                 f"{attn['wo']}) on a {m}-rank 'model' axis, neither on heads nor on d")
+    if cfg.family in _ENCDEC:
+        if _ATTN[attn["wq"], attn["wo"]] == "contraction":
+            return (f"{cfg.name}: the rules split attention on its contraction on a {m}-rank "
+                    f"'model' axis; the encoder-decoder runs attention split on heads only")
+        cross = _one(dims, "cross_attn")
+        if cross != attn:  # on heads or whole, as self-attention
+            return (f"{cfg.name}: the rules split cross-attention as {cross} on a {m}-rank "
+                    f"'model' axis, self-attention as {attn}")
     if set(mlps.values()) - {None} and mlps != {k: (-2 if k == "down" else -1) for k in mlps}:
         return f"{cfg.name}: the rules split the MLP as {mlps}, not on d_ff"
     moe = _one(dims, "moe")
@@ -268,14 +302,14 @@ def _why_not(cfg: ModelConfig, dims: dict, m: int) -> Optional[str]:
 
 def unsupported(cfg: ModelConfig, mesh, mode: str = "train") -> Optional[str]:
     """Why the rules' splits of ``cfg`` on ``mesh`` are not ones this forward
-    runs, or None: it takes the dense, MoE (with no shared experts), ssm
-    and hybrid families, attention split on heads or on its contraction
-    (or whole), the MLP on ``d_ff`` (or whole), the experts and the router
-    on their expert axis, and the SSD projections on their contraction
-    (or whole)."""
+    runs, or None: it takes the dense, MoE (with no shared experts), ssm,
+    hybrid and encoder-decoder families, attention split on heads or on
+    its contraction (or whole; the encoder-decoder on heads or whole), the
+    MLP on ``d_ff`` (or whole), the experts and the router on their expert
+    axis, and the SSD projections on their contraction (or whole)."""
     if cfg.family not in _FAMILIES:
-        return (f"{cfg.name}: the tensor-parallel forward covers the dense, MoE, ssm and "
-                f"hybrid families, not {cfg.family!r}")
+        return (f"{cfg.name}: the tensor-parallel forward covers the dense, MoE, ssm, hybrid "
+                f"and encoder-decoder families, not {cfg.family!r}")
     return _why_not(cfg, _model_dims(cfg, mesh, mode), mesh_axes(mesh)["model"])
 
 
@@ -318,7 +352,7 @@ def make_plan(cfg: ModelConfig, mesh, mode: str = "train") -> Plan:
                                     head_dim=cfg.resolved_head_dim)
         # replicated leaves whose use is split over the heads; under the
         # contraction split none: wk, wv, q_norm, k_norm are used whole
-        partial = frozenset(p for p in dims if "['attn']" in p and (
+        partial = frozenset(p for p in dims if ("['attn']" in p or "['cross_attn']" in p) and (
             _name(p) in ("q_norm", "k_norm") or (kv == "whole" and _name(p) in ("wk", "wv"))))
     ssd, ssd_heads = None, None
     if cfg.family in ("ssm", "hybrid"):
@@ -387,15 +421,18 @@ def contracted_out(lp: dict, o: torch.Tensor, plan: Plan) -> torch.Tensor:
     return gather_from_model(y, g, -1)
 
 
-def attention_block(lp: dict, x: torch.Tensor, plan: Plan, positions) -> torch.Tensor:
-    """Attention of the normed, replicated ``x``; the result replicated."""
+def attention_block(lp: dict, x: torch.Tensor, plan: Plan, positions,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention of the normed, replicated ``x`` (bidirectional with
+    ``causal`` False, the encoder's); the result replicated."""
     if plan.attn == "whole":
-        return attention(lp, x, plan.cfg, positions)
+        return attention(lp, x, plan.cfg, positions, causal)
     g = plan.model
     if plan.attn == "heads":
-        y = attention(_kv_view(lp, plan), copy_to_model(x, g), plan.local, positions)
+        y = attention(_kv_view(lp, plan), copy_to_model(x, g), plan.local, positions, causal)
         return reduce_from_model(y, g)
-    return contracted_out(lp, attend(*contracted_qkv(lp, x, plan, positions), plan.cfg), plan)
+    return contracted_out(lp, attend(*contracted_qkv(lp, x, plan, positions), plan.cfg, causal),
+                          plan)
 
 
 def mlp_block(lp: dict, x: torch.Tensor, plan: Plan) -> torch.Tensor:
@@ -405,16 +442,65 @@ def mlp_block(lp: dict, x: torch.Tensor, plan: Plan) -> torch.Tensor:
     return reduce_from_model(mlp(lp, copy_to_model(x, g), plan.cfg), g)
 
 
-def layer(lp: dict, h: torch.Tensor, plan: Plan, positions) -> tuple:
+def layer(lp: dict, h: torch.Tensor, plan: Plan, positions, causal: bool = True) -> tuple:
     """One layer, dense or MoE (``models.transformer._attn_layer``'s or
-    ``_moe_layer``'s op order): (h, the load-balance loss or None)."""
+    ``_moe_layer``'s op order; an encoder's with ``causal`` False): (h, the
+    load-balance loss or None)."""
     eps = plan.cfg.rms_eps
-    h = h + attention_block(lp["attn"], rms_norm(h, lp["attn_norm"], eps), plan, positions)
+    h = h + attention_block(lp["attn"], rms_norm(h, lp["attn_norm"], eps), plan, positions,
+                            causal)
     x = rms_norm(h, lp["mlp_norm"], eps)
     if "moe" in lp:
         y, aux = moe_block(lp["moe"], x, plan)
         return h + y, aux
     return h + mlp_block(lp["mlp"], x, plan), None
+
+
+def encode(params: dict, plan: Plan, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder's output of the stub ``frames`` (B, S_enc, d), replicated
+    over "model" (``models.transformer._encode``'s order: the frames cast
+    to the compute dtype, each encoder layer bidirectional, ``enc_norm``),
+    passed through ``copy_to_model`` for the decoder's cross K/V under a
+    head split: each rank's gradient of it covers its own ``wk`` / ``wv``
+    heads only, so its backward sums it over "model" (the module
+    docstring's gradient trap).  Under "whole" every rank's gradient of it
+    is whole, and is not summed."""
+    cfg = plan.cfg
+    enc = frames.to(torch_dtype(cfg.dtype))
+    positions = _positions(enc.shape[1], enc.device)
+    for i in range(_n_layers(params["enc_layers"])):
+        enc, _ = layer(_layer(params["enc_layers"], i), enc, plan, positions, causal=False)
+    enc = rms_norm(enc, params["enc_norm"], cfg.rms_eps)
+    return copy_to_model(enc, plan.model) if plan.attn == "heads" else enc
+
+
+def cross_kv(lp: dict, enc: torch.Tensor, plan: Plan) -> tuple:
+    """This rank's kv heads of the cross-attention keys and values of the
+    encoder output ``enc`` (from :func:`encode`): ``models.layers.encode_kv``
+    on the rank's ``wk`` / ``wv`` heads."""
+    return encode_kv(_kv_view(lp, plan), enc, plan.local)
+
+
+def cross_block(lp: dict, x: torch.Tensor, ek: torch.Tensor, ev: torch.Tensor,
+                plan: Plan) -> torch.Tensor:
+    """Cross-attention of the normed, replicated ``x`` against this rank's
+    cross keys and values ``ek`` / ``ev`` on the rank's ``wq`` / ``wo``
+    heads (``models.layers.cross_attention``); the result replicated."""
+    if plan.attn == "whole":
+        return cross_attention(lp, x, ek, ev, plan.cfg)
+    g = plan.model
+    return reduce_from_model(cross_attention(lp, copy_to_model(x, g), ek, ev, plan.local), g)
+
+
+def dec_layer(lp: dict, h: torch.Tensor, ek: torch.Tensor, ev: torch.Tensor, plan: Plan,
+              positions) -> torch.Tensor:
+    """One decoder layer (``models.transformer._dec_layer``'s order):
+    causal self-attention, cross-attention against this rank's ``ek`` /
+    ``ev``, then the MLP."""
+    eps = plan.cfg.rms_eps
+    h = h + attention_block(lp["attn"], rms_norm(h, lp["attn_norm"], eps), plan, positions)
+    h = h + cross_block(lp["cross_attn"], rms_norm(h, lp["cross_norm"], eps), ek, ev, plan)
+    return h + mlp_block(lp["mlp"], rms_norm(h, lp["mlp_norm"], eps), plan)
 
 
 def moe_route(lp: dict, x: torch.Tensor, plan: Plan, dropless: bool = False) -> _moe.Routing:
@@ -564,13 +650,29 @@ def embed(params: dict, plan: Plan, tokens: torch.Tensor) -> torch.Tensor:
     return e.to(torch_dtype(cfg.dtype)) * math.sqrt(cfg.d_model)
 
 
-def forward(params: dict, plan: Plan, tokens: torch.Tensor) -> tuple:
+def forward(params: dict, plan: Plan, tokens: torch.Tensor,
+            frames: Optional[torch.Tensor] = None) -> tuple:
     """(the final-normed hidden state (B, S, d), replicated over "model";
-    the summed load-balance loss), as ``models.forward``'s."""
+    the summed load-balance loss), as ``models.forward``'s, or for the
+    encoder-decoder families ``models.encdec_forward``'s of ``frames`` and
+    the decoder's ``tokens``."""
+    cfg = plan.cfg
+    if cfg.family in _ENCDEC:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: the encoder-decoder forward needs frames")
+        enc = encode(params, plan, frames)
+        h = embed(params, plan, tokens)
+        positions = _positions(h.shape[1], h.device)
+        layers = params["layers"]
+        for i in range(_n_layers(layers)):
+            lp = _layer(layers, i)
+            h = dec_layer(lp, h, *cross_kv(lp["cross_attn"], enc, plan), plan, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return rms_norm(h, params["final_norm"], cfg.rms_eps), aux
     h = embed(params, plan, tokens)
     positions = _positions(h.shape[1], h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    cfg, layers = plan.cfg, params["layers"]
+    layers = params["layers"]
     if cfg.family in ("ssm", "hybrid"):
         for tree, i in ssm_schedule(cfg):
             if tree == "shared":
@@ -656,10 +758,11 @@ def loss(params: dict, plan: Plan, h: torch.Tensor, labels: torch.Tensor) -> tor
 
 def make_loss_fn(plan: Plan) -> Callable[[Any, dict], torch.Tensor]:
     """``(local params, local batch) -> loss``, as ``train.make_loss_fn``'s:
-    the cross-entropy plus the load-balance loss."""
+    the cross-entropy plus the load-balance loss (the encoder-decoder's
+    forward reads the batch's ``frames``)."""
 
     def loss_fn(params, batch):
-        h, aux = forward(params, plan, batch["tokens"])
+        h, aux = forward(params, plan, batch["tokens"], batch.get("frames"))
         return loss(params, plan, h, batch["labels"]) + aux
 
     return loss_fn

@@ -533,8 +533,8 @@ def test_plan_reads_the_rules():
     assert tp_model.unsupported(smoke_config("internlm2-1.8b"), _abstract((16, 16))) is None
     p = plan("internlm2-1.8b", (1, 16))
     assert (p.attn, p.kv, p.local, p.partial) == ("contraction", "whole", p.cfg, frozenset())
-    with pytest.raises(ValueError, match="ssm and hybrid families"):
-        plan("whisper-medium", (1, 2))
+    with pytest.raises(ValueError, match="hybrid and encoder-decoder families"):
+        plan("internvl2-26b", (1, 2))
     assert plan("internlm2-1.8b", (2, 1)).split == frozenset()
 
 
@@ -843,7 +843,8 @@ def test_meta_dryrun_dense_smoke_cells_model_collectives(arch, shape):
     assert len(acts) >= (4 if shape == "train_4k" else 2) * cfg.n_layers
 
 
-@pytest.mark.parametrize("arch,shape,why", [("whisper-medium", "decode_32k", "hybrid families"),
+@pytest.mark.parametrize("arch,shape,why", [("internvl2-26b", "decode_32k",
+                                             "hybrid and encoder-decoder families"),
                                             ("qwen3-moe-30b-a3b", "train_4k", "FSDP")])
 def test_meta_dryrun_other_families_say_why(arch, shape, why):
     """A family the tensor-parallel forward does not cover, and the train
