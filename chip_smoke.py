@@ -240,6 +240,24 @@ non-zero:
    full-width prefill's cross K/V cache as one link under 3f's four points
    (one ``bt_axes`` launch, equal to the plain version); the dry run of
    whisper-medium's three cells on 16 x 16, equal to the CPU's;
+3n. the vlm family over "model": internvl2-26b's serve plans on 16 x 16,
+   2 x 16 x 16 and 32 x 8 (heads, kv heads split or replicated with
+   ``kv_index``, ``d_ff``, embed and head on d), then internvl2-26b at
+   full width and depth (48 layers, bf16 weights, 1,024 stub patch
+   embeddings a request drawn from a seed in front of 4 x 256 prompts)
+   served on a one-rank NCCL group and a (1, 1) mesh: the placed greedy
+   ``generate`` with patches equal to ``serve.generate``'s with them as
+   ``inputs_embeds`` (tokens and log-probabilities), on the very weight
+   tensors; then at 8 layers and float32 compute, a batch of 2, by two gloo
+   ranks sharing the card on (1, 2) (the KV cache on kv heads): prefill
+   logits and the one-process tokens' log-probabilities within
+   ``VLM["tol"]``, tokens equal up to near ties, each rank's KV cache
+   within ``VLM["kv_tol"]`` of the one-process cache's kv heads, a
+   prefill's and a decode step's collectives equal to
+   ``vlm_collectives``; the full-width prefill's KV cache as one link
+   under 3f's four points (one ``bt_axes`` launch, equal to the plain
+   version); the dry run of internvl2-26b's two serving cells on 16 x 16,
+   equal to the CPU's, and its FSDP train cell's reason;
 4. scale and times: ``psu_stream`` on 4,194,304 paired packets and on
    Table I's conv input stream (7,350 packets of 64, 16 lanes),
    ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
@@ -3925,7 +3943,7 @@ def _ep_step(dev, lc, mesh, full: bool, one: dict) -> dict:
 
 def serve_reference(dev, lc, cfg, what: str, full: bool = True, timed: bool = True,
                     floor: bool = False, frames: torch.Tensor | None = None,
-                    requests: int | None = None) -> tuple:
+                    requests: int | None = None, patches: torch.Tensor | None = None) -> tuple:
     """``serve.generate`` of ``cfg`` on SERVE_FULL's requests, prompts and
     new tokens (weights and prompts from its seed), greedy: (the run a
     placed one is held to: prompts, tokens, log-probabilities, the
@@ -3934,7 +3952,8 @@ def serve_reference(dev, lc, cfg, what: str, full: bool = True, timed: bool = Tr
     ``floor`` how far the same prefill and teacher-forced log-probabilities
     at float32 compute lie from them, the bf16 noise floor; the weights;
     the one-process times of a prefill and a decode step when ``timed``).
-    An encoder-decoder's ``frames`` go with the prompts; ``requests``
+    An encoder-decoder's ``frames`` go with the prompts, a vlm's
+    ``patches`` in front of them (``inputs_embeds``); ``requests``
     overrides SERVE_FULL's."""
     sf = SERVE_FULL
     nreq, new = requests or sf["requests"], sf["new_tokens"]
@@ -3943,12 +3962,15 @@ def serve_reference(dev, lc, cfg, what: str, full: bool = True, timed: bool = Tr
     params = init_params(cfg, gen, dev)
     prompts = torch.randint(0, cfg.vocab, (nreq, plen), generator=gen, device=dev)
     want = lc.run(f"{what} generate",
-                  lambda: serve.generate(params, cfg, prompts, new, frames=frames), {})
-    prefill_fn = serve.make_prefill_fn(cfg, plen + new)
+                  lambda: serve.generate(params, cfg, prompts, new, frames=frames,
+                                         inputs_embeds=patches), {})
+    extra = patches.shape[1] if patches is not None else 0
+    prefill_fn = serve.make_prefill_fn(cfg, extra + plen + new)
     decode_fn = serve.make_decode_fn(cfg)
-    logits, cache = prefill_fn(params, prompts, frames=frames)
+    logits, cache = prefill_fn(params, prompts, frames=frames, inputs_embeds=patches)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-    times = _serve_times(lambda: prefill_fn(params, prompts, frames=frames),
+    times = _serve_times(lambda: prefill_fn(params, prompts, frames=frames,
+                                            inputs_embeds=patches),
                          lambda: decode_fn(params, cache, tok)) if timed else None
     margins, lg, tf_cache = [], logits, cache
     with torch.no_grad():
@@ -4154,6 +4176,38 @@ CP = {"arch": "granite-moe-3b-a800m", "ranks": 16, "rehearsal_ranks": 8, "layers
                         for s in ("train_4k", "prefill_32k", "decode_32k"))}
 
 
+def lm_collectives(cfg, plan, rows: int, seq: int, embedded: int, train: bool) -> list:
+    """The "model"-axis collectives one rank issues around a split stack on
+    a mesh with one data rank: the embedding's sum or gather of
+    ``embedded`` tokens (of the params), the head's (vocab: in training the
+    loss's MAX and SUM and its input's gradient sum; d: the partial logits,
+    of each request's last position out of training, and in training its
+    input's gradient sum; per loss chunk of the ``rows`` x ``seq``
+    positions) and, in training, the partial leaves' gradient sums and the
+    norm's split squares."""
+    m = plan.model.size
+    c = torch_dtype(cfg.dtype).itemsize
+    p = torch_dtype(cfg.param_dtype).itemsize
+    d = cfg.d_model
+    ops = {"vocab": [("all-reduce", embedded * d * p, m)],
+           "d": [("all-gather", embedded * d * p, m)], "whole": []}[plan.embed]
+    chunk = cfg.logits_chunk
+    nc = seq // chunk if train and chunk and seq % chunk == 0 and seq > chunk else 1
+    ct = rows * seq // nc if train else rows
+    if plan.head == "vocab" and train:
+        ops += [("all-reduce", ct * 4, m), ("all-reduce", 2 * ct * 4, m),
+                ("all-reduce", ct * d * c, m)] * nc
+    elif plan.head == "d":
+        ops += [("all-reduce", ct * cfg.vocab * c, m)] * nc
+        if train:
+            ops += [("all-reduce", ct * d * c, m)] * nc
+    if train:
+        ops += [("all-reduce", x.numel() * p, m)
+                for path, x in tree_leaves_with_path(param_shapes(cfg)) if path in plan.partial]
+        ops.append(("all-reduce", 4, m))
+    return ops
+
+
 def cp_collectives(cfg, plan, rows: int, seq: int, mode: str | None = None) -> list:
     """The "model"-axis collectives one rank issues under attention's
     contraction split on a mesh with one data rank, as sorted (kind, bytes,
@@ -4163,13 +4217,9 @@ def cp_collectives(cfg, plan, rows: int, seq: int, mode: str | None = None) -> l
     the output's gather (backward: the sums of ``do`` and of the query
     columns' ``dx``); split-K's MAX and SUM; the MLP's pair, or the MoE's
     router gather and combine (backward: the sums of ``xg`` and
-    ``top_p``).  Then the embedding's sum or gather (of the float32
-    params), the head's (vocab: the loss's MAX and SUM; d: the partial
-    logits; backward: its input's sum, per loss chunk) and the norm's split
-    squares."""
+    ``top_p``).  Then :func:`lm_collectives` of the tokens."""
     m = plan.model.size
     c = torch_dtype(cfg.dtype).itemsize
-    p = torch_dtype(cfg.param_dtype).itemsize
     d, hd, h = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads
     train = mode is None
     t = rows * (seq if train else 1)
@@ -4185,22 +4235,7 @@ def cp_collectives(cfg, plan, rows: int, seq: int, mode: str | None = None) -> l
             layer += [act, ("all-reduce", t * cfg.moe.top_k * 4, m)]
     elif plan.mlp:
         layer += [act] * (2 if train else 1)
-    ops = layer * cfg.n_layers
-    ops += {"vocab": [("all-reduce", t * d * p, m)], "d": [("all-gather", t * d * p, m)],
-            "whole": []}[plan.embed]
-    chunk = cfg.logits_chunk
-    n = seq // chunk if train and chunk and seq % chunk == 0 and seq > chunk else 1
-    ct = t // n
-    if plan.head == "vocab" and train:
-        ops += [("all-reduce", ct * 4, m), ("all-reduce", 2 * ct * 4, m),
-                ("all-reduce", ct * d * c, m)] * n
-    elif plan.head == "d":
-        ops += [("all-reduce", ct * cfg.vocab * c, m)] * n
-        if train:
-            ops += [("all-reduce", ct * d * c, m)] * n
-    if train:
-        ops.append(("all-reduce", 4, m))
-    return sorted(ops)
+    return sorted(layer * cfg.n_layers + lm_collectives(cfg, plan, rows, seq, t, train))
 
 
 def ssd_collectives(cfg, plan, rows: int, seq: int, mode: str | None = None,
@@ -4219,15 +4254,11 @@ def ssd_collectives(cfg, plan, rows: int, seq: int, mode: str | None = None,
     gather when the cache splits the conv tail.  Per use of a hybrid's
     shared block: attention split on heads and the MLP on ``d_ff``, each one
     sum forward and one backward (in decode, SP's MAX and SUM over the data
-    ranks).  Then the embedding's sum or gather (of the params), the
-    head's (vocab: the loss's MAX and SUM; d: the partial logits; backward:
-    its input's sum, per loss chunk), the partial leaves' gradient sums and
-    the norm's split squares."""
+    ranks).  Then :func:`lm_collectives` of the tokens."""
     from repro_torch.models.ssd import ssm_dims
 
     m = plan.model.size
     c = torch_dtype(cfg.dtype).itemsize
-    p = torch_dtype(cfg.param_dtype).itemsize
     d = cfg.d_model
     d_inner, n_heads, _, g, n = ssm_dims(cfg)
     width = 2 * d_inner + 2 * g * n + n_heads
@@ -4254,22 +4285,7 @@ def ssd_collectives(cfg, plan, rows: int, seq: int, mode: str | None = None,
             shared += [("all-reduce", rows * hl * 4, sp),
                        ("all-reduce", rows * hl * (cfg.resolved_head_dim + 1) * 4, sp)]
         ops += shared * (cfg.n_layers // cfg.shared_attn_every)
-    ops += {"vocab": [("all-reduce", t * d * p, m)], "d": [("all-gather", t * d * p, m)],
-            "whole": []}[plan.embed]
-    chunk = cfg.logits_chunk
-    nc = seq // chunk if train and chunk and seq % chunk == 0 and seq > chunk else 1
-    ct = t // nc
-    if plan.head == "vocab" and train:
-        ops += [("all-reduce", ct * 4, m), ("all-reduce", 2 * ct * 4, m),
-                ("all-reduce", ct * d * c, m)] * nc
-    elif plan.head == "d":
-        ops += [("all-reduce", ct * cfg.vocab * c, m)] * nc
-        if train:
-            ops += [("all-reduce", ct * d * c, m)] * nc
-    if train:
-        ops += [("all-reduce", x.numel() * p, m)
-                for path, x in tree_leaves_with_path(param_shapes(cfg)) if path in plan.partial]
-        ops.append(("all-reduce", 4, m))
+    ops += lm_collectives(cfg, plan, rows, seq, t, train)
     return sorted(o for o in ops if o[2] > 1)
 
 
@@ -4360,7 +4376,8 @@ def cp_rank(rank: int, world: int, port: int, out: str, full: str, device: str,
 
 
 def _cp_rank_serve(dev, mesh, cfg, plan, ref_path: str,
-                   frames: torch.Tensor | None = None) -> dict:
+                   frames: torch.Tensor | None = None,
+                   patches: torch.Tensor | None = None) -> dict:
     """One rank's placed serving: the weights built from SERVE_FULL["seed"]
     in turn (each rank keeps its blocks), then the prefill, one decode step
     fed the one-process run's first token (its collectives; the log-
@@ -4371,7 +4388,10 @@ def _cp_rank_serve(dev, mesh, cfg, plan, ref_path: str,
     first divergence.  An encoder-decoder's ``frames`` go with the prompts,
     and the prefill's cross cache (the rank's kv heads) is held to the
     one-process cache's heads of the layers ``ref_path`` keeps
-    (``cross_layers``, ``cross_k``, ``cross_v``)."""
+    (``cross_layers``, ``cross_k``, ``cross_v``); a vlm's ``patches`` go in
+    front of them, and the prefill's KV cache split on kv heads is held so
+    (``kv_layers``, ``k``, ``v``).  The prefill's collectives are
+    recorded too."""
     import torch.distributed as dist
 
     from repro_torch.launch import serve as placed
@@ -4405,7 +4425,8 @@ def _cp_rank_serve(dev, mesh, cfg, plan, ref_path: str,
     build_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    mode = placed.kv_mode(cfg, mesh, nreq, plen + new)
+    extra = patches.shape[1] if patches is not None else 0
+    mode = placed.kv_mode(cfg, mesh, nreq, extra + plen + new)
     out = {"cache": mode, "blocks": {k: list(v.shape[1:]) for k, v in local["layers"].get(
                "attn", local["layers"].get("ssd", {})).items()},
            "local_params": int(sum(t.numel() for t in tree_leaves(local)))}
@@ -4417,18 +4438,24 @@ def _cp_rank_serve(dev, mesh, cfg, plan, ref_path: str,
     with torch.no_grad():
         sync()
         t1 = time.perf_counter()
-        logits, cache = placed.prefill(local, plan, prompts, plen + new, mode, frames=frames)
+        with record_collectives() as pre:
+            logits, cache = placed.prefill(local, plan, prompts, extra + plen + new, mode,
+                                           frames=frames, patches=patches)
         sync()
         out["prefill_ms"] = (time.perf_counter() - t1) * 1e3
+        out["prefill_ops"] = _ops_list(pre)
         first = whole(logits)
         out["prefill_err"] = float((first.cpu() - ref["prefill_logits"]).abs().max())
-        if "cross_layers" in ref:  # the rank's kv heads of the one-process cross cache
-            hk = cache["cross_k"].shape[3]
+        for tag, (kk, kv) in (("cross", ("cross_k", "cross_v")), ("kv", ("k", "v"))):
+            if f"{tag}_layers" not in ref:
+                continue
+            # the rank's kv heads of the one-process cache at the layers kept
+            hk = cache[kk].shape[3]
             h0 = plan.model.index * hk
-            out["cross_err"] = max(float((cache[key][ref["cross_layers"]].to(torch.float32).cpu()
-                                          - ref[key][..., h0: h0 + hk, :]).abs().max())
-                                   for key in ("cross_k", "cross_v"))
-            out["cross_shape"] = list(cache["cross_k"].shape)
+            out[f"{tag}_err"] = max(float((cache[key][ref[f"{tag}_layers"]].to(torch.float32).cpu()
+                                           - ref[key][..., h0: h0 + hk, :]).abs().max())
+                                    for key in (kk, kv))
+            out[f"{tag}_shape"] = list(cache[kk].shape)
         sync()
         t1 = time.perf_counter()
         with record_collectives() as ops:
@@ -4443,7 +4470,7 @@ def _cp_rank_serve(dev, mesh, cfg, plan, ref_path: str,
         del logits, cache, first
         sync()
         t1 = time.perf_counter()
-        res = placed.generate(local, cfg, mesh, prompts, new, frames=frames)
+        res = placed.generate(local, cfg, mesh, prompts, new, frames=frames, patches=patches)
         sync()
         out["generate_s"] = time.perf_counter() - t1
         out["tokens"] = res.tokens.cpu().tolist()
@@ -5384,14 +5411,10 @@ def audio_collectives(cfg, plan, rows: int, seq: int, enc: int, kind: str = "tra
     layer (``rows`` x ``enc`` tokens) and per decoder layer: each split
     block's output sum (attention, cross-attention, MLP), and in training
     its input's gradient sum; in training the encoder output's gradient
-    sum once (``encode``'s ``copy_to_model``).  Then the embedding's sum or
-    gather (of the params), the head's (vocab: the loss's MAX and SUM and
-    its input's gradient sum; d: the partial logits, of the last position
-    in serving, and in training its input's gradient sum), the partial
-    leaves' gradient sums and the norm's split squares."""
+    sum once (``encode``'s ``copy_to_model``).  Then :func:`lm_collectives`
+    of the decoder tokens."""
     m = plan.model.size
     c = torch_dtype(cfg.dtype).itemsize
-    p = torch_dtype(cfg.param_dtype).itemsize
     d = cfg.d_model
     train = kind == "train"
     n = 2 if train else 1
@@ -5403,22 +5426,7 @@ def audio_collectives(cfg, plan, rows: int, seq: int, enc: int, kind: str = "tra
         ops += [("all-reduce", te * d * c, m)] * ((heads + plan.mlp) * n * cfg.n_enc_layers)
         if train and heads:
             ops.append(("all-reduce", te * d * c, m))
-    ops += {"vocab": [("all-reduce", t * d * p, m)], "d": [("all-gather", t * d * p, m)],
-            "whole": []}[plan.embed]
-    chunk = cfg.logits_chunk
-    nc = seq // chunk if train and chunk and seq % chunk == 0 and seq > chunk else 1
-    ct = t // nc if train else rows
-    if plan.head == "vocab" and train:
-        ops += [("all-reduce", ct * 4, m), ("all-reduce", 2 * ct * 4, m),
-                ("all-reduce", ct * d * c, m)] * nc
-    elif plan.head == "d":
-        ops += [("all-reduce", ct * cfg.vocab * c, m)] * nc
-        if train:
-            ops += [("all-reduce", ct * d * c, m)] * nc
-    if train:
-        ops += [("all-reduce", x.numel() * p, m)
-                for path, x in tree_leaves_with_path(param_shapes(cfg)) if path in plan.partial]
-        ops.append(("all-reduce", 4, m))
+    ops += lm_collectives(cfg, plan, rows, seq, t, train)
     return sorted(o for o in ops if o[2] > 1)
 
 
@@ -5806,6 +5814,404 @@ def _audio_dryrun() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 3n
+
+# The vlm family over "model" (launch/tp_model.py's ``embed_inputs``: the
+# dense family's splits behind precomputed patch embeddings).  internvl2-
+# 26b (48 layers, d_model 6,144, 48 heads, 8 kv heads, d_ff 16,384, vocab
+# 92,553, 19.86 B params) is served uncut on the (1, 1) mesh with its
+# weights in bf16 (39.7 GB; 79.4 GB at float32 would not fit beside the
+# draws), 1,024 stub patch embeddings a request in front of phase 3f's
+# prompts.  The gloo pair runs it at full width and ``pair_layers`` of the
+# 48 layers with float32 compute (17.0 GB of float32 weights one process,
+# about half a rank) against a float32 one-process run: at m = 2 the cache
+# splits on kv heads, 4 a rank.  ``tol`` and ``cross_tol`` are 3m's; the
+# KV cache's gate is ``cross_tol``.  ``dryrun``: the CPU's meta run of the
+# two serving cells on 16 x 16 (count, result bytes per kind); train_4k is
+# FSDP-placed, which the placed step's dry run does not run.
+VLM = {"arch": "internvl2-26b", "patches_seed": 13, "ranks": 2, "pair_layers": 8,
+       "pair_batch": 2, "serve_param_dtype": "bfloat16", "compare_dtype": "float32",
+       "tol": AUDIO["tol"], "kv_tol": AUDIO["cross_tol"],
+       "modelled": tuple(("internvl2-26b", s, False) for s in ("prefill_32k", "decode_32k")),
+       "unmodelled": (("internvl2-26b", "train_4k"),),
+       "dryrun": {"prefill_32k": {"all-reduce": [97, 77_309_781_540],
+                                  "all-gather": [1, 780_140_544]},
+                  "decode_32k": {"all-reduce": [193, 20_502_672],
+                                 "all-gather": [49, 4_816_896]}}}
+
+
+def _vlm_cfg(full: bool, layers: int = 0, **over):
+    """internvl2-26b (with ``layers`` layers, all for 0), or its smoke
+    config in a rehearsal."""
+    if not full:
+        return smoke_config(VLM["arch"], **over)
+    return get_config(VLM["arch"], **({"n_layers": layers} if layers else {}), **over)
+
+
+def _vlm_pair_cfg(full: bool):
+    """The config the gloo pair serves and its one-process run is held to."""
+    return _vlm_cfg(full, VLM["pair_layers"], dtype=VLM["compare_dtype"])
+
+
+def vlm_patches(cfg, rows: int, dev) -> torch.Tensor:
+    """``rows`` requests' stub patch embeddings (rows, n_frontend_tokens,
+    d_model), float32 unit normals drawn on ``dev`` from
+    VLM["patches_seed"]."""
+    gen = torch.Generator(device=dev).manual_seed(VLM["patches_seed"])
+    return torch.randn((rows, cfg.n_frontend_tokens, cfg.d_model), generator=gen, device=dev)
+
+
+def vlm_collectives(cfg, plan, rows: int, text: int, patches: int, kind: str = "train",
+                    mode: str = "heads") -> list:
+    """The "model"-axis collectives one rank issues running the vlm family
+    split on heads (``launch/tp_model.py``) on a mesh with one data rank,
+    as sorted (kind, bytes, group) rows: a placed train step or a prefill
+    of ``rows`` requests of ``patches`` patch embeddings and ``text``
+    tokens, or a decode step of ``rows`` requests with the KV cache placed
+    by ``mode`` ("heads", "seq" or "whole").  Per layer, over every
+    position: attention's and the MLP's output sums (in training also
+    their inputs' gradient sums); under split-K the gather of the query
+    heads and the merge's MAX and SUM.  Then :func:`lm_collectives`, its
+    embedding of the text positions only (the patches bypass it), its loss
+    over every position."""
+    if plan.attn not in ("heads", "whole"):
+        raise ValueError(f"{cfg.name}: the closed form covers attention split on its heads, "
+                         f"not {plan.attn}")
+    m = plan.model.size
+    c = torch_dtype(cfg.dtype).itemsize
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    train = kind == "train"
+    n = 2 if train else 1
+    seq = patches + text
+    t, tt = (rows, rows) if kind == "decode" else (rows * seq, rows * text)
+    act = ("all-reduce", t * d * c, m)
+    layer = [act] * (((plan.attn == "heads") + plan.mlp) * n)
+    if kind == "decode" and mode == "seq":
+        layer += [("all-gather", rows * h * hd * c, m), ("all-reduce", rows * h * 4, m),
+                  ("all-reduce", rows * h * (hd + 1) * 4, m)]
+    ops = layer * cfg.n_layers + lm_collectives(cfg, plan, rows, seq, tt, train)
+    return sorted(o for o in ops if o[2] > 1)
+
+
+def phase_vlm(dev: torch.device, full: bool = True, serve_path: dict | None = None,
+              audio_path: dict | None = None) -> dict:
+    """Phase 3n: (a) internvl2-26b's serve plans on 16 x 16, 2 x 16 x 16 and
+    32 x 8; (b) internvl2-26b at full width and depth, bf16 weights, served
+    on a one-rank NCCL group and a (1, 1) mesh: the placed greedy
+    ``generate`` with 1,024 patch embeddings a request in front of phase
+    3f's 4 x 256 prompts + 16 new tokens, tokens and log-probabilities
+    equal to ``serve.generate``'s with the patches as ``inputs_embeds``;
+    prefill and decode times, peak; (c) then split over "model" by two
+    gloo ranks sharing the card on (1, 2), at VLM["pair_layers"] layers and
+    float32 compute against a float32 one-process run: prefill logits and
+    the one-process tokens' log-probabilities within VLM["tol"], greedy
+    tokens equal up to near ties, each rank's KV cache within
+    VLM["kv_tol"] of the one-process cache's kv heads, a prefill's and a
+    decode step's collectives equal to :func:`vlm_collectives`; (d) (b)'s
+    prefill KV cache over its filled positions as one link under 3f's four
+    points (one ``bt_axes`` launch); (e) the dry run of internvl2-26b's two
+    serving cells on 16 x 16, run while (c)'s ranks do, equal to the CPU's,
+    and its train_4k's reason.  Returns rows and launches."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    lc = _PathLaunches()
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    rows: dict = {"vlm/plan": _vlm_plans()}
+
+    def mark(what: str) -> None:
+        log(f"vlm: {what} done at {time.perf_counter() - t_phase:.1f} s")
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = launch.make_smoke_mesh(device=dev.type)
+        cfg = _vlm_cfg(full, param_dtype=VLM["serve_param_dtype"])
+        rows["vlm/generate"], kv = _vlm_generate(dev, lc, mesh, cfg, full)
+        mark(f"{cfg.name} on (1, 1)")
+    finally:
+        dist.destroy_process_group()
+    rows["vlm/kv_stream"] = _vlm_kv_stream(lc, kv, serve_path or {}, audio_path or {})
+    del kv
+    pcfg = _vlm_pair_cfg(full)
+    ref = _vlm_pair_reference(dev, lc, pcfg, full)
+    mark("the float32 one-process run")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    def dry_run():
+        rows["vlm/dryrun"] = _vlm_dryrun()
+
+    pair, seconds = _spawn_ranks("vlm (c)", VLM["ranks"], "vlm_rank", [int(full), dev.type],
+                                 dry_run)
+    rows["vlm/pair_seconds"] = seconds
+    mark("the pair of ranks")
+    rows["vlm/two_ranks"] = _vlm_two_ranks(pair, ref, full, dev)
+    seconds = time.perf_counter() - t_phase
+    log(f"vlm-path launches: {lc.total}; phase 3n {seconds:.1f} s ({backend}, world 1; gloo, "
+        f"world {VLM['ranks']})")
+    return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
+
+
+def _vlm_plans() -> dict:
+    """(a) internvl2-26b's serve plans on 16 x 16, 2 x 16 x 16 and 32 x 8:
+    attention split on heads (H / m a rank), ``wk`` / ``wv`` split on kv
+    heads where m divides them, else replicated with the one kv head a
+    rank's query heads read (``kv_index``, a partial leaf); the MLP on
+    ``d_ff``; embed and head on "d" (the vocabulary is odd)."""
+    from repro_torch.launch import tp_model
+    from repro_torch.launch.mesh import AbstractMesh
+
+    cfg = get_config(VLM["arch"])
+    out = {}
+    for shape in ((16, 16), (2, 16, 16), (32, 8)):
+        m = shape[-1]
+        names = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+        pl = tp_model.make_plan(cfg, AbstractMesh(shape, names), "serve")
+        kv = "heads" if cfg.n_kv_heads % m == 0 else "whole"
+        hpl = cfg.n_heads // m
+        # replicated kv: rank 0's query heads 0 .. hpl - 1 all read kv head 0
+        want = ("heads", kv, None, cfg.n_kv_heads // m, set()) if kv == "heads" else (
+            "heads", kv, (0,), 1, {"wk", "wv"})
+        if ((pl.attn, pl.kv, pl.kv_index, pl.local.n_kv_heads,
+             {p.rsplit("['", 1)[-1].rstrip("']") for p in pl.partial}) != want
+                or (pl.mlp, pl.embed, pl.head, pl.local.n_heads) != (True, "d", "d", hpl)):
+            fail(f"vlm (a): the serve plan of {cfg.name} on {shape} is {pl}")
+        out["x".join(map(str, shape))] = {"heads": hpl, "kv": kv, "kv_heads": pl.local.n_kv_heads,
+                                          "d_ff": cfg.d_ff // m, "embed": pl.embed,
+                                          "head": pl.head, "partial": sorted(pl.partial)}
+        log(f"vlm (a) {cfg.name} on {' x '.join(map(str, shape))}: {hpl} of {cfg.n_heads} heads "
+            f"a rank, kv {kv} ({pl.local.n_kv_heads} of {cfg.n_kv_heads} a rank"
+            + (f", replicated; rank 0 reads kv head {pl.kv_index})" if kv == "whole" else ")")
+            + f", {cfg.d_ff // m} of d_ff {cfg.d_ff}, embed and head on d ({cfg.d_model // m} "
+            f"of {cfg.d_model}; vocab {cfg.vocab})")
+    return out
+
+
+def _vlm_generate(dev, lc, mesh, cfg, full: bool) -> tuple[dict, torch.Tensor]:
+    """(b): the placed greedy ``generate`` with patches on the (1, 1) mesh
+    against ``serve.generate`` with the same patches as ``inputs_embeds``
+    (phase 3f's requests, prompts and new tokens): tokens and
+    log-probabilities equal; ``shard_params`` keeps the very weight
+    tensors (no second copy); prefill and decode times and peaks.  Also
+    returns the placed prefill's KV cache over its filled positions, flat
+    (``k`` then ``v``), for (d)."""
+    from repro_torch.launch import serve as placed
+    from repro_torch.launch import tp_model
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    patches = vlm_patches(cfg, SERVE_FULL["requests"], dev)
+    ref, params, _ = serve_reference(dev, lc, cfg, "vlm", full, timed=False, patches=patches)
+    prompts, want = ref["prompts"].to(dev), ref["tokens"].to(dev)
+    nreq, plen = prompts.shape
+    new, npat = want.shape[1], patches.shape[1]
+    max_len = npat + plen + new
+    build_peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    local = placed.shard_params(cfg, mesh, params)
+    if any(a is not b for a, b in zip(tree_leaves(local), tree_leaves(params))):
+        fail(f"vlm (b): shard_params on (1, 1) copied {cfg.name}'s weights")
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    plan = tp_model.make_plan(cfg, mesh, "serve")
+    mode = placed.kv_mode(cfg, mesh, nreq, max_len)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    res = lc.run("vlm placed generate",
+                 lambda: placed.generate(local, cfg, mesh, prompts, new, patches=patches), {})
+    serve_peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    if not torch.equal(res.tokens, want):
+        fail(f"vlm (b): {cfg.name}'s placed generate's tokens differ from serve.generate's")
+    if not torch.equal(res.logprobs.cpu(), ref["logprobs"]):
+        fail(f"vlm (b): {cfg.name}'s placed log-probabilities differ from serve.generate's")
+    tok = want[:, :1].to(torch.int32)
+    with torch.no_grad():
+        logits, cache = placed.prefill(local, plan, prompts, max_len, mode, patches=patches)
+        pl = _serve_times(lambda: placed.prefill(local, plan, prompts, max_len, mode,
+                                                 patches=patches),
+                          lambda: placed.decode_step(local, plan, cache, tok, mode))
+    filled = npat + plen
+    if int(cache["pos"]) != filled or tuple(cache["k"].shape[:3]) != (cfg.n_layers, nreq, max_len):
+        fail(f"vlm (b): the placed prefill's cache holds {tuple(cache['k'].shape)} at position "
+             f"{int(cache['pos'])}, not {filled} of {max_len}")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "params": cfg.param_count(),
+           "weight_bytes": weight_bytes, "requests": nreq, "patches": npat, "prompt": plen,
+           "new_tokens": new, "max_len": max_len, "cache": mode,
+           "cache_shape": list(cache["k"].shape), "tokens_equal": True, "logprobs_equal": True,
+           "weights_shared": True, "placed": pl, "build_peak_bytes": build_peak,
+           "serve_peak_bytes": serve_peak,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None}
+    kv = torch.cat([cache["k"][:, :, :filled].reshape(-1), cache["v"][:, :, :filled].reshape(-1)])
+    del params, local, logits, cache, res
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"vlm (b) {cfg.name} at {cfg.n_layers} layers ({out['params']} params, {weight_bytes} "
+        f"bytes of {cfg.param_dtype} weights, shared by the placed run), placed greedy generate "
+        f"of {nreq} x ({npat} patches + {plen} prompt) + {new} tokens on (1, 1), cache {mode} "
+        f"{out['cache_shape']}: tokens and log-probabilities equal to serve.generate's; prefill "
+        f"{pl['prefill_ms']:.2f} ms ({pl['prefill_device_ms']} ms device), decode "
+        f"{pl['decode_ms_per_token']:.3f} ms/token ({pl['decode_device_ms']} ms device); peak "
+        f"{build_peak} bytes building the weights, {serve_peak} serving")
+    log(f"vlm (b) device split: prefill {pl['prefill_device_split']}; decode "
+        f"{pl['decode_device_split']}")
+    return out, kv
+
+
+def _vlm_kv_stream(lc, kv: torch.Tensor, serve_path: dict, audio_path: dict) -> dict:
+    """(d) (b)'s prefill KV cache over its filled positions (every layer's
+    keys, then values) as one link, its int8 view under 3f's four points
+    (one ``bt_axes`` launch), equal to the plain version; its ACC / APP
+    reductions beside 3f's weights' and 3m's cross cache's."""
+    sess = obs.CaptureSession("vlm")
+    st = sess.add("serve_prefill", "kv", kv)
+    wl = sess.workload("serve_prefill", elems=SERVE["elems"], lanes=SERVE["lanes"])
+    t1 = time.perf_counter()
+    ev = lc.run("vlm kv grid", lambda: dse.evaluate_grid(SERVE_POINTS, wl),
+                {"bt_axes": 1} if st.data.is_cuda else {})
+    ms = (time.perf_counter() - t1) * 1e3
+    plain = dse.evaluate_grid(SERVE_POINTS, wl, backend="torch", chunk_packets=1 << 20)
+    if [dataclasses.asdict(e) for e in ev] != [dataclasses.asdict(e) for e in plain]:
+        fail("vlm (d): the KV-cache grid differs from the plain version's")
+    red = {e.label: 100 * e.bt_reduction for e in ev}
+    out = {"bytes": st.num_bytes, "packets": wl.streams[0].shape[0], "measure_ms": ms,
+           "bt": {e.label: [e.total_bt, e.aux_bt] for e in ev}, "red_pct": red}
+    w = serve_path.get("rows", {}).get("serve/full", {}).get("measure", {}).get(
+        "weights_split", {}).get("red_pct", {})
+    cross = audio_path.get("rows", {}).get("audio/cross_stream", {}).get("red_pct", {})
+    log(f"vlm (d) the KV cache ({st.num_bytes} int8 bytes, {out['packets']} packets of "
+        f"{SERVE['elems']}) as one link, grid = plain, {ms:.1f} ms; reductions "
+        + " ".join(f"{k}={v:.4f}%" for k, v in red.items())
+        + "; beside 3f's weights " + " ".join(f"{k}={v:.4f}%" for k, v in w.items())
+        + " and 3m's cross cache " + " ".join(f"{k}={v:.4f}%" for k, v in cross.items()))
+    del sess, wl
+    return out
+
+
+@torch.no_grad()
+def _vlm_pair_reference(dev, lc, cfg, full: bool) -> dict:
+    """(c) The one-process serving the pair is held to (``serve_reference``
+    of ``cfg`` with VLM["pair_batch"] requests' patches) and its prefill's
+    KV cache at the first and the last layer, all saved to
+    ``build/vlm_serve.npz``."""
+    patches = vlm_patches(cfg, VLM["pair_batch"], dev)
+    ref, params, _ = serve_reference(dev, lc, cfg, "vlm (c)", full, timed=False,
+                                     patches=patches, requests=patches.shape[0])
+    max_len = patches.shape[1] + ref["prompts"].shape[1] + ref["tokens"].shape[1]
+    _, cache = serve.make_prefill_fn(cfg, max_len)(params, ref["prompts"].to(dev),
+                                                   inputs_embeds=patches)
+    keep = torch.tensor([0, cfg.n_layers - 1])
+    saved = {k: v.numpy() for k, v in ref.items()}
+    saved["kv_layers"] = keep.numpy()
+    for key in ("k", "v"):
+        saved[key] = cache[key][keep.to(dev)].to(torch.float32).cpu().numpy()
+    np.savez(ROOT / "build" / "vlm_serve.npz", **saved)
+    del params, cache, patches
+    return ref
+
+
+def vlm_rank(rank: int, world: int, port: int, out: str, full: str, device: str) -> None:
+    """Phase 3n (c), one rank of a ``world``-rank gloo group on ``device``
+    ("cuda": card 0; "cpu" for a rehearsal) and a (1, world) mesh: the
+    pair's config served against the one-process run in
+    ``build/vlm_serve.npz`` (its weights rebuilt from the same seed, the
+    patches redrawn); writes the results to ``out``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import tp_model
+
+    full = full == "1"
+    dev = _rank_device(device, "vlm", rank)
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = launch.make_smoke_mesh(device=dev.type)
+        cfg = _vlm_pair_cfg(full)
+        plan = tp_model.make_plan(cfg, mesh, "serve")
+        patches = vlm_patches(cfg, VLM["pair_batch"], dev)
+        res = {"rank": rank, "device": str(dev),
+               "plan": {"attn": plan.attn, "kv": plan.kv, "heads": plan.local.n_heads,
+                        "kv_heads": plan.local.n_kv_heads, "embed": plan.embed,
+                        "head": plan.head, "partial": sorted(plan.partial)},
+               "serve": _cp_rank_serve(dev, mesh, cfg, plan, ROOT / "build" / "vlm_serve.npz",
+                                       patches=patches)}
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+
+
+def _vlm_two_ranks(ranks: list, ref: dict, full: bool, dev) -> dict:
+    """(c), the gloo half: two ranks on (1, 2) against the float32
+    one-process run: each rank on the card with its plan, the placed
+    serving (as 3k's ``_cp_serve``), each rank's KV cache against the
+    one-process cache's kv heads, and a prefill's and a decode step's
+    collectives equal to the closed form."""
+    from repro_torch.launch import tp_model
+    from repro_torch.launch.mesh import AbstractMesh
+
+    n = VLM["ranks"]
+    cfg = _vlm_pair_cfg(full)
+    plan = tp_model.make_plan(cfg, AbstractMesh((1, n), ("data", "model")), "serve")
+    want_dev = "cuda:0" if dev.type == "cuda" else dev.type
+    if any(r["device"] != want_dev for r in ranks) or (dev.type == "cuda" and any(
+            not r["serve"]["peak_bytes"] for r in ranks)):
+        fail(f"vlm (c): the ranks ran on {[r['device'] for r in ranks]}, not on {want_dev}")
+    if any((r["plan"]["heads"], r["plan"]["kv_heads"], r["plan"]["kv"]) != (
+            cfg.n_heads // n, cfg.n_kv_heads // n, "heads") or r["plan"]["partial"]
+            for r in ranks):
+        fail(f"vlm (c): the ranks' plans are {[r['plan'] for r in ranks]}")
+    nb, plen = ref["prompts"].shape
+    new = ref["tokens"].shape[1]
+    mode = ranks[0]["serve"]["cache"]
+    closed = {"prefill": [list(o) for o in vlm_collectives(
+                  cfg, plan, nb, plen, cfg.n_frontend_tokens, "prefill")],
+              "decode": [list(o) for o in vlm_collectives(cfg, plan, nb, 1, 0, "decode", mode)]}
+    for r in ranks:
+        for k in closed:
+            got = r["serve"][f"{k}_ops"]
+            if got != closed[k]:
+                fail(f"vlm (c): rank {r['rank']}'s {k} collectives differ from the closed "
+                     f"form: {len(got)} recorded, {len(closed[k])} expected")
+    kv = [r["serve"]["kv_err"] for r in ranks]
+    want_shape = [cfg.n_layers, nb, cfg.n_frontend_tokens + plen + new, cfg.n_kv_heads // n,
+                  cfg.resolved_head_dim]
+    if max(kv) > VLM["kv_tol"] or any(r["serve"]["kv_shape"] != want_shape for r in ranks):
+        fail(f"vlm (c): the ranks' KV caches {[r['serve']['kv_shape'] for r in ranks]} lie {kv} "
+             f"from the one-process cache's kv heads (tolerance {VLM['kv_tol']})")
+    serving = _cp_serve(ranks, ref, n, VLM["tol"], "vlm (c)")
+    out = {"layers": cfg.n_layers, "kv_err": max(kv), "kv_tol": VLM["kv_tol"],
+           "kv_shape": ranks[0]["serve"]["kv_shape"], "serve": serving,
+           "collectives": {k: {"count": len(v), "bytes": sum(o[1] for o in v)}
+                           for k, v in closed.items()}}
+    log(f"vlm (c) {cfg.name} at {cfg.n_layers} layers, float32, {nb} requests of "
+        f"{cfg.n_frontend_tokens} patches + {plen} tokens, split over 'model' by {n} gloo "
+        f"ranks: the KV cache {out['kv_shape']} a rank within {max(kv):.3g} of the one-process "
+        f"cache's kv heads (tolerance {VLM['kv_tol']}); collectives = the closed form: a "
+        f"prefill {out['collectives']['prefill']}, a decode step {out['collectives']['decode']}")
+    return out
+
+
+def _vlm_dryrun() -> dict:
+    """(e) The dry run of internvl2-26b's two serving cells on 16 x 16, each
+    cell's collectives (count and result bytes per kind) equal to the
+    CPU's meta run (VLM["dryrun"]); its train_4k names FSDP."""
+    out = _dryrun_cells("vlm (e)", VLM["modelled"], VLM["unmodelled"])
+    for arch, shape, _ in VLM["modelled"]:
+        got = out[f"{arch}/{shape}/16x16"]["collectives"]
+        want = VLM["dryrun"][shape]
+        if {k: [v["count"], v["bytes"]] for k, v in got.items()} != want:
+            fail(f"vlm (e): {arch} x {shape} [16x16] records {got}, the CPU's meta run {want}")
+    for arch, shape in VLM["unmodelled"]:
+        if "FSDP" not in out[f"{arch}/{shape}/16x16"]["collectives_reason"]:
+            fail(f"vlm (e): {arch} x {shape} [16x16] is not refused for FSDP: "
+                 f"{out[f'{arch}/{shape}/16x16']['collectives_reason']}")
+    return out
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -6150,6 +6556,7 @@ def main() -> int:
     cp_path = phase_cp(dev)
     ssd_path = phase_ssd(dev, serve_path=serve_path, train_path=train_path)
     audio_path = phase_audio(dev, serve_path=serve_path, train_path=train_path)
+    vlm_path = phase_vlm(dev, serve_path=serve_path, audio_path=audio_path)
     cases = phase_scale(dev)
     record = []
     for name, meta in KERNELS.items():
@@ -6163,17 +6570,19 @@ def main() -> int:
         # and bt_axes_activity; the training path (3g) for all but
         # quantize_egress; the distribution path (3h) for psu_sort,
         # bt_count and bt_axes; the expert-parallel path (3j), the SSD
-        # path (3l) and the encoder-decoder path (3m) for bt_axes
+        # path (3l), the encoder-decoder path (3m) and the vlm path (3n)
+        # for bt_axes
         paths = {"psu_sort": ("transmit", "egress", "noc", "serve", "train", "dist"),
                  "bt_count": ("transmit", "egress", "noc", "serve", "train", "dist"),
                  "psu_stream": ("transmit", "train"),
-                 "bt_axes": ("codec", "noc", "serve", "train", "dist", "ep", "ssd", "audio"),
+                 "bt_axes": ("codec", "noc", "serve", "train", "dist", "ep", "ssd", "audio",
+                             "vlm"),
                  "bt_axes_activity": ("activity", "noc", "serve", "train"),
                  "quantize_egress": ("egress", "noc")}[name]
         runs = {"transmit": main_path, "codec": codec_path, "activity": activity_path,
                 "egress": egress_path, "noc": noc_path, "serve": serve_path,
                 "train": train_path, "dist": dist_path, "ep": ep_path, "ssd": ssd_path,
-                "audio": audio_path}
+                "audio": audio_path, "vlm": vlm_path}
         by_path = {p: runs[p]["launches"][name] for p in paths}
         record.append({
             "name": name, "route": "cuda", **meta,
@@ -6205,7 +6614,7 @@ def main() -> int:
         "activity_path": activity_path, "egress_path": egress_path, "noc_path": noc_path,
         "serve_path": serve_path, "train_path": train_path, "dist_path": dist_path,
         "tp_path": tp_path, "ep_path": ep_path, "cp_path": cp_path, "ssd_path": ssd_path,
-        "audio_path": audio_path, "scale_cases": cases,
+        "audio_path": audio_path, "vlm_path": vlm_path, "scale_cases": cases,
         "seconds": time.perf_counter() - t0,
     }, indent=1, default=str))
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -13,7 +13,7 @@ mesh (16x16, or 2x16x16 with ``--multipod``) it records
     tensors, and an even split of them per device;
   * ``model_flops_global`` (``repro_torch.roofline``).
 
-  * for the dense, MoE, ssm, hybrid and encoder-decoder families, the
+  * for the dense, vlm, MoE, ssm, hybrid and encoder-decoder families, the
     collectives one device issues: the cell's placed step (``launch/step.py``'s
     ``reduce_gradients`` and ZeRO-1's gathers) or placed prefill / decode
     (``launch/serve.py``) runs on the ``meta`` blocks of rank 0 over
@@ -30,11 +30,12 @@ on their contraction and the SSM heads over "model", and ``long_500k``'s
 one request splits zamba2's KV sequence over "data" (SP: its decode merges
 attention over the data ranks); whisper-medium's cells split the encoder's
 and the decoder's self- and cross-attention on heads, its prefill encoding
-the frames and its decode reading the cross cache on the rank's kv heads.
-The vlm family's tensor-parallel forward is not built yet, nor the placed
-step's FSDP gathers
-(a train cell of an FSDP config, qwen3-moe-30b-a3b's; its serving cells
-are not FSDP-placed, as ``param_spec`` applies FSDP in "train" mode only):
+the frames and its decode reading the cross cache on the rank's kv heads;
+internvl2-26b's serving cells run the dense family's splits behind its
+1,024 patch embeddings, which its prefill puts in front of the text.  The
+placed step's FSDP gathers are not built yet (a train cell of an FSDP
+config, internvl2-26b's and qwen3-moe-30b-a3b's; their serving cells are
+not FSDP-placed, as ``param_spec`` applies FSDP in "train" mode only):
 those records say ``"collectives_modelled": False``, with the reason, and
 carry no collective ops.  The memory floor is the argument bytes alone
 (activations are not counted).  The stand-in groups need no process group:
@@ -84,8 +85,8 @@ def argument_bytes_per_device(args, shardings, mesh) -> int:
 
 def placed_collectives(case, mesh) -> list[dict]:
     """The collectives one device of ``mesh`` (a production ``AbstractMesh``)
-    issues in the placed counterpart of ``case``, a dense, MoE, ssm, hybrid or
-    encoder-decoder cell: recorded
+    issues in the placed counterpart of ``case``, a dense, vlm, MoE, ssm,
+    hybrid or encoder-decoder cell: recorded
     while it runs on rank 0's ``meta`` blocks over stand-in groups."""
     from .. import _collectives
     from .._tree import leaves, tree_map
@@ -116,7 +117,7 @@ def placed_collectives(case, mesh) -> list[dict]:
             sp = serve.sp_group(cfg, mesh, s.global_batch, s.seq_len)
             if case.kind == "prefill":
                 serve.prefill(args[0], plan, args[1]["tokens"], s.seq_len, mode, sp,
-                              args[1].get("frames"))
+                              args[1].get("frames"), args[1].get("patches"))
             else:
                 serve.decode_step(args[0], plan, args[1], args[2], mode, sp)
     return ops

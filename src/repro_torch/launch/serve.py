@@ -1,7 +1,7 @@
 """Placed serving: prefill, decode and greedy generation over a mesh.
 
 Counterparts of ``models.transformer.prefill`` / ``decode_step`` and
-``serve.loop.generate`` for the dense, MoE, ssm, hybrid and
+``serve.loop.generate`` for the dense, vlm, MoE, ssm, hybrid and
 encoder-decoder families under the reference's serving rules: the weights
 split over "model" by ``param_spec`` (mode "serve"; a MoE's experts over
 "model", run by ``tp_model.moe_block``: capacity-bounded in prefill,
@@ -14,7 +14,7 @@ rules split it, a contiguous ``d_xbc / m`` block of the conv tail's
 channels, which does not line up with ``[x heads | B | C]``: the conv is
 depthwise, so a rank convolves the new row's channels of its own block
 with its own tail and all-gathers the activated row.  The KV cache (of
-the dense, MoE and hybrid families):
+the dense, vlm, MoE and hybrid families):
 
   * ``hkv % m == 0``: the cache is split on its kv heads, and each rank's
     attention is ``models.layers.attention_decode`` on its own heads;
@@ -57,6 +57,15 @@ self-attention as above, then ``tp_model.cross_block`` against the
 rank's cross cache, then the MLP (``decode_step``'s order).  A cross
 cache that the rules split any other way than on its kv heads is refused
 (:func:`cross_mode`).
+
+The vlm family (internvl2) serves as the dense family does behind its
+precomputed patch embeddings: prefill puts a request's patches (split over
+the data-parallel axes by their rows, as the prompts are) in front of its
+text through ``tp_model.embed_inputs`` and fills the cache for every
+position, patches first, as ``models.transformer.prefill`` does with
+``inputs_embeds``; the cache's ``pos`` and length count them, so
+:func:`generate`'s cache holds ``n_patches + prompt + new`` positions and
+that length decides the cache's placement.  Decode is the dense family's.
 
 Under the contraction split the whole queries come from the partial sum
 of ``tp_model.contracted_qkv`` and the output from
@@ -203,15 +212,16 @@ def _cache_kv(lp, x, plan, positions, max_len: int, mode: str, sp: AxisGroup):
 
 
 def prefill(params: dict, plan: tp_model.Plan, tokens: torch.Tensor, max_len: int,
-            mode: str, sp: AxisGroup = AxisGroup(1),
-            frames: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+            mode: str, sp: AxisGroup = AxisGroup(1), frames: torch.Tensor | None = None,
+            patches: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """This rank's prompt rows ``tokens`` (and, for the encoder-decoder, the
-    same rows of ``frames``) through its weight blocks: (last-position
-    logits, placed as the module says; this rank's cache placed by ``mode``
-    and ``sp``, its cross cache on the rank's kv heads)."""
+    same rows of ``frames``; for the vlm family, of ``patches``, which go
+    first) through its weight blocks: (last-position logits, placed as the
+    module says; this rank's cache placed by ``mode`` and ``sp``, its cross
+    cache on the rank's kv heads)."""
     cfg = plan.cfg
     eps = cfg.rms_eps
-    h = tp_model.embed(params, plan, tokens)
+    h = tp_model.embed_inputs(params, plan, tokens, patches)
     s = h.shape[1]
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds cache capacity {max_len}")
@@ -396,25 +406,32 @@ def _greedy(logits: torch.Tensor, plan: tp_model.Plan) -> tuple[torch.Tensor, to
 
 @torch.no_grad()
 def generate(params: dict, cfg, mesh, prompts: torch.Tensor, max_new_tokens: int,
-             frames: torch.Tensor | None = None) -> GenerateResult:
+             frames: torch.Tensor | None = None,
+             patches: torch.Tensor | None = None) -> GenerateResult:
     """Greedy generation over ``mesh``: ``params`` are this rank's blocks
     (:func:`shard_params`), ``prompts`` the whole (B, S) batch on every
-    rank (and for the encoder-decoder its whole (B, S_enc, d) ``frames``).
+    rank (and for the encoder-decoder its whole (B, S_enc, d) ``frames``;
+    for the vlm family its whole (B, P, d) ``patches``, in front of the
+    prompts: the cache holds P + S + ``max_new_tokens`` positions).
     Returns this rank's requests' tokens and log-probabilities, as
-    ``serve.loop.generate`` at temperature 0."""
+    ``serve.loop.generate`` at temperature 0 (with ``inputs_embeds`` the
+    patches)."""
     plan = tp_model.make_plan(cfg, mesh, "serve")
-    max_len = prompts.shape[1] + max_new_tokens
+    extra = patches.shape[1] if patches is not None else 0
+    max_len = extra + prompts.shape[1] + max_new_tokens
     mode = kv_mode(cfg, mesh, prompts.shape[0], max_len)
     sp = sp_group(cfg, mesh, prompts.shape[0], max_len)
     batch = {"tokens": prompts}
     if frames is not None:
         cross_mode(cfg, mesh, prompts.shape[0], frames.shape[1])
         batch["frames"] = frames
+    if patches is not None:
+        batch["patches"] = patches
     batch = shard_batch(cfg, mesh, batch)
     out_toks, out_lp = [], []
     with _obs_hooks.muted():
         logits, cache = prefill(params, plan, batch["tokens"], max_len, mode, sp,
-                                batch.get("frames"))
+                                batch.get("frames"), batch.get("patches"))
         for _ in range(max_new_tokens):
             tok, lp = _greedy(logits, plan)
             out_toks.append(tok[:, 0])

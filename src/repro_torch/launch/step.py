@@ -10,20 +10,21 @@ FSDP configs add their "data" axis, and ZeRO-1 (``cfg.zero1``) splits the
 m/v leaves over "data".  The step (:func:`make_placed_train_step`):
 
   1. takes this rank's rows of the global batch by ``batch_shardings``
-     (an encoder-decoder's ``frames`` too, by their rows);
-  2. takes each leaf's block for the compute: a dense, MoE, ssm, hybrid or
-     encoder-decoder config keeps its "model" split (``tp_model.py`` runs
+     (an encoder-decoder's ``frames`` and a vlm's ``patches`` too, by their
+     rows);
+  2. takes each leaf's block for the compute: a dense, vlm, MoE, ssm, hybrid
+     or encoder-decoder config keeps its "model" split (``tp_model.py`` runs
      each product on the block: attention on its heads or on its
      contraction, the encoder's and the decoder's self- and
      cross-attention on their heads, a MoE's experts on the rank's range
      of experts, the SSD projections on their contraction and the SSM core
      on the rank's heads) and all-gathers a leaf only over another split
-     axis with more than one rank (FSDP's "data", qwen3-moe-30b-a3b's;
-     skipped when "data" has one rank); where ``tp_model.unsupported``
-     names a reason (the vlm family, experts split on their ``d_ff``,
-     shared experts, an encoder-decoder's attention on its contraction) it
-     gathers every axis, so every rank of a "model" group computes the
-     whole product;
+     axis with more than one rank (FSDP's "data", internvl2-26b's and
+     qwen3-moe-30b-a3b's; skipped when "data" has one rank); where
+     ``tp_model.unsupported`` names a reason (experts split on their
+     ``d_ff``, shared experts, an encoder-decoder's attention on its
+     contraction) it gathers every axis, so every rank of a "model" group
+     computes the whole product;
   3. runs the loss (with a MoE's load-balance loss, as ``train.step``'s,
      its means taken over the data-parallel ranks as over the reference's
      global batch) and its backward on the local rows (``train.step``'s
@@ -229,8 +230,8 @@ def make_placed_train_step(
     """The train step over ``mesh``: ``(params, opt_state, batch) ->
     (params, opt_state, metrics)`` with the state from :func:`place_state`
     (updated in place) and the whole global ``batch`` on every rank.  A
-    dense, MoE, ssm, hybrid or encoder-decoder config runs tensor-parallel
-    over "model"."""
+    dense, vlm, MoE, ssm, hybrid or encoder-decoder config runs
+    tensor-parallel over "model"."""
     # the forward on "model" blocks where it runs the rules' splits; else
     # every leaf gathered at use
     plan = tp_model.make_plan(cfg, mesh) if tp_model.unsupported(cfg, mesh) is None else None

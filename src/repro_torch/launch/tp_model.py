@@ -1,5 +1,5 @@
-"""The dense, MoE, ssm, hybrid and encoder-decoder families' forward and
-loss on one rank's shards of "model".
+"""The dense, vlm, MoE, ssm, hybrid and encoder-decoder families' forward
+and loss on one rank's shards of "model".
 
 The reference's GSPMD splits the transformer over the mesh's "model" axis
 by the rules of ``launch.sharding``.  Here one rank runs its part with
@@ -58,6 +58,15 @@ own ``param_spec`` (:func:`make_plan`), never decided again:
     summed over "model": no all-to-all, as in the reference's schedule
     (the tokens are replicated over "model").  A padded expert gets no
     token, so a rank holding only padded experts adds zero.
+
+  * The vlm family (internvl2): the dense family's layers behind
+    precomputed patch embeddings.  :func:`forward` puts the patches in
+    front of the text's embedding, as ``models.forward`` does with
+    ``inputs_embeds``: the patches are cast to the compute dtype and not
+    scaled by ``sqrt(d_model)`` (only :func:`embed`'s text is), and the
+    positions run over patches and text.  The patches are data, replicated
+    over "model" and split over the data-parallel axes by their rows, as
+    the tokens are; they need no collective of their own.
 
   * SSD (the ssm and hybrid families; :attr:`Plan.ssd`): ``in_proj`` split
     on its ``d_model`` rows and ``out_proj`` on its ``d_inner`` rows (the
@@ -174,10 +183,11 @@ from .sharding import cache_shardings, params_shardings
 from .tp import (AxisGroup, all_reduce, axis_group, batch_mean, copy_to_model,
                  gather_from_model, reduce_from_model)
 
-__all__ = ["Plan", "make_plan", "unsupported", "embed", "layer", "attention_block",
-           "contracted_qkv", "contracted_out", "encode", "cross_kv", "cross_block", "dec_layer",
-           "mlp_block", "moe_route", "moe_dispatch", "moe_block", "ssd_project", "ssd_block",
-           "ssd_decode", "forward", "logits", "loss", "make_loss_fn", "take_heads"]
+__all__ = ["Plan", "make_plan", "unsupported", "embed", "embed_inputs", "layer",
+           "attention_block", "contracted_qkv", "contracted_out", "encode", "cross_kv",
+           "cross_block", "dec_layer", "mlp_block", "moe_route", "moe_dispatch", "moe_block",
+           "ssd_project", "ssd_block", "ssd_decode", "forward", "logits", "loss",
+           "make_loss_fn", "take_heads"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,7 +259,7 @@ def _model_dims(cfg: ModelConfig, mesh, mode: str) -> dict[str, Optional[int]]:
 _ATTN = {(None, None): "whole", (-2, -3): "heads", (-3, -1): "contraction"}
 # the SSD leaves the rules keep replicated, used in parts under "heads"
 _SSD_SMALL = ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip", "norm_w")
-_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "audio")
+_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec", "audio")
 _ENCDEC = ("encdec", "audio")
 
 
@@ -302,14 +312,15 @@ def _why_not(cfg: ModelConfig, dims: dict, m: int) -> Optional[str]:
 
 def unsupported(cfg: ModelConfig, mesh, mode: str = "train") -> Optional[str]:
     """Why the rules' splits of ``cfg`` on ``mesh`` are not ones this forward
-    runs, or None: it takes the dense, MoE (with no shared experts), ssm,
-    hybrid and encoder-decoder families, attention split on heads or on
-    its contraction (or whole; the encoder-decoder on heads or whole), the
-    MLP on ``d_ff`` (or whole), the experts and the router on their expert
-    axis, and the SSD projections on their contraction (or whole)."""
+    runs, or None: it takes the dense, vlm, MoE (with no shared experts),
+    ssm, hybrid and encoder-decoder families, attention split on heads or
+    on its contraction (or whole; the encoder-decoder on heads or whole),
+    the MLP on ``d_ff`` (or whole), the experts and the router on their
+    expert axis, and the SSD projections on their contraction (or
+    whole)."""
     if cfg.family not in _FAMILIES:
-        return (f"{cfg.name}: the tensor-parallel forward covers the dense, MoE, ssm, hybrid "
-                f"and encoder-decoder families, not {cfg.family!r}")
+        return (f"{cfg.name}: the tensor-parallel forward covers the dense, vlm, MoE, ssm, "
+                f"hybrid and encoder-decoder families, not {cfg.family!r}")
     return _why_not(cfg, _model_dims(cfg, mesh, mode), mesh_axes(mesh)["model"])
 
 
@@ -650,12 +661,23 @@ def embed(params: dict, plan: Plan, tokens: torch.Tensor) -> torch.Tensor:
     return e.to(torch_dtype(cfg.dtype)) * math.sqrt(cfg.d_model)
 
 
+def embed_inputs(params: dict, plan: Plan, tokens: torch.Tensor,
+                 patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The replicated input sequence: the embedding of ``tokens``, behind
+    the vlm family's ``patches`` (B, P, d) when given, cast to the compute
+    dtype and unscaled (``models.forward``'s ``inputs_embeds``)."""
+    text = embed(params, plan, tokens)
+    return text if patches is None else torch.cat([patches.to(text.dtype), text], dim=1)
+
+
 def forward(params: dict, plan: Plan, tokens: torch.Tensor,
-            frames: Optional[torch.Tensor] = None) -> tuple:
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None) -> tuple:
     """(the final-normed hidden state (B, S, d), replicated over "model";
-    the summed load-balance loss), as ``models.forward``'s, or for the
-    encoder-decoder families ``models.encdec_forward``'s of ``frames`` and
-    the decoder's ``tokens``."""
+    the summed load-balance loss), as ``models.forward``'s (the vlm
+    family's with ``patches`` as its ``inputs_embeds``: S counts them), or
+    for the encoder-decoder families ``models.encdec_forward``'s of
+    ``frames`` and the decoder's ``tokens``."""
     cfg = plan.cfg
     if cfg.family in _ENCDEC:
         if frames is None:
@@ -669,7 +691,7 @@ def forward(params: dict, plan: Plan, tokens: torch.Tensor,
             h = dec_layer(lp, h, *cross_kv(lp["cross_attn"], enc, plan), plan, positions)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return rms_norm(h, params["final_norm"], cfg.rms_eps), aux
-    h = embed(params, plan, tokens)
+    h = embed_inputs(params, plan, tokens, patches)
     positions = _positions(h.shape[1], h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     layers = params["layers"]
@@ -759,10 +781,12 @@ def loss(params: dict, plan: Plan, h: torch.Tensor, labels: torch.Tensor) -> tor
 def make_loss_fn(plan: Plan) -> Callable[[Any, dict], torch.Tensor]:
     """``(local params, local batch) -> loss``, as ``train.make_loss_fn``'s:
     the cross-entropy plus the load-balance loss (the encoder-decoder's
-    forward reads the batch's ``frames``)."""
+    forward reads the batch's ``frames``, the vlm family's its ``patches``,
+    whose labels are -100)."""
 
     def loss_fn(params, batch):
-        h, aux = forward(params, plan, batch["tokens"], batch.get("frames"))
+        h, aux = forward(params, plan, batch["tokens"], batch.get("frames"),
+                         batch.get("patches"))
         return loss(params, plan, h, batch["labels"]) + aux
 
     return loss_fn

@@ -57,7 +57,9 @@ def normal(gen: torch.Generator | None, shape: tuple[int, ...], device: torch.de
 def dense_init(gen, shape: tuple[int, ...], in_axis_size: int, dtype, device):
     """Normal weights scaled by 1/sqrt(fan-in), as the reference's."""
     scale = 1.0 / math.sqrt(max(1, in_axis_size))
-    return (normal(gen, shape, device) * scale).to(torch_dtype(dtype))
+    # scaled in place: one float32 draw alive at a time (a 48-layer stacked
+    # leaf of internvl2-26b's MLP is 19.3 GB at float32)
+    return normal(gen, shape, device).mul_(scale).to(torch_dtype(dtype))
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:

@@ -11,8 +11,8 @@ and the dry run's collective term).
 * The plan read from the rules (an ``AbstractMesh``, no group): head and
   kv-head splits, the replicated kv of GQA, the partial leaves, the ``d``
   split of a vocabulary the axis does not divide, attention's contraction
-  split on a wide axis, and the reasons given for what the forward does
-  not run.
+  split on a wide axis, the vlm family's plan, and the reasons given for
+  what the forward does not run.
 * gloo groups of 2 and 4 ranks (separate processes, ``_run_ranks`` of
   ``test_torch_distributed.py``): meshes (1, 2), (2, 2) and (1, 4) on the
   smoke internlm2-1.8b (kv heads split at m = 2, replicated at m = 4),
@@ -61,8 +61,8 @@ and the dry run's collective term).
   buffers over two steps bit-exact with the reference's fed the step's own
   gradients.
 * The meta dry run of each dense smoke cell on a 2 x 4 stand-in mesh has
-  ``collectives_modelled: True``, collective ops and a collective term; a
-  family the forward does not cover and an FSDP train cell say why they
+  ``collectives_modelled: True``, collective ops and a collective term;
+  the FSDP train cells (internvl2-26b's, qwen3-moe-30b-a3b's) say why they
   have none.
 """
 
@@ -533,8 +533,11 @@ def test_plan_reads_the_rules():
     assert tp_model.unsupported(smoke_config("internlm2-1.8b"), _abstract((16, 16))) is None
     p = plan("internlm2-1.8b", (1, 16))
     assert (p.attn, p.kv, p.local, p.partial) == ("contraction", "whole", p.cfg, frozenset())
-    with pytest.raises(ValueError, match="hybrid and encoder-decoder families"):
-        plan("internvl2-26b", (1, 2))
+    # the vlm family: the dense splits (tests/test_torch_vlm_tp.py runs them)
+    p = plan("internvl2-26b", (1, 2))
+    assert (p.attn, p.kv, p.kv_index, p.mlp, p.embed, p.head, p.partial) == (
+        "heads", "heads", None, True, "vocab", "vocab", frozenset())
+    assert (p.local.n_heads, p.local.n_kv_heads) == (2, 1)
     assert plan("internlm2-1.8b", (2, 1)).split == frozenset()
 
 
@@ -843,13 +846,12 @@ def test_meta_dryrun_dense_smoke_cells_model_collectives(arch, shape):
     assert len(acts) >= (4 if shape == "train_4k" else 2) * cfg.n_layers
 
 
-@pytest.mark.parametrize("arch,shape,why", [("internvl2-26b", "decode_32k",
-                                             "hybrid and encoder-decoder families"),
+@pytest.mark.parametrize("arch,shape,why", [("internvl2-26b", "train_4k", "FSDP"),
                                             ("qwen3-moe-30b-a3b", "train_4k", "FSDP")])
 def test_meta_dryrun_other_families_say_why(arch, shape, why):
-    """A family the tensor-parallel forward does not cover, and the train
-    cell of an FSDP config (its serving cells are not FSDP-placed and are
-    modelled: tests/test_torch_ep.py)."""
+    """The train cells of the FSDP configs (their serving cells are not
+    FSDP-placed and are modelled: tests/test_torch_vlm_tp.py,
+    tests/test_torch_ep.py)."""
     rec = dryrun.run_cell(arch, shape, False, verbose=False,
                           cfg_overrides=_smoke_overrides(arch), mesh_shape=(2, 4))
     assert rec["collectives_modelled"] is False and rec["collective_ops"] == []
