@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE, serving, training, distribution, tensor-parallel, expert-parallel, SSD / sequence-parallel and encoder-decoder paths on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's transmit, codec, activity, egress, NoC / DSE, serving, training, distribution, tensor-parallel, expert-parallel, SSD / sequence-parallel, encoder-decoder, vlm and FSDP paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -160,7 +160,7 @@ non-zero:
    within 5e-3 of 3g's;
 3j. expert-parallel path: granite-moe-3b-a800m at full width (d_model
    1,536, 24 heads, 8 kv heads, 48 experts of which 40 real, top-8, expert
-   d_ff 512, vocabulary 49,155) at 8 of its 32 layers (its training
+   d_ff 512, vocabulary 49,155) at 4 of its 32 layers (its training
    state at 32 passes the card's memory) trained 3 steps on 4 x 256 tokens
    by ``train()``, then on a new one-rank NCCL group and (1, 1) mesh by the
    placed step through the expert-parallel plan of
@@ -175,7 +175,7 @@ non-zero:
    reductions beside 3f's weights' and 3g's gradient's; the dry run's MoE
    cells (qwen3-moe-30b-a3b prefill_32k / decode_32k on 16 x 16, granite's
    optimized-profile train_4k / prefill_32k on 32 x 8: their collective
-   terms; the others' reasons); then the 8-layer model trained 3 steps by
+   terms); then the 8-layer model trained 3 steps by
    two gloo ranks sharing the card on a (1, 2) mesh (24 of the 48 experts a
    rank), losses within 5e-3 of ``train()``'s;
 3k. attention's contraction split: granite-moe-3b-a800m at full width by
@@ -183,11 +183,11 @@ non-zero:
    heads, d_model 1,536: ``wq`` split on its input d, ``wo`` on its output
    d, ``wk`` / ``wv`` whole, 3 of the 48 experts a rank; each rank builds
    its blocks in turn and checks it runs on card 0): every rank's plan; the
-   placed greedy ``generate`` at 8 of the 32 layers and float32 compute on
+   placed greedy ``generate`` at 2 of the 32 layers and float32 compute on
    4 x 256 prompts + 16 tokens (split-K cache), its prefill logits and the
    log-probabilities of the one-process tokens where it was fed them within
    ``CP["tol"]`` of a float32 ``serve.generate`` at the same depth and
-   weights, greedy tokens equal up to a near tie; 3 placed steps at 8
+   weights, greedy tokens equal up to a near tie; 3 placed steps at 2
    layers in bf16, losses within 5e-3 of ``train()``'s at the same depth;
    each rank's peak, step wall, a step's and a decode's collectives equal to
    ``cp_collectives``; the dry run's granite baseline cells on 16 x 16;
@@ -196,13 +196,14 @@ non-zero:
    (38 SSM layers, 64 SSM heads, the shared attention and MLP block of 32
    heads and d_ff 8,192) at full width: their plans on 16 x 16 (the SSM
    heads split, ``in_proj`` on d_model, ``out_proj`` on d_inner, the conv
-   tail's channel blocks, the partial leaves); each trained 3 steps on 4 x
+   tail's channel blocks, the partial leaves); each, at 24 / 19 layers
+   (``SSD["one_layers"]``), trained 3 steps on 4 x
    256 tokens by ``train()`` and by the placed step on a one-rank NCCL group
    and a (1, 1) mesh (every SSD layer through ``tp_model.ssd_block``),
    losses and every param leaf's sha256 equal, and its placed greedy
    ``generate`` of 4 x 256 prompts + 16 tokens equal to ``serve.generate``
    (and how far its bf16 logits lie from float32 compute); then both, at
-   16 and 14 layers, by two gloo ranks sharing the card on (1, 2) at
+   8 and 7 layers, by two gloo ranks sharing the card on (1, 2) at
    float32 compute, losses within 5e-3 of a float32 ``train()``'s at the
    same depth, prefill logits and the one-process tokens'
    log-probabilities within ``SSD["tol"]`` of a float32
@@ -224,8 +225,9 @@ non-zero:
 3m. the encoder-decoder over "model": whisper-medium's plans on 16 x 16
    and 32 x 8 (the encoder's, the decoder's and the cross-attention's
    heads, ``d_ff``, embed and head on d), then whisper-medium at full
-   width and depth (24 + 24 layers, 1,500 stub frames a request drawn from
-   a seed) trained 3 steps of 4 x 256 decoder tokens by ``train()`` and by
+   width and 12 + 12 of its 24 + 24 layers (``AUDIO["one_layers"]``; 1,500
+   stub frames a request drawn from a seed) trained 3 steps of 4 x 256
+   decoder tokens by ``train()`` and by
    the placed step on a one-rank NCCL group and a (1, 1) mesh (every
    encoder layer through ``tp_model.layer``, every decoder layer through
    ``tp_model.dec_layer``), losses and every param leaf's sha256 equal,
@@ -257,7 +259,27 @@ non-zero:
    ``vlm_collectives``; the full-width prefill's KV cache as one link
    under 3f's four points (one ``bt_axes`` launch, equal to the plain
    version); the dry run of internvl2-26b's two serving cells on 16 x 16,
-   equal to the CPU's, and its FSDP train cell's reason;
+   equal to the CPU's;
+3o. FSDP over "data": the FSDP plans of internvl2-26b and
+   qwen3-moe-30b-a3b on 16 x 16, 2 x 16 x 16 and the run's meshes (each
+   leaf's "data" dim); then each at full width and 2 of its 48 layers,
+   float32, one step of 2 rows (internvl2-26b: 1,024 stub patch embeddings
+   + 256 tokens a row; qwen3-moe-30b-a3b: 256 tokens) in one process (the
+   step ``train()`` runs), then by ``make_placed_train_step`` on a
+   one-rank group and a (1, 1) mesh (loss and every param bitwise equal),
+   then FSDP-placed by gloo ranks sharing the card (internvl2-26b on (2, 1),
+   qwen3-moe-30b-a3b on (2, 2), EP x FSDP), each rank building only its
+   blocks: loss and ``grad_norm`` within ``FSDP["loss_tol"]``, params
+   within ``FSDP["param_tol"]`` of each leaf's largest magnitude where the
+   gradient is at least 100 x AdamW's eps (``fsdp_param_errors``), the
+   collectives equal to ``fsdp_collectives`` (every data-split leaf
+   gathered twice a layer and reduce-scattered once), each rank's peak
+   beside ``fsdp_peak_reckoning``; one gathered layer of internvl2-26b's
+   int8 view (its digest equal to the ranks' gather) through ``psu_sort``
+   (ACC, APP k = 4) and as one link under 3f's four points (``bt_axes``),
+   each equal to its plain version; the dry run of both configs' train_4k
+   on 16 x 16 and 2 x 16 x 16, equal to the CPU's meta run and to the
+   closed form;
 4. scale and times: ``psu_stream`` on 4,194,304 paired packets and on
    Table I's conv input stream (7,350 packets of 64, 16 lanes),
    ``bt_count`` on a 1 GiB (2**27, 8) stream and ``bt_axes`` on a jagged
@@ -3120,7 +3142,7 @@ def _placed_run(dev, lc, mesh, cfg, dcfg, ocfg, handoff: dict, what: str,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(TRAIN_FULL["seed"]), dev)
-    p, o = place_state(cfg, mesh, params, optim.init(params))
+    p, o = place_state(cfg, mesh, params)
     del params
     step = make_placed_train_step(cfg, ocfg, mesh)
     data = SyntheticLMDataset(dcfg)
@@ -3592,7 +3614,7 @@ def _rank_train(dev, mesh, cfg, full: bool, extra: dict | None = None,
                 cfg, torch.Generator(device=dev).manual_seed(tf["seed"]), dev))
             params = _to_card(host, dev)
             del host
-            p, o = place_state(cfg, mesh, params, optim.init(params))
+            p, o = place_state(cfg, mesh, params)
             del params
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
@@ -3760,22 +3782,21 @@ def _tp_two_ranks(dev, full: bool, handoff: dict, arch: str = SERVE_ARCH, layers
 # Expert parallelism over "model" for the MoE family: the experts and the
 # router split over "model" (launch/tp_model.py's MoE block), placed
 # serving and the dry run's MoE cells.  granite-moe-3b-a800m at full width
-# (48 experts, 40 of them real, top-8); trained at 8 of its 32 layers:
+# (48 experts, 40 of them real, top-8); trained at 4 of its 32 layers:
 # params, gradients, m and v of all 32 take 63.7 GB, and AdamW's
 # temporaries on the largest leaf (4.83 GB) and the activations pass the
-# card's 80 GB; 16 layers fit too, and 8 keep the whole
-# script, phase 3k's 16 ranks included, inside its time limit.
+# card's 80 GB; 16 layers fit too, and 4 keep the whole script, phase
+# 3o's FSDP ranks included, inside its time limit on a slow host.
 # Served at all 32.  Its dispatch buffers are captured at
 # batch 4 x 256 tokens (4 groups of 256, capacity 77).  The dry run's MoE
-# cells: those the placed schedule models (qwen3-moe-30b-a3b's serving on
-# 16 x 16; granite's optimized-profile cells on 32 x 8) and those it does
-# not, with the reason (granite's baseline cells are phase 3k's).
-EP = {"arch": "granite-moe-3b-a800m", "train_layers": 8, "dispatch": (4, 256),
+# cells the placed schedule models: qwen3-moe-30b-a3b's serving on 16 x 16
+# and granite's optimized-profile cells on 32 x 8 (granite's baseline
+# cells are phase 3k's, qwen3-moe-30b-a3b's FSDP train_4k phase 3o's).
+EP = {"arch": "granite-moe-3b-a800m", "train_layers": 4, "dispatch": (4, 256),
       "modelled": (("qwen3-moe-30b-a3b", "prefill_32k", False),
                    ("qwen3-moe-30b-a3b", "decode_32k", False),
                    ("granite-moe-3b-a800m", "train_4k", True),
-                   ("granite-moe-3b-a800m", "prefill_32k", True)),
-      "unmodelled": (("qwen3-moe-30b-a3b", "train_4k"),)}
+                   ("granite-moe-3b-a800m", "prefill_32k", True))}
 
 
 def _ep_cfg(full: bool, layers: int = 0):
@@ -3818,8 +3839,7 @@ def phase_ep(dev: torch.device, full: bool = True, serve_path: dict | None = Non
     rows["ep/dispatch"] = _ep_dispatch(dev, lc, full, serve_path or {}, train_path or {})
     rows["ep/two_ranks"] = _tp_two_ranks(
         dev, full, one, EP["arch"], EP["train_layers"], tag="ep (e)",
-        meanwhile=lambda: rows.update({"ep/dryrun": _dryrun_cells("ep (d)", EP["modelled"],
-                                                                  EP["unmodelled"])}))
+        meanwhile=lambda: rows.update({"ep/dryrun": _dryrun_cells("ep (d)", EP["modelled"])}))
     experts = rows["ep/two_ranks"]["ranks"][0]["experts"]
     want = _ep_cfg(full).moe.padded_experts // TP["ranks"]
     if any(r["experts"] != want for r in rows["ep/two_ranks"]["ranks"]):
@@ -4105,11 +4125,10 @@ def _ep_dispatch(dev, lc, full: bool, serve_path: dict, train_path: dict) -> dic
     return out
 
 
-def _dryrun_cells(tag: str, modelled, unmodelled) -> dict:
+def _dryrun_cells(tag: str, modelled) -> dict:
     """3j (d), 3k (e): the collectives one device issues in each cell the
     placed schedule models ((arch, shape, optimized profile?)), their wire
-    bytes and collective term, and the reason of each cell it does not
-    ((arch, shape) on 16 x 16)."""
+    bytes and collective term."""
     from repro_torch import roofline
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import AbstractMesh
@@ -4136,13 +4155,6 @@ def _dryrun_cells(tag: str, modelled, unmodelled) -> dict:
         out[f"{arch}/{shape}/{desc}"] = rec
         log(f"{tag} dry run {arch} x {shape} [{desc}]: {summary}; wire {wire:.6g} bytes/device, "
             f"collective {rec['collective_s'] * 1e3:.3f} ms; {rec['host_s']:.1f} s on the host")
-    mesh = AbstractMesh((16, 16), ("data", "model"))
-    for arch, shape in unmodelled:
-        reason = dryrun.collectives_reason(launch.build_case(arch, shape), mesh)
-        if not reason:
-            fail(f"{tag}: {arch} x {shape} [16x16] gives no reason")
-        out[f"{arch}/{shape}/16x16"] = {"mesh": "16x16", "collectives_reason": reason}
-        log(f"{tag} dry run {arch} x {shape} [16x16]: not modelled: {reason}")
     return out
 
 
@@ -4155,9 +4167,11 @@ def _dryrun_cells(tag: str, modelled, unmodelled) -> dict:
 # 16 x 16 mesh, and 16 is the smallest "model" axis that divides 1,536 and
 # not 24, so 16 processes of a gloo group share the card on a (1, 16) mesh
 # (8 with the smoke config of a CPU rehearsal: its 4 heads on 8 ranks).
-# Served and trained at CP["layers"] = 8 of the 32 layers (each gloo
+# Served and trained at CP["layers"] = 2 of the 32 layers (each gloo
 # collective among 16 processes takes ~70-90 ms, so 16 tokens at 32 layers
-# took 228 s), against a one-process ``serve.generate`` and ``train()`` at
+# took 228 s, and 8 layers 175 s of phase; 2 keep the whole script, phase
+# 3o included, inside its time limit), against a one-process
+# ``serve.generate`` and ``train()`` at
 # the same depth: a rank holds 1/16 of wq, wo, the router and the embedding
 # and head (split on d: 16 does not divide 49,155), wk / wv whole and 3 of
 # the 48 experts.  Training runs the config's bf16, its losses held to
@@ -4170,21 +4184,22 @@ def _dryrun_cells(tag: str, modelled, unmodelled) -> dict:
 # share.  ``tol`` holds the placed forward against the
 # one-process one (logits and log-probabilities, absolute); a top-2 margin
 # under 2 tol is a near tie (two logits each within tol can swap there).
-CP = {"arch": "granite-moe-3b-a800m", "ranks": 16, "rehearsal_ranks": 8, "layers": 8,
+CP = {"arch": "granite-moe-3b-a800m", "ranks": 16, "rehearsal_ranks": 8, "layers": 2,
       "serve_dtype": "float32", "tol": 0.25, "loss_tol": 5e-3,  # losses: as 3i(d) and 3j(e)
       "modelled": tuple(("granite-moe-3b-a800m", s, False)
                         for s in ("train_4k", "prefill_32k", "decode_32k"))}
 
 
-def lm_collectives(cfg, plan, rows: int, seq: int, embedded: int, train: bool) -> list:
+def lm_collectives(cfg, plan, rows: int, seq: int, embedded: int, train: bool,
+                   step: bool = True) -> list:
     """The "model"-axis collectives one rank issues around a split stack on
     a mesh with one data rank: the embedding's sum or gather of
     ``embedded`` tokens (of the params), the head's (vocab: in training the
     loss's MAX and SUM and its input's gradient sum; d: the partial logits,
     of each request's last position out of training, and in training its
     input's gradient sum; per loss chunk of the ``rows`` x ``seq``
-    positions) and, in training, the partial leaves' gradient sums and the
-    norm's split squares."""
+    positions) and, in training with ``step``, the partial leaves' gradient
+    sums and the norm's split squares (once a step, not a microbatch)."""
     m = plan.model.size
     c = torch_dtype(cfg.dtype).itemsize
     p = torch_dtype(cfg.param_dtype).itemsize
@@ -4201,7 +4216,7 @@ def lm_collectives(cfg, plan, rows: int, seq: int, embedded: int, train: bool) -
         ops += [("all-reduce", ct * cfg.vocab * c, m)] * nc
         if train:
             ops += [("all-reduce", ct * d * c, m)] * nc
-    if train:
+    if train and step:
         ops += [("all-reduce", x.numel() * p, m)
                 for path, x in tree_leaves_with_path(param_shapes(cfg)) if path in plan.partial]
         ops.append(("all-reduce", 4, m))
@@ -4324,8 +4339,7 @@ def phase_cp(dev: torch.device, full: bool = True) -> dict:
     log(f"cp: before the ranks start, {_card_memory(dev)}")
     dry = {}
     ranks, seconds = _spawn_ranks("cp (b)", n, "cp_rank", [int(full), dev.type, ref_path],
-                                  lambda: dry.update(rows=_dryrun_cells("cp (e)", CP["modelled"],
-                                                                        ())))
+                                  lambda: dry.update(rows=_dryrun_cells("cp (e)", CP["modelled"])))
     want_dev = "cuda:0" if dev.type == "cuda" else dev.type
     if any(r["device"] != want_dev for r in ranks) or (dev.type == "cuda" and any(
             not (r["serve"]["peak_bytes"] and r["train"]["peak_bytes"]) for r in ranks)):
@@ -4653,7 +4667,10 @@ def _cp_records(ranks: list, cfg, tcfg, splan, tplan, ref: dict, full: bool) -> 
 # order differs; dropping a block moves it by ~0.6 or 1).
 SSD = {"archs": ("mamba2-370m", "zamba2-1.2b"), "ranks": 2, "tol": 0.25, "loss_tol": 5e-3,
        "merge_tol": 1e-3,
-       "compare_dtype": "float32", "pair_layers": {"mamba2-370m": 16, "zamba2-1.2b": 14},
+       "compare_dtype": "float32", "pair_layers": {"mamba2-370m": 8, "zamba2-1.2b": 7},
+       # (1, 1)'s depth: half of 48 / 38 (the script's time limit, phase 3o
+       # included); zamba2's 19 keep three groups of six and a trailing layer
+       "one_layers": {"mamba2-370m": 24, "zamba2-1.2b": 19},
        "long": {"len": 524_288, "fill": 262_140, "steps": 8, "chunk": 4096, "seed": 7,
                 "mesh": {"mamba2-370m": (1, 2), "zamba2-1.2b": (2, 2)}},
        "rehearsal_long": {"len": 64, "fill": 30, "steps": 4, "chunk": 8, "seed": 7,
@@ -4668,9 +4685,9 @@ def _ssd_cfg(arch: str, full: bool, **over):
 
 def _ssd_pair_cfg(arch: str, full: bool):
     """The config the gloo pair runs and its one-process runs are held to:
-    float32 compute, at SSD["pair_layers"] layers at full width (zamba2's 14
-    keep two groups of six SSM layers, two uses of the shared block and two
-    trailing layers)."""
+    float32 compute, at SSD["pair_layers"] layers at full width (zamba2's 7
+    keep a group of six SSM layers, a use of the shared block and a
+    trailing layer)."""
     over = {"n_layers": SSD["pair_layers"][arch]} if full else {}
     return _ssd_cfg(arch, full, dtype=SSD["compare_dtype"], **over)
 
@@ -4718,7 +4735,7 @@ def phase_ssd(dev: torch.device, full: bool = True, serve_path: dict | None = No
     try:
         mesh = launch.make_smoke_mesh(device=dev.type)
         for arch in SSD["archs"]:
-            cfg = _ssd_cfg(arch, full)
+            cfg = _ssd_cfg(arch, full, **({"n_layers": SSD["one_layers"][arch]} if full else {}))
             # train() runs the (1, 1) step's op sequence (bitwise), so only
             # the placed step is timed
             one = train_one_process(dev, lc, cfg, full, "ssd (b)", timed=False)
@@ -4743,7 +4760,7 @@ def phase_ssd(dev: torch.device, full: bool = True, serve_path: dict | None = No
     torch.cuda.empty_cache()
     log(f"ssd: before the ranks start, {_card_memory(dev)}")
     def dry_run():
-        rows["ssd/dryrun"] = _dryrun_cells("ssd (f)", SSD["modelled"], ())
+        rows["ssd/dryrun"] = _dryrun_cells("ssd (f)", SSD["modelled"])
 
     pair, seconds = _spawn_ranks("ssd (b)", SSD["ranks"], "ssd_rank",
                                  [int(full), dev.type, "pair"], dry_run)
@@ -5357,7 +5374,8 @@ def _ssd_long_check(ranks: list, arch: str, one: dict, full: bool) -> dict:
 # heads, every MLP on d_ff, embed and head on d (16 heads a layer; the
 # vocabulary of 51,865 divides no "model" axis).  At full width and depth
 # (24 + 24 layers, d_model 1,024, 0.81 B params, ~13 GB with float32 AdamW
-# state) it trains whole on the card, so (b) runs it uncut.  The gloo
+# state) it trains whole on the card; (b) runs it at AUDIO["one_layers"]
+# encoder and decoder layers, the script's time limit.  The gloo
 # pair (c) runs AUDIO["pair_layers"] encoder and decoder layers at float32
 # compute and a batch of AUDIO["pair_batch"] (the time limit).  Each
 # request carries ENC_FRAMES stub frame embeddings (the conv frontend is a
@@ -5366,6 +5384,7 @@ def _ssd_long_check(ranks: list, arch: str, one: dict, full: bool) -> dict:
 # on 16 x 16 as the CPU's meta run records them (count and result bytes
 # per kind).
 AUDIO = {"arch": "whisper-medium", "frames_seed": 11, "ranks": 2, "pair_layers": 8,
+         "one_layers": 12,  # (1, 1)'s depth, half of 24 + 24: the script's time limit
          "pair_batch": 2, "compare_dtype": "float32", "tol": 0.25, "loss_tol": 5e-3,
          "cross_tol": 1e-3, "rehearsal_frames": 48,
          "modelled": tuple(("whisper-medium", s, False)
@@ -5433,7 +5452,8 @@ def audio_collectives(cfg, plan, rows: int, seq: int, enc: int, kind: str = "tra
 def phase_audio(dev: torch.device, full: bool = True, serve_path: dict | None = None,
                 train_path: dict | None = None) -> dict:
     """Phase 3m: (a) whisper-medium's plans on 16 x 16 and 32 x 8; (b)
-    whisper-medium at full width and depth trained 3 steps of 4 x 256
+    whisper-medium at full width, AUDIO["one_layers"] encoder and decoder
+    layers, trained 3 steps of 4 x 256
     decoder tokens (1,500 frames a request) by ``train()`` and by the
     placed step on a one-rank NCCL group and a (1, 1) mesh (every encoder
     layer through ``tp_model.layer``, every decoder layer through
@@ -5469,7 +5489,7 @@ def phase_audio(dev: torch.device, full: bool = True, serve_path: dict | None = 
                             world_size=1)
     try:
         mesh = launch.make_smoke_mesh(device=dev.type)
-        cfg = _audio_cfg(full)
+        cfg = _audio_cfg(full, AUDIO["one_layers"])
         gb = TRAIN_FULL["global_batch"] if full else 4
         extra = {"frames": audio_frames(cfg, gb, full, dev)}
         # train() runs the (1, 1) step's op sequence (bitwise), so only the
@@ -5805,7 +5825,7 @@ def _audio_dryrun() -> dict:
     """(e) The dry run of whisper-medium's three cells on 16 x 16; each
     cell's collectives (count and result bytes per kind) equal to the CPU's
     meta run (AUDIO["dryrun"])."""
-    out = _dryrun_cells("audio (e)", AUDIO["modelled"], ())
+    out = _dryrun_cells("audio (e)", AUDIO["modelled"])
     for arch, shape, _ in AUDIO["modelled"]:
         got = out[f"{arch}/{shape}/16x16"]["collectives"]
         want = AUDIO["dryrun"][shape]
@@ -5833,7 +5853,6 @@ VLM = {"arch": "internvl2-26b", "patches_seed": 13, "ranks": 2, "pair_layers": 8
        "pair_batch": 2, "serve_param_dtype": "bfloat16", "compare_dtype": "float32",
        "tol": AUDIO["tol"], "kv_tol": AUDIO["cross_tol"],
        "modelled": tuple(("internvl2-26b", s, False) for s in ("prefill_32k", "decode_32k")),
-       "unmodelled": (("internvl2-26b", "train_4k"),),
        "dryrun": {"prefill_32k": {"all-reduce": [97, 77_309_781_540],
                                   "all-gather": [1, 780_140_544]},
                   "decode_32k": {"all-reduce": [193, 20_502_672],
@@ -5910,8 +5929,8 @@ def phase_vlm(dev: torch.device, full: bool = True, serve_path: dict | None = No
     decode step's collectives equal to :func:`vlm_collectives`; (d) (b)'s
     prefill KV cache over its filled positions as one link under 3f's four
     points (one ``bt_axes`` launch); (e) the dry run of internvl2-26b's two
-    serving cells on 16 x 16, run while (c)'s ranks do, equal to the CPU's,
-    and its train_4k's reason.  Returns rows and launches."""
+    serving cells on 16 x 16, run while (c)'s ranks do, equal to the CPU's
+    (its FSDP train_4k: phase 3o (e)).  Returns rows and launches."""
     import torch.distributed as dist
 
     t_phase = time.perf_counter()
@@ -6198,17 +6217,609 @@ def _vlm_two_ranks(ranks: list, ref: dict, full: bool, dev) -> dict:
 def _vlm_dryrun() -> dict:
     """(e) The dry run of internvl2-26b's two serving cells on 16 x 16, each
     cell's collectives (count and result bytes per kind) equal to the
-    CPU's meta run (VLM["dryrun"]); its train_4k names FSDP."""
-    out = _dryrun_cells("vlm (e)", VLM["modelled"], VLM["unmodelled"])
+    CPU's meta run (VLM["dryrun"]); its FSDP train_4k is phase 3o (e)'s."""
+    out = _dryrun_cells("vlm (e)", VLM["modelled"])
     for arch, shape, _ in VLM["modelled"]:
         got = out[f"{arch}/{shape}/16x16"]["collectives"]
         want = VLM["dryrun"][shape]
         if {k: [v["count"], v["bytes"]] for k, v in got.items()} != want:
             fail(f"vlm (e): {arch} x {shape} [16x16] records {got}, the CPU's meta run {want}")
-    for arch, shape in VLM["unmodelled"]:
-        if "FSDP" not in out[f"{arch}/{shape}/16x16"]["collectives_reason"]:
-            fail(f"vlm (e): {arch} x {shape} [16x16] is not refused for FSDP: "
-                 f"{out[f'{arch}/{shape}/16x16']['collectives_reason']}")
+    return out
+
+
+# ------------------------------------------------------------------ phase 3o
+
+
+def fsdp_collectives(cfg, plan, rows: int, seq: int, microbatches: int = 1,
+                     patches: int = 0) -> list:
+    """The collectives one rank issues in a placed FSDP train step
+    (``plan.fsdp``: the leaves the rules split over "data") of the dense,
+    vlm or MoE family with attention split on heads or whole, as sorted
+    (kind, bytes, group) rows: ``rows`` x ``seq`` positions a rank
+    (``patches`` of each row the vlm's patch embeddings) in
+    ``microbatches`` strided splits.  Per microbatch: each data-split layer
+    leaf all-gathered over "data" twice a layer (the forward and the
+    backward's recompute: each layer runs under a checkpoint) and its
+    gradient reduce-scattered once, the embedding and the head once each;
+    each layer's "model" collectives of the forward twice (attention's
+    output sum; a MoE's router gather and its two load-balance means over
+    the data-parallel ranks), but its output's sum (the MLP's or the MoE
+    combine's) once: the recompute stops at the last tensor the backward
+    saved (``torch.utils.checkpoint``'s early stop); the backward's once
+    (the inputs' gradient sums; a MoE's ``xg`` and ``top_p`` sums);
+    :func:`lm_collectives` of the embedding and the loss.  Once a step:
+    the partial leaves' sums over "model" (of their blocks), each gradient
+    that is not data-split summed over the data-parallel ranks and each
+    data-split one over the others ("pod"), the loss's mean and the norm's
+    two pairs of squares (over "model", then over "data")."""
+    from repro_torch.launch.tp_model import _name
+
+    if plan.attn not in ("heads", "whole") or not plan.fsdp:
+        raise ValueError(f"{cfg.name}: the closed form covers an FSDP plan with attention split "
+                         f"on its heads, not {plan.attn} / fsdp {bool(plan.fsdp)}")
+    m, nd, rest = plan.model.size, plan.fsdp_group.size, plan.fsdp_rest.size
+    c, p = torch_dtype(cfg.dtype).itemsize, torch_dtype(cfg.param_dtype).itemsize
+    gp = p if microbatches == 1 else 4  # accumulated gradients are float32
+    d, rb = cfg.d_model, rows // microbatches
+    t = rb * seq
+    act = ("all-reduce", t * d * c, m)
+    fwd, bwd = [act] * (plan.attn == "heads"), [act] * (plan.attn == "heads")
+    out = []  # the layer's output sum: not recomputed
+    if cfg.family == "moe":
+        fwd += [("all-gather", d * cfg.moe.padded_experts * c, m),
+                ("all-reduce", 2 * cfg.moe.num_experts * 4, plan.data.size)]
+        out, bwd = [act], bwd + [act, ("all-reduce", t * cfg.moe.top_k * 4, m)]
+    elif plan.mlp:
+        out, bwd = [act], bwd + [act]
+    per_mb = (fwd * 2 + out + bwd) * cfg.n_layers + lm_collectives(
+        cfg, plan, rb, seq, rb * (seq - patches), True, step=False)
+    step = [("all-reduce", 4, nd * rest), ("all-reduce", 8, m), ("all-reduce", 8, nd)]
+    for path, x in tree_leaves_with_path(param_shapes(cfg)):
+        layers = cfg.n_layers if path.startswith("['layers']") else 1
+        n = x.numel() // layers // (m if path in plan.split else 1)  # a layer's model block
+        if path in plan.fsdp:
+            if layers > 1:
+                gathers, scatters = 2, 1
+            else:  # tied embeddings: the embedding and the head both gather it
+                gathers = scatters = 1 + (cfg.tie_embeddings and _name(path) == "embed")
+            per_mb += ([("all-gather", n * p, nd)] * gathers
+                       + [("reduce-scatter", n // nd * p, nd)] * scatters) * layers
+            n //= nd
+        whole = n * layers * gp
+        if path in plan.partial:
+            step.append(("all-reduce", whole, m))
+        step.append(("all-reduce", whole, rest if path in plan.fsdp else nd * rest))
+    return sorted(o for o in per_mb * microbatches + step if o[2] > 1)
+
+
+# FSDP over "data" (launch/tp.py's gather_from_data; tp_model's Plan.fsdp;
+# launch/step.py): the two configs that set ``fsdp`` keep a rank's (data,
+# model) block of each large leaf, gather a layer's leaves at use and
+# reduce-scatter their gradients.  Widths uncut, depth cut to FSDP["layers"]
+# of 48 and one step (gloo through host memory moves ~1 GB/s of all-gather
+# result and ~0.35 GB/s of reduce-scatter result between two processes on
+# the card, experiments/gloo_latency.py), float32 compute, held against the
+# one-process step at the same depth, weights and batch.  internvl2-26b
+# (1,024 stub patch embeddings a row) on (2, 1): 2 ranks, every large leaf
+# split over "data" only; qwen3-moe-30b-a3b on (2, 2): 4 ranks, EP x FSDP
+# (64 of the 128 experts a rank).  (d) measures the int8 view of one
+# gathered layer of internvl2-26b as links; (e) the production train cells,
+# whose schedule the CPU's meta run pins (PYTHONPATH=src python -m
+# repro_torch.launch.dryrun --arch <arch> --shape train_4k --both-meshes).
+FSDP = {"archs": ("internvl2-26b", "qwen3-moe-30b-a3b"),
+        "meshes": {"internvl2-26b": (2, 1), "qwen3-moe-30b-a3b": (2, 2)},
+        "layers": 2, "batch": 2, "text": 256, "rehearsal_text": 32, "seed": 0,
+        "loss_tol": 5e-3, "param_tol": 2e-4, "grad_floor": 100, "kernel_arch": "internvl2-26b",
+        "dryrun": {  # [count, result bytes] a kind, one device
+            "internvl2-26b/16x16": {"all-gather": [5392, 130_536_898_560],
+                                    "all-reduce": [1929, 193_569_068_564],
+                                    "reduce-scatter": [2696, 4_610_174_976]},
+            "internvl2-26b/2x16x16": {"all-gather": [5392, 129_932_918_784],
+                                      "all-reduce": [1937, 97_508_576_276],
+                                      "reduce-scatter": [2696, 4_610_174_976]},
+            "qwen3-moe-30b-a3b/16x16": {"all-gather": [3464, 63_662_718_976],
+                                        "all-reduce": [1648, 65_357_717_524],
+                                        "reduce-scatter": [1544, 2_002_616_320]},
+            "qwen3-moe-30b-a3b/2x16x16": {"all-gather": [3464, 63_662_718_976],
+                                          "all-reduce": [1658, 33_192_738_836],
+                                          "reduce-scatter": [1544, 2_002_616_320]}}}
+
+
+def fsdp_cfg(arch: str, full: bool):
+    """``arch`` at FSDP["layers"] layers and float32 compute (its smoke
+    config in a rehearsal)."""
+    if not full:
+        return smoke_config(arch, dtype="float32")
+    return get_config(arch, n_layers=FSDP["layers"], dtype="float32")
+
+
+def fsdp_batch(cfg, dev, full: bool) -> dict:
+    """The step's global batch on ``dev``: FSDP["batch"] rows of text tokens
+    and labels from a seeded generator; a vlm's rows behind its stub patch
+    embeddings (``vlm_patches``), its labels -100 over them."""
+    rows, text = FSDP["batch"], FSDP["text"] if full else FSDP["rehearsal_text"]
+    gen = torch.Generator(device=dev).manual_seed(FSDP["seed"])
+    batch = {k: torch.randint(0, cfg.vocab, (rows, text), generator=gen, device=dev,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        batch["patches"] = vlm_patches(cfg, rows, dev)
+        batch["labels"] = torch.nn.functional.pad(batch["labels"], (cfg.n_frontend_tokens, 0),
+                                                  value=-100)
+    return batch
+
+
+def _fsdp_ref_dir(arch: str) -> Path:
+    return ROOT / "build" / f"fsdp_{arch}"
+
+
+def _fsdp_init(cfg, dev) -> dict:
+    return init_params(cfg, torch.Generator(device=dev).manual_seed(FSDP["seed"]), dev)
+
+
+def fsdp_layer_stream(plan, layer: dict) -> torch.Tensor:
+    """The int8 view (one scale a leaf) of a layer's data-split leaves,
+    gathered (``layer``: whole over "data"), in sorted-key order, flat."""
+    from repro_torch.traffic.ordering import int8_view
+
+    return torch.cat([int8_view(t.detach()).reshape(-1).view(torch.uint8)
+                      for path, t in tree_leaves_with_path(layer, "['layers']")
+                      if path in plan.fsdp])
+
+
+def fsdp_param_errors(p1: torch.Tensor, want: torch.Tensor, p0: torch.Tensor,
+                      lr: float) -> tuple[dict, tuple[int, int]]:
+    """How far a rank's params ``p1`` after one AdamW step lie from the
+    one-process step's ``want``, both from ``p0``: on every element, and on
+    the elements held, those whose one-process update ``g / (|g| + eps)``
+    (its clipped gradient ``g``) is at least FSDP["grad_floor"] /
+    (FSDP["grad_floor"] + 1), i.e. ``|g|`` at least FSDP["grad_floor"] x
+    eps: below that the update turns the float32 summation noise of a
+    cancelling element near eps into a different step (up to 2 lr), as
+    ``tests/test_torch_cp.py`` holds its updates.  Returns ({"held", "all"}:
+    largest absolute differences; (elements held, elements))."""
+    wd, k = optim.AdamWConfig().weight_decay, FSDP["grad_floor"]
+    update = (p0 - want) / lr - wd * p0
+    held = update.abs() >= k / (k + 1)
+    diff = (p1 - want).abs()
+    return ({"held": float(diff[held].max()) if bool(held.any()) else 0.0,
+             "all": float(diff.max())}, (int(held.sum()), held.numel()))
+
+
+def fsdp_peak_reckoning(cfg, plan, rows: int, seq: int) -> dict:
+    """A rank's step peak, reckoned from the shapes (float32 state and
+    compute, one microbatch): the parameter, m, v and gradient blocks (4 S)
+    beside the larger of two moments: the head's (the gathered head and its
+    whole gradient before the scatter, the logits, their gradient and the
+    softmax's two temporaries) and a layer's backward (its gathered leaves
+    and their whole gradients).  Beside it the peak of a step that gathers
+    every leaf whole before the forward: the whole params and gradients,
+    the m / v blocks, every layer's activations kept (about 12 of (rows x
+    seq x d) and 3 of (rows x seq x d_ff) floats a layer) and the head's
+    logits."""
+    from repro_torch.launch.tp_model import _name
+
+    m, nd = plan.model.size, plan.fsdp_group.size
+    shapes = param_shapes(cfg)
+    block = whole = 0
+    layer_gathered = head = 0
+    for path, x in tree_leaves_with_path(shapes):
+        n = x.numel() // (m if path in plan.split else 1)
+        whole += n * 4
+        block += n // (nd if path in plan.fsdp else 1) * 4
+        if path in plan.fsdp and path.startswith("['layers']"):
+            layer_gathered += n // cfg.n_layers * 4
+        elif _name(path) == ("embed" if cfg.tie_embeddings else "head"):
+            head = n * 4
+    vocab_block = cfg.vocab // (m if plan.head == "vocab" else 1)
+    logits = rows * seq * vocab_block * 4
+    fsdp = 4 * block + max(2 * head + 4 * logits, 2 * layer_gathered)
+    acts = cfg.n_layers * rows * seq * (12 * cfg.d_model + 3 * (cfg.d_ff or 0)) * 4
+    gather_all = 2 * whole + 2 * block + acts + 4 * logits
+    return {"fsdp": fsdp, "whole_gather": gather_all, "state_block": 3 * block,
+            "head_gathered": head, "layer_gathered": layer_gathered}
+
+
+def phase_fsdp(dev: torch.device, full: bool = True) -> dict:
+    """Phase 3o: (a) the FSDP plans of internvl2-26b and qwen3-moe-30b-a3b on
+    16 x 16, 2 x 16 x 16 and the run's meshes (each leaf's "data" dim);
+    (b) internvl2-26b and (c) qwen3-moe-30b-a3b at FSDP["layers"] layers,
+    float32, one step of ``make_placed_train_step`` by gloo ranks sharing
+    the card on FSDP["meshes"], each held to the one-process step (the step
+    ``train()`` runs) on the same weights and batch: loss and ``grad_norm``
+    within FSDP["loss_tol"] relative, the params within FSDP["param_tol"]
+    of each leaf's largest element where :func:`fsdp_param_errors` holds
+    them; the collectives equal to
+    :func:`fsdp_collectives`; each rank's peak beside
+    :func:`fsdp_peak_reckoning`; and on a one-rank group, a (1, 1) placed
+    step bitwise equal to the one-process step; (d) the int8 view of one
+    layer of internvl2-26b's gathered weights (its digest equal to rank 0's
+    gather) through ``psu_sort`` (ACC, APP k = 4) and ``bt_axes`` (3f's four
+    points), each against its plain version; (e) the dry run of both
+    configs' train_4k on 16 x 16 and 2 x 16 x 16, run beside the ranks,
+    equal to the CPU's meta run and to :func:`fsdp_collectives`.  Returns
+    rows and launches."""
+    t_phase = time.perf_counter()
+    lc = _PathLaunches()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    (ROOT / "build").mkdir(exist_ok=True)
+    rows: dict = {"fsdp/plan": _fsdp_plans(full)}
+
+    def mark(what: str) -> None:
+        log(f"fsdp: {what} done at {time.perf_counter() - t_phase:.1f} s")
+
+    for arch in FSDP["archs"]:
+        cfg = fsdp_cfg(arch, full)
+        tag = f"fsdp ({'b' if arch == FSDP['kernel_arch'] else 'c'})"
+        one, stream = _fsdp_one_process(dev, lc, cfg, full, tag)
+        mark(f"{arch}'s one-process and (1, 1) steps")
+        if stream is not None:
+            rows["fsdp/layer_stream"] = _fsdp_layer_stream(lc, stream, one)
+            del stream
+            mark("(d)")
+        if cuda:
+            torch.cuda.empty_cache()
+
+        def dry_run(arch=arch):
+            rows[f"fsdp/dryrun/{arch}"] = _fsdp_dryrun(arch, full)
+
+        shape = FSDP["meshes"][arch]
+        ranks, seconds = _spawn_ranks(tag, shape[0] * shape[1], "fsdp_rank",
+                                      [int(full), dev.type, arch], dry_run)
+        rows[f"fsdp/{arch}"] = _fsdp_ranks(ranks, one, cfg, full, dev, tag, seconds)
+        mark(f"{arch}'s ranks")
+    if "fsdp/layer_stream" in rows:
+        want = rows["fsdp/layer_stream"]["sha256"]
+        got = rows[f"fsdp/{FSDP['kernel_arch']}"]["layer_sha256"]
+        if got != [want]:
+            fail(f"fsdp (d): rank 0's gathered layer ({got}) is not the stream measured ({want})")
+    for arch in FSDP["archs"]:
+        for k in _fsdp_ref_dir(arch).glob("*.npy"):
+            k.unlink()
+    seconds = time.perf_counter() - t_phase
+    log(f"fsdp-path launches: {lc.total}; phase 3o {seconds:.1f} s")
+    return {"rows": rows, "launches": lc.total, "max_abs_err": 0, "seconds": seconds}
+
+
+def _fsdp_plans(full: bool) -> dict:
+    """(a) Each config's FSDP plan on 16 x 16, 2 x 16 x 16 and its run's
+    mesh: the data-split leaves and their dims, never a layer axis;
+    internvl2-26b's head "whole" (its vocabulary is odd) and its ``wk`` /
+    ``wv`` (8 kv heads on 16 ranks) split over "data" only, so partial."""
+    from repro_torch.launch import tp_model
+    from repro_torch.launch.mesh import AbstractMesh
+
+    out = {}
+    for arch in FSDP["archs"]:
+        run = FSDP["meshes"][arch]
+        for shape in ((16, 16), (2, 16, 16), run):
+            names = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+            cfg = fsdp_cfg(arch, full) if shape == run else get_config(arch)
+            pl = tp_model.make_plan(cfg, AbstractMesh(shape, names))
+            shapes = dict(tree_leaves_with_path(param_shapes(cfg)))
+            if not pl.fsdp or any(p.startswith("['layers']") and d == -shapes[p].dim()
+                                  for p, d in pl.fsdp.items()):
+                fail(f"fsdp (a): {arch}'s plan on {shape} splits {dict(pl.fsdp)} over 'data'")
+            if arch == "internvl2-26b" and shape[-1] == 16 and not (
+                    pl.head == "whole" and pl.kv == "whole"
+                    and "['layers']['attn']['wk']" in pl.fsdp
+                    and "['layers']['attn']['wk']" in pl.partial):
+                fail(f"fsdp (a): {arch}'s plan on {shape} has head {pl.head}, kv {pl.kv}")
+            desc = "x".join(map(str, shape))
+            out[f"{arch}/{desc}"] = {"data_dims": dict(pl.fsdp), "head": pl.head, "kv": pl.kv,
+                                     "attn": pl.attn, "partial": sorted(pl.partial)}
+            log(f"fsdp (a) {arch} on {desc}: {len(pl.fsdp)} leaves split over 'data' ("
+                + ", ".join(f"{p.replace(chr(39), '')}:{d}" for p, d in pl.fsdp.items())
+                + f"); attention {pl.attn}, kv {pl.kv}, head {pl.head}, partial "
+                f"{[p.rsplit(chr(91), 1)[-1][1:-2] for p in sorted(pl.partial)]}")
+    return out
+
+
+def _fsdp_one_process(dev, lc, cfg, full: bool, tag: str) -> tuple[dict, torch.Tensor | None]:
+    """The one-process step the ranks are held to (``train.make_train_step``,
+    the step ``train()`` runs, from ``init_params`` of FSDP["seed"]) on the
+    whole batch: its loss, ``grad_norm``, wall and peak; its params saved
+    leaf by leaf to ``build/fsdp_<arch>/`` with each leaf's largest
+    magnitude.  Then the placed step on a one-rank group and a (1, 1) mesh
+    from the same weights, its loss and every param bitwise equal.  For
+    FSDP["kernel_arch"] also (d)'s stream: layer 0's data-split leaves,
+    before the step."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import tp_model
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.step import make_placed_train_step, place_state
+    from repro_torch.models.transformer import _layer
+
+    cuda = dev.type == "cuda"
+    ocfg = optim.AdamWConfig(warmup_steps=1, total_steps=10)
+    batch = fsdp_batch(cfg, dev, full)
+    ref = _fsdp_ref_dir(cfg.name)
+    ref.mkdir(parents=True, exist_ok=True)
+    params = _fsdp_init(cfg, dev)
+    stream = None
+    if cfg.name == FSDP["kernel_arch"]:
+        plan = tp_model.make_plan(cfg, AbstractMesh(FSDP["meshes"][cfg.name], ("data", "model")))
+        stream = fsdp_layer_stream(plan, _layer(params["layers"], 0))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    step = train.make_train_step(cfg, ocfg, donate=True)
+    t1 = time.perf_counter()
+    p, o, m = lc.run(f"{tag} one-process step", lambda: step(params, optim.init(params), batch),
+                     {})
+    if cuda:
+        torch.cuda.synchronize()
+    kept = [t.detach() for t in tree_leaves(p)]
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "loss": float(m["loss"]),
+           "grad_norm": float(m["grad_norm"]), "step_wall_ms": (time.perf_counter() - t1) * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
+           "params": int(sum(t.numel() for t in kept)),
+           "max_abs": [float(t.abs().max()) for t in kept]}
+    for i, t in enumerate(kept):
+        np.save(ref / f"{i}.npy", t.cpu().numpy())
+    del p, o, params, step
+    if cuda:
+        torch.cuda.empty_cache()
+    backend = "nccl" if cuda else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = launch.make_smoke_mesh(device=dev.type)
+        pp, po = place_state(cfg, mesh, _fsdp_init(cfg, dev))
+        placed = make_placed_train_step(cfg, ocfg, mesh)
+        _, _, pm = lc.run(f"{tag} placed step on (1, 1)", lambda: placed(pp, po, batch), {})
+        differ = sum(int(not torch.equal(x.to_local(), k)) for x, k in zip(tree_leaves(pp), kept))
+        if float(pm["loss"]) != out["loss"] or differ:
+            fail(f"{tag}: the (1, 1) placed step's loss {float(pm['loss'])} (one process "
+                 f"{out['loss']}) and {differ} param leaves differ from the one-process step's")
+        del pp, po, placed, kept
+    finally:
+        dist.destroy_process_group()
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"{tag} {cfg.name} at {cfg.n_layers} layers ({out['params']} params), float32, one "
+        f"step of {FSDP['batch']} rows x {batch['labels'].shape[1]} positions in one process: "
+        f"loss {out['loss']:.6f}, grad_norm {out['grad_norm']:.6f}, {out['step_wall_ms']:.0f} "
+        f"ms, peak {out['peak_bytes']} bytes; the placed step on (1, 1) bitwise equal")
+    return out, stream
+
+
+def _fsdp_layer_stream(lc, stream: torch.Tensor, one: dict) -> dict:
+    """(d) One gathered layer's int8 view as (P, 64) packets: ``psu_sort``'s
+    ACC and APP k = 4 orders (one launch each) equal to the plain version's,
+    and the stream as one link under 3f's four points (one ``bt_axes``
+    launch) equal to the plain version, its BT printed."""
+    elems = SERVE["elems"]
+    packets = stream[: stream.numel() // elems * elems].view(-1, elems)
+    cuda = packets.is_cuda
+    out = {"bytes": stream.numel(), "packets": packets.shape[0], "sha256": _leaf_sha256(stream)}
+    for key, k in (("acc", None), ("app4", 4)):
+        t1 = time.perf_counter()
+        order, rank = lc.run(f"fsdp (d) psu_sort {key}", lambda: psu_sort(packets, k=k),
+                             {"psu_sort": 1} if cuda else {})
+        ms = (time.perf_counter() - t1) * 1e3
+        p_order, p_rank = psu_sort(packets, k=k, backend="torch")
+        if not (torch.equal(order, p_order) and torch.equal(rank, p_rank)):
+            fail(f"fsdp (d): psu_sort {key} of the gathered layer differs from the plain version")
+        out[f"psu_sort_{key}_ms"] = ms
+        del order, rank, p_order, p_rank
+    sess = obs.CaptureSession("fsdp")
+    st = sess.add("train_fsdp", "gathered_layer", stream)
+    wl = sess.workload("train_fsdp", elems=elems, lanes=SERVE["lanes"])
+    t1 = time.perf_counter()
+    ev = lc.run("fsdp (d) grid", lambda: dse.evaluate_grid(SERVE_POINTS, wl),
+                {"bt_axes": 1} if cuda else {})
+    out["measure_ms"] = (time.perf_counter() - t1) * 1e3
+    plain = dse.evaluate_grid(SERVE_POINTS, wl, backend="torch", chunk_packets=1 << 20)
+    if [dataclasses.asdict(e) for e in ev] != [dataclasses.asdict(e) for e in plain]:
+        fail("fsdp (d): the gathered layer's grid differs from the plain version's")
+    out["bt"] = {e.label: [e.total_bt, e.aux_bt] for e in ev}
+    out["red_pct"] = {e.label: 100 * e.bt_reduction for e in ev}
+    log(f"fsdp (d) layer 0 of {one['arch']} gathered over 'data' ({st.num_bytes} int8 bytes, "
+        f"{out['packets']} packets of {elems}): psu_sort ACC / APP4 = plain "
+        f"({out['psu_sort_acc_ms']:.1f} / {out['psu_sort_app4_ms']:.1f} ms); one link, grid = "
+        f"plain, {out['measure_ms']:.1f} ms; BT "
+        + " ".join(f"{k}={v[0]}" for k, v in out["bt"].items()) + "; reductions "
+        + " ".join(f"{k}={v:.4f}%" for k, v in out["red_pct"].items()))
+    del sess, wl
+    return out
+
+
+def fsdp_rank(rank: int, world: int, port: int, out: str, full: str, device: str,
+              arch: str) -> None:
+    """Phase 3o (b) / (c), one rank of a ``world``-rank gloo group on
+    ``device`` ("cuda": card 0; "cpu" for a rehearsal) and FSDP["meshes"]:
+    the whole weights drawn from the seed, cut to this rank's blocks leaf
+    by leaf (``place_state``, m / v made at block shape) and freed; for
+    FSDP["kernel_arch"] the sha256 of layer 0's gathered int8 view; one
+    placed step, its loss, norm, collectives, wall and peak; its params
+    against the one-process step's saved leaves."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import tp_model
+    from repro_torch.launch.mesh import _device_mesh
+    from repro_torch.launch.step import _region, make_placed_train_step, place_state
+    from repro_torch.models.transformer import _layer
+    from repro_torch.roofline import record_collectives
+
+    full = full == "1"
+    dev = _rank_device(device, "fsdp", rank)
+    cuda = dev.type == "cuda"
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        cfg = fsdp_cfg(arch, full)
+        mesh = _device_mesh(FSDP["meshes"][arch], ("data", "model"), dev.type)
+        plan = tp_model.make_plan(cfg, mesh)
+        whole = _fsdp_init(cfg, dev)
+        p, o = place_state(cfg, mesh, whole)
+        del whole
+        if cuda:
+            torch.cuda.empty_cache()
+        res = {"rank": rank, "device": str(dev), "fsdp": dict(plan.fsdp),
+               "build": _card_memory(dev),
+               "build_peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
+               "local_params": int(sum(x.to_local().numel() for x in tree_leaves(p))),
+               "local_moments": int(sum(x.to_local().numel() for x in tree_leaves(o.m))),
+               "params": int(sum(x.numel() for x in tree_leaves(p)))}
+        if arch == FSDP["kernel_arch"]:
+            with torch.no_grad():
+                layer = tp_model._gathered(plan, _layer(tree_map(lambda x: x.to_local(), p)[
+                    "layers"], 0), "['layers']")
+                res["layer_sha256"] = _leaf_sha256(fsdp_layer_stream(plan, layer))
+            del layer
+        batch = fsdp_batch(cfg, dev, full)
+        step = make_placed_train_step(cfg, optim.AdamWConfig(warmup_steps=1, total_steps=10),
+                                      mesh)
+        # the initial blocks, off the card (not in the step's peak)
+        p0 = [x.to_local().to("cpu", copy=True) for x in tree_leaves(p)]
+        dist.barrier()  # every rank's whole draw freed before the step's peak
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        with record_collectives() as ops:
+            p, o, m = step(p, o, batch)
+            res.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+        res["step_wall_ms"] = (time.perf_counter() - t1) * 1e3
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else None
+        res["ops"] = _ops_list(ops)
+        res["param_errs"], res["held"] = [], []
+        for i, (x, x0) in enumerate(zip(tree_leaves(p), p0)):
+            want = torch.from_numpy(np.load(_fsdp_ref_dir(arch) / f"{i}.npy", mmap_mode="r")[
+                _region(x.shape, x.placements, x.device_mesh)].copy()).to(dev)
+            err, held = fsdp_param_errors(x.to_local(), want, x0.to(dev), float(m["lr"]))
+            res["param_errs"].append(err)
+            res["held"].append(held)
+        _rank_log(f"{arch}: loss {res['loss']:.6f}, step {res['step_wall_ms']:.0f} ms, peak "
+                  f"{res['peak_bytes']}")
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+
+
+def _fsdp_ranks(ranks: list, one: dict, cfg, full: bool, dev, tag: str, seconds: float) -> dict:
+    """(b) / (c), the gloo half: each rank on the card, holding only its
+    blocks; loss and norm within FSDP["loss_tol"] of the one-process step,
+    params within FSDP["param_tol"] of each leaf's largest magnitude on the
+    elements :func:`fsdp_param_errors` holds, some in every leaf; the
+    collectives equal to :func:`fsdp_collectives`; peaks beside the
+    reckoning."""
+    from repro_torch.launch import tp_model
+    from repro_torch.launch.mesh import AbstractMesh
+
+    shape = FSDP["meshes"][cfg.name]
+    plan = tp_model.make_plan(cfg, AbstractMesh(shape, ("data", "model")))
+    want_dev = "cuda:0" if dev.type == "cuda" else dev.type
+    if any(r["device"] != want_dev for r in ranks) or (dev.type == "cuda" and any(
+            not r["peak_bytes"] for r in ranks)):
+        fail(f"{tag}: the ranks ran on {[r['device'] for r in ranks]}, not on {want_dev}")
+    rows = FSDP["batch"] // shape[0]
+    seq = FSDP["text"] if full else FSDP["rehearsal_text"]
+    patches = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+    closed = [list(o) for o in fsdp_collectives(cfg, plan, rows, seq + patches, 1, patches)]
+    loss_err = max(abs(r["loss"] / one["loss"] - 1) for r in ranks)
+    norm_err = max(abs(r["grad_norm"] / one["grad_norm"] - 1) for r in ranks)
+    rel = {k: [max(r["param_errs"][i][k] for r in ranks) / max(mx, 1e-30)
+               for i, mx in enumerate(one["max_abs"])] for k in ("held", "all")}
+    param_err = {k: max(v) for k, v in rel.items()}
+    held = sum(n for r in ranks for n, _ in r["held"]) / sum(t for r in ranks for _, t in r["held"])
+    vacuous = [i for i in range(len(one["max_abs"])) if not any(r["held"][i][0] for r in ranks)]
+    paths = [p for p, _ in tree_leaves_with_path(param_shapes(cfg))]
+    worst = sorted(range(len(paths)), key=lambda i: -rel["all"][i])[:3]
+    log(f"{tag} params a leaf's largest magnitude apart, worst leaves: " + "; ".join(
+        f"{paths[i]} {rel['all'][i]:.3g} ({rel['held'][i]:.3g} where held)" for i in worst))
+    if loss_err > FSDP["loss_tol"] or norm_err > FSDP["loss_tol"]:
+        fail(f"{tag}: losses {[r['loss'] for r in ranks]} / norms "
+             f"{[r['grad_norm'] for r in ranks]} against the one-process {one['loss']} / "
+             f"{one['grad_norm']}")
+    if param_err["held"] > FSDP["param_tol"] or vacuous:
+        fail(f"{tag}: params within {param_err['held']:.3g} of their leaves' largest magnitude "
+             f"on the {100 * held:.4f} % of elements whose gradient is at least "
+             f"{FSDP['grad_floor']} x AdamW's eps, not {FSDP['param_tol']}; leaves with no such "
+             f"element: {[paths[i] for i in vacuous]}")
+    for r in ranks:
+        if r["ops"] != closed:
+            fail(f"{tag}: rank {r['rank']}'s collectives differ from the closed form: "
+                 f"{len(r['ops'])} recorded, {len(closed)} expected")
+        if dict(r["fsdp"]) != dict(plan.fsdp) or r["local_params"] >= r["params"]:
+            fail(f"{tag}: rank {r['rank']} holds {r['local_params']} of {r['params']} params")
+    reckoned = fsdp_peak_reckoning(cfg, plan, rows, seq + patches)
+    kinds = {}
+    for k, b, _ in closed:
+        kinds.setdefault(k, [0, 0])
+        kinds[k][0] += 1
+        kinds[k][1] += b
+    out = {"mesh": list(shape), "layers": cfg.n_layers, "loss_rel_err": loss_err,
+           "grad_norm_rel_err": norm_err, "param_err": param_err, "held_share": held,
+           "param_rel": rel, "collectives": kinds,
+           "peaks": [r["peak_bytes"] for r in ranks], "reckoned": reckoned,
+           "step_wall_ms": [r["step_wall_ms"] for r in ranks], "seconds": seconds,
+           "local_params": [r["local_params"] for r in ranks], "params": ranks[0]["params"],
+           "build": [r["build"] for r in ranks],
+           "build_peaks": [r["build_peak_bytes"] for r in ranks], "one_process": one,
+           "layer_sha256": sorted({r.get("layer_sha256") for r in ranks}, key=str)}
+    log(f"{tag} {cfg.name} at {cfg.n_layers} layers, float32, FSDP over {shape} by "
+        f"{len(ranks)} gloo ranks: loss within {loss_err:.3g}, grad_norm within {norm_err:.3g} "
+        f"of the one-process step (tolerance {FSDP['loss_tol']}), params within "
+        f"{param_err['held']:.3g} of each leaf's largest magnitude on the {100 * held:.4f} % "
+        f"of elements whose gradient is at least {FSDP['grad_floor']} x AdamW's eps (tolerance "
+        f"{FSDP['param_tol']}), {param_err['all']:.3g} on all; a rank holds "
+        f"{out['local_params']} of {out['params']} params; collectives = the closed form "
+        f"{kinds}; step {[round(x) for x in out['step_wall_ms']]} ms; peak {out['peaks']} "
+        f"bytes, reckoned {reckoned['fsdp']} (a whole gather before the forward: "
+        f"{reckoned['whole_gather']}); one process {one['peak_bytes']}; {seconds:.1f} s")
+    return out
+
+
+def _fsdp_dryrun(arch: str, full: bool) -> dict:
+    """(e) ``arch``'s train_4k on 16 x 16 and 2 x 16 x 16 (its smoke config
+    on 2 x 4 and 2 x 2 x 4 in a rehearsal): modelled, its collectives equal
+    to :func:`fsdp_collectives` and, at full size, to the CPU's meta run
+    (FSDP["dryrun"])."""
+    from repro_torch import roofline
+    from repro_torch.launch import dryrun, tp_model
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.specs import TRAIN_MICROBATCHES
+
+    over = {} if full else {f.name: getattr(smoke_config(arch), f.name)
+                            for f in dataclasses.fields(smoke_config(arch))
+                            if f.name != "name"
+                            and getattr(smoke_config(arch), f.name) != getattr(
+                                get_config(arch), f.name)}
+    out = {}
+    for shape in (((16, 16), (2, 16, 16)) if full else ((2, 4), (2, 2, 4))):
+        names = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+        mesh = AbstractMesh(shape, names)
+        desc = "x".join(map(str, shape))
+        t1 = time.perf_counter()
+        case = launch.build_case(arch, "train_4k", **over)
+        reason = dryrun.collectives_reason(case, mesh)
+        if reason:
+            fail(f"fsdp (e): {arch} x train_4k [{desc}] is not modelled: {reason}")
+        ops = dryrun.placed_collectives(case, mesh)
+        summary = roofline.summarize_collectives(ops)
+        wire = roofline.wire_bytes(ops)
+        cfg, sp = case.cfg, case.shape
+        plan = tp_model.make_plan(cfg, mesh)
+        rows = sp.global_batch // math.prod(shape[:-1])
+        patches = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+        got = sorted((o["kind"], o["bytes"], o["group"]) for o in ops for _ in range(o["trip"]))
+        if got != fsdp_collectives(cfg, plan, rows, sp.seq_len, TRAIN_MICROBATCHES[arch],
+                                   patches):
+            fail(f"fsdp (e): {arch} x train_4k [{desc}] differs from the closed form")
+        pin = FSDP["dryrun"].get(f"{arch}/{desc}")
+        flat = {k: [v["count"], v["bytes"]] for k, v in summary.items()}
+        if full and flat != pin:
+            fail(f"fsdp (e): {arch} x train_4k [{desc}] records {flat}, the CPU's meta run {pin}")
+        out[desc] = {"collectives": flat, "wire_bytes_per_device": wire,
+                     "collective_s": wire / roofline.ICI_BW, "host_s": time.perf_counter() - t1}
+        log(f"fsdp (e) dry run {arch} x train_4k [{desc}]: {flat}; wire {wire:.6g} "
+            f"bytes/device, collective {out[desc]['collective_s'] * 1e3:.3f} ms; equal to the "
+            f"closed form{' and the CPU' if full else ''}; {out[desc]['host_s']:.1f} s on the host")
     return out
 
 
@@ -6557,6 +7168,7 @@ def main() -> int:
     ssd_path = phase_ssd(dev, serve_path=serve_path, train_path=train_path)
     audio_path = phase_audio(dev, serve_path=serve_path, train_path=train_path)
     vlm_path = phase_vlm(dev, serve_path=serve_path, audio_path=audio_path)
+    fsdp_path = phase_fsdp(dev)
     cases = phase_scale(dev)
     record = []
     for name, meta in KERNELS.items():
@@ -6571,18 +7183,18 @@ def main() -> int:
         # quantize_egress; the distribution path (3h) for psu_sort,
         # bt_count and bt_axes; the expert-parallel path (3j), the SSD
         # path (3l), the encoder-decoder path (3m) and the vlm path (3n)
-        # for bt_axes
-        paths = {"psu_sort": ("transmit", "egress", "noc", "serve", "train", "dist"),
+        # for bt_axes; the FSDP path (3o) for psu_sort and bt_axes
+        paths = {"psu_sort": ("transmit", "egress", "noc", "serve", "train", "dist", "fsdp"),
                  "bt_count": ("transmit", "egress", "noc", "serve", "train", "dist"),
                  "psu_stream": ("transmit", "train"),
                  "bt_axes": ("codec", "noc", "serve", "train", "dist", "ep", "ssd", "audio",
-                             "vlm"),
+                             "vlm", "fsdp"),
                  "bt_axes_activity": ("activity", "noc", "serve", "train"),
                  "quantize_egress": ("egress", "noc")}[name]
         runs = {"transmit": main_path, "codec": codec_path, "activity": activity_path,
                 "egress": egress_path, "noc": noc_path, "serve": serve_path,
                 "train": train_path, "dist": dist_path, "ep": ep_path, "ssd": ssd_path,
-                "audio": audio_path, "vlm": vlm_path}
+                "audio": audio_path, "vlm": vlm_path, "fsdp": fsdp_path}
         by_path = {p: runs[p]["launches"][name] for p in paths}
         record.append({
             "name": name, "route": "cuda", **meta,
@@ -6614,7 +7226,8 @@ def main() -> int:
         "activity_path": activity_path, "egress_path": egress_path, "noc_path": noc_path,
         "serve_path": serve_path, "train_path": train_path, "dist_path": dist_path,
         "tp_path": tp_path, "ep_path": ep_path, "cp_path": cp_path, "ssd_path": ssd_path,
-        "audio_path": audio_path, "vlm_path": vlm_path, "scale_cases": cases,
+        "audio_path": audio_path, "vlm_path": vlm_path, "fsdp_path": fsdp_path,
+        "scale_cases": cases,
         "seconds": time.perf_counter() - t0,
     }, indent=1, default=str))
     log(f"total {time.perf_counter() - t0:.1f} s")

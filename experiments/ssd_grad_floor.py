@@ -65,7 +65,7 @@ def rank_main(rank: int, world: int, port: int) -> None:
                 cfg, torch.Generator(device=dev).manual_seed(tf["seed"]), dev))
             params = cs._to_card(host, dev)
             del host
-            p, o = place_state(cfg, mesh, params, cs.optim.init(params))
+            p, o = place_state(cfg, mesh, params)
             del params
         dist.barrier()
     step = make_placed_train_step(cfg, cs.optim.AdamWConfig(warmup_steps=1, total_steps=10),

@@ -24,6 +24,14 @@ two need not agree in kind or count.
     PYTHONPATH=src python experiments/tp_schedule.py --arch zamba2-1.2b --shape decode_32k long_500k
     PYTHONPATH=src python experiments/tp_schedule.py --arch whisper-medium \
         --shape decode_32k prefill_32k
+    PYTHONPATH=src python experiments/tp_schedule.py --arch internvl2-26b --shape train_4k
+    PYTHONPATH=src python experiments/tp_schedule.py --arch qwen3-moe-30b-a3b --shape train_4k
+
+The last two are the FSDP train cells: the port all-gathers each data-split
+leaf over "data" a layer at a time and reduce-scatters its gradient (its
+microbatches' records carry their count as ``trip``); the reference's CPU
+compile expresses the gradient's scatter as an all-reduce and a slice, so
+its schedule has no reduce-scatter.
 
 An encoder-decoder cell's frames come from ``build_case`` in both packages
 (the stub frontend's 1,500 frames a request), so whisper-medium's smoke

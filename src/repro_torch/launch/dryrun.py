@@ -19,9 +19,16 @@ mesh (16x16, or 2x16x16 with ``--multipod``) it records
     (``launch/serve.py``) runs on the ``meta`` blocks of rank 0 over
     stand-in groups of the mesh's sizes (``launch/tp.py``: recorded, not
     issued), so ``collective_ops`` holds the port's own schedule and the
-    roofline its collective term (``"collectives_modelled": True``).  The
-    train step is not microbatched there: a microbatched step sends the
-    same bytes in more calls.
+    roofline its collective term (``"collectives_modelled": True``).  A
+    train step without FSDP is not microbatched there: microbatches only
+    split its activation collectives into more calls of the same bytes.
+    An FSDP train cell's step takes the cell's microbatches
+    (``specs.TRAIN_MICROBATCHES``): each microbatch gathers every layer's
+    data-split leaves over "data" again (twice, the backward's recompute
+    included) and reduce-scatters their gradients, so its bytes grow with
+    the microbatches.  One microbatch's loss and backward run, and their
+    records carry the microbatches as their ``trip``; the mean over the
+    data-parallel ranks and the norm run once.
 
 The dense and MoE cells include those whose rules split attention's
 contraction (granite-moe-3b-a800m's 24 heads on the 16 x 16 mesh); the
@@ -32,12 +39,13 @@ attention over the data ranks); whisper-medium's cells split the encoder's
 and the decoder's self- and cross-attention on heads, its prefill encoding
 the frames and its decode reading the cross cache on the rank's kv heads;
 internvl2-26b's serving cells run the dense family's splits behind its
-1,024 patch embeddings, which its prefill puts in front of the text.  The
-placed step's FSDP gathers are not built yet (a train cell of an FSDP
-config, internvl2-26b's and qwen3-moe-30b-a3b's; their serving cells are
-not FSDP-placed, as ``param_spec`` applies FSDP in "train" mode only):
-those records say ``"collectives_modelled": False``, with the reason, and
-carry no collective ops.  The memory floor is the argument bytes alone
+1,024 patch embeddings, which its prefill puts in front of the text; the
+train cells of the FSDP configs (internvl2-26b's and qwen3-moe-30b-a3b's;
+``param_spec`` applies FSDP in "train" mode only) run the FSDP step: its
+per-layer all-gathers over "data" and its gradients' reduce-scatters
+beside the "model" collectives.  A cell whose splits the placed forward
+does not run says ``"collectives_modelled": False``, with the reason, and
+carries no collective ops.  The memory floor is the argument bytes alone
 (activations are not counted).  The stand-in groups need no process group:
 torch's ``fake`` backend would build a 256-rank ``DeviceMesh`` in one
 process, but it lives in ``torch.testing._internal``, a private module
@@ -93,7 +101,9 @@ def placed_collectives(case, mesh) -> list[dict]:
     from ..optim import AdamWConfig
     from ..roofline.collect import record_collectives
     from . import serve, tp_model
-    from .step import block, reduce_gradients, zero1_gather
+    from ..train.step import accumulate
+    from .specs import DEFAULT_TRAIN_MICROBATCHES, TRAIN_MICROBATCHES
+    from .step import block, mean_gradients, reduce_gradients, zero1_gather
     from .tp import axis_group
 
     cfg, s = case.cfg, case.shape
@@ -103,10 +113,19 @@ def placed_collectives(case, mesh) -> list[dict]:
         if case.kind == "train":
             params, opt_state, batch = args
             dp = in_sh[2]["labels"].spec[0] or ()
-            reduce_gradients(cfg, AdamWConfig(total_steps=10_000),
-                             tp_model.make_plan(cfg, mesh, "train"),
-                             axis_group(mesh, dp if isinstance(dp, tuple) else (dp,)), params,
-                             batch, opt_state.step)
+            plan = tp_model.make_plan(cfg, mesh, "train")
+            dp = axis_group(mesh, dp if isinstance(dp, tuple) else (dp,))
+            ocfg = AdamWConfig(total_steps=10_000)
+            mb = TRAIN_MICROBATCHES.get(case.arch, DEFAULT_TRAIN_MICROBATCHES)
+            if plan.fsdp and mb > 1:
+                # one microbatch (the strided split's first) stands for each
+                with record_collectives() as per_microbatch:
+                    loss, grads = accumulate(tp_model.make_loss_fn(plan), params,
+                                             {k: v[::mb] for k, v in batch.items()})
+                ops.extend(dict(op, trip=op["trip"] * mb) for op in per_microbatch)
+                mean_gradients(ocfg, plan, dp, loss, grads, opt_state.step)
+            else:
+                reduce_gradients(cfg, ocfg, plan, dp, params, batch, opt_state.step)
             for p, ps, ms in zip(leaves(params), leaves(in_sh[0]), leaves(in_sh[1].m)):
                 gathered = zero1_gather(p, ps.placements(), ms.placements(), mesh)
                 if gathered:
@@ -125,16 +144,10 @@ def placed_collectives(case, mesh) -> list[dict]:
 
 def collectives_reason(case, mesh) -> str | None:
     """Why the placed schedule of ``case`` on ``mesh`` is not modelled, or
-    None: the rules' splits the tensor-parallel forward does not run, or
-    the FSDP placement of a train cell (``param_spec`` places an FSDP
-    config's serving cells as any other)."""
+    None: the rules' splits the tensor-parallel forward does not run."""
     from .tp_model import unsupported
 
-    cfg = case.cfg
-    train = case.kind == "train"
-    return (unsupported(cfg, mesh, "train" if train else "serve")
-            or (f"{cfg.name}: FSDP placement is not run by the placed step's dry run"
-                if cfg.fsdp and train else None))
+    return unsupported(case.cfg, mesh, "train" if case.kind == "train" else "serve")
 
 
 def _collective_fields(case, mesh) -> dict:

@@ -7,7 +7,10 @@ and inserts the collectives.  Here the placement is explicit.
 ``torch.distributed.tensor.DTensor`` placed by ``params_shardings`` /
 ``opt_shardings`` on a ``DeviceMesh``: "model" splits as the rules say,
 FSDP configs add their "data" axis, and ZeRO-1 (``cfg.zero1``) splits the
-m/v leaves over "data".  The step (:func:`make_placed_train_step`):
+m/v leaves over "data".  It builds the state leaf by leaf from whole
+tensors or the JAX package's numpy arrays, and makes m / v at block
+shape, so no rank holds the whole state.  The step
+(:func:`make_placed_train_step`):
 
   1. takes this rank's rows of the global batch by ``batch_shardings``
      (an encoder-decoder's ``frames`` and a vlm's ``patches`` too, by their
@@ -18,17 +21,21 @@ m/v leaves over "data".  The step (:func:`make_placed_train_step`):
      contraction, the encoder's and the decoder's self- and
      cross-attention on their heads, a MoE's experts on the rank's range
      of experts, the SSD projections on their contraction and the SSM core
-     on the rank's heads) and all-gathers a leaf only over another split
-     axis with more than one rank (FSDP's "data", internvl2-26b's and
-     qwen3-moe-30b-a3b's; skipped when "data" has one rank); where
-     ``tp_model.unsupported`` names a reason (experts split on their
+     on the rank's heads); an FSDP config (internvl2-26b's and
+     qwen3-moe-30b-a3b's, with more than one "data" rank) keeps its "data"
+     blocks too, which the forward all-gathers a layer at a time at use,
+     the embedding and the head once, and whose gradients its backward
+     reduce-scatters (``tp_model.Plan.fsdp``, ``tp.gather_from_data``);
+     where ``tp_model.unsupported`` names a reason (experts split on their
      ``d_ff``, shared experts, an encoder-decoder's attention on its
-     contraction) it gathers every axis, so every rank of a "model" group
+     contraction, FSDP outside the dense, vlm and MoE families) it gathers
+     every axis before the forward, so every rank of a "model" group
      computes the whole product;
   3. runs the loss (with a MoE's load-balance loss, as ``train.step``'s,
      its means taken over the data-parallel ranks as over the reference's
      global batch) and its backward on the local rows (``train.step``'s
-     ``accumulate``), the tensor-parallel forward's collectives inside;
+     ``accumulate``, in ``microbatches`` strided splits), the
+     tensor-parallel forward's collectives inside;
   4. sums over "model" the gradient of each replicated leaf whose use is
      split across the group (``tp_model.Plan.partial``); every other
      gradient is already this rank's block, or whole;
@@ -37,11 +44,13 @@ m/v leaves over "data".  The step (:func:`make_placed_train_step`):
      flattened mesh dim): a float32 SUM ``all_reduce`` per leaf, as the
      reference's GSPMD step reduces, or ``optim.compressed_psum`` of the
      flat gradient when a ``CompressionConfig`` is given (its error buffer
-     is the step's ``error`` attribute);
-  6. takes the global norm (the squares of "model"-split blocks summed over
-     "model"), updates each rank's m/v block with ``optim``'s AdamW, leaf
-     by leaf, and all-gathers a ZeRO-1 parameter's updated pieces over
-     "data".
+     is the step's ``error`` attribute; not with FSDP).  An FSDP leaf's
+     gradient left the backward as its block already summed over "data":
+     it is summed over "pod" only (where there is one) and divided;
+  6. takes the global norm (a block's squares summed over each axis that
+     splits it: "model", and "data" under FSDP), updates each rank's m/v
+     block with ``optim``'s AdamW, leaf by leaf, and all-gathers a ZeRO-1
+     parameter's updated pieces over "data".
 
 The state is updated in place, as the reference's loop donates it.  A
 collective over a one-rank group is skipped, so on a (1, 1) mesh the step
@@ -57,10 +66,12 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from .. import _collectives, _obs_hooks
 from .._tree import leaves, leaves_with_path, tree_map, unflatten_like
+from ..convert import _tensor_from_numpy
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, CompressionConfig, OptState, compressed_psum
 from ..optim.adamw import global_norm, step_scalars, update_leaf
@@ -71,7 +82,7 @@ from .sharding import batch_shardings, opt_shardings, params_shardings, to_place
 from .tp import AxisGroup, all_reduce, axis_group
 
 __all__ = ["block", "place", "place_state", "gather", "make_placed_train_step",
-           "reduce_gradients", "zero1_gather"]
+           "reduce_gradients", "mean_gradients", "zero1_gather"]
 
 
 def _region(shape, placements, mesh) -> tuple[slice, ...]:
@@ -108,22 +119,50 @@ def block(t: torch.Tensor, sharding) -> torch.Tensor:
 
 def place(t: torch.Tensor, sharding):
     """``t`` (whole, on every rank) as a DTensor placed by ``sharding``."""
+    return _from_local(block(t, sharding), sharding, t.shape)
+
+
+def _from_local(local: torch.Tensor, sharding, shape) -> Any:
     from torch.distributed.tensor import DTensor
 
-    return DTensor.from_local(block(t, sharding), sharding.mesh, sharding.placements(),
-                              run_check=False, shape=t.shape,
-                              stride=torch.empty(t.shape, device="meta").stride())
+    return DTensor.from_local(local, sharding.mesh, sharding.placements(), run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(tuple(shape), device="meta").stride())
 
 
-def place_state(cfg: ModelConfig, mesh, params: Any, opt_state: OptState) -> tuple[Any, OptState]:
-    """Params and optimizer state (whole tensors, the same on every rank)
-    as DTensor trees placed by the rules."""
+def _leaf_block(x, sharding) -> torch.Tensor:
+    """This rank's block of the whole leaf ``x``: a tensor's on its device
+    (``x`` itself when the block is whole, as :func:`block`), a numpy
+    array's on the CPU (always a copy, so the caller's array is never
+    updated)."""
+    array = not isinstance(x, torch.Tensor)
+    t = _tensor_from_numpy(np.asarray(x), torch.device("cpu")) if array else x
+    region = _region(t.shape, sharding.placements(), sharding.mesh)
+    if not array and _whole(region, t.shape):
+        return t
+    return t[region].clone()
+
+
+def place_state(cfg: ModelConfig, mesh, params: Any) -> tuple[Any, OptState]:
+    """Params as a DTensor tree placed by the rules and a fresh optimizer
+    state (``optim.init``'s zeros) placed by them too, built leaf by leaf:
+    ``params`` are whole leaves, the same on every rank, tensors or numpy
+    arrays (the JAX package's, as ``convert.params_from_numpy`` takes
+    them), each cut to this rank's block (:func:`_leaf_block`); the m / v
+    zeros are made at block shape, so no rank holds a whole moment."""
     p_sh = params_shardings(cfg, mesh, params, mode="train")
-    o_sh = opt_shardings(cfg, mesh, opt_state, params)
-    placed = tree_map(place, params, p_sh)
-    return placed, OptState(step=place(opt_state.step, o_sh.step),
-                            m=tree_map(place, opt_state.m, o_sh.m),
-                            v=tree_map(place, opt_state.v, o_sh.v))
+    o_sh = opt_shardings(cfg, mesh, OptState(step=None, m=None, v=None), params)
+    placed = tree_map(lambda x, sh: _from_local(_leaf_block(x, sh), sh, x.shape), params, p_sh)
+
+    def zeros(p, sh):
+        region = _region(p.shape, sh.placements(), sh.mesh)
+        return _from_local(torch.zeros(tuple(r.stop - r.start for r in region),
+                                       dtype=torch.float32, device=p.to_local().device),
+                           sh, p.shape)
+
+    step = torch.zeros((), dtype=torch.int32, device=leaves(placed)[0].to_local().device)
+    return placed, OptState(step=_from_local(step, o_sh.step, ()),
+                            m=tree_map(zeros, placed, o_sh.m), v=tree_map(zeros, placed, o_sh.v))
 
 
 def _split_mesh_dims(dt) -> list[int]:
@@ -131,14 +170,14 @@ def _split_mesh_dims(dt) -> list[int]:
     return [i for i, pl in enumerate(dt.placements) if pl.is_shard() and sizes[i] > 1]
 
 
-def gather(dt, keep: Optional[int] = None) -> torch.Tensor:
-    """A placed leaf's tensor, whole but along mesh dim ``keep`` (this rank's
-    block there: "model" under a tensor-parallel plan): its local tensor
-    when no other split mesh dim has more than one rank, else an all-gather
-    over them (recorded)."""
+def gather(dt, keep: tuple[int, ...] = ()) -> torch.Tensor:
+    """A placed leaf's tensor, whole but along the mesh dims ``keep`` (this
+    rank's block there: "model" under a tensor-parallel plan, and "data"
+    too under FSDP): its local tensor when no other split mesh dim has more
+    than one rank, else an all-gather over them (recorded)."""
     from torch.distributed.tensor import Replicate
 
-    split = [i for i in _split_mesh_dims(dt) if i != keep]
+    split = [i for i in _split_mesh_dims(dt) if i not in keep]
     if not split:
         return dt.to_local()
     target = tuple(Replicate() if i in split else pl for i, pl in enumerate(dt.placements))
@@ -165,23 +204,49 @@ def reduce_gradients(
     step: torch.Tensor,
     compression: Optional[CompressionConfig] = None,
     error: Optional[torch.Tensor] = None,
+    microbatches: int = 1,
 ) -> tuple:
     """Steps 3-6 of the placed step up to the update, on one rank's compute
-    tensors: the loss and its backward (tensor-parallel under ``plan``),
-    the partial gradients summed over "model", the mean over ``dp`` (or
+    tensors: the loss and its backward (tensor-parallel under ``plan``,
+    over ``microbatches`` strided splits of the rank's rows), the partial
+    gradients summed over "model", the mean over ``dp`` (or
     ``compressed_psum`` with ``error``, its buffer) and the step's scalars.
-    Returns (loss, gradients, scalars, error)."""
+    An FSDP leaf's gradient is already its block summed over "data" (the
+    reduce-scatter of its gather's backward): it is summed over the other
+    data-parallel axes only, then divided as the others.  Returns (loss,
+    gradients, scalars, error)."""
     loss_fn = make_loss_fn(cfg) if plan is None else tp_model.make_loss_fn(plan)
-    loss, grads = accumulate(loss_fn, params, batch)
+    fsdp = plan.fsdp if plan is not None else {}
+    if fsdp and compression is not None:
+        raise ValueError(f"{cfg.name}: compressed_psum of FSDP's gradient blocks is not "
+                         f"supported; their sum over 'data' is the gather's reduce-scatter")
+    loss, grads = accumulate(loss_fn, params, batch, microbatches)
     _obs_hooks.tap("train.grads", grads=grads)
+    return mean_gradients(opt_cfg, plan, dp, loss, grads, step, compression, error)
+
+
+def mean_gradients(
+    opt_cfg: AdamWConfig,
+    plan: Optional[tp_model.Plan],
+    dp: AxisGroup,
+    loss: torch.Tensor,
+    grads: Any,
+    step: torch.Tensor,
+    compression: Optional[CompressionConfig] = None,
+    error: Optional[torch.Tensor] = None,
+) -> tuple:
+    """The collectives of :func:`reduce_gradients` after the backward, on the
+    rank's gradient blocks ``grads`` (updated in place) and ``loss``:
+    (loss, gradients, scalars, error)."""
+    fsdp = plan.fsdp if plan is not None else {}
     with torch.no_grad():
         if plan is not None:
             for path, g in leaves_with_path(grads):
                 if path in plan.partial:
                     all_reduce(g, plan.model)
         if compression is None:
-            for g in leaves(grads):
-                all_reduce(g, dp)
+            for path, g in leaves_with_path(grads):
+                all_reduce(g, plan.fsdp_rest if path in fsdp else dp)
                 if dp.size > 1:
                     g.div_(dp.size)
         else:
@@ -193,15 +258,27 @@ def reduce_gradients(
 
 
 def _global_norm(grads, plan: Optional[tp_model.Plan]) -> torch.Tensor:
-    """The norm of the whole gradient: a "model"-split block's squares are
-    summed over "model", a replicated leaf's counted once."""
-    if plan is None or plan.model.size == 1:
+    """The norm of the whole gradient: a block's squares are summed over
+    each axis that splits it ("model", and "data" under FSDP), a replicated
+    leaf's counted once."""
+    if plan is None or (plan.model.size == 1 and not plan.fsdp):
         return global_norm(grads)
-    sq = {False: [], True: []}
+    if not plan.fsdp:
+        sq = {False: [], True: []}
+        for path, g in leaves_with_path(grads):
+            sq[path in plan.split].append(torch.sum(torch.square(g.to(torch.float32))))
+        split = all_reduce(torch.stack(sq[True]).sum(), plan.model)
+        return torch.sqrt(split + torch.stack(sq[False]).sum())
+    # keyed by (split over "model", split over "data"); two summed pairs
+    sq = {(a, b): [] for a in (False, True) for b in (False, True)}
     for path, g in leaves_with_path(grads):
-        sq[path in plan.split].append(torch.sum(torch.square(g.to(torch.float32))))
-    split = all_reduce(torch.stack(sq[True]).sum(), plan.model)
-    return torch.sqrt(split + torch.stack(sq[False]).sum())
+        sq[path in plan.split, path in plan.fsdp].append(
+            torch.sum(torch.square(g.to(torch.float32))))
+    zero = torch.zeros((), dtype=torch.float32, device=leaves(grads)[0].device)
+    s = {k: torch.stack(v).sum() if v else zero for k, v in sq.items()}
+    over_model = all_reduce(torch.stack([s[True, True], s[True, False]]), plan.model)
+    over_data = all_reduce(torch.stack([over_model[0], s[False, True]]), plan.fsdp_group)
+    return torch.sqrt(over_data.sum() + over_model[1] + s[False, False])
 
 
 def _compressed_mean(grads, dp: AxisGroup, compression: CompressionConfig, error):
@@ -226,16 +303,22 @@ def make_placed_train_step(
     opt_cfg: AdamWConfig,
     mesh,
     compression: Optional[CompressionConfig] = None,
+    microbatches: int = 1,
 ) -> Callable:
     """The train step over ``mesh``: ``(params, opt_state, batch) ->
     (params, opt_state, metrics)`` with the state from :func:`place_state`
-    (updated in place) and the whole global ``batch`` on every rank.  A
-    dense, vlm, MoE, ssm, hybrid or encoder-decoder config runs
-    tensor-parallel over "model"."""
-    # the forward on "model" blocks where it runs the rules' splits; else
-    # every leaf gathered at use
+    (updated in place) and the whole global ``batch`` on every rank, each
+    rank's rows taken in ``microbatches`` strided splits (``train.step``'s
+    ``accumulate``).  A dense, vlm, MoE, ssm, hybrid or encoder-decoder
+    config runs tensor-parallel over "model"; an FSDP config of the dense,
+    vlm or MoE family keeps its "data" blocks too, gathered a layer at a
+    time in the forward."""
+    # the forward on "model" blocks (and FSDP's "data" blocks) where it runs
+    # the rules' splits; else every leaf gathered at use
     plan = tp_model.make_plan(cfg, mesh) if tp_model.unsupported(cfg, mesh) is None else None
-    keep = list(mesh_axes(mesh)).index("model") if plan is not None else None
+    names = list(mesh_axes(mesh))
+    keep = () if plan is None else tuple(
+        names.index(a) for a in (("data", "model") if plan.fsdp else ("model",)))
     groups: dict[tuple, AxisGroup] = {}
 
     def train_step(params, opt_state: OptState, batch: dict):
@@ -256,7 +339,7 @@ def make_placed_train_step(
             blocks = tree_map(lambda t: gather(t, keep), params)
         loss, grads, s, train_step.error = reduce_gradients(
             cfg, opt_cfg, plan, groups[names], blocks, local, opt_state.step.to_local(),
-            compression, train_step.error)
+            compression, train_step.error, microbatches)
         del blocks
         with torch.no_grad():
             for p, g, m, v in zip(leaves(params), leaves(grads), leaves(opt_state.m),
@@ -284,15 +367,16 @@ def _rel(inner, outer) -> tuple[slice, ...]:
     return tuple(slice(a.start - b.start, a.stop - b.start) for a, b in zip(inner, outer))
 
 
-def _update(opt_cfg: AdamWConfig, s: dict, p, g: torch.Tensor, m, v, keep: Optional[int]) -> None:
+def _update(opt_cfg: AdamWConfig, s: dict, p, g: torch.Tensor, m, v,
+            keep: tuple[int, ...]) -> None:
     """One leaf's AdamW on this rank's m/v block, in place; ``g`` is the
-    gradient of the leaf's block along mesh dim ``keep`` (whole for None).
-    A parameter split more coarsely than its moments (ZeRO-1) gathers the
-    updated blocks over the extra axes."""
+    gradient of the leaf's block along the mesh dims ``keep`` (whole along
+    the others).  A parameter split more coarsely than its moments (ZeRO-1)
+    gathers the updated blocks over the extra axes."""
     from torch.distributed.tensor import DTensor, Replicate
 
     shape, mesh = tuple(p.shape), p.device_mesh
-    g_region = _region(shape, tuple(pl if i == keep else Replicate()
+    g_region = _region(shape, tuple(pl if i in keep else Replicate()
                                     for i, pl in enumerate(p.placements)), mesh)
     mv_region = _region(shape, m.placements, m.device_mesh)
     p_loc = p.to_local()

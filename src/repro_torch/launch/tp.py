@@ -1,4 +1,5 @@
-"""The "model" axis's operators: Megatron's conjugate pair and a gather.
+"""The "model" axis's operators (Megatron's conjugate pair and a gather)
+and FSDP's over "data".
 
 The reference splits each product over the mesh's "model" axis by GSPMD,
 which inserts the collectives.  Here the tensor-parallel forward
@@ -18,6 +19,12 @@ which inserts the collectives.  Here the tensor-parallel forward
     each rank's rows (a MoE's load-balance means), made one of the whole
     batch; identity backward: each rank's loss holds the whole-batch term
     and the data-parallel mean of the gradients then averages it.
+  * ``gather_from_data``: FSDP's pair over "data".  Forward: a parameter's
+    block all-gathered along its "data" dim, so the layer uses the weight
+    whole over "data"; backward: the whole gradient reduce-scattered with a
+    SUM back to the rank's block (``reduce_scatter_tensor``), so the
+    gradient leaves the backward as the block, already summed over the
+    data ranks' rows.
 
 A group is an :class:`AxisGroup`: its size, this rank's index in it and
 its process group.  On a one-rank group every operator returns its input
@@ -41,7 +48,7 @@ from .. import _collectives
 from .mesh import mesh_axes
 
 __all__ = ["AxisGroup", "axis_group", "all_reduce", "copy_to_model", "reduce_from_model",
-           "gather_from_model", "batch_mean"]
+           "gather_from_model", "batch_mean", "gather_from_data"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +106,9 @@ def all_reduce(t: torch.Tensor, g: AxisGroup, op: str = "sum") -> torch.Tensor:
     return t
 
 
-def _all_gather(x: torch.Tensor, g: AxisGroup, dim: int) -> torch.Tensor:
+def _gather_along(x: torch.Tensor, g: AxisGroup, dim: int) -> torch.Tensor:
+    """``x`` all-gathered along ``dim`` in group order, by one
+    ``all_gather_into_tensor`` on ``dim`` moved to the front."""
     shape = list(x.shape)
     shape[dim] *= g.size
     _collectives.note("all-gather", math.prod(shape) * x.element_size(), size=g.size)
@@ -107,9 +116,28 @@ def _all_gather(x: torch.Tensor, g: AxisGroup, dim: int) -> torch.Tensor:
         return x.new_empty(shape)
     import torch.distributed as dist
 
-    parts = [torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(g.size)]
-    dist.all_gather(parts, x.contiguous(), group=g.group)
-    return torch.cat(parts, dim=dim)
+    front = x.movedim(dim, 0).contiguous()
+    out = front.new_empty((front.shape[0] * g.size, *front.shape[1:]))
+    dist.all_gather_into_tensor(out, front, group=g.group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(x: torch.Tensor, g: AxisGroup, dim: int) -> torch.Tensor:
+    """This rank's part along ``dim`` of ``x`` summed over ``g``, by one
+    ``reduce_scatter_tensor`` on ``dim`` moved to the front."""
+    shape = list(x.shape)
+    if shape[dim] % g.size:
+        raise ValueError(f"dim {dim} of {tuple(shape)} does not split into {g.size}")
+    shape[dim] //= g.size
+    _collectives.note("reduce-scatter", math.prod(shape) * x.element_size(), size=g.size)
+    if not _issued(g, x):
+        return x.new_empty(shape)
+    import torch.distributed as dist
+
+    front = x.movedim(dim, 0).contiguous()
+    out = front.new_empty((front.shape[0] // g.size, *front.shape[1:]))
+    dist.reduce_scatter_tensor(out, front, op=dist.ReduceOp.SUM, group=g.group)
+    return out.movedim(0, dim)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -147,11 +175,22 @@ class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g, dim):
         ctx.g, ctx.dim, ctx.n = g, dim, x.shape[dim]
-        return _all_gather(x, g, dim)
+        return _gather_along(x, g, dim).contiguous()
 
     @staticmethod
     def backward(ctx, dy):
         return dy.narrow(ctx.dim, ctx.g.index * ctx.n, ctx.n), None, None
+
+
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, dim):
+        ctx.g, ctx.dim = g, dim
+        return _gather_along(x, g, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _reduce_scatter(dy, ctx.g, ctx.dim), None, None
 
 
 def copy_to_model(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
@@ -173,3 +212,10 @@ def gather_from_model(x: torch.Tensor, g: AxisGroup, dim: int = -1) -> torch.Ten
     """The ranks' ``x`` concatenated along ``dim`` in group order; the
     gradient is this rank's slice."""
     return x if g.size == 1 else _GatherFromModel.apply(x, g, dim % x.dim())
+
+
+def gather_from_data(block: torch.Tensor, g: AxisGroup, dim: int) -> torch.Tensor:
+    """FSDP's gather at use: the ranks' ``block`` concatenated along ``dim``
+    in group order (an all-gather); the gradient is reduce-scattered with a
+    SUM back to this rank's block."""
+    return block if g.size == 1 else _GatherFromData.apply(block, g, dim % block.dim())

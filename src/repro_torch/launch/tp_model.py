@@ -85,6 +85,27 @@ own ``param_spec`` (:func:`make_plan`), never decided again:
     ``models.ssd.ssd_block``.  zamba2's shared attention and MLP block runs
     through :func:`layer`, once a group of SSM layers, on the same leaves.
 
+FSDP (``cfg.fsdp`` in training, internvl2-26b's and qwen3-moe-30b-a3b's):
+the rules also split each large leaf over "data" (:attr:`Plan.fsdp`, the
+dim read from ``param_spec``), on a dim other than the layer axis.  A
+rank keeps only its (data, model) block.  Each layer's data-split leaves
+are all-gathered over "data" right before the layer runs
+(``tp.gather_from_data``), ``embed`` inside :func:`embed` and the head
+once a :func:`loss` (not once a logits chunk); the norms are replicated
+and take no gather.  The gather's backward reduce-scatters the whole
+gradient with a SUM back to the rank's block, so a data-split leaf's
+gradient leaves the backward as its block summed over the data ranks'
+rows.  With more than one data rank each layer runs, gather included,
+under a non-reentrant ``torch.utils.checkpoint``: its gathered weights
+are not kept for the backward, which gathers them again (the reference's
+``cfg.remat`` recomputes each layer of its scan the same way, GSPMD's
+gather inside it).  So a data-split layer leaf is all-gathered twice a
+microbatch and reduce-scattered once, and each layer's "model"
+collectives of the forward run again in the backward, but its output's
+sum: the recompute stops at the last tensor the backward saved.  The
+FSDP gather is held for the dense, vlm and MoE families
+(:func:`unsupported` names the others).
+
 The gradient of a split leaf is this rank's block.  A replicated leaf has
 one of two kinds of gradient (:attr:`Plan.partial`):
 
@@ -163,7 +184,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -176,12 +197,12 @@ from ..models import param_shapes
 from ..models.config import ModelConfig
 from ..models.layers import (attend, attention, cross_attention, encode_kv, mlp, norm_rope,
                              project_kv, rms_norm, torch_dtype)
-from ..models.transformer import (_ce, _layer, _n_layers, _positions, embed_tokens,
+from ..models.transformer import (STACKED, _ce, _layer, _n_layers, _positions, embed_tokens,
                                  init_cache, ssm_schedule)
 from .mesh import dp_axes, mesh_axes
 from .sharding import cache_shardings, params_shardings
 from .tp import (AxisGroup, all_reduce, axis_group, batch_mean, copy_to_model,
-                 gather_from_model, reduce_from_model)
+                 gather_from_data, gather_from_model, reduce_from_model)
 
 __all__ = ["Plan", "make_plan", "unsupported", "embed", "embed_inputs", "layer",
            "attention_block", "contracted_qkv", "contracted_out", "encode", "cross_kv",
@@ -211,7 +232,12 @@ class Plan:
     "whole" (None without SSD layers); ``ssd_heads``: under "heads", this
     rank's range [h0, h1) of the SSM heads; ``conv``: whether a decode
     cache's conv tail is split over "model" on its channels (a contiguous
-    ``d_xbc / m`` block a rank, by ``cache_shardings``)."""
+    ``d_xbc / m`` block a rank, by ``cache_shardings``); ``fsdp``: in an
+    FSDP step with more than one "data" rank, leaf path -> the dim (from
+    the end) "data" splits, for every leaf the rules split there (empty
+    otherwise); ``fsdp_group``: the "data" group those leaves are gathered
+    over; ``fsdp_rest``: the other data-parallel axes ("pod"), over which a
+    data-split leaf's gradient block is still summed."""
 
     cfg: ModelConfig
     local: ModelConfig
@@ -229,6 +255,9 @@ class Plan:
     ssd: Optional[str] = None
     ssd_heads: Optional[tuple[int, int]] = None
     conv: bool = False
+    fsdp: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    fsdp_group: AxisGroup = AxisGroup(1)
+    fsdp_rest: AxisGroup = AxisGroup(1)
 
     @property
     def ssd_split(self) -> bool:
@@ -236,10 +265,10 @@ class Plan:
         return any(p.endswith("['ssd']['in_proj']") for p in self.split)
 
 
-def _model_dim(spec, rank: int) -> Optional[int]:
-    """The dim, counted from the end, that "model" splits in ``spec``."""
+def _axis_dim(spec, rank: int, axis: str) -> Optional[int]:
+    """The dim, counted from the end, that ``axis`` splits in ``spec``."""
     for d, e in enumerate(spec):
-        if e is not None and "model" in (e if isinstance(e, tuple) else (e,)):
+        if e is not None and axis in (e if isinstance(e, tuple) else (e,)):
             return d - rank
     return None
 
@@ -248,11 +277,27 @@ def _name(path: str) -> str:
     return path.rsplit("['", 1)[-1].rstrip("']")
 
 
-def _model_dims(cfg: ModelConfig, mesh, mode: str) -> dict[str, Optional[int]]:
-    """Leaf path -> the dim "model" splits (from the end), from the rules."""
+def _axis_dims(cfg: ModelConfig, mesh, mode: str, axis: str = "model") -> dict[str, Optional[int]]:
+    """Leaf path -> the dim ``axis`` splits (from the end), from the rules."""
     shapes = param_shapes(cfg)
-    return {path: _model_dim(sh.spec, t.dim()) for (path, t), (_, sh) in zip(
+    return {path: _axis_dim(sh.spec, t.dim(), axis) for (path, t), (_, sh) in zip(
         leaves_with_path(shapes), leaves_with_path(params_shardings(cfg, mesh, shapes, mode)))}
+
+
+def _fsdp_on(cfg: ModelConfig, mesh, mode: str) -> bool:
+    """Whether the rules split leaves over more than one "data" rank."""
+    return cfg.fsdp and mode == "train" and mesh_axes(mesh)["data"] > 1
+
+
+def _fsdp_reason(cfg: ModelConfig, mesh, mode: str) -> Optional[str]:
+    """Why the FSDP placement of ``cfg`` on ``mesh`` is not one the forward
+    runs, or None (also when there is none: serving, or one "data" rank)."""
+    if not _fsdp_on(cfg, mesh, mode):
+        return None
+    if cfg.family not in ("dense", "vlm", "moe"):
+        return (f"{cfg.name}: the FSDP gather at use is held for the dense, vlm and MoE "
+                f"families, not {cfg.family!r}")
+    return None
 
 
 # (wq, wo)'s "model" dims, from the end -> the attention mode
@@ -317,11 +362,12 @@ def unsupported(cfg: ModelConfig, mesh, mode: str = "train") -> Optional[str]:
     on its contraction (or whole; the encoder-decoder on heads or whole),
     the MLP on ``d_ff`` (or whole), the experts and the router on their
     expert axis, and the SSD projections on their contraction (or
-    whole)."""
+    whole); an FSDP step of the dense, vlm and MoE families."""
     if cfg.family not in _FAMILIES:
         return (f"{cfg.name}: the tensor-parallel forward covers the dense, vlm, MoE, ssm, "
                 f"hybrid and encoder-decoder families, not {cfg.family!r}")
-    return _why_not(cfg, _model_dims(cfg, mesh, mode), mesh_axes(mesh)["model"])
+    return (_fsdp_reason(cfg, mesh, mode)
+            or _why_not(cfg, _axis_dims(cfg, mesh, mode), mesh_axes(mesh)["model"]))
 
 
 def _conv_split(cfg: ModelConfig, mesh) -> bool:
@@ -339,8 +385,8 @@ def make_plan(cfg: ModelConfig, mesh, mode: str = "train") -> Plan:
     if cfg.family not in _FAMILIES:
         raise ValueError(unsupported(cfg, mesh, mode))
     model = axis_group(mesh, "model")
-    dims = _model_dims(cfg, mesh, mode)
-    reason = _why_not(cfg, dims, model.size)
+    dims = _axis_dims(cfg, mesh, mode)
+    reason = _fsdp_reason(cfg, mesh, mode) or _why_not(cfg, dims, model.size)
     if reason:
         raise ValueError(reason)
     attn_dims = _one(dims, "attn")
@@ -383,10 +429,19 @@ def make_plan(cfg: ModelConfig, mesh, mode: str = "train") -> Plan:
         experts = (model.index * n, (model.index + 1) * n)
         if mode == "train":  # the batch's rows, as batch_shardings splits them
             data = axis_group(mesh, dp_axes(mesh))
+    fsdp, fsdp_group, fsdp_rest = {}, AxisGroup(1), AxisGroup(1)
+    if _fsdp_on(cfg, mesh, mode):
+        shapes = dict(leaves_with_path(param_shapes(cfg)))
+        fsdp = {p: d for p, d in _axis_dims(cfg, mesh, mode, "data").items() if d is not None}
+        for p, d in fsdp.items():  # the gather runs a layer at a time
+            if p.split("']", 1)[0][2:] in STACKED and d == -shapes[p].dim():
+                raise ValueError(f"{cfg.name}: the rules split {p}'s layer axis over 'data'")
+        fsdp_group = axis_group(mesh, "data")
+        fsdp_rest = axis_group(mesh, tuple(a for a in dp_axes(mesh) if a != "data"))
     return Plan(cfg, local, model, attn, kv, kv_index,
                 _one(dims, "mlp").get("up") is not None, embed_mode, head_mode, split,
                 partial, experts, data, ssd, ssd_heads,
-                model.size > 1 and _conv_split(cfg, mesh))
+                model.size > 1 and _conv_split(cfg, mesh), fsdp, fsdp_group, fsdp_rest)
 
 
 # --------------------------------------------------------------------------
@@ -646,8 +701,10 @@ def ssd_layer(lp: dict, h: torch.Tensor, plan: Plan) -> torch.Tensor:
 
 
 def embed(params: dict, plan: Plan, tokens: torch.Tensor) -> torch.Tensor:
-    """The replicated embedding of ``tokens`` from this rank's shard."""
+    """The replicated embedding of ``tokens`` from this rank's shard (under
+    FSDP gathered over "data" first)."""
     cfg, g = plan.cfg, plan.model
+    params = {**params, "embed": _whole_over_data(plan, "['embed']", params["embed"])}
     if g.size == 1 or plan.embed == "whole":
         return embed_tokens(params, cfg, tokens)
     w = params["embed"]
@@ -704,11 +761,37 @@ def forward(params: dict, plan: Plan, tokens: torch.Tensor,
     else:
         auxs = []
         for i in range(_n_layers(layers)):
-            h, a = layer(_layer(layers, i), h, plan, positions)
+            h, a = _run_layer(plan, _layer(layers, i), h, positions)
             auxs.append(a)
         if cfg.family == "moe":
             aux = aux + torch.stack(auxs).sum()
     return rms_norm(h, params["final_norm"], cfg.rms_eps), aux
+
+
+def _whole_over_data(plan: Plan, path: str, t: torch.Tensor) -> torch.Tensor:
+    """Leaf ``path``'s tensor ``t`` (this rank's block) gathered over "data"
+    where the FSDP rules split it there; else ``t``."""
+    return gather_from_data(t, plan.fsdp_group, plan.fsdp[path]) if path in plan.fsdp else t
+
+
+def _gathered(plan: Plan, tree: dict, prefix: str) -> dict:
+    """``tree`` (the subtree at path ``prefix``; a layer's params under
+    ``['layers']``) with each data-split leaf gathered over "data"."""
+    return {k: _gathered(plan, v, f"{prefix}['{k}']") if isinstance(v, dict)
+            else _whole_over_data(plan, f"{prefix}['{k}']", v) for k, v in tree.items()}
+
+
+def _run_layer(plan: Plan, lp: dict, h: torch.Tensor, positions) -> tuple:
+    """:func:`layer` of layer params ``lp`` (of ``['layers']``).  Under
+    FSDP the layer's data-split leaves are gathered right before it, and
+    layer and gather run under a non-reentrant checkpoint: the backward
+    recomputes them, so no gathered weight is kept for it."""
+    if not plan.fsdp:
+        return layer(lp, h, plan, positions)
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(lambda lp, h: layer(_gathered(plan, lp, "['layers']"), h, plan, positions),
+                      lp, h, use_reentrant=False)
 
 
 # --------------------------------------------------------------------------
@@ -757,8 +840,11 @@ def _ce_vocab(lg: torch.Tensor, labels: torch.Tensor, g: AxisGroup):
 
 def loss(params: dict, plan: Plan, h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy over valid labels (``models.lm_loss``'s chunking)
-    from this rank's head shard."""
+    from this rank's head shard (under FSDP gathered over "data" once, for
+    every chunk)."""
     cfg, g = plan.cfg, plan.model
+    key = "embed" if cfg.tie_embeddings else "head"
+    params = {**params, key: _whole_over_data(plan, f"['{key}']", params[key])}
     if g.size == 1 or plan.head == "whole":
         return _lm_loss(params, cfg, h, labels)
 

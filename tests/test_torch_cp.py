@@ -134,7 +134,7 @@ def _placed_steps(arch, shape, over, mesh) -> dict:
     tag = _tag(arch, shape, over)
     cfg, params_np, batch_np = step_inputs(arch, over)
     params = params_from_numpy(params_np, "cpu")
-    p, o = place_state(cfg, mesh, params, optim.init(params))
+    p, o = place_state(cfg, mesh, params)
     step = make_placed_train_step(cfg, OCFG, mesh)
     batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
     tapped, losses, norms = [], [], []

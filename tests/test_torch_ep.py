@@ -44,8 +44,9 @@ family's plan and block (``launch/tp_model.py``), the placed step
   tokens equal to the one-process port's, log-probabilities and the
   prefill's and a decode step's logits within 1e-5.
 * The meta dry run of the MoE smoke cells on a 2 x 4 stand-in mesh:
-  granite's three cells and qwen3-moe's prefill and decode modelled, its
-  train cell not (FSDP).
+  granite's three cells and qwen3-moe's three modelled; qwen3-moe's train
+  cell is FSDP-placed (EP x FSDP, 4 microbatches), its schedule equal to
+  ``chip_smoke.fsdp_collectives``.
 """
 
 import copy
@@ -70,6 +71,7 @@ from repro_torch.configs.shapes import SHAPES
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import build_case, dryrun, tp_model
 from repro_torch.launch.mesh import AbstractMesh
+from repro_torch.launch.specs import TRAIN_MICROBATCHES
 from repro_torch.models import moe as _moe
 from repro_torch.train import make_train_step
 from repro_torch.train.step import make_loss_fn, value_and_grad
@@ -162,7 +164,7 @@ def _placed_steps(arch, shape, mesh) -> dict:
     tag = _tag(arch, shape)
     cfg, params_np, batch_np = step_inputs(arch)
     params = params_from_numpy(params_np, "cpu")
-    p, o = place_state(cfg, mesh, params, optim.init(params))
+    p, o = place_state(cfg, mesh, params)
     step = make_placed_train_step(cfg, OCFG, mesh)
     batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
     tapped, losses, norms = [], [], []
@@ -408,7 +410,7 @@ def test_one_rank_is_the_one_process_step_bitwise(one_rank, arch):
     assert torch.equal(h, want_h) and torch.equal(aux, want_aux) and float(aux) > 0
     loss = tp_model.make_loss_fn(plan)(params, batch)
     assert torch.equal(loss, lm_loss(params, cfg, want_h, batch["labels"]) + want_aux)
-    p, o = place_state(cfg, one_rank, params, optim.init(params))
+    p, o = place_state(cfg, one_rank, params)
     step = make_placed_train_step(cfg, OCFG, one_rank)
     got = []
     for _ in range(STEPS):
@@ -739,7 +741,7 @@ def test_decode_collectives_closed_form(ranks, arch, shape, new, mode):
 
 
 MOE_CELLS = [(GRANITE, s) for s in ("train_4k", "prefill_32k", "decode_32k")] + [
-    (QWEN, s) for s in ("prefill_32k", "decode_32k")]
+    (QWEN, s) for s in ("train_4k", "prefill_32k", "decode_32k")]
 
 
 @pytest.mark.parametrize("arch,shape", MOE_CELLS, ids=[f"{a}-{s}" for a, s in MOE_CELLS])
@@ -751,14 +753,27 @@ def test_meta_dryrun_moe_smoke_cells_model_collectives(arch, shape):
     rec = dryrun.run_cell(arch, shape, False, verbose=False, cfg_overrides=over,
                           mesh_shape=(2, 4))
     assert rec["status"] == "ok" and rec["collectives_modelled"] is True
-    assert set(rec["collectives"]) == {"all-reduce", "all-gather"}
     sp = SHAPES[shape]
     cfg = build_case(arch, shape, **over).cfg
+    fsdp = cfg.fsdp and sp.kind == "train"
+    assert set(rec["collectives"]) == {"all-reduce", "all-gather"} | (
+        {"reduce-scatter"} if fsdp else set())
     assert roofline.analyse(rec, sp.seq_len, sp.global_batch, cfg).collective_s > 0
-    # one router gather of d x E a layer (bf16), over the 4 "model" ranks
+    # one router gather of d x E a layer (bf16), over the 4 "model" ranks;
+    # under FSDP twice a layer (the recompute) in each of the cell's
+    # microbatches, and the schedule is the closed form's
+    mb = TRAIN_MICROBATCHES[arch] if fsdp else 1
     gathers = [op for op in rec["collective_ops"] if op["kind"] == "all-gather"
-               and op["bytes"] == cfg.d_model * cfg.moe.padded_experts * 2]
-    assert len(gathers) == cfg.n_layers and all(op["group"] == 4 for op in gathers)
+               and op["bytes"] == cfg.d_model * cfg.moe.padded_experts * 2 and op["group"] == 4]
+    assert sum(op["trip"] for op in gathers) == cfg.n_layers * (2 * mb if fsdp else 1)
+    if fsdp:
+        from chip_smoke import fsdp_collectives
+
+        plan = _plan(cfg, (2, 4))
+        got = sorted((o["kind"], o["bytes"], o["group"]) for o in rec["collective_ops"]
+                     for _ in range(o["trip"]))
+        assert got == fsdp_collectives(cfg, plan, sp.global_batch // 2, sp.seq_len, mb)
+        return
     # the activation all-reduces over "model" of one device's rows
     tokens = sp.global_batch // 2 * (1 if shape == "decode_32k" else sp.seq_len)
     acts = [op for op in rec["collective_ops"]

@@ -256,7 +256,7 @@ def test_distribution_layer_imports_without_jax(tmp_path):
         "cfg = smoke_config('internlm2-1.8b')\n"
         "mesh = make_smoke_mesh(device='cpu')\n"
         "p = init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
-        "p, o = place_state(cfg, mesh, p, optim.init(p))\n"
+        "p, o = place_state(cfg, mesh, p)\n"
         "step = make_placed_train_step(cfg, optim.AdamWConfig(), mesh)\n"
         "b = {k: torch.zeros((2, 8), dtype=torch.int32) for k in ('tokens', 'labels')}\n"
         "rec = roofline.collect_from_step(step, p, o, b, arch=cfg.name, shape='s', kind='train',\n"

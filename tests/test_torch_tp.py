@@ -62,8 +62,9 @@ and the dry run's collective term).
   gradients.
 * The meta dry run of each dense smoke cell on a 2 x 4 stand-in mesh has
   ``collectives_modelled: True``, collective ops and a collective term;
-  the FSDP train cells (internvl2-26b's, qwen3-moe-30b-a3b's) say why they
-  have none.
+  so have the FSDP train cells (internvl2-26b's, qwen3-moe-30b-a3b's),
+  with FSDP's reduce-scatters (``tests/test_torch_fsdp.py`` holds their
+  schedule to its closed form).
 """
 
 import copy
@@ -167,7 +168,7 @@ def _placed_steps(arch, shape, over, mesh) -> dict:
     tag = _tag(arch, shape, over)
     cfg, params_np, batch_np = step_inputs(arch, over)
     params = params_from_numpy(params_np, "cpu")
-    p, o = place_state(cfg, mesh, params, optim.init(params))
+    p, o = place_state(cfg, mesh, params)
     step = make_placed_train_step(cfg, OCFG, mesh)
     batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
     tapped, losses, norms = [], [], []
@@ -241,7 +242,7 @@ def _pod(rank: int) -> dict:
     arch, over = POD_STEP
     cfg, params_np, batch_np = step_inputs(arch, over)
     params = params_from_numpy(params_np, "cpu")
-    p, o = place_state(cfg, mesh, params, optim.init(params))
+    p, o = place_state(cfg, mesh, params)
     step = make_placed_train_step(cfg, OCFG, mesh, compression=optim.CompressionConfig(
         mode="int8_ef", block=POD_BLOCK))
     batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
@@ -484,7 +485,7 @@ def test_one_rank_is_the_one_process_step_bitwise(one_rank, arch):
     assert torch.equal(h, want_h)
     assert torch.equal(tp_model.loss(params, plan, h, batch["labels"]),
                        lm_loss(params, cfg, want_h, batch["labels"]))
-    p, o = place_state(cfg, one_rank, params, optim.init(params))
+    p, o = place_state(cfg, one_rank, params)
     step = make_placed_train_step(cfg, OCFG, one_rank)
     got = []
     for _ in range(STEPS):
@@ -849,10 +850,30 @@ def test_meta_dryrun_dense_smoke_cells_model_collectives(arch, shape):
 @pytest.mark.parametrize("arch,shape,why", [("internvl2-26b", "train_4k", "FSDP"),
                                             ("qwen3-moe-30b-a3b", "train_4k", "FSDP")])
 def test_meta_dryrun_other_families_say_why(arch, shape, why):
-    """The train cells of the FSDP configs (their serving cells are not
-    FSDP-placed and are modelled: tests/test_torch_vlm_tp.py,
-    tests/test_torch_ep.py)."""
-    rec = dryrun.run_cell(arch, shape, False, verbose=False,
-                          cfg_overrides=_smoke_overrides(arch), mesh_shape=(2, 4))
-    assert rec["collectives_modelled"] is False and rec["collective_ops"] == []
-    assert why in rec["collectives_reason"]
+    """The train cells of the FSDP configs, once refused for ``why``, are
+    modelled: FSDP's gathers over "data" and the reduce-scatters of their
+    gradients beside the "model" collectives, every data-split leaf's
+    gathers twice its scatters a layer (the checkpoint's recompute), and a
+    collective term (their serving cells are not FSDP-placed:
+    tests/test_torch_vlm_tp.py, tests/test_torch_ep.py)."""
+    from repro_torch import roofline
+    from repro_torch.launch.specs import TRAIN_MICROBATCHES
+
+    over = _smoke_overrides(arch)
+    rec = dryrun.run_cell(arch, shape, False, verbose=False, cfg_overrides=over,
+                          mesh_shape=(2, 4))
+    assert rec["collectives_modelled"] is True and "collectives_reason" not in rec
+    assert why == "FSDP" and set(rec["collectives"]) == {"all-gather", "all-reduce",
+                                                         "reduce-scatter"}
+    case = build_case(arch, shape, **over)
+    plan = tp_model.make_plan(case.cfg, AbstractMesh((2, 4), ("data", "model")))
+    layer = [p for p in plan.fsdp if p.startswith("['layers']")]
+    top, mb, n = len(plan.fsdp) - len(layer), TRAIN_MICROBATCHES[arch], case.cfg.n_layers
+    ops = rec["collective_ops"]
+    # "data" is the 2-rank axis of the stand-in: its gathers are FSDP's
+    assert sum(o["trip"] for o in ops if o["kind"] == "all-gather" and o["group"] == 2) == (
+        mb * (2 * n * len(layer) + top))
+    assert sum(o["trip"] for o in ops if o["kind"] == "reduce-scatter") == mb * (
+        n * len(layer) + top)
+    sp = case.shape
+    assert roofline.analyse(rec, sp.seq_len, sp.global_batch, case.cfg).collective_s > 0

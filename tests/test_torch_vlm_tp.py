@@ -30,9 +30,9 @@ loss and the dry run.
   numpy weights and patches; the placed prefill's logits on (2, 2) against
   the reference's GSPMD prefill on a 2 x 2 host mesh (a subprocess with 4
   forced host devices), within ``REF_TOL``.
-* The meta dry run of the smoke internvl2's serving cells on a (2, 4)
-  stand-in mesh: modelled, with the closed form's counts and bytes; its
-  train cell names FSDP.
+* The meta dry run of the smoke internvl2's cells on a (2, 4) stand-in
+  mesh: modelled, with the closed form's counts and bytes (its FSDP train
+  cell's: ``chip_smoke.fsdp_collectives``).
 """
 
 import copy
@@ -165,7 +165,7 @@ def _placed_step(shape, mesh) -> dict:
     tag = _tag(shape, {})
     cfg, params_np, batch_np = step_inputs()
     params = params_from_numpy(params_np, "cpu")
-    p, o = place_state(cfg, mesh, params, optim.init(params))
+    p, o = place_state(cfg, mesh, params)
     step = make_placed_train_step(cfg, OCFG, mesh)
     tapped = []
     _obs_hooks.TAP = SimpleNamespace(tap=lambda kind, payload: tapped.append(
@@ -578,21 +578,30 @@ def test_placed_prefill_matches_reference_gspmd_prefill(ranks):
 
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "train_4k"])
 def test_meta_dryrun_vlm_smoke_cells(shape):
-    """The smoke internvl2's serving cells on a (2, 4) stand-in mesh (4
-    heads on 4 ranks, 2 kv heads replicated, the decode cache split-K),
-    modelled, with ``vlm_collectives``' counts and bytes; its train cell is
-    FSDP-placed and says so."""
+    """The smoke internvl2's cells on a (2, 4) stand-in mesh (4 heads on 4
+    ranks, 2 kv heads replicated, the decode cache split-K), modelled, with
+    ``vlm_collectives``' counts and bytes; its train cell is FSDP-placed:
+    8 microbatches, each gathering every data-split leaf over "data" and
+    reduce-scattering its gradient, as ``fsdp_collectives`` counts them."""
+    from chip_smoke import fsdp_collectives
+    from repro_torch.launch.specs import TRAIN_MICROBATCHES
     from test_torch_tp import _smoke_overrides
 
     over = _smoke_overrides(ARCH)
     rec = dryrun.run_cell(ARCH, shape, False, verbose=False, cfg_overrides=over,
                           mesh_shape=(2, 4))
     sp = SHAPES[shape]
-    if sp.kind == "train":
-        assert rec["collectives_modelled"] is False and rec["collective_ops"] == []
-        assert "FSDP" in rec["collectives_reason"]
-        return
     assert rec["status"] == "ok" and rec["collectives_modelled"] is True
+    if sp.kind == "train":
+        cfg = build_case(ARCH, shape, **over).cfg
+        plan = tp_model.make_plan(cfg, _abstract((2, 4)))
+        assert plan.fsdp and "reduce-scatter" in rec["collectives"]
+        want = fsdp_collectives(cfg, plan, sp.global_batch // 2, sp.seq_len,
+                                TRAIN_MICROBATCHES[ARCH], cfg.n_frontend_tokens)
+        got = sorted((o["kind"], o["bytes"], o["group"]) for o in rec["collective_ops"]
+                     for _ in range(o["trip"]))
+        assert got == want
+        return
     case = build_case(ARCH, shape, **over)
     cfg = case.cfg
     plan = tp_model.make_plan(cfg, _abstract((2, 4)), "serve")
