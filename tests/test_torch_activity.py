@@ -21,6 +21,7 @@ import repro.obs as robs
 import repro_torch.kernels as tk
 import repro_torch.obs as tobs
 from repro_torch.kernels.axes import ActivityOut, axes_carry, bt_axes_plain
+from torch_groups import torch_threads  # noqa: F401
 
 ORDERINGS = [("none", None, False), ("column_major", None, False), ("acc", None, False),
              ("acc", None, True), ("app", 2, False), ("app", 4, True), ("app", 8, False),

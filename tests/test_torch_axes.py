@@ -19,6 +19,7 @@ import torch
 import repro.kernels as rk
 import repro_torch.kernels as tk
 from repro_torch.kernels.axes import MAX_N, bt_axes_cuda
+from torch_groups import torch_threads  # noqa: F401
 
 ORDERINGS = [("none", None, False), ("column_major", None, False), ("acc", None, False),
              ("acc", None, True), ("app", 2, False), ("app", 4, True), ("app", 8, False)]

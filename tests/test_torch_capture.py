@@ -37,6 +37,7 @@ from repro_torch.convert import (
 from repro_torch.link import LinkSpec, TxPipeline
 from repro_torch.models import moe as tmoe
 from repro_torch.traffic import stream_bt_report
+from torch_groups import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 # the modules (each package's obs exports a function of the same name)

@@ -25,6 +25,7 @@ from chip_smoke import CODEC_COMPARE, CODED_TX
 from repro.kernels import bt_count_codecs as rk_bt_count_codecs
 from repro_torch.convert import from_reference, packets_from_numpy
 from repro_torch.kernels import bt_count_codecs
+from torch_groups import torch_threads  # noqa: F401
 
 
 def _bytes(shape, seed):

@@ -12,6 +12,7 @@ import repro.configs as rc
 import repro_torch.configs as tc
 from repro_torch.convert import model_config_from_reference
 from repro_torch.models import ModelConfig, MoEConfig, SSMConfig
+from torch_groups import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("arch", rc.ARCH_NAMES)

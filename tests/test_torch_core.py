@@ -17,6 +17,7 @@ import repro.core as rc
 import repro_torch.core as tc
 from repro.core import coding as rcoding
 from repro_torch.core import coding as tcoding
+from torch_groups import torch_threads  # noqa: F401
 
 
 def _both(a):

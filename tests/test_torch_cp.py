@@ -9,9 +9,9 @@ dry run.
   case below and for granite-moe-3b-a800m's baseline 16 x 16 cells: the
   contraction split, whole kv, ``local`` the whole config, ``wq`` / ``wo``
   split, no partial attention leaf.
-* gloo groups of 2 and 4 ranks (separate processes, ``_run_ranks`` of
-  ``test_torch_distributed.py``), smoke configs whose heads the axis does
-  not divide: internlm2-1.8b with 3 heads (``d_model`` 48) on (1, 2),
+* gloo groups of 2 and 4 ranks (separate processes, ``torch_groups.py``;
+  both groups and the reference's subprocess run at once), smoke configs
+  whose heads the axis does not divide: internlm2-1.8b with 3 heads (``d_model`` 48) on (1, 2),
   granite-moe-3b-a800m with 3 heads on (1, 2) and (2, 2) and with 6 heads
   (``d_model`` 96) on (1, 4), qwen3-4b (qk-norm, ``head_dim`` 16, so the
   heads' width 96 is not ``d_model`` 64) with 6 heads on (1, 4).  Two
@@ -45,11 +45,6 @@ dry run.
 
 import copy
 import math
-import os
-import subprocess
-import sys
-import textwrap
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -67,9 +62,9 @@ from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import param_shapes
 from repro_torch.train import make_train_step
 from repro_torch.train.step import make_loss_fn, value_and_grad
+from torch_groups import load, ranks as start_ranks, reference, shared, tensors, wait
+from torch_groups import torch_threads  # noqa: F401
 
-ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 240
 TOL = 1e-5  # gradients, losses, grad norms, logits: summation order only
 UPDATE_TOL = 1e-6  # params vs the one-process AdamW on the assembled gradient
 PARAM_TOL = 2e-4  # params vs the one-process step (AdamW's elementwise scaling)
@@ -100,6 +95,7 @@ def _tag(arch: str, mesh: tuple, over: dict) -> str:
     return f"{arch}{extra}@{'x'.join(map(str, mesh))}"
 
 
+@shared
 def step_inputs(arch: str, over: dict):
     cfg = smoke_config(arch, dtype="float32", **over)
     params = draw_params(cfg, np.random.default_rng(0))
@@ -109,6 +105,7 @@ def step_inputs(arch: str, over: dict):
     return cfg, params, batch
 
 
+@shared
 def serve_inputs(arch: str, over: dict):
     cfg = smoke_config(arch, dtype="float32", **over)
     params = draw_params(cfg, np.random.default_rng(0))
@@ -136,7 +133,7 @@ def _placed_steps(arch, shape, over, mesh) -> dict:
     params = params_from_numpy(params_np, "cpu")
     p, o = place_state(cfg, mesh, params)
     step = make_placed_train_step(cfg, OCFG, mesh)
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     tapped, losses, norms = [], [], []
     _obs_hooks.TAP = SimpleNamespace(tap=lambda kind, payload: tapped.append(
         [g.clone() for g in leaves(payload["grads"])]))
@@ -169,7 +166,7 @@ def _placed_serve(arch, shape, over, new, mesh) -> dict:
     tag = _tag(arch, shape, over) + f"/{new}"
     cfg, params_np, prompts_np = serve_inputs(arch, over)
     local = ps.shard_params(cfg, mesh, params_from_numpy(params_np, "cpu"))
-    prompts = torch.from_numpy(prompts_np)
+    prompts = torch.tensor(prompts_np)
     res = ps.generate(local, cfg, mesh, prompts, new)
     plan = tp_model.make_plan(cfg, mesh, "serve")
     max_len = SERVE_PROMPT + new
@@ -203,14 +200,10 @@ def run_rank(world: int) -> dict:
 
 _WORKER = """
     import sys
-    import numpy as np, torch, torch.distributed as dist
-    rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method="file://" + out + "/store", rank=rank,
-                            world_size=world)
     from test_torch_cp import run_rank
-    np.savez(out + f"/rank{rank}.npz", **run_rank(world))
-    dist.destroy_process_group()
+    from torch_groups import join, leave
+    rank, world, out = join(sys.argv)
+    leave(out + f"/rank{rank}.npz", run_rank(world))
 """
 
 _REFERENCE = """
@@ -256,23 +249,13 @@ _REFERENCE = """
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """{world: [each rank's results]} and the reference's results."""
-    from test_torch_distributed import _run_ranks
-
-    out = {}
-    for world in (2, 4):
-        tmp = tmp_path_factory.mktemp(f"cp{world}")
-        _run_ranks(tmp, _WORKER, world)
-        out[world] = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
+    """{world: [each rank's results]} and the reference's results: both
+    groups and the reference's subprocess run at once."""
+    tmps = {world: tmp_path_factory.mktemp(f"cp{world}") for world in (2, 4)}
     ref = tmp_path_factory.mktemp("cp_reference")
-    (ref / "reference.py").write_text(textwrap.dedent(_REFERENCE))
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
-                   [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]))
-    run = subprocess.run([sys.executable, str(ref / "reference.py"), str(ref)],
-                         capture_output=True, text=True, env=env, timeout=TIMEOUT)
-    assert run.returncode == 0, run.stderr[-3000:]
-    return out, dict(np.load(ref / "reference.npz"))
+    wait([p for w, tmp in tmps.items() for p in start_ranks(tmp, _WORKER, w)] +
+         [reference(ref, _REFERENCE, 4)])
+    return {w: load(tmp, w) for w, tmp in tmps.items()}, dict(np.load(ref / "reference.npz"))
 
 
 def _rank_results(ranks, shape) -> list:
@@ -319,19 +302,24 @@ def _block(x: np.ndarray, spec, shape, model_index: int) -> np.ndarray:
     return x[tuple(idx)]
 
 
-def _grads_np(cfg, params_np, batch_np) -> dict:
+@shared
+def _grads_np(arch: str, over: dict) -> dict:
     """path -> the one-process gradient of the whole batch, in leaf order."""
+    cfg, params_np, batch_np = step_inputs(arch, over)
     params = params_from_numpy(copy.deepcopy(params_np), "cpu")
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     _, g = value_and_grad(make_loss_fn(cfg), params, batch)
     return {p: x.numpy() for p, x in leaves_with_path(g)}
 
 
-def _one_process_steps(cfg, params_np, batch_np):
+@shared
+def _one_process_steps(arch: str, over: dict):
+    """The one-process port's STEPS steps: (params, losses, grad norms)."""
+    cfg, params_np, batch_np = step_inputs(arch, over)
     params = params_from_numpy(copy.deepcopy(params_np), "cpu")
     step = make_train_step(cfg, OCFG, donate=True)
     state, losses, norms = optim.init(params), [], []
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     for _ in range(STEPS):
         params, state, m = step(params, state, batch)
         losses.append(float(m["loss"]))
@@ -407,14 +395,14 @@ def test_granite_baseline_cells_take_the_contraction_split():
 def test_cp_step_matches_one_process_step(ranks, arch, shape, over):
     tag = _tag(arch, shape, over)
     res = _rank_results(ranks, shape)
-    cfg, params_np, batch_np = step_inputs(arch, over)
-    want, losses, norms = _one_process_steps(cfg, params_np, batch_np)
+    cfg = step_inputs(arch, over)[0]
+    want, losses, norms = _one_process_steps(arch, over)
     for r in res:
         assert _rel(r[f"{tag}/losses"], losses) < TOL
         assert _rel(r[f"{tag}/grad_norms"], norms) < TOL
         for i, w in enumerate(want):
             assert _rel(r[f"{tag}/p{i}"], w) < PARAM_TOL, i
-    g = _grads_np(cfg, params_np, batch_np)
+    g = _grads_np(arch, over)
     for i, (path, spec) in enumerate(zip(g, _specs(cfg, shape))):
         for m, got in enumerate(_model_blocks(res, tag, i, shape)):
             block = _block(g[path], spec, shape, m)
@@ -444,9 +432,9 @@ def test_cp_whole_leaves_are_not_summed(ranks, arch, shape, over):
     not a share to be summed over "model"; ``wq`` and ``wo`` hold 1/m."""
     tag = _tag(arch, shape, over)
     res = _rank_results(ranks, shape)
-    cfg, params_np, batch_np = step_inputs(arch, over)
+    cfg = step_inputs(arch, over)[0]
     plan = _plan(cfg, shape)
-    g = _grads_np(cfg, params_np, batch_np)
+    g = _grads_np(arch, over)
     m = shape[1]
     seen = set()
     for i, (path, x) in enumerate(leaves_with_path(param_shapes(cfg))):
@@ -532,7 +520,7 @@ def test_placed_generate_matches_one_process(ranks, arch, shape, over, new, mode
     res = _rank_results(ranks, shape)
     cfg, params_np, prompts_np = serve_inputs(arch, over)
     params = params_from_numpy(params_np, "cpu")
-    prompts = torch.from_numpy(prompts_np)
+    prompts = torch.tensor(prompts_np)
     ref = generate(params, cfg, prompts, new)
     with torch.no_grad():
         logits, cache = prefill(params, cfg, prompts, SERVE_PROMPT + new)

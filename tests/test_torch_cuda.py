@@ -13,6 +13,7 @@ import torch
 
 import repro_torch.kernels as tk
 from repro_torch.kernels.psu import MAX_N, psu_sort_cuda
+from torch_groups import torch_threads  # noqa: F401
 
 
 @pytest.fixture

@@ -1,8 +1,8 @@
 """repro_torch's distribution layer over gloo process groups on the CPU.
 
 Each group runs as separate processes (``file://`` rendezvous in the
-test's directory, one CPU thread each) that write their results for this
-process to compare:
+test's directory, one CPU thread each, no JAX loaded: ``torch_groups.py``)
+that write their results for this process to compare:
 
 * the rule-placed train step (``launch.step``, tensor-parallel over
   "model") over 4 ranks, 2 "data" x 2 "model", on the smoke internlm2-1.8b
@@ -33,40 +33,26 @@ process to compare:
   unsharded ``bt_count_axes``.
 """
 
-import os
-import subprocess
-import sys
-import textwrap
-from pathlib import Path
-
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import draw_params
-from repro import kernels as rk
-from repro.configs import smoke_config as rsmoke_config
-from repro.optim import AdamWConfig as RAdamWConfig
-from repro.optim import init as ropt_init
-from repro.train import make_train_step as rmake_train_step
 from repro_torch import kernels as tk
 from repro_torch import optim
 from repro_torch._tree import leaves, leaves_with_path
 from repro_torch.configs import smoke_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.train import make_train_step
+from torch_groups import load, ranks as start_ranks, reference, run_ranks, shared, tensors, wait
+from torch_groups import torch_threads  # noqa: F401
 
-ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 240
 REL_TOL = 1e-5  # placed step vs the one-process port step
 # params vs the one-process step's params: AdamW divides each element by its
 # own magnitude, so a tiny cancelling gradient element (near the optimizer's
 # eps) carries its float32 summation noise into the update (test_torch_tp.py)
 PARAM_TOL = 2e-4
 REF_TOL = 5e-3  # vs the reference's jitted step (tests/test_distributed.py)
-LR = RAdamWConfig().peak_lr
 
 STEP = {"arch": "internlm2-1.8b", "overrides": {"d_model": 64, "n_heads": 4, "n_kv_heads": 4,
                                                 "dtype": "float32"},
@@ -80,28 +66,7 @@ AXES = {"links": 7, "p": 40, "n": 16, "valid": [40, 33, 0, 40, 17, 40, 5],
                  ("none", None, False, "gray")]}
 
 
-def _run_ranks(tmp: Path, script: str, world: int) -> None:
-    """Run ``script`` as ``world`` processes (argv: rank, world, dir); the
-    workers import this module for its input builders."""
-    path = tmp / "worker.py"
-    path.write_text(textwrap.dedent(script))
-    env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]))
-    procs = [subprocess.Popen([sys.executable, str(path), str(r), str(world), str(tmp)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-             for r in range(world)]
-    errs = []
-    try:
-        for p in procs:
-            _, err = p.communicate(timeout=TIMEOUT)
-            if p.returncode:
-                errs.append(err[-3000:])
-    finally:
-        for p in procs:
-            p.kill()
-    assert not errs, "\n".join(errs)
-
-
+@shared
 def step_inputs():
     cfg = smoke_config(STEP["arch"], **STEP["overrides"])
     params = draw_params(cfg, np.random.default_rng(STEP["seed"]))
@@ -112,15 +77,11 @@ def step_inputs():
 
 
 _STEP_WORKER = """
-    import sys
-    import numpy as np, torch, torch.distributed as dist
-    rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method="file://" + out + "/store", rank=rank,
-                            world_size=world)
-    import copy, dataclasses
+    import copy, dataclasses, sys
     from types import SimpleNamespace
+    import numpy as np, torch
     from test_torch_distributed import COMPRESSED_STEPS, STEP, VARIANTS, compressed_steps, step_inputs
+    from torch_groups import join, leave, tensors
     from repro_torch import _obs_hooks, optim
     from repro_torch._tree import leaves
     from repro_torch.convert import params_from_numpy
@@ -128,6 +89,7 @@ _STEP_WORKER = """
     from repro_torch.launch.step import gather, make_placed_train_step, place_state
     from repro_torch.roofline import record_collectives
 
+    rank, world, out = join(sys.argv)
     mesh = _device_mesh((2, 2), ("data", "model"), "cpu")
     cfg0, params_np, batch_np = step_inputs()
     ocfg = optim.AdamWConfig(total_steps=10, warmup_steps=1)
@@ -139,7 +101,7 @@ _STEP_WORKER = """
         params = params_from_numpy(copy.deepcopy(params_np), "cpu")  # updated in place
         p, o = place_state(cfg, mesh, params)
         step = make_placed_train_step(cfg, ocfg, mesh, compression=comp)
-        batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+        batch = tensors(batch_np)
         norms, tapped = [], []
         _obs_hooks.TAP = SimpleNamespace(tap=lambda kind, payload: tapped.append(
             [g.clone() for g in leaves(payload["grads"])]))
@@ -166,8 +128,7 @@ _STEP_WORKER = """
                     res[f"{name}/local_{key}{i}"] = x.to_local().numpy().copy()
             want = compressed_steps(cfg, ocfg, comp, mesh, tapped)
             res.update({f"{name}/want_{k}": v for k, v in want.items()})
-    np.savez(out + f"/step{rank}.npz", **res)
-    dist.destroy_process_group()
+    leave(out + f"/step{rank}.npz", res)
 """
 
 
@@ -228,8 +189,8 @@ def compressed_steps(cfg, ocfg, comp, mesh, tapped: list) -> dict:
 @pytest.fixture(scope="module")
 def step_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("placed_step")
-    _run_ranks(tmp, _STEP_WORKER, 4)
-    return [dict(np.load(tmp / f"step{r}.npz")) for r in range(4)]
+    run_ranks(tmp, _STEP_WORKER, 4)
+    return load(tmp, 4, "step")
 
 
 def _rel(a, b) -> float:
@@ -237,25 +198,32 @@ def _rel(a, b) -> float:
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
-def _one_process(over: dict):
+@shared
+def _one_process(name: str):
+    """The one-process port step of variant ``name``: (params, metrics)."""
     import dataclasses
 
     cfg, params_np, batch_np = step_inputs()
-    cfg = dataclasses.replace(cfg, **over)
+    cfg = dataclasses.replace(cfg, **VARIANTS[name])
     params = params_from_numpy(params_np, "cpu")
     ocfg = optim.AdamWConfig(total_steps=10, warmup_steps=1)
     p, _, m = make_train_step(cfg, ocfg)(params, optim.init(params),
-                                         {k: torch.from_numpy(v) for k, v in batch_np.items()})
-    return [x.numpy() for x in leaves(p)], m
+                                         tensors(batch_np))
+    return [x.numpy() for x in leaves(p)], {k: v.numpy() for k, v in m.items()}
 
 
-def _row_grads(cfg, params_np, batch_np, rows: slice) -> list:
+@shared
+def _row_grads(name: str, lo: int, hi: int) -> list:
+    """The one-process gradient of variant ``name`` on rows ``lo:hi``."""
+    import dataclasses
+
     from repro_torch.train.step import make_loss_fn, value_and_grad
 
+    cfg, params_np, batch_np = step_inputs()
+    cfg = dataclasses.replace(cfg, **VARIANTS[name])
     params = params_from_numpy(params_np, "cpu")
-    _, g = value_and_grad(make_loss_fn(cfg), params, {k: torch.from_numpy(v[rows])
-                                                       for k, v in batch_np.items()})
-    return leaves(g)
+    _, g = value_and_grad(make_loss_fn(cfg), params, tensors(batch_np, slice(lo, hi)))
+    return [x.numpy() for x in leaves(g)]
 
 
 @pytest.mark.parametrize("name", sorted(VARIANTS))
@@ -267,9 +235,9 @@ def test_placed_step_matches_one_process_step(step_run, name):
     from repro_torch.launch.sharding import params_shardings
 
     res = step_run[0]
-    want, m = _one_process(VARIANTS[name])
-    assert _rel(res[f"{name}/loss"], m["loss"].numpy()) < REL_TOL
-    assert _rel(res[f"{name}/grad_norm"], m["grad_norm"].numpy()) < REL_TOL
+    want, m = _one_process(name)
+    assert _rel(res[f"{name}/loss"], m["loss"]) < REL_TOL
+    assert _rel(res[f"{name}/grad_norm"], m["grad_norm"]) < REL_TOL
     cfg, params_np, batch_np = step_inputs()
     cfg = dataclasses.replace(cfg, **VARIANTS[name])
     mesh = AbstractMesh((2, 2), ("data", "model"))
@@ -277,7 +245,7 @@ def test_placed_step_matches_one_process_step(step_run, name):
     params = params_from_numpy(params_np, "cpu")
     specs = [sh.spec for sh in leaves(params_shardings(cfg, mesh, params))]
     rows = STEP["batch"] // 2
-    per_data = [_row_grads(cfg, params_np, batch_np, slice(d * rows, (d + 1) * rows))
+    per_data = [[torch.tensor(g) for g in _row_grads(name, d * rows, (d + 1) * rows)]
                 for d in range(2)]
     grads = []
     for i, (path, spec) in enumerate(zip([p for p, _ in leaves_with_path(params)], specs)):
@@ -308,6 +276,14 @@ def test_placed_step_matches_one_process_step(step_run, name):
 
 
 def test_placed_step_matches_reference_step(step_run):
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import smoke_config as rsmoke_config
+    from repro.optim import AdamWConfig as RAdamWConfig
+    from repro.optim import init as ropt_init
+    from repro.train import make_train_step as rmake_train_step
+
     cfg, params_np, batch_np = step_inputs()
     rcfg = rsmoke_config(STEP["arch"], **STEP["overrides"])
     params = jax.tree.map(jnp.asarray, params_np)
@@ -386,13 +362,11 @@ PSUM_CASES = ("none", "bf16", "int8_ef", "int8_ef_ordered")
 
 _PSUM_WORKER = """
     import sys
-    import numpy as np, torch, torch.distributed as dist
-    rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method="file://" + out + "/store", rank=rank,
-                            world_size=world)
+    import torch, torch.distributed as dist
     from test_torch_distributed import AXES, PSUM, PSUM_CASES, axes_inputs, psum_inputs, psum_perm
     from repro_torch import kernels, optim
+    from torch_groups import join, leave
+    rank, world, out = join(sys.argv)
     group = dist.group.WORLD
     res = {}
     perm, inv = (torch.from_numpy(a) for a in psum_perm())
@@ -412,8 +386,7 @@ _PSUM_WORKER = """
             tag = f"axes/{act}/{chunk}"
             for i, t in enumerate([r] if act is None else r):
                 res[f"{tag}/{i}"] = t.numpy()
-    np.savez(out + f"/psum{rank}.npz", **res)
-    dist.destroy_process_group()
+    leave(out + f"/psum{rank}.npz", res)
 """
 
 _PSUM_REFERENCE = """
@@ -423,7 +396,7 @@ _PSUM_REFERENCE = """
     from repro.compat import shard_map
     from repro.optim import CompressionConfig, compressed_psum
     from test_torch_distributed import PSUM, PSUM_CASES, psum_inputs, psum_perm
-    out = sys.argv[3]
+    out = sys.argv[1]
     mesh = jax.make_mesh((2,), ("data",))
     perm, inv = (jnp.asarray(a) for a in psum_perm())
     res = {}
@@ -456,18 +429,9 @@ def axes_inputs():
 @pytest.fixture(scope="module")
 def psum_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("psum")
-    _run_ranks(tmp, _PSUM_WORKER, 2)
     ref = tmp_path_factory.mktemp("psum_reference")
-    script = ref / "reference.py"
-    script.write_text(textwrap.dedent(_PSUM_REFERENCE))
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=2",
-               JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
-                   [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]))
-    out = subprocess.run([sys.executable, str(script), "0", "1", str(ref)], capture_output=True,
-                         text=True, env=env, timeout=TIMEOUT)
-    assert out.returncode == 0, out.stderr[-3000:]
-    return [dict(np.load(tmp / f"psum{r}.npz")) for r in range(2)], dict(
-        np.load(ref / "reference.npz"))
+    wait(start_ranks(tmp, _PSUM_WORKER, 2) + [reference(ref, _PSUM_REFERENCE, 2)])
+    return load(tmp, 2, "psum"), dict(np.load(ref / "reference.npz"))
 
 
 @pytest.mark.parametrize("case", PSUM_CASES)
@@ -481,6 +445,10 @@ def test_compressed_psum_over_gloo_matches_reference_shard_map(psum_run, case):
 
 @pytest.mark.parametrize("act", [None, 3])
 def test_sharded_link_axis_matches_unsharded(psum_run, act):
+    import jax.numpy as jnp
+
+    from repro import kernels as rk
+
     ranks, _ = psum_run
     x, w, valid, configs = axes_inputs()
     want = tk.bt_count_axes(x, w, valid, configs, activity_windows=act)

@@ -26,6 +26,7 @@ from repro.noc import NocLatencyModel as RLat
 from repro_torch import obs as tobs
 from repro_torch.convert import design_point_from_reference
 from repro_torch.noc import NocLatencyModel as TLat
+from torch_groups import torch_threads  # noqa: F401
 
 
 def _workloads(streams, lanes=16, name="w"):

@@ -10,10 +10,11 @@ placed serving (``serve.py``) and the dry run.
   block on heads, the MLPs on ``d_ff``, embed and head on ``d``, with no
   partial leaf; the smoke config on 16 x 16 (4 heads) would take
   attention's contraction split, which the encoder-decoder refuses.
-* gloo groups of 2 and 4 ranks (separate processes, ``_run_ranks`` of
-  ``test_torch_distributed.py``), the smoke whisper at float32 on (1, 2),
-  (2, 2) and (1, 4), and with a 255-token vocabulary on (1, 2), so embed
-  and head take the "d" split as whisper-medium's do.  Two placed steps:
+* gloo groups of 2 and 4 ranks (separate processes, ``torch_groups.py``;
+  both groups and the reference's subprocess run at once), the smoke
+  whisper at float32 on (1, 2), (2, 2) and (1, 4), and with a 255-token
+  vocabulary on (1, 2), so embed and head take the "d" split as
+  whisper-medium's do.  Two placed steps:
 
   - each rank's gradient block, before any reduction (averaged over
     "data"), within ``TOL`` of the one-process gradient at the same
@@ -43,12 +44,6 @@ placed serving (``serve.py``) and the dry run.
 
 import copy
 import math
-import os
-import subprocess
-import sys
-import textwrap
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -66,9 +61,9 @@ from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import param_shapes
 from repro_torch.train import make_train_step
 from repro_torch.train.step import make_loss_fn, value_and_grad
+from torch_groups import load, ranks as start_ranks, reference, shared, tensors, wait
+from torch_groups import torch_threads  # noqa: F401
 
-ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 240
 TOL = 1e-5  # gradients, losses, grad norms, logits, caches: summation order only
 UPDATE_TOL = 1e-6  # params vs the one-process AdamW on the assembled gradient
 PARAM_TOL = 2e-4  # params vs the one-process step (AdamW's elementwise scaling)
@@ -94,6 +89,7 @@ def _cfg(over: dict):
     return smoke_config(ARCH, dtype="float32", **over)
 
 
+@shared
 def step_inputs(over: dict):
     cfg = _cfg(over)
     params = draw_params(cfg, np.random.default_rng(0))
@@ -104,6 +100,7 @@ def step_inputs(over: dict):
     return cfg, params, batch
 
 
+@shared
 def serve_inputs(over: dict):
     cfg = _cfg(over)
     params = draw_params(cfg, np.random.default_rng(0))
@@ -137,7 +134,7 @@ def _placed_steps(shape, over, mesh) -> dict:
     params = params_from_numpy(params_np, "cpu")
     p, o = place_state(cfg, mesh, params)
     step = make_placed_train_step(cfg, OCFG, mesh)
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     tapped, losses, norms = [], [], []
     _obs_hooks.TAP = SimpleNamespace(tap=lambda kind, payload: tapped.append(
         [g.clone() for g in leaves(payload["grads"])]))
@@ -171,7 +168,7 @@ def _placed_serve(shape, over, mesh) -> dict:
     tag = _tag(shape, over) + "/serve"
     cfg, params_np, prompts_np, frames_np = serve_inputs(over)
     local = ps.shard_params(cfg, mesh, params_from_numpy(params_np, "cpu"))
-    prompts, frames = torch.from_numpy(prompts_np), torch.from_numpy(frames_np)
+    prompts, frames = torch.tensor(prompts_np), torch.tensor(frames_np)
     res = ps.generate(local, cfg, mesh, prompts, SERVE_NEW, frames=frames)
     plan = tp_model.make_plan(cfg, mesh, "serve")
     max_len = SERVE_PROMPT + SERVE_NEW
@@ -211,14 +208,10 @@ def run_rank(world: int) -> dict:
 
 _WORKER = """
     import sys
-    import numpy as np, torch, torch.distributed as dist
-    rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method="file://" + out + "/store", rank=rank,
-                            world_size=world)
     from test_torch_encdec_tp import run_rank
-    np.savez(out + f"/rank{rank}.npz", **run_rank(world))
-    dist.destroy_process_group()
+    from torch_groups import join, leave
+    rank, world, out = join(sys.argv)
+    leave(out + f"/rank{rank}.npz", run_rank(world))
 """
 
 _REFERENCE = """
@@ -265,30 +258,13 @@ _REFERENCE = """
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """{world: [each rank's results]} and the reference's results; the
-    reference's subprocess runs beside the ranks."""
-    from test_torch_distributed import _run_ranks
-
+    """{world: [each rank's results]} and the reference's results: both
+    groups and the reference's subprocess run at once."""
+    tmps = {world: tmp_path_factory.mktemp(f"encdec{world}") for world in (2, 4)}
     ref = tmp_path_factory.mktemp("encdec_reference")
-    (ref / "reference.py").write_text(textwrap.dedent(_REFERENCE))
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
-                   [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]))
-    reference = subprocess.Popen([sys.executable, str(ref / "reference.py"), str(ref)],
-                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                                 env=env)
-    try:
-        tmps = {world: tmp_path_factory.mktemp(f"encdec{world}") for world in (2, 4)}
-        with ThreadPoolExecutor(2) as pool:  # both groups at once
-            for f in [pool.submit(_run_ranks, tmp, _WORKER, w) for w, tmp in tmps.items()]:
-                f.result()
-        out = {w: [dict(np.load(tmp / f"rank{r}.npz")) for r in range(w)]
-               for w, tmp in tmps.items()}
-        _, err = reference.communicate(timeout=TIMEOUT)
-    finally:
-        reference.kill()
-    assert reference.returncode == 0, err[-3000:]
-    return out, dict(np.load(ref / "reference.npz"))
+    wait([p for w, tmp in tmps.items() for p in start_ranks(tmp, _WORKER, w)] +
+         [reference(ref, _REFERENCE, 4)])
+    return {w: load(tmp, w) for w, tmp in tmps.items()}, dict(np.load(ref / "reference.npz"))
 
 
 def _rank_results(ranks, shape) -> list:
@@ -336,19 +312,31 @@ def _block(x: np.ndarray, spec, shape, model_index: int) -> np.ndarray:
     return x[tuple(idx)]
 
 
-def _grads_np(cfg, params_np, batch_np) -> dict:
-    """path -> the one-process gradient of the whole batch, in leaf order."""
+def _grads_at(cfg, params_np, batch_np) -> tuple:
+    """The one-process loss, grad norm and gradient (path -> array, in leaf
+    order) of the whole batch at ``params_np``."""
+    from repro_torch.optim.adamw import global_norm
+
     params = params_from_numpy(copy.deepcopy(params_np), "cpu")
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
-    _, g = value_and_grad(make_loss_fn(cfg), params, batch)
-    return {p: x.numpy() for p, x in leaves_with_path(g)}
+    batch = tensors(batch_np)
+    loss, g = value_and_grad(make_loss_fn(cfg), params, batch)
+    return float(loss), float(global_norm(g)), {p: x.numpy() for p, x in leaves_with_path(g)}
 
 
-def _one_process_steps(cfg, params_np, batch_np, steps: int = STEPS):
+@shared
+def _grads_np(over: dict) -> tuple:
+    """:func:`_grads_at` of the initial params."""
+    return _grads_at(*step_inputs(over))
+
+
+@shared
+def _one_process_steps(over: dict, steps: int = STEPS):
+    """The one-process port's params after ``steps`` steps."""
+    cfg, params_np, batch_np = step_inputs(over)
     params = params_from_numpy(copy.deepcopy(params_np), "cpu")
     step = make_train_step(cfg, OCFG, donate=True)
     state = optim.init(params)
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     for _ in range(steps):
         params, state, _ = step(params, state, batch)
     return [x.numpy() for x in leaves(params)]
@@ -452,7 +440,7 @@ def test_one_rank_forward_prefill_decode_are_the_one_process_op_sequence():
 
     cfg, params_np, batch_np = step_inputs({})
     params = params_from_numpy(params_np, "cpu")
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     plan = _plan(cfg, (1, 1))
     with torch.no_grad():
         h, _ = tp_model.forward(params, plan, batch["tokens"], batch["frames"])
@@ -460,7 +448,7 @@ def test_one_rank_forward_prefill_decode_are_the_one_process_op_sequence():
         assert torch.equal(tp_model.make_loss_fn(plan)(params, batch),
                            make_loss_fn(cfg)(params, batch))
         _, _, prompts, frames = serve_inputs({})
-        prompts, frames = torch.from_numpy(prompts), torch.from_numpy(frames)
+        prompts, frames = torch.tensor(prompts), torch.tensor(frames)
         splan = _plan(cfg, (1, 1), "serve")
         got, gc = ps.prefill(params, splan, prompts, 12, "heads", frames=frames)
         want, wc = prefill(params, cfg, prompts, 12, frames=frames)
@@ -492,21 +480,15 @@ def test_encdec_step_matches_one_process_step(ranks, shape, over):
     run's after its first step), every encoder and cross-attention leaf
     among them; the params after the first step within ``PARAM_TOL`` of
     the one-process step's where the gradient's sign is steady."""
-    from repro_torch.optim.adamw import global_norm
-
     tag = _tag(shape, over)
     res = _rank_results(ranks, shape)
     cfg, params_np, batch_np = step_inputs(over)
-    want = _one_process_steps(cfg, params_np, batch_np, 1)
+    want = _one_process_steps(over, 1)
     paths = [x for x, _ in leaves_with_path(param_shapes(cfg))]
-    before = [params_np, unflatten_like(params_np, [res[0][f"{tag}/q{i}"]
-                                                    for i in range(len(paths))])]
+    after = unflatten_like(params_np, [res[0][f"{tag}/q{i}"] for i in range(len(paths))])
     held = set()
-    for step, p in enumerate(before):
-        loss, g = value_and_grad(make_loss_fn(cfg), params_from_numpy(copy.deepcopy(p), "cpu"),
-                                 {k: torch.from_numpy(v) for k, v in batch_np.items()})
-        norm = float(global_norm(g))
-        g = {x: t.numpy() for x, t in leaves_with_path(g)}
+    for step in range(2):
+        loss, norm, g = _grads_np(over) if step == 0 else _grads_at(cfg, after, batch_np)
         for r in res:
             assert _rel(r[f"{tag}/losses"][step], float(loss)) < TOL, step
             assert _rel(r[f"{tag}/grad_norms"][step], norm) < TOL, step
@@ -553,10 +535,10 @@ def test_encdec_whole_leaves_are_not_summed(ranks, shape, over):
     hold 1/m."""
     tag = _tag(shape, over)
     res = _rank_results(ranks, shape)
-    cfg, params_np, batch_np = step_inputs(over)
+    cfg = step_inputs(over)[0]
     plan = _plan(cfg, shape)
     assert plan.partial == frozenset()
-    g = _grads_np(cfg, params_np, batch_np)
+    g = _grads_np(over)[2]
     m = shape[1]
     whole = set()
     for i, ((path, x), spec) in enumerate(zip(leaves_with_path(param_shapes(cfg)),
@@ -623,18 +605,24 @@ def test_encdec_step_matches_reference_gspmd_step(ranks):
         assert f"{tag}/p{len(p0)}" not in r and f"p{len(p0)}" not in ref
 
 
+@shared
 def _serve_reference(over: dict):
+    """The one-process port's serving of ``serve_inputs(over)``: (config,
+    tokens, log-probabilities, the prefill's logits, its caches, a decode
+    step's logits)."""
     from repro_torch.models import decode_step, prefill
     from repro_torch.serve import generate
 
     cfg, params_np, prompts_np, frames_np = serve_inputs(over)
     params = params_from_numpy(params_np, "cpu")
-    prompts, frames = torch.from_numpy(prompts_np), torch.from_numpy(frames_np)
+    prompts, frames = torch.tensor(prompts_np), torch.tensor(frames_np)
     ref = generate(params, cfg, prompts, SERVE_NEW, frames=frames)
     with torch.no_grad():
         logits, cache = prefill(params, cfg, prompts, SERVE_PROMPT + SERVE_NEW, frames=frames)
         step_logits, _ = decode_step(params, cfg, cache, ref.tokens[:, :1].to(torch.int32))
-    return cfg, ref, logits, cache, step_logits
+    caches = {k: cache[k].numpy() for k in ("cross_k", "cross_v", "k")}
+    return (cfg, ref.tokens.numpy(), ref.logprobs.numpy(), logits.numpy(), caches,
+            step_logits.numpy())
 
 
 @pytest.mark.parametrize("shape,over", SERVE_CASES, ids=_IDS)
@@ -646,7 +634,7 @@ def test_placed_generate_matches_one_process(ranks, shape, over):
     decode unchanged."""
     tag = _tag(shape, over) + "/serve"
     res = _rank_results(ranks, shape)
-    cfg, ref, logits, cache, step_logits = _serve_reference(over)
+    cfg, tokens, logprobs, logits, cache, step_logits = _serve_reference(over)
     dn, m = shape
     plan = _plan(cfg, shape, "serve")
     rows = SERVE_BATCH // dn
@@ -654,18 +642,18 @@ def test_placed_generate_matches_one_process(ranks, shape, over):
     for i, r in enumerate(res):
         d, j = divmod(i, m)
         b = slice(d * rows, (d + 1) * rows)
-        np.testing.assert_array_equal(r[f"{tag}/tokens"], ref.tokens[b])
-        assert float(np.abs(r[f"{tag}/logprobs"] - ref.logprobs[b].numpy()).max()) <= TOL
+        np.testing.assert_array_equal(r[f"{tag}/tokens"], tokens[b])
+        assert float(np.abs(r[f"{tag}/logprobs"] - logprobs[b]).max()) <= TOL
         assert str(r[f"{tag}/mode"]) == "heads" and bool(r[f"{tag}/kept"])
         for key in ("cross_k", "cross_v", "k"):
-            want = cache[key][:, b, :, j * hk: (j + 1) * hk].numpy()
+            want = cache[key][:, b, :, j * hk: (j + 1) * hk]
             assert r[f"{tag}/{key}"].shape == want.shape, key
             assert _rel(r[f"{tag}/{key}"], want) <= TOL, key
     for key, want in (("prefill", logits), ("decode", step_logits)):
         for d in range(dn):
             blocks = [res[d * m + j][f"{tag}/{key}"] for j in range(m)]
             got = np.concatenate(blocks, axis=-1) if plan.head == "vocab" else blocks[0]
-            assert _rel(got, want[d * rows: (d + 1) * rows].numpy()) <= TOL, key
+            assert _rel(got, want[d * rows: (d + 1) * rows]) <= TOL, key
 
 
 @pytest.mark.parametrize("shape,over", SERVE_CASES, ids=_IDS)

@@ -11,11 +11,11 @@ family's plan and block (``launch/tp_model.py``), the placed step
   range and the router split at m = 2, 4, 8, the padded experts of each
   rank, the reason given for a ``d_ff`` split of the experts, and
   attention's contraction split of granite's baseline 16 x 16.
-* gloo groups of 2 and 4 ranks (separate processes, ``_run_ranks`` of
-  ``test_torch_distributed.py``): the smoke granite on (1, 2) (kv heads
-  split), (2, 2) and (1, 4) (kv heads replicated; rank 3 holds only padded
-  experts), the smoke qwen3-moe (FSDP in training, "data" of one rank) on
-  (1, 2) and (1, 4).  On every rank:
+* gloo groups of 2 and 4 ranks (separate processes, ``torch_groups.py``;
+  both groups and the reference's subprocess run at once): the smoke
+  granite on (1, 2) (kv heads split), (2, 2) and (1, 4) (kv heads
+  replicated; rank 3 holds only padded experts), the smoke qwen3-moe (FSDP
+  in training, "data" of one rank) on (1, 2) and (1, 4).  On every rank:
 
   - the routing of a fixed input (``tp_model.moe_route``: expert choices,
     capacity slots, kept choices) equal to ``models.moe.route``'s, and the
@@ -52,11 +52,6 @@ family's plan and block (``launch/tp_model.py``), the placed step
 import copy
 import dataclasses
 import math
-import os
-import subprocess
-import sys
-import textwrap
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -75,9 +70,9 @@ from repro_torch.launch.specs import TRAIN_MICROBATCHES
 from repro_torch.models import moe as _moe
 from repro_torch.train import make_train_step
 from repro_torch.train.step import make_loss_fn, value_and_grad
+from torch_groups import load, ranks as start_ranks, reference, shared, tensors, wait
+from torch_groups import torch_threads  # noqa: F401
 
-ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 240
 TOL = 1e-5  # gradients, losses, grad norms, logits: summation order only
 BUFFER_TOL = 1e-6  # a rank's expert buffers vs the one-process buffers' block
 UPDATE_TOL = 1e-6  # params vs the one-process AdamW on the assembled gradient
@@ -104,6 +99,7 @@ def _tag(arch: str, mesh: tuple) -> str:
     return f"{arch}@{'x'.join(map(str, mesh))}"
 
 
+@shared
 def step_inputs(arch: str):
     cfg = smoke_config(arch, dtype="float32")
     params = draw_params(cfg, np.random.default_rng(0))
@@ -113,6 +109,7 @@ def step_inputs(arch: str):
     return cfg, params, batch
 
 
+@shared
 def serve_inputs(arch: str):
     cfg = smoke_config(arch, dtype="float32")
     params = draw_params(cfg, np.random.default_rng(0))
@@ -166,7 +163,7 @@ def _placed_steps(arch, shape, mesh) -> dict:
     params = params_from_numpy(params_np, "cpu")
     p, o = place_state(cfg, mesh, params)
     step = make_placed_train_step(cfg, OCFG, mesh)
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     tapped, losses, norms = [], [], []
     _obs_hooks.TAP = SimpleNamespace(tap=lambda kind, payload: tapped.append(
         [g.clone() for g in leaves(payload["grads"])]))
@@ -199,7 +196,7 @@ def _placed_serve(arch, shape, new, mesh) -> dict:
     tag = _tag(arch, shape) + f"/{new}"
     cfg, params_np, prompts_np = serve_inputs(arch)
     local = ps.shard_params(cfg, mesh, params_from_numpy(params_np, "cpu"))
-    prompts = torch.from_numpy(prompts_np)
+    prompts = torch.tensor(prompts_np)
     res = ps.generate(local, cfg, mesh, prompts, new)
     plan = tp_model.make_plan(cfg, mesh, "serve")
     max_len = SERVE_PROMPT + new
@@ -234,14 +231,10 @@ def run_rank(world: int) -> dict:
 
 _WORKER = """
     import sys
-    import numpy as np, torch, torch.distributed as dist
-    rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method="file://" + out + "/store", rank=rank,
-                            world_size=world)
     from test_torch_ep import run_rank
-    np.savez(out + f"/rank{rank}.npz", **run_rank(world))
-    dist.destroy_process_group()
+    from torch_groups import join, leave
+    rank, world, out = join(sys.argv)
+    leave(out + f"/rank{rank}.npz", run_rank(world))
 """
 
 _REFERENCE = """
@@ -253,7 +246,7 @@ _REFERENCE = """
     from repro.optim import init as opt_init
     from repro.train import make_loss_fn, make_train_step
     from test_torch_ep import GRANITE, STEPS, step_inputs
-    out = sys.argv[3]
+    out = sys.argv[1]
     mesh = jax.make_mesh((2, 2), ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
     cfg = smoke_config(GRANITE, dtype="float32")
@@ -284,23 +277,13 @@ _REFERENCE = """
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """{world: [each rank's results]} and the reference's results."""
-    from test_torch_distributed import _run_ranks
-
-    out = {}
-    for world in (2, 4):
-        tmp = tmp_path_factory.mktemp(f"ep{world}")
-        _run_ranks(tmp, _WORKER, world)
-        out[world] = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
+    """{world: [each rank's results]} and the reference's results: both
+    groups and the reference's subprocess run at once."""
+    tmps = {world: tmp_path_factory.mktemp(f"ep{world}") for world in (2, 4)}
     ref = tmp_path_factory.mktemp("ep_reference")
-    (ref / "reference.py").write_text(textwrap.dedent(_REFERENCE))
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
-                   [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]))
-    run = subprocess.run([sys.executable, str(ref / "reference.py"), "0", "1", str(ref)],
-                         capture_output=True, text=True, env=env, timeout=TIMEOUT)
-    assert run.returncode == 0, run.stderr[-3000:]
-    return out, dict(np.load(ref / "reference.npz"))
+    wait([p for w, tmp in tmps.items() for p in start_ranks(tmp, _WORKER, w)] +
+         [reference(ref, _REFERENCE, 4)])
+    return {w: load(tmp, w) for w, tmp in tmps.items()}, dict(np.load(ref / "reference.npz"))
 
 
 def _rank_results(ranks, shape) -> list:
@@ -344,19 +327,24 @@ def _block(x: np.ndarray, spec, shape, model_index: int) -> np.ndarray:
     return x[tuple(idx)]
 
 
-def _grads_np(cfg, params_np, batch_np, rows) -> dict:
-    """path -> the one-process gradient of the batch's ``rows``."""
+@shared
+def _grads_np(arch: str) -> dict:
+    """path -> the one-process gradient of the whole batch."""
+    cfg, params_np, batch_np = step_inputs(arch)
     params = params_from_numpy(copy.deepcopy(params_np), "cpu")
-    local = {k: torch.from_numpy(v[rows]) for k, v in batch_np.items()}
-    _, g = value_and_grad(make_loss_fn(cfg), params, local)
+    batch = tensors(batch_np)
+    _, g = value_and_grad(make_loss_fn(cfg), params, batch)
     return {p: x.numpy() for p, x in leaves_with_path(g)}
 
 
-def _one_process_steps(cfg, params_np, batch_np):
+@shared
+def _one_process_steps(arch: str):
+    """The one-process port's STEPS steps: (params, losses, grad norms)."""
+    cfg, params_np, batch_np = step_inputs(arch)
     params = params_from_numpy(copy.deepcopy(params_np), "cpu")
     step = make_train_step(cfg, OCFG, donate=True)
     state, losses, norms = optim.init(params), [], []
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     for _ in range(STEPS):
         params, state, m = step(params, state, batch)
         losses.append(float(m["loss"]))
@@ -402,7 +390,7 @@ def test_one_rank_is_the_one_process_step_bitwise(one_rank, arch):
 
     cfg, params_np, batch_np = step_inputs(arch)
     params = params_from_numpy(copy.deepcopy(params_np), "cpu")
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     plan = tp_model.make_plan(cfg, one_rank)
     assert plan.experts == (0, cfg.moe.padded_experts) and plan.split == frozenset()
     h, aux = tp_model.forward(params, plan, batch["tokens"])
@@ -416,15 +404,15 @@ def test_one_rank_is_the_one_process_step_bitwise(one_rank, arch):
     for _ in range(STEPS):
         p, o, m = step(p, o, batch)
         got.append((float(m["loss"]), float(m["grad_norm"])))
-    want, losses, norms = _one_process_steps(cfg, params_np, batch_np)
+    want, losses, norms = _one_process_steps(arch)
     assert got == list(zip(losses, norms))
     for a, b in zip(leaves(p), want):
-        assert torch.equal(a.to_local(), torch.from_numpy(b))
+        assert torch.equal(a.to_local(), torch.tensor(b))
     _, sp, prompts = serve_inputs(arch)
     whole = params_from_numpy(sp, "cpu")
     res = ps.generate(ps.shard_params(cfg, one_rank, whole), cfg, one_rank,
-                      torch.from_numpy(prompts), 4)
-    ref = generate(whole, cfg, torch.from_numpy(prompts), 4)
+                      torch.tensor(prompts), 4)
+    ref = generate(whole, cfg, torch.tensor(prompts), 4)
     assert torch.equal(res.tokens, ref.tokens) and torch.equal(res.logprobs, ref.logprobs)
 
 
@@ -491,7 +479,7 @@ def test_routing_equals_the_one_process_routing(ranks, arch, shape):
     tag = _tag(arch, shape)
     cfg = smoke_config(arch, dtype="float32")
     _, params_np, _ = step_inputs(arch)
-    lp = {k: torch.from_numpy(v[0]) for k, v in params_np["layers"]["moe"].items()}
+    lp = tensors(params_np["layers"]["moe"], 0)
     x = torch.from_numpy(route_input(cfg))
     e, m = cfg.moe.padded_experts, shape[1]
     for dropless in (False, True):
@@ -515,15 +503,15 @@ def test_routing_equals_the_one_process_routing(ranks, arch, shape):
 def test_ep_step_matches_one_process_step(ranks, arch, shape):
     tag = _tag(arch, shape)
     res = _rank_results(ranks, shape)
-    cfg, params_np, batch_np = step_inputs(arch)
-    want, losses, norms = _one_process_steps(cfg, params_np, batch_np)
+    cfg = step_inputs(arch)[0]
+    want, losses, norms = _one_process_steps(arch)
     for r in res:
         assert _rel(r[f"{tag}/losses"], losses) < TOL
         assert _rel(r[f"{tag}/grad_norms"], norms) < TOL
         for i, w in enumerate(want):
             assert _rel(r[f"{tag}/p{i}"], w) < PARAM_TOL, i
     plan = _plan(cfg, shape)
-    g = _grads_np(cfg, params_np, batch_np, slice(None))
+    g = _grads_np(arch)
     for i, (path, spec) in enumerate(zip(g, _specs(cfg, shape))):
         if path in plan.partial:
             continue  # summed over "model": test_ep_step_shards_and_whole_gradients
@@ -584,11 +572,11 @@ def test_router_gradient_is_whole(ranks, arch, shape):
     the experts' own gradients: zero on a rank holding padded experts."""
     tag = _tag(arch, shape)
     res = _rank_results(ranks, shape)
-    cfg, params_np, batch_np = step_inputs(arch)
+    cfg = step_inputs(arch)[0]
     paths = [p for p, _ in leaves_with_path(cfg_shapes(cfg))]
     i = paths.index("['layers']['moe']['router']")
     gi = paths.index("['layers']['moe']['gate']")
-    want = _grads_np(cfg, params_np, batch_np, slice(None))["['layers']['moe']['router']"]
+    want = _grads_np(arch)["['layers']['moe']['router']"]
     got = np.concatenate(_model_blocks(res, tag, i, shape), axis=-1)
     assert float(np.abs(want).max()) > 0
     assert float(np.abs(got - want).max()) <= TOL * float(np.abs(want).max())
@@ -604,10 +592,10 @@ def test_ep_step_shards_and_whole_gradients(ranks, arch, shape):
     leaf's gradient is whole on every rank."""
     tag = _tag(arch, shape)
     res = _rank_results(ranks, shape)
-    cfg, params_np, batch_np = step_inputs(arch)
+    cfg = step_inputs(arch)[0]
     plan = _plan(cfg, shape)
     m = shape[1]
-    g = _grads_np(cfg, params_np, batch_np, slice(None))
+    g = _grads_np(arch)
     assert {p for p in plan.split if "['moe']" in p} == {
         f"['layers']['moe']['{k}']" for k in ("router", "gate", "up", "down")}
     assert not any("['moe']" in p for p in plan.partial)
@@ -699,7 +687,7 @@ def test_placed_generate_matches_one_process(ranks, arch, shape, new, mode):
     res = _rank_results(ranks, shape)
     cfg, params_np, prompts_np = serve_inputs(arch)
     params = params_from_numpy(params_np, "cpu")
-    prompts = torch.from_numpy(prompts_np)
+    prompts = torch.tensor(prompts_np)
     ref = generate(params, cfg, prompts, new)
     with torch.no_grad():
         logits, cache = prefill(params, cfg, prompts, SERVE_PROMPT + new)

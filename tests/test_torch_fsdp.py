@@ -30,26 +30,15 @@ dataflow itself (``launch/tp.py`` ``gather_from_data``,
   2 x 4 stand-in mesh: modelled, and equal to the closed form.
 """
 
-import os
-import subprocess
-import sys
-import textwrap
 import time
 from collections import Counter
-from pathlib import Path
 from types import SimpleNamespace
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import draw_params, fsdp_collectives
-from repro.configs import smoke_config as rsmoke_config
-from repro.optim import AdamWConfig as RAdamWConfig
-from repro.optim import init as ropt_init
-from repro.train import make_train_step as rmake_train_step
 from repro_torch import optim
 from repro_torch._tree import leaves, leaves_with_path
 from repro_torch.configs import get_config, smoke_config
@@ -64,9 +53,9 @@ from repro_torch.models import param_shapes
 from repro_torch.roofline import record_collectives
 from repro_torch.train import make_train_step
 from repro_torch.train.step import make_loss_fn, value_and_grad
+from torch_groups import DEADLINE, load, ranks as start_ranks, shared, tensors, wait
+from torch_groups import torch_threads  # noqa: F401
 
-ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 240
 TOL = 1e-5  # loss and grad norm vs the one-process port step
 PARAM_TOL = 2e-4  # params vs the one-process step (AdamW's elementwise scaling)
 REF_TOL = 5e-3  # vs the reference's jitted step (tests/test_distributed.py)
@@ -88,6 +77,7 @@ def _cfg(arch: str):
     return smoke_config(arch, dtype="float32", fsdp=True)
 
 
+@shared
 def step_inputs(arch: str):
     """(config, numpy weights, a batch of BATCH rows of SEQ positions: a
     vlm's tokens behind its patches, labels -100 over the patches)."""
@@ -158,7 +148,7 @@ def _placed_step(arch: str, shape: tuple, mb: int, mesh) -> dict:
         [x.clone() for x in leaves(payload["grads"])]))
     try:
         with record_collectives() as ops:
-            p, o, m = step(p, o, {k: torch.from_numpy(v) for k, v in batch_np.items()})
+            p, o, m = step(p, o, tensors(batch_np))
     finally:
         _obs_hooks.TAP = None
     out = {f"{tag}/loss": m["loss"].numpy(), f"{tag}/grad_norm": m["grad_norm"].numpy(),
@@ -188,20 +178,24 @@ def run_rank(world: int) -> dict:
 
 _WORKER = """
     import sys
-    import numpy as np, torch, torch.distributed as dist
-    rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method="file://" + out + "/store", rank=rank,
-                            world_size=world)
     from test_torch_fsdp import run_rank
-    np.savez(out + f"/rank{rank}.npz", **run_rank(world))
-    dist.destroy_process_group()
+    from torch_groups import join, leave
+    rank, world, out = join(sys.argv)
+    leave(out + f"/rank{rank}.npz", run_rank(world))
 """
 
 
 def _reference_step(arch: str, mb: int) -> tuple:
     """The reference's jitted one-device step of ``arch`` at ``mb``
     microbatches on the same numpy weights and batch: (loss, params)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import smoke_config as rsmoke_config
+    from repro.optim import AdamWConfig as RAdamWConfig
+    from repro.optim import init as ropt_init
+    from repro.train import make_train_step as rmake_train_step
+
     _, params_np, batch_np = step_inputs(arch)
     rcfg = rsmoke_config(arch, dtype="float32", fsdp=True)
     params = jax.tree.map(jnp.asarray, params_np)
@@ -224,28 +218,16 @@ def _reference_steps() -> dict:
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """({world: [each rank's results]}, the reference's steps): both gloo
-    groups run as separate processes while the reference compiles here."""
-    env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]))
-    dirs, procs = {}, []
-    for world in MESHES:
-        tmp = dirs[world] = tmp_path_factory.mktemp(f"fsdp{world}")
-        (tmp / "worker.py").write_text(textwrap.dedent(_WORKER))
-        procs += [subprocess.Popen([sys.executable, str(tmp / "worker.py"), str(r), str(world),
-                                    str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                   text=True, env=env) for r in range(world)]
+    groups run as separate processes while the reference compiles here,
+    all within one deadline."""
+    deadline = time.monotonic() + DEADLINE
+    dirs = {world: tmp_path_factory.mktemp(f"fsdp{world}") for world in MESHES}
+    procs = [p for w, tmp in dirs.items() for p in start_ranks(tmp, _WORKER, w)]
     try:
         ref = _reference_steps()
-        deadline, errs = time.monotonic() + TIMEOUT, []
-        for p in procs:
-            _, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
-            if p.returncode:
-                errs.append(err[-3000:])
     finally:
-        for p in procs:
-            p.kill()
-    assert not errs, "\n".join(errs)
-    return {w: [dict(np.load(dirs[w] / f"rank{r}.npz")) for r in range(w)] for w in MESHES}, ref
+        wait(procs, deadline)
+    return {w: load(tmp, w) for w, tmp in dirs.items()}, ref
 
 
 def _results(ranks, shape) -> list:
@@ -263,13 +245,14 @@ def _abstract(shape) -> AbstractMesh:
     return AbstractMesh(tuple(shape), ("data", "model"))
 
 
+@shared
 def _one_process(arch: str, mb: int):
     """The one-process port step: (params, metrics)."""
     cfg, params_np, batch_np = step_inputs(arch)
     params = params_from_numpy(params_np, "cpu")
     p, _, m = make_train_step(cfg, OCFG, microbatches=mb)(
-        params, optim.init(params), {k: torch.from_numpy(v) for k, v in batch_np.items()})
-    return [x.numpy() for x in leaves(p)], m
+        params, optim.init(params), tensors(batch_np))
+    return [x.numpy() for x in leaves(p)], {k: v.numpy() for k, v in m.items()}
 
 
 _IDS = [_tag(*c) for c in CASES]
@@ -365,8 +348,8 @@ def test_fsdp_step_matches_one_process_step(ranks, arch, shape, mb):
     want, m = _one_process(arch, mb)
     tag = _tag(arch, shape, mb)
     for res in _results(ranks, shape):
-        assert _rel(res[f"{tag}/loss"], m["loss"].numpy()) < TOL
-        assert _rel(res[f"{tag}/grad_norm"], m["grad_norm"].numpy()) < TOL
+        assert _rel(res[f"{tag}/loss"], m["loss"]) < TOL
+        assert _rel(res[f"{tag}/grad_norm"], m["grad_norm"]) < TOL
         for i, one in enumerate(want):
             assert _rel(res[f"{tag}/p{i}"], one) < PARAM_TOL, i
 
@@ -442,7 +425,7 @@ def test_grad_norm_sums_the_data_split_squares(ranks):
     cfg, params_np, batch_np = step_inputs(arch)
     params = params_from_numpy(params_np, "cpu")
     _, grads = value_and_grad(make_loss_fn(cfg), params,
-                              {k: torch.from_numpy(v) for k, v in batch_np.items()})
+                              tensors(batch_np))
     plan = tp_model.make_plan(cfg, _abstract(shape))
     mesh = _abstract(shape)
     right, alone = 0.0, 0.0

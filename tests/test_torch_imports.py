@@ -8,6 +8,7 @@ import sys
 from pathlib import Path
 
 import repro_torch
+from torch_groups import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -284,3 +285,31 @@ def test_distribution_layer_imports_without_jax(tmp_path):
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+# what a gloo rank of the port's multi-process tests imports: the helper
+# module and the test module that started it (for its inputs and run_rank)
+GLOO_WORKERS = ["torch_groups", "test_torch_distributed", "test_torch_tp", "test_torch_ep",
+                "test_torch_cp", "test_torch_ssd_tp", "test_torch_encdec_tp",
+                "test_torch_vlm_tp", "test_torch_fsdp", "test_torch_pipeline"]
+
+
+def test_gloo_ranks_import_no_jax_and_no_reference():
+    """Each gloo rank's imports, in a fresh process and in turn: neither JAX
+    nor the JAX package loaded after any of them (``torch_groups.join`` and
+    ``leave`` assert it on every rank as well)."""
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}, {str(ROOT / 'tests')!r}]\n"
+        "for name in %r:\n"
+        "    importlib.import_module(name)\n"
+        "    bad = sorted(m for m in sys.modules\n"
+        "                 if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "    if bad:\n"
+        "        break\n"
+        "print(json.dumps([name, bad]))\n" % GLOO_WORKERS
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [GLOO_WORKERS[-1], []]

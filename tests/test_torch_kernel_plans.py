@@ -15,6 +15,7 @@ import pytest
 
 from repro_torch.kernels.axes import axes_blocking
 from repro_torch.kernels.psu import MAX_N
+from torch_groups import torch_threads  # noqa: F401
 
 PLAN_H = "src/repro_torch/kernels/csrc"
 SHIM = r"""

@@ -22,6 +22,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.axes import psu_stream_cuda
 from repro_torch.kernels.btcount import bt_count_cuda
 from repro_torch.kernels.psu import MAX_N, psu_sort_cuda
+from torch_groups import torch_threads  # noqa: F401
 
 
 def _pair(shape, seed, dtype=np.uint8, hi=256):

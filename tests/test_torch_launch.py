@@ -53,6 +53,7 @@ from repro_torch.models import param_shapes
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim import init as opt_init
 from repro_torch.roofline import analysis
+from torch_groups import torch_threads  # noqa: F401
 
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}

@@ -44,6 +44,7 @@ from repro_torch import obs as tobs
 from repro_torch._tree import leaves
 from repro_torch.convert import lenet_params_from_reference
 from repro_torch.models import lenet
+from torch_groups import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 LOGIT_TOL = 1e-5

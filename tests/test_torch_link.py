@@ -22,6 +22,7 @@ from benchmarks.table1_bt import _input_only_spec
 from chip_smoke import TABLE1_CONV, TABLE1_UNIFORM
 from repro.codec import CODECS
 from repro_torch.convert import from_reference, packets_from_numpy
+from torch_groups import torch_threads  # noqa: F401
 
 
 def _port(spec):

@@ -34,6 +34,7 @@ from repro_torch.convert import (
 from repro_torch.models import layers as tl
 from repro_torch.models import moe as tmoe
 from repro_torch.models import ssd as tssd
+from torch_groups import torch_threads  # noqa: F401
 
 REL_TOL = 1e-4
 FAMILY_ARCHS = {"dense": "internlm2-1.8b", "vlm": "internvl2-26b", "moe": "qwen3-moe-30b-a3b",

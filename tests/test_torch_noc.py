@@ -40,6 +40,7 @@ from repro_torch.kernels import psu_sort
 from repro_torch.link import LinkSpec as TSpec
 from repro_torch.link import make_order
 from repro_torch.noc.fabric import _queue_gather_table, _source_sorted
+from torch_groups import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -31,6 +31,7 @@ import repro_torch.obs as tobs
 from repro.obs import probes as rprobes
 from repro_torch import _obs_hooks
 from repro_torch.obs import probes as tprobes
+from torch_groups import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = [("none", None, False, "none", None), ("acc", None, False, "bus_invert", 4),

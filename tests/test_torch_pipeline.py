@@ -14,30 +14,18 @@ gradient.  ``stack_stages`` and its refusal of an uneven split are
 checked in this process.
 """
 
-import os
-import subprocess
-import sys
-import textwrap
-from pathlib import Path
-
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax import lax
 
 from chip_smoke import draw_params
-from repro.configs import smoke_config as rsmoke_config
-from repro.launch.pipeline import stack_stages as rstack_stages
-from repro.models.transformer import _attn_layer as r_attn_layer
 from repro_torch._tree import leaves, tree_map
 from repro_torch.configs import smoke_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch.pipeline import stack_stages
 from repro_torch.models.transformer import _attn_layer, _layer
+from torch_groups import load, run_ranks, torch_threads  # noqa: F401
 
-ROOT = Path(__file__).resolve().parents[1]
 PIPE = {"arch": "internlm2-1.8b", "layers": 8, "stages": 2, "micro": 4, "mb": 2, "seq": 16,
         "seed": 0}
 OUT_TOL = 1e-5
@@ -65,17 +53,15 @@ def stage_fn_for(cfg):
 
 _WORKER = """
     import sys
-    import numpy as np, torch, torch.distributed as dist
-    rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method="file://" + out + "/store", rank=rank,
-                            world_size=world)
+    import numpy as np, torch
     from test_torch_pipeline import pipe_inputs, stage_fn_for
     from repro_torch._tree import leaves, tree_map
     from repro_torch.convert import params_from_numpy
     from repro_torch.launch.pipeline import make_pipe_mesh, pipeline_apply, stack_stages
     from repro_torch.roofline import record_collectives
+    from torch_groups import join, leave
 
+    rank, world, out = join(sys.argv)
     cfg, layers, x = pipe_inputs()
     staged = tree_map(lambda p: p.requires_grad_(True),
                       stack_stages(params_from_numpy(layers, "cpu"), world))
@@ -86,33 +72,15 @@ _WORKER = """
     res = {"out": y.detach().numpy(), "kinds": np.array(sorted({o["kind"] for o in ops}))}
     for i, p in enumerate(leaves(staged)):
         res[f"g{i}"] = p.grad.numpy()
-    np.savez(out + f"/pipe{rank}.npz", **res)
-    dist.destroy_process_group()
+    leave(out + f"/pipe{rank}.npz", res)
 """
 
 
 @pytest.fixture(scope="module")
 def pipe_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pipeline")
-    script = tmp / "worker.py"
-    script.write_text(textwrap.dedent(_WORKER))
-    env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]))
-    n = PIPE["stages"]
-    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(n), str(tmp)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-             for r in range(n)]
-    errs = []
-    try:
-        for p in procs:
-            _, err = p.communicate(timeout=240)
-            if p.returncode:
-                errs.append(err[-3000:])
-    finally:
-        for p in procs:
-            p.kill()
-    assert not errs, "\n".join(errs)
-    return [dict(np.load(tmp / f"pipe{r}.npz")) for r in range(n)]
+    run_ranks(tmp, _WORKER, PIPE["stages"])
+    return load(tmp, PIPE["stages"], "pipe")
 
 
 def _port_sequential():
@@ -126,6 +94,14 @@ def _port_sequential():
 
 
 def _reference_sequential():
+    import jax
+    import jax.numpy as jnp
+    from jax import lax
+
+    from repro.configs import smoke_config as rsmoke_config
+    from repro.launch.pipeline import stack_stages as rstack_stages
+    from repro.models.transformer import _attn_layer as r_attn_layer
+
     _, layers, x = pipe_inputs()
     rcfg = rsmoke_config(PIPE["arch"], n_layers=PIPE["layers"], dtype="float32")
     pos = jnp.arange(PIPE["seq"])[None, :]

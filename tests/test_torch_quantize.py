@@ -18,6 +18,7 @@ import repro_torch.kernels as tk
 from chip_smoke import quantizer_edge_cases
 from repro_torch import obs
 from repro_torch.kernels.quantize import FLT_MIN, INV_127, quantize_egress_plain
+from torch_groups import torch_threads  # noqa: F401
 
 
 def _lognormal(m, seed):

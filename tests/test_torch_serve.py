@@ -49,6 +49,7 @@ from repro.serve.loop import make_decode_fn, make_prefill_fn
 from repro.serve import kv_quant as rkv
 from repro.traffic import stream_bt_report
 from repro_torch.convert import model_config_from_reference, params_from_reference
+from torch_groups import torch_threads  # noqa: F401
 
 # the reference's tests/test_model_equivalence.py DECODE_ARCHS
 DECODE_ARCHS = ["internlm2-1.8b", "qwen3-moe-30b-a3b", "zamba2-1.2b"]

@@ -9,8 +9,9 @@ dry run.
   configs on 16 x 16 and 32 x 8 split the SSM heads ("heads"), with their
   heads, conv channel blocks and partial leaves; the smoke configs on
   16 x 16 run the core whole ("whole") between split projections.
-* gloo groups of 2 and 4 ranks (separate processes, ``_run_ranks`` of
-  ``test_torch_distributed.py``), smoke configs at float32: two placed
+* gloo groups of 2 and 4 ranks (separate processes, ``torch_groups.py``;
+  both groups and the reference's subprocess run at once), smoke configs
+  at float32: two placed
   steps of mamba2 and zamba2 on (1, 2), (2, 2) and (1, 4), and of mamba2
   with 2 SSM heads on (1, 4) (the "whole" core):
 
@@ -47,12 +48,6 @@ dry run.
 
 import copy
 import math
-import os
-import subprocess
-import sys
-import textwrap
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -72,9 +67,9 @@ from repro_torch.models.config import SSMConfig
 from repro_torch.models.ssd import ssm_dims
 from repro_torch.train import make_train_step
 from repro_torch.train.step import make_loss_fn, value_and_grad
+from torch_groups import load, ranks as start_ranks, reference, shared, tensors, wait
+from torch_groups import torch_threads  # noqa: F401
 
-ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 240
 # gradients, losses, grad norms, logits: summation order only.  Twice
 # test_torch_cp.py's 1e-5: the one-process float32 gradient of the smoke
 # zamba2 is itself up to 7.1e-6 of a leaf's largest element off its float64
@@ -112,6 +107,7 @@ def _cfg(arch: str, over: dict):
     return smoke_config(arch, dtype="float32", **over)
 
 
+@shared
 def step_inputs(arch: str, over: dict):
     cfg = _cfg(arch, over)
     params = draw_params(cfg, np.random.default_rng(0))
@@ -121,6 +117,7 @@ def step_inputs(arch: str, over: dict):
     return cfg, params, batch
 
 
+@shared
 def serve_inputs(arch: str, over: dict, batch: int = SERVE_BATCH, prompt: int = SERVE_PROMPT):
     cfg = _cfg(arch, over)
     params = draw_params(cfg, np.random.default_rng(0))
@@ -149,7 +146,7 @@ def sp_reference(arch: str) -> dict:
 
     cfg, params_np, prompts = serve_inputs(arch, {}, 1, SP_PROMPT)
     params = params_from_numpy(params_np, "cpu")
-    logits, cache = prefill(params, cfg, torch.from_numpy(prompts), SP_LEN)
+    logits, cache = prefill(params, cfg, torch.tensor(prompts), SP_LEN)
     out = {"tokens": [], "logits": [], "caches": []}
     for s in range(SP_AT - SP_PROMPT + SP_STEPS):
         if s == SP_AT - SP_PROMPT:
@@ -176,7 +173,7 @@ def _placed_steps(arch, shape, over, mesh) -> dict:
     params = params_from_numpy(params_np, "cpu")
     p, o = place_state(cfg, mesh, params)
     step = make_placed_train_step(cfg, OCFG, mesh)
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     tapped, losses, norms = [], [], []
     _obs_hooks.TAP = SimpleNamespace(tap=lambda kind, payload: tapped.append(
         [g.clone() for g in leaves(payload["grads"])]))
@@ -210,7 +207,7 @@ def _placed_serve(arch, shape, over, mesh) -> dict:
     tag = _tag(arch, shape, over) + "/serve"
     cfg, params_np, prompts_np = serve_inputs(arch, over)
     local = ps.shard_params(cfg, mesh, params_from_numpy(params_np, "cpu"))
-    prompts = torch.from_numpy(prompts_np)
+    prompts = torch.tensor(prompts_np)
     res = ps.generate(local, cfg, mesh, prompts, SERVE_NEW)
     plan = tp_model.make_plan(cfg, mesh, "serve")
     max_len = SERVE_PROMPT + SERVE_NEW
@@ -280,14 +277,10 @@ def run_rank(world: int) -> dict:
 
 _WORKER = """
     import sys
-    import numpy as np, torch, torch.distributed as dist
-    rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method="file://" + out + "/store", rank=rank,
-                            world_size=world)
     from test_torch_ssd_tp import run_rank
-    np.savez(out + f"/rank{rank}.npz", **run_rank(world))
-    dist.destroy_process_group()
+    from torch_groups import join, leave
+    rank, world, out = join(sys.argv)
+    leave(out + f"/rank{rank}.npz", run_rank(world))
 """
 
 _REFERENCE = """
@@ -334,30 +327,13 @@ _REFERENCE = """
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """{world: [each rank's results]} and the reference's results; the
-    reference's subprocess runs beside the ranks."""
-    from test_torch_distributed import _run_ranks
-
+    """{world: [each rank's results]} and the reference's results: both
+    groups and the reference's subprocess run at once."""
+    tmps = {world: tmp_path_factory.mktemp(f"ssd{world}") for world in (2, 4)}
     ref = tmp_path_factory.mktemp("ssd_reference")
-    (ref / "reference.py").write_text(textwrap.dedent(_REFERENCE))
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
-                   [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]))
-    reference = subprocess.Popen([sys.executable, str(ref / "reference.py"), str(ref)],
-                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                                 env=env)
-    try:
-        tmps = {world: tmp_path_factory.mktemp(f"ssd{world}") for world in (2, 4)}
-        with ThreadPoolExecutor(2) as pool:  # both groups at once
-            for f in [pool.submit(_run_ranks, tmp, _WORKER, w) for w, tmp in tmps.items()]:
-                f.result()
-        out = {w: [dict(np.load(tmp / f"rank{r}.npz")) for r in range(w)]
-               for w, tmp in tmps.items()}
-        _, err = reference.communicate(timeout=TIMEOUT)
-    finally:
-        reference.kill()
-    assert reference.returncode == 0, err[-3000:]
-    return out, dict(np.load(ref / "reference.npz"))
+    wait([p for w, tmp in tmps.items() for p in start_ranks(tmp, _WORKER, w)] +
+         [reference(ref, _REFERENCE, 4)])
+    return {w: load(tmp, w) for w, tmp in tmps.items()}, dict(np.load(ref / "reference.npz"))
 
 
 def _rank_results(ranks, shape) -> list:
@@ -404,19 +380,31 @@ def _block(x: np.ndarray, spec, shape, model_index: int) -> np.ndarray:
     return x[tuple(idx)]
 
 
-def _grads_np(cfg, params_np, batch_np) -> dict:
-    """path -> the one-process gradient of the whole batch, in leaf order."""
+def _grads_at(cfg, params_np, batch_np) -> tuple:
+    """The one-process loss, grad norm and gradient (path -> array, in leaf
+    order) of the whole batch at ``params_np``."""
+    from repro_torch.optim.adamw import global_norm
+
     params = params_from_numpy(copy.deepcopy(params_np), "cpu")
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
-    _, g = value_and_grad(make_loss_fn(cfg), params, batch)
-    return {p: x.numpy() for p, x in leaves_with_path(g)}
+    batch = tensors(batch_np)
+    loss, g = value_and_grad(make_loss_fn(cfg), params, batch)
+    return float(loss), float(global_norm(g)), {p: x.numpy() for p, x in leaves_with_path(g)}
 
 
-def _one_process_steps(cfg, params_np, batch_np, steps: int = STEPS):
+@shared
+def _grads_np(arch: str, over: dict) -> tuple:
+    """:func:`_grads_at` the initial params."""
+    return _grads_at(*step_inputs(arch, over))
+
+
+@shared
+def _one_process_steps(arch: str, over: dict, steps: int = STEPS):
+    """The one-process port's ``steps`` steps: (params, losses, grad norms)."""
+    cfg, params_np, batch_np = step_inputs(arch, over)
     params = params_from_numpy(copy.deepcopy(params_np), "cpu")
     step = make_train_step(cfg, OCFG, donate=True)
     state, losses, norms = optim.init(params), [], []
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     for _ in range(steps):
         params, state, m = step(params, state, batch)
         losses.append(float(m["loss"]))
@@ -516,21 +504,15 @@ def test_ssd_step_matches_one_process_step(ranks, arch, shape, over):
     neighbours' gradients too (zamba2's ``embed`` row, 5e-3 of the leaf's
     largest param apart), so the second step is held by its gradient here
     and by :func:`test_ssd_step_update_follows_its_gradient`."""
-    from repro_torch.optim.adamw import global_norm
-
     tag = _tag(arch, shape, over)
     res = _rank_results(ranks, shape)
     cfg, params_np, batch_np = step_inputs(arch, over)
-    want, _, _ = _one_process_steps(cfg, params_np, batch_np, 1)
+    want, _, _ = _one_process_steps(arch, over, 1)
     plan = _plan(cfg, shape)
     paths = [x for x, _ in leaves_with_path(param_shapes(cfg))]
-    before = [params_np, unflatten_like(params_np, [res[0][f"{tag}/q{i}"]
-                                                    for i in range(len(paths))])]
-    for step, p in enumerate(before):
-        loss, g = value_and_grad(make_loss_fn(cfg), params_from_numpy(copy.deepcopy(p), "cpu"),
-                                 {k: torch.from_numpy(v) for k, v in batch_np.items()})
-        norm = float(global_norm(g))
-        g = {x: t.numpy() for x, t in leaves_with_path(g)}
+    after = unflatten_like(params_np, [res[0][f"{tag}/q{i}"] for i in range(len(paths))])
+    for step in range(2):
+        loss, norm, g = _grads_np(arch, over) if step == 0 else _grads_at(cfg, after, batch_np)
         for r in res:
             assert _rel(r[f"{tag}/losses"][step], float(loss)) < TOL, step
             assert _rel(r[f"{tag}/grad_norms"][step], norm) < TOL, step
@@ -574,9 +556,9 @@ def test_ssd_partial_leaves_are_summed_and_no_other(ranks, arch, shape, over):
     gradient is whole on every rank, and the split leaves hold 1/m."""
     tag = _tag(arch, shape, over)
     res = _rank_results(ranks, shape)
-    cfg, params_np, batch_np = step_inputs(arch, over)
+    cfg = step_inputs(arch, over)[0]
     plan = _plan(cfg, shape)
-    g = _grads_np(cfg, params_np, batch_np)
+    g = _grads_np(arch, over)[2]
     m = shape[1]
     seen = set()
     for i, ((path, x), spec) in enumerate(zip(leaves_with_path(param_shapes(cfg)),
@@ -660,7 +642,7 @@ def test_placed_generate_matches_one_process(ranks, arch, shape, over):
     res = _rank_results(ranks, shape)
     cfg, params_np, prompts_np = serve_inputs(arch, over)
     params = params_from_numpy(params_np, "cpu")
-    prompts = torch.from_numpy(prompts_np)
+    prompts = torch.tensor(prompts_np)
     ref = generate(params, cfg, prompts, SERVE_NEW)
     with torch.no_grad():
         logits, cache = prefill(params, cfg, prompts, SERVE_PROMPT + SERVE_NEW)

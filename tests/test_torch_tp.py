@@ -13,12 +13,12 @@ and the dry run's collective term).
   split of a vocabulary the axis does not divide, attention's contraction
   split on a wide axis, the vlm family's plan, and the reasons given for
   what the forward does not run.
-* gloo groups of 2 and 4 ranks (separate processes, ``_run_ranks`` of
-  ``test_torch_distributed.py``): meshes (1, 2), (2, 2) and (1, 4) on the
-  smoke internlm2-1.8b (kv heads split at m = 2, replicated at m = 4),
-  qwen3-4b (``qk_norm``) and gemma-7b (tied, ``head_dim`` 32), and
-  internlm2-1.8b with a 258-token vocabulary on (1, 4) (``embed`` and
-  ``head`` split on d).  Two placed steps at float32:
+* gloo groups of 2 and 4 ranks (separate processes, ``torch_groups.py``;
+  both groups and the reference's subprocess run at once): meshes (1, 2),
+  (2, 2) and (1, 4) on the smoke internlm2-1.8b (kv heads split at m = 2,
+  replicated at m = 4), qwen3-4b (``qk_norm``) and gemma-7b (tied,
+  ``head_dim`` 32), and internlm2-1.8b with a 258-token vocabulary on
+  (1, 4) (``embed`` and ``head`` split on d).  Two placed steps at float32:
 
   - each rank's gradient block, before any reduction, against the
     one-process gradient of its rows, and the losses and grad norms, within
@@ -69,11 +69,6 @@ and the dry run's collective term).
 
 import copy
 import math
-import os
-import subprocess
-import sys
-import textwrap
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -93,10 +88,10 @@ from repro_torch.launch.tp import (AxisGroup, all_reduce, copy_to_model, gather_
                                    reduce_from_model)
 from repro_torch.train import make_train_step
 from repro_torch.train.step import make_loss_fn, value_and_grad
-from test_torch_distributed import PSUM, _run_ranks, psum_inputs, psum_perm
+from test_torch_distributed import PSUM, psum_inputs, psum_perm
+from torch_groups import load, ranks as start_ranks, reference, shared, tensors, wait
+from torch_groups import torch_threads  # noqa: F401
 
-ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 240
 TOL = 1e-5  # gradients, losses, grad norms, logits: summation order only
 UPDATE_TOL = 1e-6  # params vs the one-process AdamW on the assembled gradient
 PARAM_TOL = 2e-4  # params vs the one-process step (AdamW's elementwise scaling)
@@ -134,6 +129,7 @@ POD_BLOCK = 64
 MESHES = {2: ((1, 2),), 4: ((2, 2), (1, 4))}
 
 
+@shared
 def step_inputs(arch: str, over: dict | None = None):
     cfg = smoke_config(arch, dtype="float32", **(over or {}))
     params = draw_params(cfg, np.random.default_rng(0))
@@ -143,6 +139,7 @@ def step_inputs(arch: str, over: dict | None = None):
     return cfg, params, batch
 
 
+@shared
 def serve_inputs(arch: str):
     cfg = smoke_config(arch, dtype="float32")
     params = draw_params(cfg, np.random.default_rng(0))
@@ -170,7 +167,7 @@ def _placed_steps(arch, shape, over, mesh) -> dict:
     params = params_from_numpy(params_np, "cpu")
     p, o = place_state(cfg, mesh, params)
     step = make_placed_train_step(cfg, OCFG, mesh)
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     tapped, losses, norms = [], [], []
     _obs_hooks.TAP = SimpleNamespace(tap=lambda kind, payload: tapped.append(
         [g.clone() for g in leaves(payload["grads"])]))
@@ -203,7 +200,7 @@ def _placed_serve(arch, shape, new, mesh) -> dict:
     tag = _tag(arch, shape) + f"/{new}"
     cfg, params_np, prompts_np = serve_inputs(arch)
     local = ps.shard_params(cfg, mesh, params_from_numpy(params_np, "cpu"))
-    prompts = torch.from_numpy(prompts_np)
+    prompts = torch.tensor(prompts_np)
     res = ps.generate(local, cfg, mesh, prompts, new)
     plan = tp_model.make_plan(cfg, mesh, "serve")
     max_len = SERVE_PROMPT + new
@@ -245,7 +242,7 @@ def _pod(rank: int) -> dict:
     p, o = place_state(cfg, mesh, params)
     step = make_placed_train_step(cfg, OCFG, mesh, compression=optim.CompressionConfig(
         mode="int8_ef", block=POD_BLOCK))
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     flats = []
     _obs_hooks.TAP = SimpleNamespace(tap=lambda kind, payload: flats.append(
         torch.cat([g.reshape(-1) for g in leaves(payload["grads"])])))
@@ -281,18 +278,14 @@ def run_rank(world: int) -> dict:
 
 _WORKER = """
     import sys
-    import numpy as np, torch, torch.distributed as dist
-    rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method="file://" + out + "/store", rank=rank,
-                            world_size=world)
     from test_torch_tp import run_rank
-    np.savez(out + f"/rank{rank}.npz", **run_rank(world))
-    dist.destroy_process_group()
+    from torch_groups import join, leave
+    rank, world, out = join(sys.argv)
+    leave(out + f"/rank{rank}.npz", run_rank(world))
 """
 
 _REFERENCE = """
-    import sys
+    import os, sys, time
     import numpy as np, jax, jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
     from repro.compat import shard_map
@@ -303,7 +296,7 @@ _REFERENCE = """
     from repro.train import make_train_step
     from test_torch_tp import (ARCHS, POD_BLOCK, STEPS, psum_inputs, psum_perm, PSUM,
                                step_inputs)
-    out, pods = sys.argv[3], sys.argv[4]
+    out, pods = sys.argv[1], sys.argv[2]
     res = {}
     mesh = jax.make_mesh((2, 2), ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
@@ -346,6 +339,10 @@ _REFERENCE = """
         cfg = CompressionConfig(mode="int8_ef", block=PSUM["block"], use_egress_ordering=ordered)
         s, ne = psum_over_pod(g, e, cfg, *((perm, inv) if ordered else ()))
         res[f"pod/{ordered}/sum"], res[f"pod/{ordered}/error"] = s, ne
+    # the placed int8_ef steps' gradients: the 4-rank group's, running beside
+    # this process (each rank's file appears whole, when the rank is done)
+    while not all(os.path.exists(pods + f"/rank{r}.npz") for r in range(4)):
+        time.sleep(0.1)
     ranks = [dict(np.load(pods + f"/rank{r}.npz")) for r in range(4)]
     order = np.argsort([int(r["pod/index"]) for r in ranks])
     cfg = CompressionConfig(mode="int8_ef", block=POD_BLOCK)
@@ -360,21 +357,13 @@ _REFERENCE = """
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """{world: [each rank's results]} and the reference's results."""
-    out = {}
-    for world in (2, 4):
-        tmp = tmp_path_factory.mktemp(f"tp{world}")
-        _run_ranks(tmp, _WORKER, world)
-        out[world] = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
+    """{world: [each rank's results]} and the reference's results: both
+    groups and the reference's subprocess run at once."""
+    tmps = {world: tmp_path_factory.mktemp(f"tp{world}") for world in (2, 4)}
     ref = tmp_path_factory.mktemp("tp_reference")
-    (ref / "reference.py").write_text(textwrap.dedent(_REFERENCE))
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
-                   [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]))
-    run = subprocess.run([sys.executable, str(ref / "reference.py"), "0", "1", str(ref),
-                          str(tmp)], capture_output=True, text=True, env=env, timeout=TIMEOUT)
-    assert run.returncode == 0, run.stderr[-3000:]
-    return out, dict(np.load(ref / "reference.npz"))
+    wait([p for w, tmp in tmps.items() for p in start_ranks(tmp, _WORKER, w)] +
+         [reference(ref, _REFERENCE, 4, tmps[4])])
+    return {w: load(tmp, w) for w, tmp in tmps.items()}, dict(np.load(ref / "reference.npz"))
 
 
 def _world(shape: tuple) -> int:
@@ -413,20 +402,25 @@ def _block(x: np.ndarray, spec, shape, model_index: int) -> np.ndarray:
     return x[tuple(idx)]
 
 
-def _grads_np(cfg, params_np, batch_np, rows) -> dict:
-    """path -> the one-process gradient of the batch's ``rows``, in leaf
-    order."""
+@shared
+def _grads_np(arch: str, over: dict, lo: int = 0, hi: int = BATCH) -> dict:
+    """path -> the one-process gradient of the batch's rows ``lo:hi``, in
+    leaf order."""
+    cfg, params_np, batch_np = step_inputs(arch, over)
     params = params_from_numpy(copy.deepcopy(params_np), "cpu")
-    local = {k: torch.from_numpy(v[rows]) for k, v in batch_np.items()}
+    local = tensors(batch_np, slice(lo, hi))
     _, g = value_and_grad(make_loss_fn(cfg), params, local)
     return {p: x.numpy() for p, x in leaves_with_path(g)}
 
 
-def _one_process_steps(cfg, params_np, batch_np):
+@shared
+def _one_process_steps(arch: str, over: dict):
+    """The one-process port's STEPS steps: (params, losses, grad norms)."""
+    cfg, params_np, batch_np = step_inputs(arch, over)
     params = params_from_numpy(copy.deepcopy(params_np), "cpu")
     step = make_train_step(cfg, OCFG, donate=True)
     state, losses, norms = optim.init(params), [], []
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     for _ in range(STEPS):
         params, state, m = step(params, state, batch)
         losses.append(float(m["loss"]))
@@ -478,7 +472,7 @@ def test_one_rank_is_the_one_process_step_bitwise(one_rank, arch):
 
     cfg, params_np, batch_np = step_inputs(arch)
     params = params_from_numpy(copy.deepcopy(params_np), "cpu")
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     plan = tp_model.make_plan(cfg, one_rank)
     h, _ = tp_model.forward(params, plan, batch["tokens"])
     want_h, _ = forward(params, cfg, tokens=batch["tokens"])
@@ -491,15 +485,15 @@ def test_one_rank_is_the_one_process_step_bitwise(one_rank, arch):
     for _ in range(STEPS):
         p, o, m = step(p, o, batch)
         got.append((float(m["loss"]), float(m["grad_norm"])))
-    want, losses, norms = _one_process_steps(cfg, params_np, batch_np)
+    want, losses, norms = _one_process_steps(arch, {})
     assert got == list(zip(losses, norms))
     for a, b in zip(leaves(p), want):
-        assert torch.equal(a.to_local(), torch.from_numpy(b))
+        assert torch.equal(a.to_local(), torch.tensor(b))
     _, sp, prompts = serve_inputs(arch)
     whole = params_from_numpy(sp, "cpu")
     res = ps.generate(ps.shard_params(cfg, one_rank, whole), cfg, one_rank,
-                      torch.from_numpy(prompts), 4)
-    ref = generate(whole, cfg, torch.from_numpy(prompts), 4)
+                      torch.tensor(prompts), 4)
+    ref = generate(whole, cfg, torch.tensor(prompts), 4)
     assert torch.equal(res.tokens, ref.tokens) and torch.equal(res.logprobs, ref.logprobs)
 
 
@@ -550,8 +544,8 @@ def test_plan_reads_the_rules():
 def test_tp_step_matches_one_process_step(ranks, arch, shape, over):
     tag = _tag(arch, shape, over)
     res = _rank_results(ranks, shape)
-    cfg, params_np, batch_np = step_inputs(arch, over)
-    want, losses, norms = _one_process_steps(cfg, params_np, batch_np)
+    cfg = step_inputs(arch, over)[0]
+    want, losses, norms = _one_process_steps(arch, over)
     for r in res:
         assert _rel(r[f"{tag}/losses"], losses) < TOL
         assert _rel(r[f"{tag}/grad_norms"], norms) < TOL
@@ -560,11 +554,13 @@ def test_tp_step_matches_one_process_step(ranks, arch, shape, over):
     # step 1's gradient blocks, before any reduction: the one-process
     # gradient of the rank's rows
     rows = BATCH // shape[0]
+    per_data = [_grads_np(arch, over, d * rows, (d + 1) * rows) for d in range(shape[0])]
+    plan = tp_model.make_plan(cfg, _abstract(shape))
+    specs = _specs(cfg, shape)
     for rank, r in enumerate(res):
         d, m = divmod(rank, shape[1])
-        g = _grads_np(cfg, params_np, batch_np, slice(d * rows, (d + 1) * rows))
-        plan = tp_model.make_plan(cfg, _abstract(shape))
-        for i, (path, spec) in enumerate(zip(g, _specs(cfg, shape))):
+        g = per_data[d]
+        for i, (path, spec) in enumerate(zip(g, specs)):
             if path in plan.partial:
                 continue  # test_tp_step_shards_and_partial_gradients
             got, block = r[f"{tag}/g0_{i}"], _block(g[path], spec, shape, m)
@@ -618,10 +614,10 @@ def test_step_gathers_where_the_forward_does_not_split(ranks):
 
     arch, shape, over = GATHER_CASE
     tag = _tag(arch, shape, over)
-    cfg, params_np, batch_np = step_inputs(arch, over)
+    cfg = step_inputs(arch, over)[0]
     assert "experts' d_ff" in tp_model.unsupported(cfg, _abstract(shape))
-    want, losses, norms = _one_process_steps(cfg, params_np, batch_np)
-    g = _grads_np(cfg, params_np, batch_np, slice(None))
+    want, losses, norms = _one_process_steps(arch, over)
+    g = _grads_np(arch, over)
     whole = [tuple(x.shape) for x in leaves(param_shapes(cfg))]
     specs = _specs(cfg, shape)
     assert sum("model" in tuple(sp) for sp in specs) >= 3  # embed, attention, experts
@@ -662,11 +658,12 @@ def test_tp_step_shards_and_partial_gradients(ranks, arch, shape, over):
 
     tag = _tag(arch, shape, over)
     res = _rank_results(ranks, shape)
-    cfg, params_np, batch_np = step_inputs(arch, over)
+    cfg = step_inputs(arch, over)[0]
     plan = tp_model.make_plan(cfg, _abstract(shape))
     whole = param_shapes(cfg)
     rows = BATCH // shape[0]
     m = shape[1]
+    per_data = [_grads_np(arch, over, d * rows, (d + 1) * rows) for d in range(shape[0])]
     kinds = set()
     for i, (path, x) in enumerate(leaves_with_path(whole)):
         for rank, r in enumerate(res):
@@ -677,7 +674,7 @@ def test_tp_step_shards_and_partial_gradients(ranks, arch, shape, over):
             assert math.prod(local) * (m if split else 1) == x.numel(), path
         for d in range(shape[0]):
             group = res[d * m: (d + 1) * m]
-            g = _grads_np(cfg, params_np, batch_np, slice(d * rows, (d + 1) * rows))
+            g = per_data[d]
             tol = TOL * float(np.abs(g[path]).max())
             if path in plan.partial:  # a partial sum on each rank: the sum is whole
                 kinds.add("partial")
@@ -748,7 +745,7 @@ def test_placed_generate_matches_one_process(ranks, arch, shape, new, mode):
     res = _rank_results(ranks, shape)
     cfg, params_np, prompts_np = serve_inputs(arch)
     params = params_from_numpy(params_np, "cpu")
-    prompts = torch.from_numpy(prompts_np)
+    prompts = torch.tensor(prompts_np)
     ref = generate(params, cfg, prompts, new)
     with torch.no_grad():
         logits, cache = prefill(params, cfg, prompts, SERVE_PROMPT + new)

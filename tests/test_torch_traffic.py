@@ -32,6 +32,7 @@ from repro.models import init_params
 from repro_torch.convert import model_config_from_reference, params_from_numpy
 from repro_torch.kernels import bt_count, quantize_egress
 from repro_torch.link import LinkSpec, TxPipeline
+from torch_groups import torch_threads  # noqa: F401
 
 ARCHS = ["internlm2-1.8b", "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-1.2b"]
 

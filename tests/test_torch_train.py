@@ -51,6 +51,7 @@ from repro_torch.data import DataConfig, SyntheticLMDataset
 from repro_torch.optim.compress import int8_wire
 from repro_torch.traffic import egress_permutation, int8_view
 from repro_torch.train import SimulatedPreemption, TrainLoopConfig, train
+from torch_groups import torch_threads  # noqa: F401
 
 F32_TOL = 1e-6
 

@@ -40,6 +40,7 @@ from repro.noc import ring, ring_allreduce_flows, simulate_noc
 from repro.optim import AdamWConfig
 from repro.optim import init as opt_init
 from repro.train import make_train_step
+from torch_groups import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 

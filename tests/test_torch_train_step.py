@@ -37,6 +37,7 @@ from repro_torch.convert import (
     params_from_reference,
 )
 from repro_torch.obs import train_batch
+from torch_groups import torch_threads  # noqa: F401
 
 REL_TOL = 1e-4
 GRAD_TOL = 1e-4

@@ -10,11 +10,12 @@ loss and the dry run.
 * On a (1, 1) mesh the forward, loss, prefill, decode and ``generate``
   with patches are the one-process op sequence, bitwise; the patches enter
   unscaled, in front of the text.
-* gloo groups of 2 and 4 ranks (separate processes, ``_run_ranks`` of
-  ``test_torch_distributed.py``), the smoke internvl2 (4 heads, 2 kv heads,
-  8 patches a request) at float32: placed greedy ``generate`` with patches
-  on (1, 2) (the cache on kv heads; also with a 255-token vocabulary, so
-  embed and head split on ``d`` as internvl2-26b's do), (2, 2) (patches
+* gloo groups of 2 and 4 ranks (separate processes, ``torch_groups.py``;
+  both groups and the reference's subprocess run at once), the smoke
+  internvl2 (4 heads, 2 kv heads, 8 patches a request) at float32: placed
+  greedy ``generate`` with patches on (1, 2) (the cache on kv heads; also
+  with a 255-token vocabulary, so embed and head split on ``d`` as
+  internvl2-26b's do), (2, 2) (patches
   split over "data" by their rows) and (1, 4) (kv replicated, the cache
   split on its sequence when patches + prompt + new tokens divide by 4,
   else whole; also with 6 patches, where only the patches make the length
@@ -36,12 +37,6 @@ loss and the dry run.
 """
 
 import copy
-import os
-import subprocess
-import sys
-import textwrap
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -58,9 +53,9 @@ from repro_torch.launch import build_case, dryrun, tp_model
 from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import param_shapes
 from repro_torch.train.step import make_loss_fn, value_and_grad
+from torch_groups import load, ranks as start_ranks, reference, shared, tensors, wait
+from torch_groups import torch_threads  # noqa: F401
 
-ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 240
 TOL = 1e-5  # placed vs one process, float32: summation order only
 REF_TOL = 1e-4  # vs the JAX package (tests/test_torch_models.py's REL_TOL)
 ARCH = "internvl2-26b"
@@ -89,6 +84,7 @@ def _cfg(over: dict):
     return smoke_config(ARCH, dtype="float32", **over)
 
 
+@shared
 def serve_inputs(over: dict):
     """(config, numpy weights, prompts, patches), drawn from seeds."""
     cfg = _cfg(over)
@@ -100,6 +96,7 @@ def serve_inputs(over: dict):
     return cfg, params, prompts, patches
 
 
+@shared
 def step_inputs():
     """(config, numpy weights, a batch: tokens, patches and labels of -100
     over the patches, as ``obs.capture.train_batch`` builds them)."""
@@ -136,7 +133,7 @@ def _placed_serve(shape, over, new, mesh) -> dict:
     tag = _tag(shape, over, new)
     cfg, params_np, prompts_np, patches_np = serve_inputs(over)
     local = ps.shard_params(cfg, mesh, params_from_numpy(params_np, "cpu"))
-    prompts, patches = torch.from_numpy(prompts_np), torch.from_numpy(patches_np)
+    prompts, patches = torch.tensor(prompts_np), torch.tensor(patches_np)
     with record_collectives() as gen:
         res = ps.generate(local, cfg, mesh, prompts, new, patches=patches)
     plan = tp_model.make_plan(cfg, mesh, "serve")
@@ -172,7 +169,7 @@ def _placed_step(shape, mesh) -> dict:
         [g.clone() for g in leaves(payload["grads"])]))
     try:
         with record_collectives() as ops:
-            _, _, m = step(p, o, {k: torch.from_numpy(v) for k, v in batch_np.items()})
+            _, _, m = step(p, o, tensors(batch_np))
     finally:
         _obs_hooks.TAP = None
     out = {f"{tag}/loss": np.array(float(m["loss"])), f"{tag}/ops": _ops_rows(ops)}
@@ -197,14 +194,10 @@ def run_rank(world: int) -> dict:
 
 _WORKER = """
     import sys
-    import numpy as np, torch, torch.distributed as dist
-    rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method="file://" + out + "/store", rank=rank,
-                            world_size=world)
     from test_torch_vlm_tp import run_rank
-    np.savez(out + f"/rank{rank}.npz", **run_rank(world))
-    dist.destroy_process_group()
+    from torch_groups import join, leave
+    rank, world, out = join(sys.argv)
+    leave(out + f"/rank{rank}.npz", run_rank(world))
 """
 
 # the reference's GSPMD prefill of the serving inputs on (2, 2), weights
@@ -238,30 +231,13 @@ _REFERENCE = """
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """{world: [each rank's results]} and the reference's prefill; the
-    reference's subprocess runs beside the ranks."""
-    from test_torch_distributed import _run_ranks
-
+    """{world: [each rank's results]} and the reference's prefill: both
+    groups and the reference's subprocess run at once."""
+    tmps = {world: tmp_path_factory.mktemp(f"vlm{world}") for world in (2, 4)}
     ref = tmp_path_factory.mktemp("vlm_reference")
-    (ref / "reference.py").write_text(textwrap.dedent(_REFERENCE))
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
-                   [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]))
-    reference = subprocess.Popen([sys.executable, str(ref / "reference.py"), str(ref)],
-                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                                 env=env)
-    try:
-        tmps = {world: tmp_path_factory.mktemp(f"vlm{world}") for world in (2, 4)}
-        with ThreadPoolExecutor(2) as pool:  # both groups at once
-            for f in [pool.submit(_run_ranks, tmp, _WORKER, w) for w, tmp in tmps.items()]:
-                f.result()
-        out = {w: [dict(np.load(tmp / f"rank{r}.npz")) for r in range(w)]
-               for w, tmp in tmps.items()}
-        _, err = reference.communicate(timeout=TIMEOUT)
-    finally:
-        reference.kill()
-    assert reference.returncode == 0, err[-3000:]
-    return out, dict(np.load(ref / "reference.npz"))
+    wait([p for w, tmp in tmps.items() for p in start_ranks(tmp, _WORKER, w)] +
+         [reference(ref, _REFERENCE, 4)])
+    return {w: load(tmp, w) for w, tmp in tmps.items()}, dict(np.load(ref / "reference.npz"))
 
 
 def _rank_results(ranks, shape) -> list:
@@ -349,7 +325,7 @@ def test_one_rank_forward_loss_prefill_decode_generate_are_the_one_process_op_se
 
     cfg, params_np, batch_np = step_inputs()
     params = params_from_numpy(params_np, "cpu")
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = tensors(batch_np)
     mesh = _abstract((1, 1))
     plan = tp_model.make_plan(cfg, mesh)
     with torch.no_grad():
@@ -359,7 +335,7 @@ def test_one_rank_forward_loss_prefill_decode_generate_are_the_one_process_op_se
         assert torch.equal(tp_model.make_loss_fn(plan)(params, batch),
                            make_loss_fn(cfg)(params, batch))
         _, _, prompts, patches = serve_inputs({})
-        prompts, patches = torch.from_numpy(prompts), torch.from_numpy(patches)
+        prompts, patches = torch.tensor(prompts), torch.tensor(patches)
         max_len = cfg.n_frontend_tokens + SERVE_PROMPT + 4
         splan = tp_model.make_plan(cfg, mesh, "serve")
         got, gc = ps.prefill(params, splan, prompts, max_len, "heads", patches=patches)
@@ -410,8 +386,8 @@ def test_one_process_generate_with_patches_matches_the_reference():
     want = ref_generate(jax.tree.map(jnp.asarray, params_np),
                         ref_smoke_config(ARCH, dtype="float32"), jnp.asarray(prompts), 4,
                         inputs_embeds=jnp.asarray(patches))
-    got = generate(params_from_numpy(params_np, "cpu"), cfg, torch.from_numpy(prompts), 4,
-                   inputs_embeds=torch.from_numpy(patches))
+    got = generate(params_from_numpy(params_np, "cpu"), cfg, torch.tensor(prompts), 4,
+                   inputs_embeds=torch.tensor(patches))
     np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
     assert _rel(got.logprobs.numpy(), np.asarray(want.logprobs)) <= REF_TOL
 
@@ -419,19 +395,24 @@ def test_one_process_generate_with_patches_matches_the_reference():
 # ------------------------------------------------------------------ gloo groups
 
 
+@shared
 def _serve_reference(over: dict, new: int):
+    """The one-process port's serving of ``serve_inputs(over)``: (config,
+    tokens, log-probabilities, the prefill's logits, its K and V caches, a
+    decode step's logits)."""
     from repro_torch.models import decode_step, prefill
     from repro_torch.serve import generate
 
     cfg, params_np, prompts_np, patches_np = serve_inputs(over)
     params = params_from_numpy(params_np, "cpu")
-    prompts, patches = torch.from_numpy(prompts_np), torch.from_numpy(patches_np)
+    prompts, patches = torch.tensor(prompts_np), torch.tensor(patches_np)
     ref = generate(params, cfg, prompts, new, inputs_embeds=patches)
     with torch.no_grad():
         logits, cache = prefill(params, cfg, prompts, cfg.n_frontend_tokens + SERVE_PROMPT + new,
                                 inputs_embeds=patches)
         step_logits, _ = decode_step(params, cfg, cache, ref.tokens[:, :1].to(torch.int32))
-    return cfg, ref, logits, cache, step_logits
+    return (cfg, ref.tokens.numpy(), ref.logprobs.numpy(), logits.numpy(),
+            {k: cache[k].numpy() for k in ("k", "v")}, step_logits.numpy())
 
 
 _SERVE_IDS = [_tag(m, o, n) for m, o, n, _ in SERVE_CASES]
@@ -446,7 +427,7 @@ def test_placed_generate_with_patches_matches_one_process(ranks, shape, over, ne
     positions ("seq") or the whole ("whole")."""
     tag = _tag(shape, over, new)
     res = _rank_results(ranks, shape)
-    cfg, ref, logits, cache, step_logits = _serve_reference(over, new)
+    cfg, tokens, logprobs, logits, cache, step_logits = _serve_reference(over, new)
     dn, m = shape
     plan = _plan(cfg, shape)
     rows = SERVE_BATCH // dn
@@ -455,8 +436,8 @@ def test_placed_generate_with_patches_matches_one_process(ranks, shape, over, ne
     for i, r in enumerate(res):
         d, j = divmod(i, m)
         b = slice(d * rows, (d + 1) * rows)
-        np.testing.assert_array_equal(r[f"{tag}/tokens"], ref.tokens[b])
-        assert float(np.abs(r[f"{tag}/logprobs"] - ref.logprobs[b].numpy()).max()) <= TOL
+        np.testing.assert_array_equal(r[f"{tag}/tokens"], tokens[b])
+        assert float(np.abs(r[f"{tag}/logprobs"] - logprobs[b]).max()) <= TOL
         assert str(r[f"{tag}/mode"]) == mode
         assert int(r[f"{tag}/pos"]) == cfg.n_frontend_tokens + SERVE_PROMPT
         for key in ("k", "v"):
@@ -466,12 +447,12 @@ def test_placed_generate_with_patches_matches_one_process(ranks, shape, over, ne
             elif mode == "seq":
                 want = want[:, :, j * length: (j + 1) * length]
             assert r[f"{tag}/{key}"].shape == tuple(want.shape), key
-            assert _rel(r[f"{tag}/{key}"], want.numpy()) <= TOL, key
+            assert _rel(r[f"{tag}/{key}"], want) <= TOL, key
     for key, want in (("prefill", logits), ("decode", step_logits)):
         for d in range(dn):
             blocks = [res[d * m + j][f"{tag}/{key}"] for j in range(m)]
             got = np.concatenate(blocks, axis=-1) if plan.head == "vocab" else blocks[0]
-            assert _rel(got, want[d * rows: (d + 1) * rows].numpy()) <= TOL, key
+            assert _rel(got, want[d * rows: (d + 1) * rows]) <= TOL, key
 
 
 @pytest.mark.parametrize("shape,over,new,mode", SERVE_CASES, ids=_SERVE_IDS)
@@ -501,6 +482,16 @@ def test_serving_collectives_closed_form(ranks, shape, over, new, mode):
                                       _closed(prefill + (greedy + decode) * new))
 
 
+@shared
+def _loss_and_grads() -> tuple:
+    """The one-process loss and gradient (path -> array, in leaf order) of
+    ``step_inputs()``."""
+    cfg, params_np, batch_np = step_inputs()
+    loss, g = value_and_grad(make_loss_fn(cfg), params_from_numpy(copy.deepcopy(params_np), "cpu"),
+                             tensors(batch_np))
+    return float(loss), {p: x.numpy() for p, x in leaves_with_path(g)}
+
+
 @pytest.mark.parametrize("shape", STEP_CASES, ids=["1x2", "1x4"])
 def test_placed_loss_and_gradients_with_patches_match_train(ranks, shape):
     """One placed step with patches (labels -100 over them): the loss
@@ -512,15 +503,13 @@ def test_placed_loss_and_gradients_with_patches_match_train(ranks, shape):
 
     tag = _tag(shape, {})
     res = _rank_results(ranks, shape)
-    cfg, params_np, batch_np = step_inputs()
-    loss, g = value_and_grad(make_loss_fn(cfg), params_from_numpy(copy.deepcopy(params_np), "cpu"),
-                             {k: torch.from_numpy(v) for k, v in batch_np.items()})
+    cfg = step_inputs()[0]
+    loss, g = _loss_and_grads()
     plan = tp_model.make_plan(cfg, _abstract(shape))
     m = shape[1]
     specs = [sh.spec for sh in leaves(params_shardings(cfg, _abstract(shape), param_shapes(cfg)))]
     kinds = set()
-    for i, ((path, want), spec) in enumerate(zip(leaves_with_path(g), specs)):
-        want = want.numpy()
+    for i, ((path, want), spec) in enumerate(zip(g.items(), specs)):
         tol = TOL * float(np.abs(want).max())
         assert float(np.abs(want).max()) > 0, path
         blocks = [r[f"{tag}/g{i}"] for r in res]
