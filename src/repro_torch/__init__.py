@@ -14,9 +14,11 @@ version on any device.  Entry points that build tensors themselves
 caller passes ``device="cpu"``.
 
 Observability (``repro_torch.obs``) is off and free by default: the
-probes in the kernels, link and codec modules are one ``None`` test each
-and never sync the device, until a ``repro_torch.obs.collect()`` or
-``tracing()`` context turns them on.
+probes in the kernels, link, codec, traffic and NoC modules are one
+``None`` test each and never sync the device, until a
+``repro_torch.obs.collect()``, ``tracing()`` or ``profiled()`` context
+turns them on (``profiled()`` puts their spans in ``torch.profiler``'s
+trace).
 """
 
 from .kernels.backend import BACKENDS, resolve_device

@@ -3,7 +3,8 @@
 Counterpart of ``repro._obs_hooks``.  This module is the only thing the
 port's production code imports for telemetry.  It holds one mutable slot,
 ``SINK`` — ``None`` by default — that ``repro_torch.obs`` installs a
-collector into while a ``collect()`` / ``tracing()`` context is active.
+collector into while a ``collect()`` / ``tracing()`` / ``profiled()``
+context is active.
 With the slot empty every probe is one attribute test against ``None``,
 so an entry point does the same tensor work, launches the same kernels
 and returns the same outputs whether ``repro_torch.obs`` is imported,
@@ -16,7 +17,7 @@ observability code until a collector turns it on.
 
 from __future__ import annotations
 
-__all__ = ["SINK", "TAP", "active", "capturing", "event", "muted", "span", "tap"]
+__all__ = ["SINK", "TAP", "active", "capturing", "event", "muted", "span", "stage", "tap"]
 
 # The installed sink (repro_torch.obs.probes._Sink) or None.  Probes read
 # this once per call; repro_torch.obs flips it when the first collector
@@ -48,7 +49,7 @@ _NULL_SPAN = _NullSpan()
 
 
 def active() -> bool:
-    """True while at least one collector (registry or tracer) is active."""
+    """True while at least one collector (registry, tracer or profiler bridge) is active."""
     return SINK is not None
 
 
@@ -61,6 +62,17 @@ def span(kind: str, **data):
     """
     s = SINK
     return _NULL_SPAN if s is None else s.span(kind, data)
+
+
+def stage(kind: str, name: str):
+    """The probe span of one named stage of a layer (no-op when inactive).
+
+    ``kind`` is a stage kind (``"traffic.stage"``, ``"noc.stage"``) and
+    ``name`` its ``stage`` label.  Unlike ``span``, the call takes no
+    keywords, so while nothing collects it builds no payload at all.
+    """
+    s = SINK
+    return _NULL_SPAN if s is None else s.span(kind, {"stage": name})
 
 
 def event(kind: str, **data) -> None:

@@ -121,8 +121,9 @@ class FlowBatch(NamedTuple):
                 out[i, : counts[i]] = getattr(f, side).to(device=dev, dtype=torch.uint8)
             return out
 
-        ws = stack("weights", spec.weight_elems_per_packet) if spec.weight_lanes else None
-        return cls(stack("inputs", spec.elems_per_packet), ws, counts)
+        with _obs.stage("noc.stage", "batch"):
+            ws = stack("weights", spec.weight_elems_per_packet) if spec.weight_lanes else None
+            return cls(stack("inputs", spec.elems_per_packet), ws, counts)
 
 
 class FabricStreams(NamedTuple):
@@ -232,11 +233,12 @@ def _validate_expansion(spec: LinkSpec, sort_at: str) -> None:
 def _gather_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     """x[i, order[i, j]] for (R, N) packets, gathered in row chunks (an
     int64 index of the whole batch would take 8 bytes per element)."""
-    out = torch.empty_like(x)
-    for r0 in range(0, x.shape[0], _GATHER_PACKETS):
-        sl = slice(r0, r0 + _GATHER_PACKETS)
-        torch.gather(x[sl], 1, order[sl].to(torch.int64), out=out[sl])
-    return out
+    with _obs.stage("noc.stage", "gather"):
+        out = torch.empty_like(x)
+        for r0 in range(0, x.shape[0], _GATHER_PACKETS):
+            sl = slice(r0, r0 + _GATHER_PACKETS)
+            torch.gather(x[sl], 1, order[sl].to(torch.int64), out=out[sl])
+        return out
 
 
 def _source_sorted(
@@ -256,11 +258,12 @@ def _source_sorted(
             descending=spec.descending,
         )[0].to(torch.int64)
         return xi.index_select(1, perm), wi.index_select(1, perm) if moves_w else wi
-    order = psu_sort(
-        xi, width=spec.width, k=spec.k if spec.key == "app" else None,
-        descending=spec.descending, backend=backend,
-    )[0]
-    return _gather_rows(xi, order), _gather_rows(wi, order) if moves_w else wi
+    with _obs.stage("noc.stage", "source_order"):
+        order = psu_sort(
+            xi, width=spec.width, k=spec.k if spec.key == "app" else None,
+            descending=spec.descending, backend=backend,
+        )[0]
+        return _gather_rows(xi, order), _gather_rows(wi, order) if moves_w else wi
 
 
 def expand_fabric(
@@ -285,11 +288,15 @@ def expand_fabric(
             f"batch carries {batch.num_flows} flows but the plan routed "
             f"{plan.num_flows}"
         )
-    with _obs.span(
-        "noc.expand",
-        topology=f"{plan.topo.kind}{plan.topo.rows}x{plan.topo.cols}",
-        sort_at=sort_at, flows=plan.num_flows, queues=plan.num_queues,
-    ):
+    # the payload is built only while something collects
+    probe = _obs.span("noc.expand")
+    if _obs.active():
+        probe = _obs.span(
+            "noc.expand",
+            topology=f"{plan.topo.kind}{plan.topo.rows}x{plan.topo.cols}",
+            sort_at=sort_at, flows=plan.num_flows, queues=plan.num_queues,
+        )
+    with probe:
         return _expand_fabric(plan, batch, spec, sort_at, backend)
 
 
@@ -322,17 +329,18 @@ def _expand_fabric(
         wi = wi.reshape(f * pmax, wi.shape[-1])
     # ONE order derivation for every packet of every flow
     xi, wi = _source_sorted(xi, wi, spec, backend)
-    if _is_identity(plan, batch.counts, pmax):
-        qcounts, pq = batch.counts, pmax
-        qx = xi.reshape(nq, pq, e)
-        qw = None if wi is None else wi.reshape(nq, pq, -1)
-    else:
-        table, qcounts = _queue_gather_table(plan, batch.counts, pmax, dev)
-        pq = table.shape[1]
-        gather = table.reshape(-1)
-        qx = xi.index_select(0, gather).reshape(nq, pq, e)
-        qw = None if wi is None else wi.index_select(0, gather).reshape(nq, pq, -1)
-        del table, gather
+    with _obs.stage("noc.stage", "queue"):
+        if _is_identity(plan, batch.counts, pmax):
+            qcounts, pq = batch.counts, pmax
+            qx = xi.reshape(nq, pq, e)
+            qw = None if wi is None else wi.reshape(nq, pq, -1)
+        else:
+            table, qcounts = _queue_gather_table(plan, batch.counts, pmax, dev)
+            pq = table.shape[1]
+            gather = table.reshape(-1)
+            qx = xi.index_select(0, gather).reshape(nq, pq, e)
+            qw = None if wi is None else wi.index_select(0, gather).reshape(nq, pq, -1)
+            del table, gather
     del xi, wi
     if sort_at == "hop":
         rows = qx if qw is None else torch.cat([qx, qw], dim=-1)
@@ -346,10 +354,11 @@ def _expand_fabric(
             qw = torch.gather(qw, 1, perm[..., None].expand(qw.shape))
     # flit assembly of every queue in one call: its rows are packet-major,
     # so (Q*P_q*F, bytes) reshapes to the per-queue streams
-    streams = assemble_stream(
-        qx.reshape(nq * pq, e), None if qw is None else qw.reshape(nq * pq, -1),
-        spec, None, spec.pack,
-    ).reshape(nq, pq * spec.flits_per_packet, spec.bytes_per_flit)
+    with _obs.stage("noc.stage", "assemble"):
+        streams = assemble_stream(
+            qx.reshape(nq * pq, e), None if qw is None else qw.reshape(nq * pq, -1),
+            spec, None, spec.pack,
+        ).reshape(nq, pq * spec.flits_per_packet, spec.bytes_per_flit)
     del qx, qw
     lengths = tuple(c * spec.flits_per_packet for c in qcounts)
     t = int(streams.shape[1])
@@ -369,8 +378,9 @@ def _expand_fabric(
             aux = torch.zeros((nq,), dtype=torch.int32, device=dev)
     # pad rows become copies of each queue's last real flit
     if min(lengths) < t:
-        last = (real_len - 1).clamp_min(0)
-        last_rows = streams[torch.arange(nq, device=dev), last]  # (Q, bytes)
-        pad = torch.arange(t, device=dev)[None, :] >= real_len[:, None]
-        streams = torch.where(pad[..., None], last_rows[:, None, :], streams)
+        with _obs.stage("noc.stage", "pad"):
+            last = (real_len - 1).clamp_min(0)
+            last_rows = streams[torch.arange(nq, device=dev), last]  # (Q, bytes)
+            pad = torch.arange(t, device=dev)[None, :] >= real_len[:, None]
+            streams = torch.where(pad[..., None], last_rows[:, None, :], streams)
     return FabricStreams(plan, streams, lengths, aux, inverts)

@@ -286,11 +286,15 @@ def simulate_noc(
     The reference's ``interpret`` keyword is not taken.
     """
     power = power if power is not None else NocPowerModel()
-    with _obs.span(
-        "noc.simulate",
-        topology=f"{topo.kind}{topo.rows}x{topo.cols}",
-        sort_at=sort_at, key=spec.key, flows=len(flows), name=name,
-    ):
+    # the payload is built only while something collects
+    probe = _obs.span("noc.simulate")
+    if _obs.active():
+        probe = _obs.span(
+            "noc.simulate",
+            topology=f"{topo.kind}{topo.rows}x{topo.cols}",
+            sort_at=sort_at, key=spec.key, flows=len(flows), name=name,
+        )
+    with probe:
         report = _simulate_noc(
             topo, flows, spec, sort_at=sort_at, power=power, backend=backend,
             chunk_rows=chunk_rows, activity_windows=activity_windows,
@@ -333,7 +337,8 @@ def _simulate_noc(
     latency: NocLatencyModel | None,
     name: str,
 ) -> NocReport:
-    plan = compile_fabric(topo, [(f.src, f.dsts) for f in flows])
+    with _obs.stage("noc.stage", "plan"):
+        plan = compile_fabric(topo, [(f.src, f.dsts) for f in flows])
     batch = FlowBatch.from_flows(flows, spec)
     fs = expand_fabric(plan, batch, spec, sort_at=sort_at, backend=backend)
     extra_wires = 0
@@ -362,8 +367,10 @@ def _simulate_noc(
             out = out.bt
         # one sync for the BT table and one for the aux counts; totals are
         # summed in Python ints, never in int32 on the device
-        bt_rows = out.cpu().tolist()
-        aux_q = [0] * plan.num_queues if fs.aux_bt is None else fs.aux_bt.cpu().tolist()
+        with _obs.stage("noc.stage", "readback"):
+            bt_rows = out.cpu().tolist()
+            aux_q = [0] * plan.num_queues if fs.aux_bt is None else fs.aux_bt.cpu().tolist()
+    with _obs.stage("noc.stage", "links"):
         table = topo.link_table
         for lid, qi in zip(plan.link_ids, plan.link_queue):
             length = fs.lengths[qi]
@@ -386,14 +393,14 @@ def _simulate_noc(
                     bt_aux=aux,
                 )
             )
-    fabric_lat = None
-    if latency is not None:
-        fabric_lat = fabric_latency(
-            plan, [c * spec.flits_per_packet for c in batch.counts], latency
+        fabric_lat = None
+        if latency is not None:
+            fabric_lat = fabric_latency(
+                plan, [c * spec.flits_per_packet for c in batch.counts], latency
+            )
+        flow_hops = tuple(
+            (f.name, max(hop_count(topo, f.src, d) for d in f.dsts)) for f in flows
         )
-    flow_hops = tuple(
-        (f.name, max(hop_count(topo, f.src, d) for d in f.dsts)) for f in flows
-    )
     return NocReport(
         name=name,
         topology=f"{topo.kind}{topo.rows}x{topo.cols}",

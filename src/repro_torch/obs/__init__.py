@@ -2,7 +2,8 @@
 #   metrics.py  - counter/gauge/histogram registry + scoped collect()
 #   trace.py    - span API emitting Chrome/Perfetto trace-event JSON
 #   probes.py   - the sink behind repro_torch._obs_hooks: probe vocabulary,
-#                 collect()/tracing() activation
+#                 collect()/tracing()/profiled() activation (profiled() puts
+#                 the probe spans in torch.profiler's trace)
 #   report.py   - per-link BT tables, top-N hottest links, CSV/JSON dumps
 #   activity.py - wire-level switching-activity profiles
 #   saif.py     - SAIF / VCD export of measured activity for EDA flows
@@ -38,10 +39,12 @@ from .capture import (
 )
 from .metrics import Counter, Gauge, Histogram, Registry, registry_from_dict
 from .probes import (
+    PORT_PROBE_KINDS,
     PROBE_KINDS,
     active_registries,
     active_tracers,
     collect,
+    profiled,
     tracing,
 )
 from .report import (
@@ -72,8 +75,10 @@ __all__ = [
     "Tracer",
     "runtime_metadata",
     "PROBE_KINDS",
+    "PORT_PROBE_KINDS",
     "collect",
     "tracing",
+    "profiled",
     "active_registries",
     "active_tracers",
     "link_table",

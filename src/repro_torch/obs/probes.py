@@ -1,14 +1,16 @@
-"""The probe layer: routes hook firings into registries and tracers.
+"""The probe layer: routes hook firings into registries, tracers and the
+profiler.
 
 Counterpart of ``repro.obs.probes``.  Production modules call
-``repro_torch._obs_hooks.span/event`` at fixed probe points; while at
-least one :func:`collect` or :func:`tracing` context is active this
-module's sink is installed into the hook slot and every firing fans out to
-all active collectors.  The vocabulary is the reference's, so later slices
-of the port fire into the same kinds:
+``repro_torch._obs_hooks.span/stage/event`` at fixed probe points; while at
+least one :func:`collect`, :func:`tracing` or :func:`profiled` context is
+active this module's sink is installed into the hook slot and every firing
+fans out to all active collectors.  ``PROBE_KINDS`` is the reference's
+vocabulary; ``PORT_PROBE_KINDS`` adds the port's own stage spans, which
+the reference has no probe for:
 
   =================  =====  ==============================================
-  kind               form   fired by (in the port so far)
+  kind               form   fired by
   =================  =====  ==============================================
   kernel.dispatch    span   every public kernel entry point in
                             ``repro_torch.kernels.ops`` (backend "cuda" /
@@ -18,25 +20,45 @@ of the port fire into the same kinds:
                             bt) inside ``TxPipeline.run``
   link.report        event  ``TxPipeline.measure``/``measure_rows`` —
                             per-stream BT/energy totals
+  link.activity      event  ``noc.simulate_noc`` with ``activity_windows``
+                            — per-link wire toggles
+  noc.simulate       span   ``noc.simulate_noc`` (the whole fabric)
+  noc.expand         span   ``noc.expand_fabric``
+  noc.link           event  ``noc.simulate_noc`` — per-link BT/energy
+  noc.contend        event  ``noc.fabric_latency`` — per-link queueing
+  dse.measure        span   ``dse`` — one measurement of a design point's
+                            links
+  dse.link           event  ``dse`` — per-link BT of a design point
+  dse.point          event  ``dse`` — a design point's BT reduction
   codec.stream       event  per-stream totals in ``codec.compare_streams``
-  noc.expand, noc.simulate, noc.link, noc.contend, link.activity,
-  dse.measure, dse.link, dse.point, capture.stream, bench.module:
-                            the reference's NoC, DSE, capture and bench
-                            probes, not fired until those layers are ported
+  capture.stream     event  each stream ``obs.capture`` records
+  bench.module       span   the reference's benchmark modules; the port
+                            fires none
+  traffic.stage      span   port only: ``traffic.int8_view``,
+                            ``traffic.egress_permutation`` and its base
+                            adds (label ``stage``)
+  noc.stage          span   port only: each stage of ``simulate_noc`` and
+                            ``expand_fabric`` — plan, batch, source_order,
+                            gather, queue, assemble, pad, readback, links
   =================  =====  ==============================================
 
 Span firings become Chrome trace spans on every active tracer plus a
 ``<kind>.calls`` counter and ``<kind>.seconds`` histogram (labeled by the
 kind's identity keys) on every active registry; a ``kernel.dispatch`` span
 also adds its ``kernel_launches`` to the ``kernel.launches`` counter.
-Event firings become instant trace events plus the per-kind counters
-below.  Unknown kinds still count (``<kind>.calls``).
+While :func:`profiled` is active each span also opens a
+``torch.profiler.record_function`` range named ``repro_torch.<area>.<what>``
+(:func:`_range_name`), so the spans sit in the profiler's own trace, on the
+device's clock.  Event firings become instant trace events plus the
+per-kind counters below.  Unknown kinds still count (``<kind>.calls``).
 """
 
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
+
+import torch
 
 from .. import _obs_hooks
 
@@ -46,8 +68,10 @@ from .trace import Tracer
 
 __all__ = [
     "PROBE_KINDS",
+    "PORT_PROBE_KINDS",
     "collect",
     "tracing",
+    "profiled",
     "active_registries",
     "active_tracers",
 ]
@@ -86,8 +110,39 @@ _SPAN_LABELS: dict[str, tuple[str, ...]] = {
 }
 
 
+# the port's own kinds (tests/test_torch_obs.py holds them apart from the
+# reference's): named stages inside a layer's entry point
+PORT_PROBE_KINDS: dict[str, str] = {
+    "traffic.stage": "span",
+    "noc.stage": "span",
+}
+
+_PORT_SPAN_LABELS: dict[str, tuple[str, ...]] = {
+    "traffic.stage": ("stage",),
+    "noc.stage": ("stage",),
+}
+
+# the payload key whose value ends a span's profiler range name
+_RANGE_KEYS: dict[str, str] = {
+    "kernel.dispatch": "entry",
+    "link.stage": "stage",
+    "traffic.stage": "stage",
+    "noc.stage": "stage",
+}
+
+
+def _range_name(kind: str, data: dict) -> str:
+    """The profiler range of one span: ``repro_torch.<area>.<what>``, the
+    area the kind's first part and ``what`` its naming label's value
+    (``kernel.dispatch`` -> the entry, a stage kind -> the stage) or else
+    the kind's second part (``noc.simulate`` -> ``simulate``)."""
+    area, what = kind.split(".", 1)
+    key = _RANGE_KEYS.get(kind)
+    return f"repro_torch.{area}.{data[key] if key in data else what}"
+
+
 def _labels(kind: str, data: dict) -> dict:
-    keys = _SPAN_LABELS.get(kind, ())
+    keys = _SPAN_LABELS.get(kind) or _PORT_SPAN_LABELS.get(kind, ())
     return {k: data[k] for k in keys if k in data}
 
 
@@ -166,9 +221,10 @@ def _record_event(reg: Registry, kind: str, data: dict) -> None:
 
 
 class _SpanCtx:
-    """One probe span fanned out to every active tracer + registry."""
+    """One probe span fanned out to every active tracer + registry, and to
+    the profiler while one ``profiled()`` scope is open."""
 
-    __slots__ = ("_sink", "_kind", "_data", "_ends", "_t0")
+    __slots__ = ("_sink", "_kind", "_data", "_ends", "_range", "_t0")
 
     def __init__(self, sink: "_Sink", kind: str, data: dict) -> None:
         self._sink, self._kind, self._data = sink, kind, data
@@ -177,11 +233,17 @@ class _SpanCtx:
         self._ends = [
             t.begin(self._kind, args=self._data) for t in self._sink.tracers
         ]
+        self._range = None
+        if self._sink.profiled:
+            self._range = torch.profiler.record_function(_range_name(self._kind, self._data))
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         seconds = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
         for end in self._ends:
             end()
         for reg in self._sink.registries:
@@ -195,6 +257,7 @@ class _Sink:
     def __init__(self) -> None:
         self.registries: list[Registry] = []
         self.tracers: list[Tracer] = []
+        self.profiled = 0  # open profiled() scopes
 
     def span(self, kind: str, data: dict) -> _SpanCtx:
         return _SpanCtx(self, kind, data)
@@ -211,7 +274,7 @@ _SINK = _Sink()
 
 def _refresh() -> None:
     _obs_hooks.SINK = (
-        _SINK if (_SINK.registries or _SINK.tracers) else None
+        _SINK if (_SINK.registries or _SINK.tracers or _SINK.profiled) else None
     )
 
 
@@ -251,4 +314,25 @@ def tracing(tracer: Tracer | None = None):
         yield tr
     finally:
         _SINK.tracers.remove(tr)
+        _refresh()
+
+
+@contextmanager
+def profiled():
+    """Put every probe span of the with-body in ``torch.profiler``'s trace.
+
+    Each span opens ``torch.profiler.record_function(_range_name(...))`` and
+    closes it when it ends, so a profiler recording around the body holds
+    the port's ranges on the same clock as its kernels: each device
+    operation can be traced back to the spans open when it was launched,
+    and each idle gap to the span the host was in.  Nested scopes open one
+    range a span.  Outside a profiler recording a range costs a few host
+    microseconds and records nothing.
+    """
+    _SINK.profiled += 1
+    _refresh()
+    try:
+        yield
+    finally:
+        _SINK.profiled -= 1
         _refresh()

@@ -30,6 +30,7 @@ from typing import Literal
 
 import torch
 
+from .. import _obs_hooks as _obs
 from ..kernels.backend import resolve_device
 from ..kernels.ops import psu_sort
 from ..kernels.psu import MAX_N
@@ -75,9 +76,10 @@ def int8_view(w: torch.Tensor) -> torch.Tensor:
     """Symmetric per-tensor int8 quantization of a weight tensor (the wire
     / HBM-stream image used for BT accounting and ordering keys): float32
     division by max|w| / 127 and round-half-to-even, as the reference."""
-    x = w.to(torch.float32)
-    scale = (x.abs().max() / 127.0).clamp_min(1e-12)
-    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    with _obs.stage("traffic.stage", "int8_view"):
+        x = w.to(torch.float32)
+        scale = (x.abs().max() / 127.0).clamp_min(1e-12)
+        return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
 
 
 def row_bucket_keys(rows_int8: torch.Tensor, strategy: Strategy, k: int = 4) -> torch.Tensor:
@@ -223,15 +225,17 @@ def egress_permutation(
     if m >= 2**31:
         raise ValueError(f"{m} positions do not fit the int32 permutation")
     usable = (m // packet) * packet
-    order, rank = psu_sort(
-        _bytes(w[:usable]).reshape(-1, packet), width=8,
-        k=None if strategy == "acc" else k, backend=backend,
-    )
-    base = torch.arange(0, usable, packet, dtype=torch.int32, device=w.device)[:, None]
-    perm, inv = order.add_(base).reshape(-1), rank.add_(base).reshape(-1)
-    if usable < m:
-        tail = torch.arange(usable, m, dtype=torch.int32, device=w.device)
-        perm, inv = torch.cat([perm, tail]), torch.cat([inv, tail])
+    with _obs.stage("traffic.stage", "egress_permutation"):
+        order, rank = psu_sort(
+            _bytes(w[:usable]).reshape(-1, packet), width=8,
+            k=None if strategy == "acc" else k, backend=backend,
+        )
+        with _obs.stage("traffic.stage", "egress_base"):
+            base = torch.arange(0, usable, packet, dtype=torch.int32, device=w.device)[:, None]
+            perm, inv = order.add_(base).reshape(-1), rank.add_(base).reshape(-1)
+            if usable < m:
+                tail = torch.arange(usable, m, dtype=torch.int32, device=w.device)
+                perm, inv = torch.cat([perm, tail]), torch.cat([inv, tail])
     return perm, inv
 
 

@@ -86,10 +86,13 @@ def _specs(**kw):
 
 def _counters(reg, prefixes=("noc.", "link.activity")):
     """Probe counters of one registry, without the backend-labelled
-    kernel series and the span timings."""
+    kernel series, the span timings and the port's own stage kinds
+    (``PORT_PROBE_KINDS``: the reference has no such probe)."""
+    port = tuple(f"{kind}." for kind in tobs.PORT_PROBE_KINDS)
     return sorted(
         (c["name"], tuple(sorted(c["labels"].items())), c["value"])
-        for c in reg.to_dict()["counters"] if c["name"].startswith(prefixes)
+        for c in reg.to_dict()["counters"]
+        if c["name"].startswith(prefixes) and not c["name"].startswith(port)
     )
 
 
@@ -366,6 +369,8 @@ def test_simulate_noc_matches_reference(name, kw, sort_at, windows, lat):
         assert got.latency is ref.latency is None
     # the probe events (noc.link, noc.contend, link.activity) and span counts
     assert _counters(treg) == _counters(rreg)
+    assert {s.labels["stage"] for s in treg.series("noc.stage.calls")} >= {
+        "plan", "batch", "queue", "assemble", "readback", "links"}
     if windows:
         for p, s in zip(tobs.profiles_from_noc(got), got.links):
             p.check(s.gross_bt)

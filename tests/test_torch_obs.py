@@ -7,7 +7,9 @@ vocabulary is the reference's, and the probes the port fires
 (``kernel.dispatch``, ``link.tx`` / ``link.stage`` / ``link.report``,
 ``codec.stream``) carry the reference's values.  With observability
 absent, imported or collecting, every output of the port's entry points
-is the same, and no probe payload holds a tensor.
+is the same, and no probe payload holds a tensor.  Under ``profiled()``
+the probe spans are ``torch.profiler`` ranges, nested as the calls nest;
+with nothing active no probe builds a payload.
 """
 
 import json
@@ -27,7 +29,9 @@ import repro.obs as robs
 import repro_torch.codec as tcodec
 import repro_torch.kernels as tk
 import repro_torch.link as tlink
+import repro_torch.noc as tnoc
 import repro_torch.obs as tobs
+import repro_torch.traffic as ttraffic
 from repro.obs import probes as rprobes
 from repro_torch import _obs_hooks
 from repro_torch.obs import probes as tprobes
@@ -195,6 +199,21 @@ def test_report_tables_empty_registry(tmp_path):
     assert tobs.read_metrics_json(str(path)).to_dict() == reg.to_dict()
 
 
+def test_port_probe_kinds_are_the_ports_own():
+    assert tobs.PROBE_KINDS == robs.PROBE_KINDS
+    assert not set(tobs.PORT_PROBE_KINDS) & set(tobs.PROBE_KINDS)
+    assert set(tprobes._PORT_SPAN_LABELS) == set(tobs.PORT_PROBE_KINDS)
+    assert not set(tprobes._PORT_SPAN_LABELS) & set(tprobes._SPAN_LABELS)
+    # the registry's rule: <kind>.calls and <kind>.seconds by the stage label
+    with tobs.collect() as reg:
+        _egress(), _ring()
+    for stage in NOC_STAGES:
+        assert reg.value("noc.stage.calls", stage=stage) == 1, stage
+        assert reg.histogram("noc.stage.seconds", stage=stage).count == 1, stage
+    for stage in TRAFFIC_STAGES:
+        assert reg.value("traffic.stage.calls", stage=stage) == 1, stage
+
+
 def test_probe_vocabulary_is_the_reference():
     assert tobs.PROBE_KINDS == robs.PROBE_KINDS
     assert tprobes._SPAN_LABELS == rprobes._SPAN_LABELS
@@ -275,10 +294,103 @@ def _json_scalar(v):
     return v is None or isinstance(v, (bool, int, float, str))
 
 
+NOC_STAGES = ("plan", "batch", "source_order", "gather", "queue", "assemble", "pad",
+              "readback", "links")
+TRAFFIC_STAGES = ("int8_view", "egress_permutation", "egress_base")
+
+
+def _egress():
+    """int8_view and egress_permutation on a weight vector with a tail."""
+    w = torch.from_numpy(np.random.default_rng(4).normal(size=64 * 9 + 7).astype(np.float32))
+    return ttraffic.egress_permutation(ttraffic.int8_view(w), packet=64, strategy="app", k=4)
+
+
+def _ring():
+    """One reduce-scatter step on ring(4) under APP at the source: shards
+    of 37, 37, 37 and 40 packets, so the queues are padded."""
+    codes = torch.from_numpy(_bytes(151 * 64, 8).view(np.int8))
+    spec = tlink.LinkSpec(width_bits=128, flits_per_packet=4, input_lanes=16, weight_lanes=0,
+                          k=4, key="app")
+    topo = tnoc.ring(4)
+    return tnoc.simulate_noc(topo, tnoc.ring_allreduce_flows(codes, topo, spec=spec), spec)
+
+
+# each program range under profiled() and the range it is nested in
+NESTING = {
+    ("repro_torch.traffic.int8_view", None),
+    ("repro_torch.traffic.egress_permutation", None),
+    ("repro_torch.kernel.psu_sort", "repro_torch.traffic.egress_permutation"),
+    ("repro_torch.traffic.egress_base", "repro_torch.traffic.egress_permutation"),
+    ("repro_torch.noc.simulate", None),
+    *((f"repro_torch.noc.{s}", "repro_torch.noc.simulate")
+      for s in ("plan", "batch", "expand", "readback", "links")),
+    ("repro_torch.kernel.bt_count_links", "repro_torch.noc.simulate"),
+    *((f"repro_torch.noc.{s}", "repro_torch.noc.expand")
+      for s in ("source_order", "queue", "assemble", "pad")),
+    ("repro_torch.kernel.psu_sort", "repro_torch.noc.source_order"),
+    ("repro_torch.noc.gather", "repro_torch.noc.source_order"),
+}
+
+
+def test_profiled_spans_are_ranges_of_the_profiler_trace(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("outside"):
+            _egress(), _ring()  # no range while profiled() is off
+        with tobs.profiled():
+            assert _obs_hooks.active()
+            with tobs.profiled():  # nested scopes: still one range a span
+                _egress()
+            _ring()
+    assert _obs_hooks.SINK is None
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    spans = sorted((e["ts"], -e["dur"], e["name"])
+                   for e in json.loads(path.read_text())["traceEvents"]
+                   if e.get("cat") == "user_annotation" and e["name"].startswith("repro_torch."))
+    outside = next(e for e in json.loads(path.read_text())["traceEvents"]
+                   if e.get("cat") == "user_annotation" and e["name"] == "outside")
+    assert all(ts > outside["ts"] + outside["dur"] for ts, _, _ in spans)
+    pairs, open_ = [], []
+    for ts, neg, name in spans:
+        open_ = [(t, d, n) for t, d, n in open_ if ts < t + d]
+        pairs.append((name, open_[-1][2] if open_ else None))
+        open_.append((ts, -neg, name))
+    assert set(pairs) == NESTING
+    assert sorted(n for n, _ in pairs) == sorted(n for n, _ in NESTING)  # each range once
+
+
+def test_no_probe_builds_a_payload_while_nothing_collects(monkeypatch):
+    assert _obs_hooks.SINK is None
+    want_ring, want_egress = _ring(), _egress()
+    spans, stages = [], []
+
+    def span(kind, **data):
+        spans.append((kind, data))
+        return _obs_hooks._NULL_SPAN
+
+    def stage(*args, **data):
+        stages.append((args, data))
+        return _obs_hooks._NULL_SPAN
+
+    monkeypatch.setattr(_obs_hooks, "span", span)
+    monkeypatch.setattr(_obs_hooks, "stage", stage)
+    got_ring, got_egress = _ring(), _egress()
+    assert got_ring == want_ring
+    assert all(torch.equal(a, b) for a, b in zip(got_egress, want_egress))
+    assert {k for k, _ in spans} == {"noc.simulate", "noc.expand", "kernel.dispatch"}
+    assert all(data == {} for _, data in spans), spans
+    assert all(data == {} for _, data in stages)
+    assert sorted(a for a, _ in stages) == sorted(
+        [("noc.stage", s) for s in NOC_STAGES] + [("traffic.stage", s) for s in TRAFFIC_STAGES])
+
+
 # the port's entry points at a small size; every output as numpy arrays
 DRIVE = """
 import numpy as np, torch
 import repro_torch.kernels as tk
+from repro_torch import noc, traffic
 from repro_torch.codec import compare_streams
 from repro_torch.link import LinkSpec, TxPipeline
 
@@ -299,6 +411,16 @@ def drive():
     rows = compare_streams([x[0], x[1]], 16, codecs=('none', 'transition'))
     out['tx'] = torch.tensor([rep.input_bt, rep.weight_bt, rep.aux_bt])
     out['rows'] = torch.tensor([[r.data_bt, r.aux_bt] for r in rows])
+    w = torch.from_numpy(rng.normal(size=64 * 5 + 3).astype(np.float32))
+    out['egress'] = traffic.egress_permutation(traffic.int8_view(w), packet=64, k=4)
+    topo = noc.ring(4)
+    flows = noc.ring_allreduce_flows(x.reshape(-1)[: 64 * 21].view(torch.int8), topo,
+                                     spec=LinkSpec(width_bits=128, flits_per_packet=4,
+                                                   input_lanes=16, weight_lanes=0))
+    ring = noc.simulate_noc(topo, flows, LinkSpec(width_bits=128, flits_per_packet=4,
+                                                  input_lanes=16, weight_lanes=0, key='acc'))
+    out['ring'] = torch.tensor([[s.link, s.bt_input, s.bt_weight, s.num_flits]
+                                for s in ring.links])
     flat = {}
     for k, v in out.items():
         for i, t in enumerate(v if isinstance(v, tuple) else (v,)):
@@ -321,9 +443,14 @@ def test_outputs_identical_with_obs_absent_imported_or_collecting(tmp_path):
     imported = scope["drive"]()  # repro_torch.obs is imported by this module
     with tobs.collect() as reg, tobs.tracing() as tracer:
         active = scope["drive"]()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]), tobs.profiled():
+        profiled = scope["drive"]()
     for name, ref in absent.items():
         assert np.array_equal(imported[name], ref), name
         assert np.array_equal(active[name], ref), name
+        assert np.array_equal(profiled[name], ref), name
     # bt_count_axes, its activity mode, bt_count_codecs and one per compared stream
     assert reg.value("kernel.dispatch.calls", entry="bt_count_axes", backend="torch") == 5
     assert tracer.spans("link.tx") and reg.series("codec.stream.bt")
@@ -335,8 +462,9 @@ def test_outputs_identical_with_obs_absent_imported_or_collecting(tmp_path):
     finally:
         _obs_hooks.SINK = None
     kinds = {k for k, _ in rec.payloads}
-    assert {"kernel.dispatch", "link.tx", "link.stage", "link.report",
-            "codec.stream"} <= kinds <= set(tobs.PROBE_KINDS)
+    assert {"kernel.dispatch", "link.tx", "link.stage", "link.report", "codec.stream",
+            "noc.simulate", "noc.expand", "noc.link", "noc.stage",
+            "traffic.stage"} <= kinds <= set(tobs.PROBE_KINDS) | set(tobs.PORT_PROBE_KINDS)
     for kind, data in rec.payloads:
         assert all(_json_scalar(v) for v in data.values()), (kind, data)
     dispatch = [d for k, d in rec.payloads if k == "kernel.dispatch"]
